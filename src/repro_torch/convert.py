@@ -1,0 +1,87 @@
+"""Move parameters, caches and configs between the JAX reference and the
+port, through numpy. Nothing here imports JAX: callers hand over numpy
+arrays (``np.asarray`` of each JAX leaf) and plain dataclass objects.
+
+* bf16 goes through its 16-bit pattern: ``np.asarray`` of a JAX bf16 array
+  is an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` rejects,
+  so the bits travel as uint16 and are viewed as ``torch.bfloat16``.
+* Block parameters keep the reference's leading layer axis (its vmapped
+  init), so trees map leaf for leaf under the same keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.star_attention import STARConfig
+from repro_torch.models import lm
+from repro_torch.tree import tree_map
+
+# reference ModelCfg fields whose non-default values need unported code
+_UNPORTED_FIELDS = {"moe": None, "mamba": None, "xlstm_heads": 0,
+                    "enc_layers": 0, "embeds_input": False,
+                    "star_train": False}
+
+
+def _is_bf16(arr: np.ndarray) -> bool:
+    return arr.dtype.name == "bfloat16"
+
+
+def array_to_torch(arr, device="cpu") -> torch.Tensor:
+    arr = np.ascontiguousarray(np.asarray(arr))
+    if _is_bf16(arr):
+        return torch.from_numpy(arr.view(np.uint16).view(np.int16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Torch -> numpy; bf16 comes back as ``ml_dtypes.bfloat16`` (what a
+    JAX bf16 array converts to and from)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(np.uint16).view(
+            ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def to_torch(tree, device="cpu"):
+    """Nested dict of numpy arrays (a reference pytree) -> torch tensors."""
+    return tree_map(lambda a: array_to_torch(a, device), tree)
+
+
+def to_numpy(tree):
+    """Nested dict of tensors -> numpy arrays (bf16 as ml_dtypes)."""
+    return tree_map(tensor_to_numpy, tree)
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """numpy-compatible dtype (``jnp.bfloat16``, ``np.float32``, ...) ->
+    torch dtype of the same name."""
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def model_cfg_from_reference(cfg) -> lm.ModelCfg:
+    """The port's ``ModelCfg`` for a reference ``repro.models.lm.ModelCfg``
+    (any dataclass with its field names). Raises NotImplementedError for
+    configurations that need unported block kinds."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for name, default in _UNPORTED_FIELDS.items():
+        if fields.get(name, default) != default:
+            raise NotImplementedError(
+                f"{cfg.name}: {name}={fields[name]!r} is not ported yet: "
+                f"{lm.UNPORTED_FAMILIES}")
+    kept = {f.name for f in dataclasses.fields(lm.ModelCfg)}
+    out = {k: v for k, v in fields.items() if k in kept}
+    out["pattern"] = tuple(lm.BlockCfg(b.kind, b.ffn, b.cross_attn)
+                           for b in fields["pattern"])
+    if fields["star"] is not None:
+        out["star"] = STARConfig(**dataclasses.asdict(fields["star"]))
+    out["dtype"] = torch_dtype(fields["dtype"])
+    port = lm.ModelCfg(**out)
+    lm.check_supported(port)
+    return port

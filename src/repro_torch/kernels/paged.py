@@ -1,0 +1,117 @@
+"""K1 — paged decode attention: the CUDA kernel ``csrc/paged_decode.cu``
+behind a checked wrapper, beside its plain PyTorch version.
+
+Replaces ``repro/kernels/paged.py::paged_decode_attention`` (Pallas, TPU).
+The kernel is bound by memory (it must read every gathered K/V row once);
+see the source's header for its design. Tensors on the CPU take the plain
+version; tensors on a GPU launch the kernel or raise — there is no
+fallback. ``kernels.LAUNCHES["paged_decode"]`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import build
+
+# (head_dim, group size R) pairs the library instantiates
+SUPPORTED = {(64, 1), (64, 2), (64, 4), (64, 8), (64, 16),
+             (128, 1), (128, 2), (128, 4), (128, 8),
+             (256, 1), (256, 2), (256, 4)}
+
+
+def paged_decode_reference(q, k_pages, v_pages, phys, logical, kv_len, *,
+                           scale: float) -> torch.Tensor:
+    """The plain version: ``kvcache.paged_attention.paged_gather_decode``
+    on the kernel's [B, G, R, d] query layout."""
+    from repro_torch.kvcache.paged_attention import paged_gather_decode
+    b, g, r, d = q.shape
+    o = paged_gather_decode(q.reshape(b, g * r, d), k_pages, v_pages, phys,
+                            logical, kv_len, n_kv=g, scale=scale)
+    return o.reshape(b, g, r, d)
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.paged_decode_bf16
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                       + [ctypes.c_int64] * 6
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_pages, v_pages, phys, logical, kv_len) -> None:
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("phys", phys), ("logical", logical),
+                    ("kv_len", kv_len)):
+        if t.device != dev:
+            raise ValueError(f"paged_decode: {name} on {t.device}, q on {dev}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"paged_decode: {name} must be bfloat16, "
+                            f"got {t.dtype}")
+    for name, t in (("phys", phys), ("logical", logical),
+                    ("kv_len", kv_len)):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"paged_decode: {name} must be contiguous int32")
+    if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError("paged_decode: q [B,G,R,d] and pool slabs "
+                         "[P,page,G,d] of one shape expected")
+    b, g, r, d = q.shape
+    if k_pages.shape[2] != g or k_pages.shape[3] != d:
+        raise ValueError(f"paged_decode: pool {tuple(k_pages.shape)} does "
+                         f"not match q {tuple(q.shape)}")
+    if phys.dim() != 2 or phys.shape != logical.shape or phys.shape[0] != b \
+            or kv_len.shape != (b,):
+        raise ValueError("paged_decode: phys/logical [B,W] and kv_len [B] "
+                         "expected")
+    if (d, r) not in SUPPORTED:
+        raise ValueError(f"paged_decode: (head_dim, R) = {(d, r)} not "
+                         f"built; supported {sorted(SUPPORTED)}")
+    if not q.is_contiguous():
+        raise ValueError("paged_decode: q must be contiguous")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        # rows are read as bf16 pairs: unit inner stride, even strides
+        if t.stride(3) != 1 or any(s % 2 for s in t.stride()[:3]) \
+                or t.data_ptr() % 4:
+            raise ValueError(f"paged_decode: {name} needs a contiguous "
+                             f"head_dim and even, aligned strides")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, phys: torch.Tensor,
+                           logical: torch.Tensor, kv_len: torch.Tensor, *,
+                           scale: float) -> torch.Tensor:
+    """q [B,G,R,d]; k/v pool slabs in their native layout [P,page,G,d];
+    phys/logical [B,W] int32 (-1 = padded slot); kv_len [B] int32.
+    Returns [B,G,R,d] in q's dtype.
+
+    On the CPU: the plain version. On a GPU: the CUDA kernel (bf16 only),
+    launched on the current stream, or an exception."""
+    if q.device.type == "cpu":
+        return paged_decode_reference(q, k_pages, v_pages, phys, logical,
+                                      kv_len, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode: unsupported device {q.device}")
+    _check(q, k_pages, v_pages, phys, logical, kv_len)
+    b, g, r, d = q.shape
+    out = torch.empty_like(q)
+    fn = _bind(build.load("paged_decode"))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 phys.data_ptr(), logical.data_ptr(), kv_len.data_ptr(),
+                 out.data_ptr(), b, g, r, d, phys.shape[1],
+                 k_pages.shape[1], k_pages.shape[0],
+                 *k_pages.stride()[:3], *v_pages.stride()[:3],
+                 float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    kernels.LAUNCHES["paged_decode"] += 1
+    return out

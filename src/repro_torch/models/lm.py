@@ -1,0 +1,305 @@
+"""Attention-only causal decoder LM: prefill, chunked paged prefill, paged
+decode. PyTorch port of the attention-only subset of ``repro.models.lm``.
+
+Parameters are nested dicts with the reference's keys; each super-block
+leaf is stacked on a leading layer axis exactly like the reference's
+vmapped init (``blocks.b0.core.wq`` is [L, H, nh, dh]), so the converter
+maps leaves one to one. The layer loop is a Python loop over that axis
+(the reference's ``lax.scan``).
+
+Block kinds other than attention with a dense FFN, encoder-decoder models
+and embedding frontends raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.star_attention import STARConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, common, mlp
+
+UNPORTED_FAMILIES = ("ROADMAP §1 item 7 (other model families: MoE, SSM, "
+                     "xLSTM, cross-attention, encoder-decoder)")
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCfg:
+    kind: str              # attn (mamba | mlstm | slstm: not ported yet)
+    ffn: str = "dense"     # dense | none (moe: not ported yet)
+    cross_attn: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCfg:
+    name: str
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    pattern: tuple = (BlockCfg("attn", "dense"),)
+    norm: str = "rmsnorm"
+    mlp_act: str = "silu"
+    mlp_gated: bool = True
+    rope_fraction: float = 1.0
+    rope_theta: float = 1e4
+    qkv_bias: bool = False
+    head_dim: Optional[int] = None
+    star: Optional[STARConfig] = None   # serving-time sparse attention
+    star_chunk_sparse: bool = False     # DLZS page selection inside later
+    #                                     prefill chunks (approximate)
+    causal: bool = True
+    q_chunk: int = 1024
+    vocab_pad_to: int = 2048
+    dtype: Any = torch.bfloat16
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_repeat(self) -> int:
+        assert self.n_layers % len(self.pattern) == 0, \
+            f"{self.n_layers} layers not a multiple of pattern " \
+            f"{len(self.pattern)}"
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def vocab_padded(self) -> int:
+        p = self.vocab_pad_to
+        return -(-self.vocab // p) * p
+
+    def attn_cfg(self) -> attention.AttentionCfg:
+        return attention.AttentionCfg(
+            d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
+            head_dim=self.dh, rope_fraction=self.rope_fraction,
+            rope_theta=self.rope_theta, qkv_bias=self.qkv_bias,
+            causal=self.causal, q_chunk=self.q_chunk, star=self.star,
+            chunk_sparse=self.star_chunk_sparse, dtype=self.dtype)
+
+    def mlp_cfg(self) -> mlp.MLPCfg:
+        return mlp.MLPCfg(self.d_model, self.d_ff, self.mlp_act,
+                          self.mlp_gated, self.dtype)
+
+
+def check_supported(cfg: ModelCfg) -> None:
+    for blk in cfg.pattern:
+        if blk.kind != "attn" or blk.ffn not in ("dense", "none") \
+                or blk.cross_attn:
+            raise NotImplementedError(
+                f"block {blk} is not ported yet: {UNPORTED_FAMILIES}")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init(cfg: ModelCfg, generator: torch.Generator, device=None):
+    """Random parameters (the reference's distribution, drawn from
+    ``generator``) on ``device`` (default ``cuda``; raises without one)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    vp = cfg.vocab_padded
+    p = {
+        "embed": common.truncated_normal_init(generator, (vp, cfg.d_model),
+                                              1.0, cfg.dtype, dev),
+        "final_norm": common.norm_init(cfg.norm, cfg.d_model, device=dev),
+        "out_head": common.truncated_normal_init(
+            generator, (cfg.d_model, vp), 1.0, cfg.dtype, dev),
+    }
+    L = cfg.n_repeat
+    blocks = {}
+    for i, blk in enumerate(cfg.pattern):
+        b = {"norm1": _stack_norm(cfg, L, dev),
+             "core": attention.init(generator, cfg.attn_cfg(), dev,
+                                    n_layers=L)}
+        if blk.ffn != "none":
+            b["norm2"] = _stack_norm(cfg, L, dev)
+            b["ffn"] = mlp.init(generator, cfg.mlp_cfg(), dev, n_layers=L)
+        blocks[f"b{i}"] = b
+    p["blocks"] = blocks
+    return p
+
+
+def _stack_norm(cfg: ModelCfg, n_layers: int, device):
+    return {k: v[None].repeat(n_layers, *([1] * v.dim()))
+            for k, v in common.norm_init(cfg.norm, cfg.d_model,
+                                         device=device).items()}
+
+
+# ---------------------------------------------------------------------------
+# Forward paths
+# ---------------------------------------------------------------------------
+
+def _layer(tree, i: int):
+    """Layer ``i``'s slice of a layer-stacked dict tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
+                 mode: str, cache=None, lengths=None, cache_len=None,
+                 page_state=None):
+    """One block. Returns (y, new_cache)."""
+    h = common.norm_apply(cfg.norm, params["norm1"], x)
+    acfg = cfg.attn_cfg()
+    new_cache = {}
+    if mode == "prefill_chunk_batch":
+        y, new_cache["attn"] = attention.apply_prefill_chunk_batch(
+            params["core"], acfg, h, positions, cache["attn"], page_state)
+    elif mode == "prefill_chunk":
+        y, new_cache["attn"] = attention.apply_prefill_chunk(
+            params["core"], acfg, h, positions, cache["attn"],
+            page_state["past_phys"], page_state["past_logical"],
+            page_state["past_len"])
+    elif mode == "decode":
+        y, new_cache["attn"] = attention.apply_decode_paged(
+            params["core"], acfg, h, cache["attn"], lengths, page_state)
+    else:
+        y, c = attention.apply_prefill(
+            params["core"], acfg, h, positions,
+            make_cache=(mode == "prefill"), cache_len=cache_len)
+        if c is not None:
+            new_cache["attn"] = c
+    x = x + y
+    if blk.ffn != "none":
+        h2 = common.norm_apply(cfg.norm, params["norm2"], x)
+        x = x + mlp.apply(params["ffn"], cfg.mlp_cfg(), h2)
+    return x, new_cache
+
+
+def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
+               lengths=None, cache_len=None, page_state=None):
+    """Loop the super-block over the layer axis. Returns (x, caches):
+    prefill modes stack each layer's fresh cache on axis 0 ([L, ...]);
+    decode writes the pool slabs in place and returns a shallow copy of
+    the cache tree (plus ``audit_mass`` [L, B, W] when auditing)."""
+    check_supported(cfg)
+    per_layer = []
+    for i in range(cfg.n_repeat):
+        out = {}
+        for j, blk in enumerate(cfg.pattern):
+            key = f"b{j}"
+            x, out[key] = _block_apply(
+                _layer(blocks[key], i), cfg, blk, x, positions, mode=mode,
+                cache=_layer(caches[key], i) if caches else None,
+                lengths=lengths, cache_len=cache_len, page_state=page_state)
+        per_layer.append(out)
+    if mode == "decode":
+        new = {}
+        for key in caches:
+            attn = dict(caches[key]["attn"])
+            if "audit_mass" in per_layer[0][key]["attn"]:
+                attn["audit_mass"] = torch.stack(
+                    [pl[key]["attn"]["audit_mass"] for pl in per_layer])
+            new[key] = {"attn": attn}
+        return x, new
+    if not per_layer[0] or not any(per_layer[0].values()):
+        return x, None
+    return x, _stack_trees(per_layer)
+
+
+def _stack_trees(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _embed_inputs(params, cfg: ModelCfg, batch):
+    if "embeds" in batch:
+        raise NotImplementedError(
+            f"embedding frontends are not ported yet: {UNPORTED_FAMILIES}")
+    return params["embed"][batch["tokens"].long()]
+
+
+def logits(params, cfg: ModelCfg, x):
+    """Final norm + output head: x [..., H] -> [..., vocab_padded]."""
+    x = common.norm_apply(cfg.norm, params["final_norm"], x)
+    return x @ params["out_head"]
+
+
+def forward(params, cfg: ModelCfg, batch):
+    """Dense full-sequence forward without caches: logits [B, S, vocab_p]
+    at every position (the exactness oracle of the serving path)."""
+    x = _embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _run_stack(params["blocks"], cfg, x, positions, mode="forward")
+    return logits(params, cfg, x)
+
+
+def prefill(params, cfg: ModelCfg, batch, *, cache_len: Optional[int] = None,
+            last_index: Optional[torch.Tensor] = None):
+    """Process the prompt; build caches. Returns (last_logits, caches).
+    ``last_index`` [B] selects which position's logits to return."""
+    x = _embed_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    x, caches = _run_stack(params["blocks"], cfg, x, positions,
+                           mode="prefill", cache_len=cache_len)
+    if last_index is None:
+        x_last = x[:, -1:, :]
+        lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    else:
+        li = last_index.long()
+        x_last = x[torch.arange(b, device=x.device), li][:, None, :]
+        lengths = (li + 1).to(torch.int32)
+    return logits(params, cfg, x_last)[:, 0], {"layers": caches,
+                                               "lengths": lengths}
+
+
+def prefill_chunk_paged(params, cfg: ModelCfg, batch, cache, chunk_state):
+    """Prefill one page-aligned chunk from a NONZERO cache offset against
+    the pool pages earlier chunks wrote (read-only). ``chunk_state``:
+    past_phys/past_logical [B,Wp], past_len [B], last_index [B]. Returns
+    (logits [B, vocab_padded], {"layers": chunk caches [L, B, C, ...]})."""
+    x = _embed_inputs(params, cfg, batch)
+    b, c, _ = x.shape
+    positions = chunk_state["past_len"][:, None] + torch.arange(
+        c, device=x.device)[None, :]
+    x, chunk_caches = _run_stack(params["blocks"], cfg, x, positions,
+                                 mode="prefill_chunk",
+                                 caches=cache["layers"],
+                                 page_state=chunk_state)
+    li = chunk_state["last_index"].long()
+    x_last = x[torch.arange(b, device=x.device), li][:, None, :]
+    return logits(params, cfg, x_last)[:, 0], {"layers": chunk_caches}
+
+
+def prefill_chunk_batch_paged(params, cfg: ModelCfg, batch, cache,
+                              pack_state):
+    """Prefill MANY sequences' chunks as ONE flat varlen dispatch.
+    batch["tokens"] [1, B_tok]; ``pack_state`` carries seg_ids/positions
+    [B_tok], the past arena past_phys/past_lane/past_logical [Wp],
+    past_len [S] and last_index [S] (flat). Returns (logits
+    [S, vocab_padded], {"layers": chunk caches [L, 1, B_tok, ...]})."""
+    x = _embed_inputs(params, cfg, batch)
+    positions = pack_state["positions"][None, :]
+    x, chunk_caches = _run_stack(params["blocks"], cfg, x, positions,
+                                 mode="prefill_chunk_batch",
+                                 caches=cache["layers"],
+                                 page_state=pack_state)
+    x_last = x[0][pack_state["last_index"].long()][None]
+    return logits(params, cfg, x_last)[0], {"layers": chunk_caches}
+
+
+def decode_step_paged(params, cfg: ModelCfg, tokens, cache, page_state):
+    """One decode step against the paged pools (written in place).
+
+    ``cache["layers"]`` leaves are page slabs [L, n_pages, page, n_kv, dh];
+    ``page_state`` carries phys/logical [B, W] and write_page/write_off
+    [B]. Shapes depend only on (max_batch, hot width, pool size). Returns
+    (logits [B, vocab_padded], {"layers", "lengths": lengths + 1})."""
+    x = params["embed"][tokens.long()]
+    lengths = cache["lengths"]
+    x, new_caches = _run_stack(params["blocks"], cfg, x, lengths[:, None],
+                               mode="decode", caches=cache["layers"],
+                               lengths=lengths, page_state=page_state)
+    return logits(params, cfg, x)[:, 0], {"layers": new_caches,
+                                          "lengths": lengths + 1}

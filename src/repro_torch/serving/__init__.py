@@ -1,0 +1,12 @@
+from repro_torch.serving.api import LLM, RequestHandle
+from repro_torch.serving.engine import Request
+from repro_torch.serving.engine_core import Backend, EngineCore
+from repro_torch.serving.paged import (PagedBackend, PagedEngineCfg,
+                                       PagedServingEngine)
+from repro_torch.serving.scheduler import (AdmissionCfg, BudgetController,
+                                           SchedulerCfg)
+from repro_torch.serving.swap_policy import RetryGovernor
+
+__all__ = ["AdmissionCfg", "Backend", "BudgetController", "EngineCore",
+           "LLM", "PagedBackend", "PagedEngineCfg", "PagedServingEngine",
+           "Request", "RequestHandle", "RetryGovernor", "SchedulerCfg"]

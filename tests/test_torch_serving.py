@@ -1,0 +1,291 @@
+"""Port parity: the paged serving stack (``repro_torch.serving``) through
+the ``LLM`` front door, held against the reference.
+
+* ``engine_core_scenarios.SCENARIOS`` run unchanged with a torch
+  ``make_llm`` factory: the JAX ``SchedulerCfg`` each scenario builds is
+  turned into the port's through ``dataclasses.asdict``, the weights come
+  from ``repro.models.lm.init`` through the converter, and parity is
+  judged against the JAX dense oracle (``_dense_oracle``) token for token.
+  The int8 cold tier is not ported: its scenario must raise.
+* Bounded DLZS sparse decode (``decode_hot_width``) against the JAX paged
+  engine on the same weights, token for token.
+* The entry points: unported backends and options raise, naming their
+  ROADMAP item; without a GPU nothing falls back to the CPU.
+* Import purity: neither ``repro_torch`` nor ``chip_smoke.py`` pulls in
+  ``jax`` or ``repro``, and ``chip_smoke.py`` fails without a card.
+"""
+
+import dataclasses
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# Smoke shapes run as fast on one thread, and the other test workers
+# keep the remaining cores.
+torch.set_num_threads(1)
+
+import engine_core_scenarios as scen  # noqa: E402
+from repro.configs import get_smoke_config  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.serving import LLM as JLLM  # noqa: E402
+from repro.serving import PagedEngineCfg as JPagedEngineCfg  # noqa: E402
+from repro.serving import PagedServingEngine as JPaged  # noqa: E402
+from repro.serving import SchedulerCfg as JSchedulerCfg  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_smoke_config as tsmoke  # noqa: E402
+from repro_torch.serving import (LLM, PagedEngineCfg,  # noqa: E402
+                                 PagedServingEngine, SchedulerCfg)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke_lm():
+    """The reference's parity setting (olmo smoke, ``star=None``, bf16)
+    and its weights in both packages."""
+    jcfg = dataclasses.replace(get_smoke_config("olmo_1b"), star=None)
+    jparams = jlm.init(jax.random.PRNGKey(1), jcfg)
+    tparams = convert.to_torch(jax.tree.map(np.asarray, jparams))
+    return jcfg, jparams, convert.model_cfg_from_reference(jcfg), tparams
+
+
+def _port_scfg(scfg) -> SchedulerCfg:
+    return SchedulerCfg(**dataclasses.asdict(scfg))
+
+
+def _torch_factory(tcfg, tparams):
+    def make_llm(*, max_batch, pages, hot, scfg, recent=2):
+        return LLM(PagedServingEngine(tcfg, tparams, PagedEngineCfg(
+            max_batch=max_batch, page_size=16, n_pages=pages,
+            hot_pages=hot, recent_pages=recent, eos_id=-1),
+            _port_scfg(scfg)))
+    return make_llm
+
+
+@pytest.mark.parametrize("scenario", scen.SCENARIOS,
+                         ids=lambda s: s.__name__)
+def test_paged_port_conformance(smoke_lm, scenario):
+    jcfg, jparams, tcfg, tparams = smoke_lm
+    bp = scen.BACKEND_PARAMS["paged"]
+    make_llm = _torch_factory(tcfg, tparams)
+    if scenario is scen.scenario_decode_sparse_pressure:
+        # needs kv_quant="int8", the cold tier a later slice ports
+        with pytest.raises(NotImplementedError, match="int8.*ROADMAP"):
+            scenario(make_llm, jcfg, jparams, bp)
+        return
+    scenario(make_llm, jcfg, jparams, bp)
+
+
+def test_sparse_decode_matches_reference_engine(smoke_lm):
+    """Bounded sphere-rule decode (``decode_hot_width`` below the live
+    page count, so DLZS page scores and the SADS sphere run every tick):
+    the port's tokens equal the JAX paged engine's on the same weights."""
+    jcfg, jparams, tcfg, tparams = smoke_lm
+    prompts = scen._prompts(jcfg, (40, 57, 33))
+
+    def pcfg(cls):
+        return cls(max_batch=2, page_size=16, n_pages=32, hot_pages=4,
+                   eos_id=-1)
+
+    def scfg(cls):
+        return cls(chunk_pages=1, prefill_tokens=48, decode_hot_width=2)
+
+    want = scen._run_llm(JLLM(JPaged(jcfg, jparams, pcfg(JPagedEngineCfg),
+                                     scfg(JSchedulerCfg))),
+                         prompts, max_tokens=24)
+    llm = LLM(PagedServingEngine(tcfg, tparams, pcfg(PagedEngineCfg),
+                                 scfg(SchedulerCfg)))
+    got = scen._run_llm(llm, prompts, max_tokens=24)
+    assert got == want
+    st = llm.stats()
+    assert st["hot_width"] == 2 and st["decode_compiles"] == 1
+
+
+def _drive_checked(llm, conservation_error, reconcile_refs):
+    """Tick to idle, holding page conservation and the refcount watchdog
+    after every tick (as ``engine_core_scenarios._drive_checked`` does)."""
+    eng = llm.engine
+    for _ in range(4000):
+        if not llm.has_work():
+            return
+        llm.tick()
+        assert conservation_error(eng.accounting_snapshot()) == 0
+        wd = reconcile_refs(eng._expected_refs(), eng.backend.pool_refs())
+        assert wd.ok, wd.describe()
+    raise AssertionError("run never drained")
+
+
+def test_telemetry_audit_matches_reference(smoke_lm):
+    """Telemetry on, the DLZS audit sampling every other tick under
+    bounded sparse decode and pool pressure: the audit probe (a decode
+    pass that must leave the live pool as it found it) changes no token,
+    its recall reports match the reference's, and page conservation and
+    the refcount watchdog hold at every tick. In fp32: in bf16 the
+    reference's own logits hold exact ties (prompt 45 here) that the
+    port's summation order splits one bf16 step apart."""
+    import jax.numpy as jnp
+
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+    jcfg = dataclasses.replace(smoke_lm[0], dtype=jnp.float32)
+    jparams = jlm.init(jax.random.PRNGKey(1), jcfg)
+    tparams = convert.to_torch(jax.tree.map(np.asarray, jparams))
+    tcfg = convert.model_cfg_from_reference(jcfg)
+    prompts = scen._prompts(jcfg, (24, 40, 33, 45))
+    runs = {}
+    for name, obs, mk in (
+            ("jax", jobs, lambda p, s: JLLM(JPaged(jcfg, jparams, p, s),
+                                            telemetry=jobs.Telemetry())),
+            ("torch", tobs, lambda p, s: LLM(PagedServingEngine(
+                tcfg, tparams, p, s), telemetry=tobs.Telemetry()))):
+        pkg = JPagedEngineCfg if name == "jax" else PagedEngineCfg
+        sch = JSchedulerCfg if name == "jax" else SchedulerCfg
+        llm = mk(pkg(max_batch=4, page_size=16, n_pages=10, hot_pages=4,
+                     eos_id=-1),
+                 sch(chunk_pages=1, prefill_tokens=64, swap=True,
+                     decode_hot_width=2))
+        llm.engine.auditor = obs.DlzsAuditor(obs.AuditCfg(every_ticks=2))
+        handles = [llm.submit(p, max_tokens=16, rid=i)
+                   for i, p in enumerate(prompts)]
+        _drive_checked(llm, obs.conservation_error, obs.reconcile_refs)
+        runs[name] = ([h.tokens for h in handles], llm)
+    (want, jllm), (got, tllm) = runs["jax"], runs["torch"]
+    assert got == want
+    assert tllm.stats()["sched"].preemptions > 0, "pool pressure never hit"
+    ja, ta = jllm.engine.auditor, tllm.engine.auditor
+    assert ta.runs == ja.runs >= 3
+    for j, t in zip(ja.reports, ta.reports):
+        assert (t["slot"], t["pages_resident"], t["pages_hot"]) == \
+            (j["slot"], j["pages_resident"], j["pages_hot"])
+        assert t["recall_min"] == pytest.approx(j["recall_min"], abs=1e-4)
+
+
+def test_sampled_decode_follows_its_generator(smoke_lm):
+    """Non-greedy decode draws on the engine's torch.Generator: the same
+    seed gives the same tokens, another seed other tokens, and every
+    token lies in the vocabulary. (JAX's PRNG stream cannot be
+    reproduced, so the reference's tokens are not the yardstick.)"""
+    _, _, tcfg, tparams = smoke_lm
+    prompts = scen._prompts(tcfg, (20, 35))
+
+    def sample(seed):
+        eng = PagedServingEngine(
+            tcfg, tparams, PagedEngineCfg(max_batch=2, n_pages=16,
+                                          hot_pages=4, eos_id=-1,
+                                          greedy=False, temperature=2.0),
+            SchedulerCfg(chunk_pages=1),
+            generator=torch.Generator().manual_seed(seed))
+        return scen._run_llm(LLM(eng), prompts, max_tokens=12)
+
+    a, b, c = sample(1), sample(1), sample(2)
+    assert a == b and a != c
+    assert all(0 <= t < tcfg.vocab for v in a.values() for t in v)
+
+
+def test_from_config_serves_on_cpu_when_asked():
+    cfg = tsmoke("olmo_1b")
+    llm = LLM.from_config(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(3),
+                          engine_cfg=PagedEngineCfg(max_batch=2, n_pages=16,
+                                                    hot_pages=4, eos_id=-1))
+    h = llm.submit(np.arange(20, dtype=np.int32), max_tokens=4)
+    assert len(h.result()) == 4
+    assert llm.engine.backend.device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(backend="dense"), "ROADMAP"),
+    (dict(backend="spatial"), "ROADMAP"),
+    (dict(sched_cfg=SchedulerCfg(kv_quant="int8")), "int8.*ROADMAP"),
+])
+def test_unported_options_raise(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        LLM.from_config(tsmoke("olmo_1b"), device="cpu", **kw)
+
+
+def test_registry_names_unported_archs():
+    assert get_config("olmo_1b").d_model == 2048
+    with pytest.raises(KeyError, match="not yet ported"):
+        get_config("olmoe_1b_7b")
+
+
+def test_no_gpu_means_no_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLM.from_config(tsmoke("olmo_1b"))
+
+
+_PURITY = """
+import pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    __import__(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("PURE", len([n for n in sys.modules if n.startswith("repro_torch")]))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _PURITY.format(src=str(ROOT / "src"), root=str(ROOT))],
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "PURE" in out.stdout
+
+
+def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
+    """The on-card script's serve / exactness / sparse phases, run on the
+    CPU at smoke size: every request is served, every token is the dense
+    argmax (or a bf16 tie), the sparse pass gathers fewer pages than are
+    resident, and no kernel launches off the card."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    cfg = tsmoke("olmo_1b")
+    gen = torch.Generator().manual_seed(0)
+    params = cs.lm.init(cfg, gen, "cpu")
+    prompts = cs.make_prompts(cfg, (40, 57, 33, 70), seed=0)
+    llm = cs.main_path_llm(cfg, params, n_pages=64, hot_pages=8,
+                           past_pages=8, device="cpu", generator=gen)
+    run = cs.serve(llm, prompts, 6)
+    summary = cs.served_summary(run, cfg.n_layers)
+    assert summary["requests"] == 4 and summary["tokens"] == 24
+    assert summary["decode_ticks"] > 0 and summary["k1_launches"] == 0
+    exact = cs.check_exact(params, cfg, prompts, run["done"])
+    assert exact["tokens_checked"] == 24 and exact["exact"] >= 22
+    sparse = cs.main_path_llm(cfg, params, n_pages=64, hot_pages=8,
+                              past_pages=8, device="cpu", generator=gen,
+                              hot_width=2)
+    sp = cs.served_summary(cs.serve(sparse, prompts, 4), cfg.n_layers)
+    assert sp["pages_gathered_per_tick"] < sp["pages_resident_per_tick"]
+    with pytest.raises(SystemExit, match="expected ticks x layers"):
+        cs.require_launches(sp, "cpu")
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
