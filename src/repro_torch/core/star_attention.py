@@ -1,9 +1,12 @@
 """The STAR cross-stage pipeline: DLZS predict -> SADS select -> SU-FA
 compute. PyTorch port of ``repro.core.star_attention``.
 
-These run in plain PyTorch: the JAX reference hands them to XLA (the
-model's STAR prefill calls ``star_attention_scanq``). The fused tile
-kernels that lower them (DLZS block scores, SU-FA) are later slices.
+These run in plain PyTorch, as the JAX reference hands them to XLA. The
+model's STAR prefill does not call them: it runs the fused tile kernels
+(K2 DLZS block maxima -> SADS -> K3 SU-FA) through
+``kernels.ops.star_attention_cfg``, which computes what
+``star_attention_scanq`` computes. These stay as the plain form the tests
+and the on-card smoke hold that path against.
 
 Entry points:
   * ``star_attention``       — tile-granular prefill attention (one head).

@@ -5,7 +5,8 @@ kernel name, bumped only where the kernel is launched) so a run can show
 that its main path went through the kernel and not the plain version.
 """
 
-LAUNCHES: dict[str, int] = {"paged_decode": 0}
+LAUNCHES: dict[str, int] = {"paged_decode": 0, "dlzs_block": 0, "sufa": 0,
+                            "flash": 0}
 
 
 def reset_launches() -> None:

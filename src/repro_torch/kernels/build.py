@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source compiles on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), for
 ``sm_90a``. Libraries land in ``<repo>/build/``, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds and an unchanged one
 loads as is. Building happens at first use; ``build()`` starts one
 ``nvcc`` per missing source, all at once, and raises if any fails.
 """
@@ -23,7 +24,10 @@ PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parents[1] / "build"
 
-SOURCES = {"paged_decode": CSRC / "paged_decode.cu"}
+SOURCES = {"paged_decode": CSRC / "paged_decode.cu",
+           "dlzs_block": CSRC / "dlzs_block.cu",
+           "sufa": CSRC / "sufa.cu",
+           "flash": CSRC / "flash.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -40,6 +44,8 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by the tile kernels
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

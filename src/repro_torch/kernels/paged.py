@@ -14,8 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch import kernels
-from repro_torch.kernels import build
+from repro_torch.kernels import launch
 
 # (head_dim, group size R) pairs the library instantiates
 SUPPORTED = {(64, 1), (64, 2), (64, 4), (64, 8), (64, 16),
@@ -32,16 +31,6 @@ def paged_decode_reference(q, k_pages, v_pages, phys, logical, kv_len, *,
     o = paged_gather_decode(q.reshape(b, g * r, d), k_pages, v_pages, phys,
                             logical, kv_len, n_kv=g, scale=scale)
     return o.reshape(b, g, r, d)
-
-
-def _bind(lib: ctypes.CDLL):
-    fn = lib.paged_decode_bf16
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.c_int64] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(q, k_pages, v_pages, phys, logical, kv_len) -> None:
@@ -96,22 +85,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pages, v_pages, phys, logical,
                                       kv_len, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode: unsupported device {q.device}")
+    launch.require_cuda("paged_decode", q.device)
     _check(q, k_pages, v_pages, phys, logical, kv_len)
     b, g, r, d = q.shape
     out = torch.empty_like(q)
-    fn = _bind(build.load("paged_decode"))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 phys.data_ptr(), logical.data_ptr(), kv_len.data_ptr(),
-                 out.data_ptr(), b, g, r, d, phys.shape[1],
-                 k_pages.shape[1], k_pages.shape[0],
-                 *k_pages.stride()[:3], *v_pages.stride()[:3],
-                 float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
-                           f"{err}")
-    kernels.LAUNCHES["paged_decode"] += 1
+    fn = launch.bind("paged_decode", "paged_decode_bf16",
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                     + [ctypes.c_int64] * 6
+                     + [ctypes.c_float, ctypes.c_void_p])
+    launch.launch("paged_decode", fn, q.device, q.data_ptr(),
+                  k_pages.data_ptr(), v_pages.data_ptr(), phys.data_ptr(),
+                  logical.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, g,
+                  r, d, phys.shape[1], k_pages.shape[1], k_pages.shape[0],
+                  *k_pages.stride()[:3], *v_pages.stride()[:3], float(scale))
     return out

@@ -1,10 +1,11 @@
 """Multi-head attention layer: GQA + RoPE + {dense | STAR-sparse} + paged KV.
 
 PyTorch port of the attention-only subset of ``repro.models.attention``:
-full-sequence prefill (dense chunked softmax or the STAR pipeline), the
-page-aligned chunk prefill (per sequence and batched varlen), and one-token
-decode against the paged pool. Cross-attention, the dense-slot decode and
-the spatial (sequence-sharded) forms are later slices (ROADMAP §1).
+full-sequence prefill (K4 flash, or the STAR pipeline's K2 -> SADS -> K3,
+both through ``kernels.ops``), the page-aligned chunk prefill (per
+sequence and batched varlen), and one-token decode against the paged
+pool. Cross-attention, the dense-slot decode and the spatial
+(sequence-sharded) forms are later slices (ROADMAP §1).
 
 Where the reference updates a donated cache functionally
 (``cache.at[...].set``), the port writes the pool slab IN PLACE
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.core import dlzs
 from repro_torch.core.sads import NEG_INF
-from repro_torch.core.star_attention import STARConfig, star_attention_scanq
+from repro_torch.core.star_attention import STARConfig
+from repro_torch.kernels import ops
 from repro_torch.models import common
 
 
@@ -35,7 +37,6 @@ class AttentionCfg:
     rope_theta: float = 1e4
     qkv_bias: bool = False
     causal: bool = True
-    q_chunk: int = 1024          # query tile for chunked dense softmax
     star: Optional[STARConfig] = None   # sparse mode (None = dense)
     chunk_sparse: bool = False   # DLZS page selection over gathered past
     #                              pages in later prefill chunks (needs star)
@@ -113,7 +114,8 @@ def _softmax_rows(sc):
 
 def _dense_chunked(q, k, v, *, causal: bool, q_chunk: int, scale: float):
     """Chunked masked softmax: q [B,T,n,d], k/v [B,S,n,d] -> [B,T,n,d];
-    the score matrix is [B,n,chunk,S], never [B,n,T,S]."""
+    the score matrix is [B,n,chunk,S], never [B,n,T,S]. The plain dense
+    form (the reference's); ``apply_prefill`` runs K4 instead."""
     b, t, n, d = q.shape
     s = k.shape[1]
     chunk = min(q_chunk, t)
@@ -142,25 +144,19 @@ def apply_prefill(params, cfg: AttentionCfg, x, positions, *,
     q, k, v = _project_qkv(params, cfg, x, positions)
     n_rep = cfg.n_heads // cfg.n_kv
 
+    # one contiguous [B·nh, S, d] problem per layer (the kernels' layout);
+    # GQA K/V expanded to n_heads
+    qh, kh, vh = (t.transpose(1, 2).reshape(
+        b * cfg.n_heads, s, cfg.head_dim).contiguous()
+        for t in (q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)))
     if cfg.star is not None:
-        # Grouped GQA: STAR per (batch, kv-head, rep) over the group's K/V,
-        # never materialized at n_heads width.
-        qh = q.transpose(1, 2).reshape(b, cfg.n_kv, n_rep, s, cfg.head_dim)
-        kh = k.transpose(1, 2)                          # [B,g,S,d]
-        vh = v.transpose(1, 2)
-        o = torch.stack([
-            torch.stack([
-                torch.stack([star_attention_scanq(
-                    qh[bi, g, r], kh[bi, g], vh[bi, g], cfg.star,
-                    causal=cfg.causal, scale=scale)
-                    for r in range(n_rep)])
-                for g in range(cfg.n_kv)])
-            for bi in range(b)])                        # [B,g,r,S,d]
-        y = o.reshape(b, cfg.n_heads, s, cfg.head_dim).transpose(1, 2)
+        # K2 -> SADS -> K3 (kernels/ops.py), what star_attention_scanq
+        # computes per (batch, head)
+        o = ops.star_attention_cfg(qh, kh, vh, cfg.star, causal=cfg.causal,
+                                   scale=scale)
     else:
-        y = _dense_chunked(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
-                           causal=cfg.causal, q_chunk=cfg.q_chunk,
-                           scale=scale)
+        o = ops.flash(qh, kh, vh, causal=cfg.causal, scale=scale)   # K4
+    y = o.reshape(b, cfg.n_heads, s, cfg.head_dim).transpose(1, 2)
     out = _out_proj(params, y)
 
     cache = None

@@ -55,7 +55,6 @@ class ModelCfg:
     star_chunk_sparse: bool = False     # DLZS page selection inside later
     #                                     prefill chunks (approximate)
     causal: bool = True
-    q_chunk: int = 1024
     vocab_pad_to: int = 2048
     dtype: Any = torch.bfloat16
 
@@ -80,7 +79,7 @@ class ModelCfg:
             d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
             head_dim=self.dh, rope_fraction=self.rope_fraction,
             rope_theta=self.rope_theta, qkv_bias=self.qkv_bias,
-            causal=self.causal, q_chunk=self.q_chunk, star=self.star,
+            causal=self.causal, star=self.star,
             chunk_sparse=self.star_chunk_sparse, dtype=self.dtype)
 
     def mlp_cfg(self) -> mlp.MLPCfg:

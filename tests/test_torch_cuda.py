@@ -5,6 +5,8 @@ marked ``cuda`` and skips without a GPU; run them there with
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -63,3 +65,158 @@ def test_paged_decode_kernel_rejects_cpu_fallback(cuda_device):
     with pytest.raises(TypeError):
         kpaged.paged_decode_attention(q, k, k, ints, ints,
                                       ints[:, 0].contiguous(), scale=0.125)
+
+
+# -- the prefill tile kernels: K2 (DLZS block maxima), K3 (SU-FA), K4 --------
+
+# K2's maxima are fp32 sums of exact bf16 x pow2 products: only the order
+# of the sum differs from the plain version's fp32 matmul.
+K2_TOL = dict(rtol=1e-4, atol=1e-4)
+SUFA_TOL = dict(rtol=3e-2, atol=3e-2)     # tests/test_kernels.py's sufa bound
+
+
+def _bf16(shape, gen, device, scale=1.0):
+    return (torch.randn(shape, generator=gen) * scale).to(device,
+                                                          torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,s,block,causal", [
+    (256, 256, 128, True), (256, 256, 128, False), (256, 256, 16, True),
+    (128, 384, 64, True), (96, 96, 32, True)])
+def test_dlzs_block_kernel_matches_plain(cuda_device, d, t, s, block,
+                                         causal):
+    """K2 against ``ref.dlzs_block_ref``: wholly masked tiles are NEG_INF
+    in both, the rest agree up to the fp32 sum order."""
+    from repro_torch.kernels import dlzs as kdlzs
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cpu").manual_seed(d + t + block)
+    q = _bf16((4, t, d), gen, cuda_device)
+    k = _bf16((4, s, d), gen, cuda_device, scale=3.0)
+    kernels.reset_launches()
+    got = kdlzs.dlzs_block_scores(q, k, causal=causal, block_q=block,
+                                  block_kv=block)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dlzs_block"] == 1
+    want = ref.dlzs_block_ref(q, k, causal=causal, block_q=block,
+                              block_kv=block)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    masked = want <= -1e29
+    assert torch.equal(got <= -1e29, masked)
+    np.testing.assert_allclose(got[~masked].cpu().numpy(),
+                               want[~masked].cpu().numpy(), **K2_TOL)
+
+
+def _gathered(q, k, v, keep, block, gen):
+    """(kg, vg, mask) as the fused glue builds them (causal), from a
+    random tile order and a random validity pattern."""
+    from repro_torch.kernels import ops
+    bh, t, _ = q.shape
+    n_qt, n_kt = t // block, k.shape[1] // block
+    idx = torch.stack([torch.randperm(n_kt, generator=gen)[:keep]
+                       for _ in range(bh * n_qt)]).reshape(bh, n_qt, keep)
+    valid = torch.rand((bh, n_qt, keep), generator=gen) < 0.8
+    valid[..., 0] = True
+    kg, vg, mask = ops.gather_selected(
+        k, v, idx.to(q.device), valid.to(q.device), t=t, block_q=block,
+        block_kv=block, causal=True)
+    return kg, vg, mask.to(torch.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("d,block,keep", [(64, 16, 3), (128, 64, 2),
+                                          (128, 128, 4), (64, 48, 1)])
+def test_sufa_kernel_matches_plain(cuda_device, strict, d, block, keep):
+    """K3 in both modes against ``kernels.sufa.sufa_reference`` (the exact
+    masked softmax, or the frozen-max recurrence), bf16 at 3e-2, with
+    invalid tiles and rows that see no key in their first tile."""
+    from repro_torch.kernels import sufa as ksufa
+    gen = torch.Generator(device="cpu").manual_seed(d + block + keep)
+    t = 4 * block
+    q, k, v = (_bf16((3, t, d), gen, cuda_device) for _ in range(3))
+    kg, vg, mask = _gathered(q, k, v, keep, block, gen)
+    kernels.reset_launches()
+    got = ksufa.sufa_attention(q, kg, vg, mask, strict=strict)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sufa"] == 1
+    want = ksufa.sufa_reference(q, kg, vg, mask, scale=d ** -0.5,
+                                strict=strict)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **SUFA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,s,causal", [
+    (256, 256, True), (256, 256, False), (991, 991, True), (200, 200, False),
+    (100, 300, True), (300, 100, True)])
+def test_flash_kernel_matches_plain(cuda_device, d, t, s, causal):
+    """K4 against ``ref.flash_ref``, bf16 at 2e-2, at ragged T and S (the
+    kernel masks the edge itself) and at T > S, where the first rows see
+    no key and are zero."""
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cpu").manual_seed(d + t + s)
+    q = _bf16((4, t, d), gen, cuda_device)
+    k, v = (_bf16((4, s, d), gen, cuda_device) for _ in range(2))
+    kernels.reset_launches()
+    got = kflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash"] == 1
+    want = ref.flash_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,groups", [(512, 1), (1024, 2)])
+def test_star_glue_matches_plain_scanq(cuda_device, t, groups):
+    """The fused STAR prefill (K2 -> SADS -> K3) against the plain
+    ``core.star_attention_scanq`` on the card, bf16, olmo_1b's STAR tiles:
+    SU-FA's bound scaled by the output's magnitude (the plain form rounds
+    each score to bf16 before its softmax, K3 keeps fp32); one launch of
+    each kernel per prefix group."""
+    from repro_torch.configs import olmo_1b
+    from repro_torch.core.star_attention import star_attention_scanq
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cpu").manual_seed(t + groups)
+    q, k, v = (_bf16((4, t, 128), gen, cuda_device) for _ in range(3))
+    star = dataclasses.replace(olmo_1b.config().star, prefix_groups=groups)
+    kernels.reset_launches()
+    got = ops.star_attention_cfg(q, k, v, star, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dlzs_block"] == kernels.LAUNCHES["sufa"] == \
+        groups
+    want = torch.stack([star_attention_scanq(q[i], k[i], v[i], star,
+                                             causal=True)
+                        for i in range(4)]).float().cpu().numpy()
+    tol = dict(SUFA_TOL)
+    tol["atol"] *= max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, **tol)
+
+
+def _fp32_calls(device):
+    """One call per wrapper on float32 CUDA operands."""
+    from repro_torch.kernels import dlzs as kdlzs
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import sufa as ksufa
+    q = torch.zeros((2, 64, 64), device=device)
+    kg = torch.zeros((2, 1, 1, 64, 64), device=device)
+    mask = torch.ones((2, 1, 1, 64, 64), device=device, dtype=torch.int8)
+    return {"dlzs_block": lambda: kdlzs.dlzs_block_scores(
+                q, q, block_q=64, block_kv=64),
+            "sufa": lambda: ksufa.sufa_attention(q, kg, kg, mask),
+            "flash": lambda: kflash.flash_attention(q, q, q)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dlzs_block", "sufa", "flash"])
+def test_prefill_kernel_rejects_cpu_fallback(cuda_device, kernel):
+    """On CUDA tensors the wrapper launches or raises: float32 operands
+    are refused, never served by the plain version, and not counted."""
+    kernels.reset_launches()
+    with pytest.raises(TypeError):
+        _fp32_calls(cuda_device)[kernel]()
+    assert kernels.LAUNCHES[kernel] == 0

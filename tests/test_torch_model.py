@@ -21,6 +21,7 @@ is a pure function of K, held bit for bit in test_torch_core.py).
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -33,10 +34,12 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro.configs import get_smoke_config  # noqa: E402
+from repro.models import attention as jattention  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import olmo_1b as tolmo  # noqa: E402
 from repro_torch.core import dlzs as tdlzs  # noqa: E402
+from repro_torch.models import attention as tattention  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.tree import tree_items  # noqa: E402
 
@@ -199,6 +202,123 @@ def test_prefill_matches(models, dtype, attn):
     _close(got_logits, want_logits, dtype, "logits")
     np.testing.assert_array_equal(got_cache["lengths"].numpy(),
                                   np.asarray(want_cache["lengths"]))
+    _compare_cache(got_cache["layers"], want_cache["layers"], dtype,
+                   "prefill cache")
+
+
+@pytest.mark.parametrize("attn", ["dense", "star"])
+def test_prefill_hands_kernels_their_layout(models, monkeypatch, attn):
+    """``apply_prefill`` gives the kernel glue contiguous [B·nh, T, d]
+    tensors at any batch (the CUDA wrappers refuse strided operands), and
+    routes ``star=None`` to K4 and STAR to the fused glue."""
+    from repro_torch.kernels import ops as tops
+    jcfg, _, tcfg, tp = models["float32", attn, False]
+    seen = []
+
+    def spy(real):
+        def wrapped(q, k, v, *args, **kw):
+            seen.append(all(t.is_contiguous() and t.dim() == 3
+                            for t in (q, k, v)))
+            return real(q, k, v, *args, **kw)
+        return wrapped
+
+    name = "flash" if attn == "dense" else "star_attention_cfg"
+    monkeypatch.setattr(tops, name, spy(getattr(tops, name)))
+    for batch in (1, 2):
+        tlm.forward(tp, tcfg, {"tokens": torch.from_numpy(
+            _tokens(jcfg, (batch, 32), seed=batch))})
+    assert seen == [True] * (2 * jcfg.n_layers)
+
+
+@pytest.mark.parametrize("t,groups", [(128, 1), (256, 1), (128, 2),
+                                      (256, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_star_prefill_scan_matches(models, monkeypatch, dtype, t, groups):
+    """STAR prefill longer than one q-chunk (smoke tiles of 16 with
+    chunk_tiles 4, so ``scanq`` really scans), and with ``prefix_groups``
+    2, through the port's K2 -> SADS -> K3 glue (``kernels.ops``, plain
+    versions on the CPU).
+
+    fp32: the whole ``lm.prefill`` against the JAX ``lm.prefill``. bf16:
+    every layer's ``attention.apply_prefill`` against the reference's,
+    both fed the input the port's own STAR forward hands that layer; and
+    with one prefix group, every layer's kept tile sets equal the plain
+    SADS selection over the plain Â on the same q/k. Through several bf16
+    layers the comparison stops being one of the glue: a layer's output
+    one bf16 step off moves the next layer's pow2(K), hence its predicted
+    tile maxima by many steps, and a near-tie at the top-k edge then
+    keeps another tile (ROADMAP §3, ``tools/torch_star_drift.py``).
+    """
+    jcfg, jp, _, tp = models[dtype, "star", False]
+    assert jcfg.star.chunk_tiles * jcfg.star.block_q < t
+    jcfg = dataclasses.replace(jcfg, star=dataclasses.replace(
+        jcfg.star, prefix_groups=groups))
+    tcfg = convert.model_cfg_from_reference(jcfg)
+    if dtype == "bfloat16":
+        from repro_torch.core import sads as tsads
+        from repro_torch.kernels import ops as tops
+        core_star = importlib.import_module("repro_torch.core.star_attention")
+        inputs, qks = [], []
+        apply_prefill, star_cfg = tattention.apply_prefill, \
+            tops.star_attention_cfg
+
+        def record_input(params, acfg, h, positions, **kw):
+            inputs.append(h)
+            return apply_prefill(params, acfg, h, positions, **kw)
+
+        def record_qk(q, k, v, star, **kw):
+            qks.append((q, k))
+            return star_cfg(q, k, v, star, **kw)
+
+        monkeypatch.setattr(tattention, "apply_prefill", record_input)
+        monkeypatch.setattr(tops, "star_attention_cfg", record_qk)
+        tlm.forward(tp, tcfg, {"tokens": torch.from_numpy(
+            _tokens(jcfg, (2, t), seed=t + groups))})
+        monkeypatch.undo()
+        assert len(inputs) == len(qks) == jcfg.n_layers
+        for i, h in enumerate(inputs):
+            want = jattention.apply_prefill(
+                jax.tree.map(lambda a: a[i], jp["blocks"]["b0"]["core"]),
+                jcfg.attn_cfg("prefill"),
+                jnp.asarray(h.float().numpy()).astype(jnp.bfloat16),
+                jnp.arange(t))[0]
+            got = tattention.apply_prefill(
+                tlm._layer(tp["blocks"]["b0"]["core"], i), tcfg.attn_cfg(),
+                h, torch.arange(t))[0]
+            _close(got, want, dtype, f"layer {i} attention")
+        if groups > 1:
+            return
+        star = tcfg.star
+        keep, n_kt = star.keep_blocks(t), t // star.block_kv
+        scale = tcfg.dh ** -0.5
+        causal = torch.ones(t, t, dtype=torch.bool).triu(1)
+        for i, (q, k) in enumerate(qks):
+            raw = tops.dlzs_blockmax(q, k, causal=True, scale=1.0,
+                                     block_q=star.block_q,
+                                     block_kv=star.block_kv)
+            idx, valid = tops.select_tiles(raw, keep, scale=scale,
+                                           radius=star.radius, dtype=q.dtype)
+            sel = tsads.sads_select_blocks(
+                core_star.predict_scores(q, k, scale=scale).masked_fill(
+                    causal, tsads.NEG_INF),
+                star.block_q, star.block_kv, keep, radius=star.radius)
+
+            def kept(ids, ok):
+                return torch.zeros(ids.shape[:-1] + (n_kt,),
+                                   dtype=torch.bool).scatter_(-1, ids, ok)
+
+            assert torch.equal(kept(idx, valid),
+                               kept(sel.block_idx, sel.block_valid)), i
+        return
+    toks = _tokens(jcfg, (2, t), seed=t + groups)
+    last = np.array([t - 1, t // 2 + 3], np.int32)
+    want_logits, want_cache = jlm.prefill(
+        jp, jcfg, {"tokens": jnp.asarray(toks)},
+        last_index=jnp.asarray(last))
+    got_logits, got_cache = tlm.prefill(
+        tp, tcfg, {"tokens": torch.from_numpy(toks)},
+        last_index=torch.from_numpy(last))
+    _close(got_logits, want_logits, dtype, "logits")
     _compare_cache(got_cache["layers"], want_cache["layers"], dtype,
                    "prefill cache")
 

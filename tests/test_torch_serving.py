@@ -108,6 +108,35 @@ def test_sparse_decode_matches_reference_engine(smoke_lm):
     assert st["hot_width"] == 2 and st["decode_compiles"] == 1
 
 
+def test_whole_prompt_prefill_matches_reference_engine():
+    """``SchedulerCfg(chunk_pages=None)``: each prompt is prefilled whole
+    by ``lm.prefill`` at its bucketed width, STAR on, so the port runs the
+    K2 -> SADS -> K3 glue (one q-chunk at 64 tokens, a scan at 128); its
+    tokens equal the JAX paged engine's on the same weights. In fp32: in
+    bf16 a one-step rounding difference between the packages can flip a
+    near-tied tile selection in a later layer (ROADMAP §3)."""
+    import jax.numpy as jnp
+    jcfg = dataclasses.replace(get_smoke_config("olmo_1b"),
+                               dtype=jnp.float32)
+    assert jcfg.star is not None
+    jparams = jlm.init(jax.random.PRNGKey(2), jcfg)
+    tparams = convert.to_torch(jax.tree.map(np.asarray, jparams))
+    tcfg = convert.model_cfg_from_reference(jcfg)
+    prompts = scen._prompts(jcfg, (40, 57, 33, 70))
+
+    def pcfg(cls):
+        return cls(max_batch=2, page_size=16, n_pages=32, hot_pages=8,
+                   eos_id=-1)
+
+    want = scen._run_llm(JLLM(JPaged(jcfg, jparams, pcfg(JPagedEngineCfg),
+                                     JSchedulerCfg(chunk_pages=None))),
+                         prompts, max_tokens=12)
+    got = scen._run_llm(LLM(PagedServingEngine(
+        tcfg, tparams, pcfg(PagedEngineCfg), SchedulerCfg(chunk_pages=None))),
+        prompts, max_tokens=12)
+    assert got == want
+
+
 def _drive_checked(llm, conservation_error, reconcile_refs):
     """Tick to idle, holding page conservation and the refcount watchdog
     after every tick (as ``engine_core_scenarios._drive_checked`` does)."""
@@ -229,6 +258,8 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
 import chip_smoke
+sys.path.insert(0, {tools!r})
+import torch_profile_prefill, torch_star_drift
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -239,17 +270,20 @@ print("PURE", len([n for n in sys.modules if n.startswith("repro_torch")]))
 def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run(
         [sys.executable, "-c",
-         _PURITY.format(src=str(ROOT / "src"), root=str(ROOT))],
+         _PURITY.format(src=str(ROOT / "src"), root=str(ROOT),
+                        tools=str(ROOT / "tools"))],
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "PURE" in out.stdout
 
 
 def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
-    """The on-card script's serve / exactness / sparse phases, run on the
-    CPU at smoke size: every request is served, every token is the dense
-    argmax (or a bf16 tie), the sparse pass gathers fewer pages than are
-    resident, and no kernel launches off the card."""
+    """The on-card script's phases, run on the CPU at smoke size: every
+    request is served, every token is the dense argmax (or a bf16 tie),
+    the sparse pass gathers fewer pages than are resident, the prefill
+    kernels' checks and the fused-STAR comparison run their control flow,
+    the whole-prompt prefill serves with first tokens equal to a STAR
+    forward's, and no kernel launches off the card."""
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke as cs
     cfg = tsmoke("olmo_1b")
@@ -271,6 +305,38 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert sp["pages_gathered_per_tick"] < sp["pages_resident_per_tick"]
     with pytest.raises(SystemExit, match="expected ticks x layers"):
         cs.require_launches(sp, "cpu")
+    assert exact["forwards"] == 4 and exact["k4_launches"] == 0
+    # phase 6's checks (plain against plain here), phase 7 at T=128: the
+    # smoke tiles of 16 with 4-tile chunks, so scanq scans
+    cs.check_dlzs("cpu", None, bh=2, t=256, block=128, causal=True, seed=0,
+                  timed=False)
+    cs.check_sufa("cpu", None, bh=2, t=256, block=128, strict=False, seed=1,
+                  timed=False)
+    cs.check_flash("cpu", None, bh=2, t=200, causal=True, seed=2,
+                   timed=False)
+    fused = cs.check_fused_star(params, cfg, seed=3, t=128, timed=False)
+    assert fused["selection_agreement_min"] == 1.0
+    assert len(fused["layers"]) == cfg.n_layers
+    # phase 7's edge distance: keep-th 3.0 against 2.96875 (2 bf16 steps)
+    bmax = torch.tensor([[[4.0, 3.0, 2.96875, cs.sads.NEG_INF]]])
+    assert cs.edge_gap_steps(bmax, 2, 5.0).tolist() == [[2.0]]
+    # phase 4's second oracle computes K4's function in the plain form
+    q, k, v = torch.randn(3, 4, 40, 16).bfloat16()
+    torch.testing.assert_close(
+        cs.plain_flash(q, k, v, causal=True, scale=0.25).float(),
+        cs.ops.flash(q, k, v, causal=True, scale=0.25).float(),
+        atol=2e-2, rtol=2e-2)
+    assert len(exact["inexact"]) == 24 - exact["exact"]
+    whole_prompts = cs.make_prompts(cfg, (40, 70, 33), seed=4)
+    wllm, wrun, whole = cs.serve_whole_prompt(cfg, params, whole_prompts, 4,
+                                              device="cpu", generator=gen)
+    assert whole["requests"] == 3 and whole["prefill_calls"] == 4
+    assert whole["prefill_widths"][1:] == [64, 128, 64]
+    first = cs.check_first_tokens(params, cfg, whole_prompts, wrun["done"],
+                                  wllm.engine.backend.pcfg.bucket_pow2)
+    assert first["first_tokens_checked"] == 3 and first["exact"] == 3
+    with pytest.raises(SystemExit, match="expected prefill calls x layers"):
+        cs.require_prefill_launches(whole, "cpu")
 
 
 def _run_smoke(cwd):
