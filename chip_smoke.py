@@ -10,9 +10,11 @@ Phases, each printing its numbers on a line of its own:
 1. the card's name and power limit; the build of every CUDA kernel from
    ``src/repro_torch/csrc`` (nvcc, sm_90a) into ``build/``;
 2. K1 (paged decode) against its plain PyTorch version on the card, at the
-   main path's shapes and at a GQA case with padded slots, bf16 at 2e-2,
-   with its time beside its bound, the plain version's and one PyTorch
-   call's (SDPA over the gathered rows, a yardstick the port never calls);
+   main path's shapes, at the whole-prompt phase's decode shape (W = 130)
+   and at a GQA case with padded slots, bf16 at 2e-2, two calls bit-equal,
+   with each split plan and, for the first two, the time beside its
+   bound, the plain version's and one PyTorch call's (SDPA over the
+   gathered rows, a yardstick the port never calls);
 3. the main path: full-width OLMo-1B (random weights from a seed) served
    through ``LLM.from_config(backend="paged")``: TTFT, tokens/s, decode
    ticks, and K1's launches, which must equal ticks x layers;
@@ -26,9 +28,10 @@ Phases, each printing its numbers on a line of its own:
    bf16 at OLMo-1B's served shapes (BH 16, d 128, tiles 128, T = S of
    1024 and 2048): K2 (DLZS block maxima; also non-causal, and at the
    16-row tile of the pool probe), K3 (SU-FA, both ``strict`` modes, on
-   tiles the glue selects) and K4 (flash; also at a ragged T of 991),
-   each timed beside its bound, its plain version and one PyTorch call
-   (SDPA; none computes K2's block maxima);
+   tiles the glue selects) and K4 (flash; also at a ragged T of 991, at
+   T = S = 1 and 129, and at d = 64), each timed beside its bound, its
+   plain version and one PyTorch call (SDPA; none computes K2's block
+   maxima);
 7. the fused STAR prefill (``kernels.ops``: K2 -> SADS -> K3) against the
    plain ``core.star_attention_scanq`` at every layer of a 2048-token
    STAR forward, each fed the same q/k/v: the share of (head, q-tile)
@@ -109,10 +112,16 @@ def emit(tag: str, **fields) -> None:
 
 # -- timing ------------------------------------------------------------------
 
+HOST_LEAD_CYCLES = 200_000  # ~0.1 ms of device spin before each timed call
+
+
 def time_ms(fn, iters: int = 50, flush=None) -> float:
     """Median device time of ``fn`` over ``iters`` launches, CUDA events
     around each launch; ``flush`` (a tensor) is overwritten between
-    launches so each one finds the L2 cold, as a decode layer does."""
+    launches so each one finds the L2 cold, as a decode layer does. A
+    device-side spin after the flush keeps the card busy while the host
+    enqueues the timed call, so a slow host (Python wrappers, several
+    launches per call) cannot leave the card idle between the events."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -120,6 +129,7 @@ def time_ms(fn, iters: int = 50, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -219,10 +229,16 @@ def check_paged_kernel(device, name, b, g, r, d, page, w, p, kv_len, seed,
     scale = 1.0 / math.sqrt(d)
     got = kpaged.paged_decode_attention(q, k, v, phys, logical, kvl,
                                         scale=scale)
+    again = kpaged.paged_decode_attention(q, k, v, phys, logical, kvl,
+                                          scale=scale)
     want = kpaged.paged_decode_reference(q, k, v, phys, logical, kvl,
                                          scale=scale)
     out = held("k1_parity", got, want, TOL, case=name, shape=[b, g, r, d],
-               page=page, W=w, P=p, kv_len=list(kv_len))
+               page=page, W=w, P=p, kv_len=list(kv_len),
+               n_split=kpaged.split_plan(b, g, w, page))
+    if not torch.equal(got, again):
+        raise SystemExit(f"k1_parity {name}: two calls on the same inputs "
+                         f"gave different bits")
     if timed:
         flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
         bytes_, flops = paged_work(q, k, phys, kvl)
@@ -493,17 +509,17 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed) -> dict:
     return out
 
 
-def check_flash(dev, flush, *, bh, t, causal, seed, timed) -> dict:
-    q, k, v = prefill_inputs(bh, t, 128, seed, dev)
+def check_flash(dev, flush, *, bh, t, causal, seed, timed, d=128) -> dict:
+    q, k, v = prefill_inputs(bh, t, d, seed, dev)
     kernel = lambda: kflash.flash_attention(q, k, v, causal=causal)  # noqa
     plain = lambda: kref.flash_ref(q, k, v, causal=causal)  # noqa: E731
     out = held("prefill_kernel", kernel(), plain(), PREFILL_TOL["flash"],
-               kernel="flash", BH=bh, T=t, S=t, d=128, causal=causal)
+               kernel="flash", BH=bh, T=t, S=t, d=d, causal=causal)
     if timed:
         add_times(out, kernel, plain,
                   lambda: SDPA(q[None], k[None], v[None], is_causal=causal),
                   flush, bytes_=nbytes(q, k, v, q),
-                  flops=4 * 128 * bh * visible_pairs(t, t, causal))
+                  flops=4 * d * bh * visible_pairs(t, t, causal))
     emit("prefill_kernel", ok=True, **out)
     return out
 
@@ -526,11 +542,13 @@ def check_prefill_kernels(dev) -> dict:
                              strict=strict, seed=t + 5, timed=t == 2048)
             if t == 2048:
                 timed["sufa" if strict else "sufa_fast"] = out
-    for t in (1024, 2048, 991):
+    for t in (1024, 2048, 991, 1, 129):
         out = check_flash(dev, flush, bh=16, t=t, causal=True, seed=t + 7,
                           timed=t == 2048)
         if t == 2048:
             timed["flash"] = out
+    check_flash(dev, flush, bh=16, t=1024, causal=True, seed=11, timed=False,
+                d=64)
     del flush
     return timed
 
@@ -816,14 +834,20 @@ def main() -> int:
                for k, v in built.items()})
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                        "warning")):
                 print(f"ptxas[{name}] {line.strip()}", flush=True)
 
-    # 2. K1 against its plain version, main-path shapes and a GQA case
+    # 2. K1 against its plain version: main-path shapes, phase 8's decode
+    # shape (W = 130), and a GQA case
     k1 = check_paged_kernel(dev, "main_path", b=4, g=16, r=1, d=128,
                             page=16, w=64, p=1024,
                             kv_len=(1024, 1000, 777, 500), seed=1,
                             timed=True)
+    k1_w130 = check_paged_kernel(dev, "whole_prompt_w130", b=3, g=16, r=1,
+                                 d=128, page=16, w=130, p=512,
+                                 kv_len=(1040, 2064, 2064), seed=3,
+                                 timed=True)
     gqa = check_paged_kernel(dev, "gqa_r4_padded", b=3, g=4, r=4, d=128,
                              page=16, w=16, p=256, kv_len=(256, 201, 37),
                              seed=2, timed=False)
@@ -915,7 +939,11 @@ def main() -> int:
     print(json.dumps({"kernels": [
         line("paged_decode", "paged_decode.cu",
              "src/repro/kernels/paged.py:67", main["k1_launches"], k1,
-             max_abs_err_gqa=gqa["max_abs_err"]),
+             max_abs_err_gqa=gqa["max_abs_err"], n_split=k1["n_split"],
+             ms_w130=k1_w130["ms"], bound_ms_w130=k1_w130["bound_ms"],
+             plain_ms_w130=k1_w130["plain_ms"],
+             library_ms_w130=k1_w130["library_ms"],
+             n_split_w130=k1_w130["n_split"]),
         line("dlzs_block", "dlzs_block.cu", "src/repro/kernels/dlzs.py:65",
              whole["dlzs_block_launches"], tiles["dlzs_block"]),
         line("sufa", "sufa.cu", "src/repro/kernels/sufa.py:72",

@@ -1,36 +1,73 @@
-// Paged decode attention for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a): split-W over the block table.
 //
 // Replaces repro/kernels/paged.py::paged_decode_attention (body
 // _paged_kernel): one decode query per sequence — R query heads grouped
 // per KV head — attends to the rows of up to W pool pages named by a
 // block table. Rows are masked where the slot is padding (logical < 0) or
-// the row lies at or beyond kv_len. Softmax runs online (m, l, o) in fp32;
-// the output o / l is written in bf16.
+// the row lies at or beyond kv_len; a sequence with no valid row gives 0;
+// physical ids are clamped into the pool. Statistics are fp32; the output
+// is bf16. Scores and the normalised P are rounded to bf16 where the plain
+// version (kvcache.paged_attention.paged_gather_decode, bf16 matmuls)
+// rounds them, so the kernel computes what its plain version computes up
+// to the order of fp32 sums.
 //
 // Bound: memory. Each call must read the K and V rows of every gathered
-// page once: B*W*page*nkv*d*2 (K and V) * 2 bytes. At the OLMo-1B main
-// path (B=4, W=64, page=16, nkv=16, d=128) that is ~33.5 MB per layer,
-// ~10 us at 3.35 TB/s; the arithmetic (4 FLOP per K/V element pair) is
-// far below the bf16 ridge point.
+// page once: at the OLMo-1B main path (B=4, W=64, page=16, nkv=16, d=128,
+// kv_len 1024/1000/777/500) that is 27 MB, 8.1 us at 3.35 TB/s; the
+// arithmetic (4·R flops per K/V element pair) is far below the bf16 ridge.
+// So the card has to be kept full of loads: the TPU kernel's grid walks a
+// sequence's pages in order on one core, and the first port kept that
+// shape (one block per (sequence, KV head): 64 blocks on 132 SMs, 2 KB in
+// flight per warp, 245 GB/s).
 //
 // Design:
-//   * Layout. The pool stays in its native [P, page, nkv, d] layout; the
-//     kernel addresses one KV head's rows through the strides it is given,
-//     so no slab is ever transposed or copied (the JAX wrapper moveaxis'es
-//     both whole slabs on every call).
-//   * Grid. One block per (sequence b, KV head g). The block loads its own
-//     block-table row. Its 8 warps stride over the W*page candidate rows,
-//     UNROLL rows at a time so each warp keeps 2*UNROLL row loads in
-//     flight; each lane holds d/32 contiguous elements of a row, so a
-//     warp reads a whole row as one coalesced transaction. Each warp keeps
-//     its own online-softmax state for the R query heads; the 8 partial
-//     states merge through shared memory at the end (the exact flash
-//     merge, as across the TPU kernel's grid steps).
-//   * The kernel allocates nothing and launches on the caller's stream;
-//     the C entry point returns cudaGetLastError() after the launch.
+//   * Split-W. Each (sequence, KV head) is cut into n_split contiguous
+//     ranges of block-table slots, [s·W / n, (s+1)·W / n), one block each:
+//     a (B·G, n_split) grid. The host picks n_split from the shapes alone
+//     (kernels/paged.py::split_plan: about 4 blocks per SM, ranges of at
+//     most kMaxRows rows), never from kv_len's values, which would cost a
+//     device sync per layer.
+//   * Three kernels on the caller's stream, launched by one C entry point,
+//     with a workspace the wrapper allocates (nothing is allocated here):
+//       1. scores: each block reads its K rows, writes the scaled scores
+//          and its range's (m, l);
+//       2. P·V: each block merges the ranges' (m, l) into the sequence's
+//          (M, L) in split order, turns its range's scores into
+//          P = bf16(exp(s - M) / L) in shared memory, reads its V rows and
+//          writes the partial o = sum of P · v;
+//       3. sum: the partial o's of each (sequence, KV head), added in split
+//          order, rounded to bf16.
+//     No atomics: two calls give identical bits. Normalising P before
+//     P·V, as the plain version does, is what the two passes over the
+//     table buy: a one-pass flash merge cannot round P where the plain
+//     version does. With fp32 P the served path once put a token two bf16
+//     steps from both dense oracles of chip_smoke.py's phase 4, whose
+//     verdict turns on such rounding (PERF.md, Findings;
+//     tools/torch_decode_forms.py).
+//   * Overlap. Passes 2 and 3 are launched as programmatic dependents:
+//     pass 2's blocks start while pass 1 runs, stream their V rows in and
+//     wait for pass 1's results (griddepcontrol) only before using them.
+//   * Early exit. A block first finds how many of its rows it must visit
+//     (up to the last valid row of its range); with none it writes
+//     (m = NEG_INF, l = 0) and the later passes weigh it as 0.
+//   * Loads. The pool stays in its native [P, page, G, d] layout, read
+//     through strides (no copy). Rows move 16 rows (one page at page 16)
+//     a stage as 16-byte cp.async copies into a 16 KB ring (4 stages at
+//     d = 128), masked rows zero-filled without a read; several blocks
+//     share an SM. A 32 KB ring, with a block's whole range in flight at
+//     once, measured slower: each block's first stage then lands last.
+//   * Arithmetic. A row's score comes from 8 threads (a 3-step shuffle);
+//     the first of them writes it and keeps its rows' max, and the 16 row
+//     owners merge their (m, l) at the end, so a stage needs one barrier.
+//     In P·V each thread adds its pair of output columns over a subset of
+//     the stage's rows for all R heads, so every K/V row loaded serves the
+//     whole GQA group.
 //
-// Later work: wgmma/TMA tiles, and split-W parallelism (at B*nkv = 64
-// blocks the card's 132 SMs are not all busy).
+// Later work: the kernel takes about 4x its bound, in two passes that each
+// wait on DRAM and then on a few hundred cycles of work per stage; the
+// tick is bound by the host, so CUDA-graph capture of the decode step
+// comes first (PERF.md). Then an int8 dequant lane, and the (m, l, o)
+// output itself for the spatial merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,174 +76,460 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 16;            // rows per stage
+constexpr int kRingBytes = 16384;    // one pass streams K or V
+constexpr int kMaxRows = 256;        // rows of one range (split_plan)
 
-template <int E>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ p,
-                                         float (&dst)[E]) {
-#pragma unroll
-  for (int e = 0; e < E; e += 2) {
-    const __nv_bfloat162 two =
-        *reinterpret_cast<const __nv_bfloat162*>(p + e);
-    const float2 f = __bfloat1622float2(two);
-    dst[e] = f.x;
-    dst[e + 1] = f.y;
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return kRingBytes / (kRows * D * 2) > 8 ? 8 : kRingBytes / (kRows * D * 2);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// src-size 0: no read, zeros land in dst
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Programmatic dependent launch (sm_90): let the next kernel on the stream
+// start, and wait until the previous one has finished and its writes are
+// visible.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// The workspace, fp32: m and l [B·G, n_split, R], o [B·G, n_split, R, D],
+// scores [B·G, R, W·page]; the view of one block's (b·g, split).
+struct Workspace {
+  float* m;
+  float* l;
+  float* o;
+  float* s;  // this b·g's scores: head r's at s + r·W·page
+  __device__ Workspace(float* ws, int bg, int n_bg, int split, int n_split,
+                       int R, int D, int rows_w) {
+    const int64_t at = ((int64_t)bg * n_split + split) * R;
+    const int64_t all = (int64_t)n_bg * n_split * R;
+    m = ws + at;
+    l = ws + all + at;
+    o = ws + 2 * all + at * D;
+    s = ws + all * (D + 2) + (int64_t)bg * R * rows_w;
   }
-}
+};
 
-__device__ __forceinline__ float warp_sum(float x) {
+// The block's range of one sequence's block table.
+struct Range {
+  int w0, w1, len, page, n_pages;
+  const int32_t* phys;
+  const int32_t* logical;
+  __device__ Range(const int32_t* phys_all, const int32_t* logical_all,
+                   const int32_t* kv_len, int b, int W, int page_, int P) {
+    w0 = (int)((int64_t)blockIdx.y * W / gridDim.y);
+    w1 = (int)((int64_t)(blockIdx.y + 1) * W / gridDim.y);
+    len = kv_len[b];
+    page = page_;
+    n_pages = P;
+    phys = phys_all + (int64_t)b * W;
+    logical = logical_all + (int64_t)b * W;
+  }
+  // where row idx of the range lives; false where it is masked
+  __device__ bool locate(int idx, int& ph, int& rp) const {
+    const int wi = idx / page;
+    rp = idx - wi * page;
+    const int lg = logical[w0 + wi];
+    // padded slots are masked; the clamp keeps any id inside the pool
+    ph = min(max(phys[w0 + wi], 0), n_pages - 1);
+    return lg >= 0 && lg * page + rp < len;
+  }
+  // rows to visit, up to the last valid row (0: none); every thread
+  // calls it, and it syncs the block
+  __device__ int visit_rows(int* scratch) const {
+    int mine = 0;
+    for (int w = w0 + threadIdx.x; w < w1; w += kThreads) {
+      const int lg = logical[w];
+      if (lg >= 0 && (int64_t)lg * page < len)
+        mine = max(mine, (w - w0) * page + min(page, len - lg * page));
+    }
+    mine = __reduce_max_sync(0xffffffffu, mine);
+    if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = mine;
+    __syncthreads();
+    int rows = 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+    for (int i = 0; i < kWarps; ++i) rows = max(rows, scratch[i]);
+    return rows;
+  }
+};
 
+// Pass 1: the range's scaled scores (bf16(q·k) · scale, NEG_INF where
+// masked) into the workspace, and its (m, l).
 template <int D, int R>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,     // [B, G, R, D]
-                    const __nv_bfloat16* __restrict__ k,     // [P, page, G, D]
-                    const __nv_bfloat16* __restrict__ v,     // (strided)
-                    const int32_t* __restrict__ phys,        // [B, W]
-                    const int32_t* __restrict__ logical,     // [B, W]
-                    const int32_t* __restrict__ kv_len,      // [B]
-                    __nv_bfloat16* __restrict__ out,         // [B, G, R, D]
-                    int G, int W, int page, int P,
-                    int64_t k_sp, int64_t k_sr, int64_t k_sg,
-                    int64_t v_sp, int64_t v_sr, int64_t v_sg,
-                    float scale) {
-  constexpr int E = D / 32;  // elements of a row held by one lane
-  const int b = blockIdx.x / G;
-  const int g = blockIdx.x - b * G;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(kThreads)
+paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
+                    const __nv_bfloat16* __restrict__ k,   // [P, page, G, D]
+                    const int32_t* __restrict__ phys,      // [B, W]
+                    const int32_t* __restrict__ logical,   // [B, W]
+                    const int32_t* __restrict__ kv_len,    // [B]
+                    float* __restrict__ ws, int G, int W, int page, int P,
+                    int64_t k_sp, int64_t k_sr, int64_t k_sg, float scale) {
+  constexpr int NS = stages<D>();
+  constexpr int CH = D / 8;              // 16-byte chunks per row
+  constexpr int TPR = kThreads / kRows;  // threads per row
+  static_assert(CH % TPR == 0, "tile shape");
+  __shared__ __align__(16) __nv_bfloat16 sk[NS][kRows * D];
+  __shared__ __align__(16) float sq[R][D];
+  __shared__ float s_m[R][kRows], s_l[R][kRows];
+  __shared__ int scratch[kWarps];
+  griddep_launch_dependents();  // pass 2 may start its V loads now
 
-  float qr[R][E];
-  const __nv_bfloat16* qb = q + ((int64_t)(b * G + g) * R) * D + lane * E;
-#pragma unroll
-  for (int r = 0; r < R; ++r) load_row<E>(qb + r * D, qr[r]);
-
-  float m[R], l[R], o[R][E];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) o[r][e] = 0.f;
+  const int bg = blockIdx.x;
+  const int b = bg / G;
+  const int g = bg - b * G;
+  const Range range(phys, logical, kv_len, b, W, page, P);
+  const Workspace out(ws, bg, gridDim.x, blockIdx.y, gridDim.y, R, D,
+                      W * page);
+  const __nv_bfloat16* qb = q + (int64_t)bg * R * D;
+  for (int i = threadIdx.x; i < R * D; i += kThreads)
+    sq[i / D][i % D] = __bfloat162float(qb[i]);
+  const int rows = range.visit_rows(scratch);
+  if (rows == 0) {  // (NEG_INF, 0): weight 0 in the later passes
+    if (threadIdx.x < R) {
+      out.m[threadIdx.x] = kNegInf;
+      out.l[threadIdx.x] = 0.f;
+    }
+    return;
   }
-
-  const int len = kv_len[b];
-  const int rows = W * page;
-  const int32_t* phys_b = phys + (int64_t)b * W;
-  const int32_t* logical_b = logical + (int64_t)b * W;
-
-  for (int base = warp * kUnroll; base < rows; base += kWarps * kUnroll) {
-    float kf[kUnroll][E], vf[kUnroll][E];
-    bool ok[kUnroll];
+  const int n_st = (rows + kRows - 1) / kRows;
+  auto fetch = [&](int st) {
+    if (st < n_st) {
+      for (int c = threadIdx.x; c < kRows * CH; c += kThreads) {
+        const int r = c / CH;
+        const int e = (c - r * CH) * 8;
+        const int idx = st * kRows + r;
+        int ph = 0, rp = 0;
+        const bool ok = idx < rows && range.locate(idx, ph, rp);
+        cp_async16(&sk[st % NS][r * D + e],
+                   k + ph * k_sp + rp * k_sr + g * k_sg + e, ok);
+      }
+    }
+    cp_async_commit();  // empty groups keep the count uniform
+  };
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int idx = base + u;
-      ok[u] = false;
-      if (idx < rows) {
-        const int w = idx / page;
-        const int row = idx - w * page;
-        const int lg = logical_b[w];
-        ok[u] = lg >= 0 && (int64_t)lg * page + row < len;
-        if (ok[u]) {
-          // padded slots are masked above; clamp keeps any id in the pool
-          const int ph = min(max(phys_b[w], 0), P - 1);
-          load_row<E>(k + ph * k_sp + row * k_sr + g * k_sg + lane * E, kf[u]);
-          load_row<E>(v + ph * v_sp + row * v_sr + g * v_sg + lane * E, vf[u]);
-        }
+  for (int st = 0; st < NS - 1; ++st) fetch(st);
+
+  // the 8 threads of a row share its score; the first writes it and
+  // keeps the max over its rows, one per stage
+  const int srow = threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
+  float m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) m[r] = kNegInf;
+  float* scores = out.s + range.w0 * page;
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // stage st landed; stage st - 1 is consumed
+    fetch(st + NS - 1);
+    const __nv_bfloat16* tile = sk[st % NS];
+    const int idx = st * kRows + srow;
+    int ph, rp;
+    const bool ok = idx < rows && range.locate(idx, ph, rp);
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+#pragma unroll
+    for (int u = 0; u < CH / TPR; ++u) {
+      const int c = part + u * TPR;  // a row's 8 threads read 128 bytes
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(&tile[srow * D + c * 8]);
+      const __nv_bfloat162* two =
+          reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 kf = __bfloat1622float2(two[e]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[r] = fmaf(sq[r][c * 8 + 2 * e], kf.x,
+                        fmaf(sq[r][c * 8 + 2 * e + 1], kf.y, acc[r]));
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (!ok[u]) continue;  // warp-uniform: depends on the row only
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) part = fmaf(qr[r][e], kf[u][e], part);
-        const float s = warp_sum(part) * scale;
-        const float m_new = fmaxf(m[r], s);
-        const float alpha = __expf(m[r] - m_new);
-        const float p = __expf(s - m_new);
-        l[r] = l[r] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < E; ++e) o[r][e] = fmaf(p, vf[u][e], o[r][e] * alpha);
-        m[r] = m_new;
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+      if (part == 0 && idx < rows) {
+        const float s = ok ? round_bf16(acc[r]) * scale : kNegInf;
+        scores[(int64_t)r * W * page + idx] = s;
+        m[r] = fmaxf(m[r], s);
       }
     }
   }
-
-  // merge the warps' partial states: exact flash merge in fp32
-  __shared__ float sm_m[kWarps][R];
-  __shared__ float sm_l[kWarps][R];
-  __shared__ float sm_o[kWarps][R][D];
+  cp_async_wait<0>();
+  // each row owner's l over the scores it wrote; then the 16 owners'
+  // (m, l) merge in row order
+  if (part == 0) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (lane == 0) {
-      sm_m[warp][r] = m[r];
-      sm_l[warp][r] = l[r];
+    for (int r = 0; r < R; ++r) {
+      float l = 0.f;
+      for (int idx = srow; idx < rows; idx += kRows) {
+        const float x = scores[(int64_t)r * W * page + idx];
+        if (x > kNegInf / 2) l += expf(x - m[r]);
+      }
+      s_m[r][srow] = m[r];
+      s_l[r][srow] = l;
     }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sm_o[warp][r][lane * E + e] = o[r][e];
   }
   __syncthreads();
-
-  __nv_bfloat16* ob = out + ((int64_t)(b * G + g) * R) * D;
-  for (int i = threadIdx.x; i < R * D; i += blockDim.x) {
-    const int r = i / D;
-    const int e = i - r * D;
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
     float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      // a warp that saw no valid row holds l = 0, o = 0: weight 0
-      const float c = sm_l[w][r] > 0.f ? __expf(sm_m[w][r] - mx) : 0.f;
-      den = fmaf(sm_l[w][r], c, den);
-      num = fmaf(sm_o[w][r][e], c, num);
-    }
-    ob[i] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+    for (int i = 0; i < kRows; ++i)
+      if (s_l[r][i] > 0.f) mx = fmaxf(mx, s_m[r][i]);
+    float sum = 0.f;
+    for (int i = 0; i < kRows; ++i)
+      if (s_l[r][i] > 0.f) sum += s_l[r][i] * expf(s_m[r][i] - mx);
+    out.m[r] = mx;
+    out.l[r] = sum;
   }
+}
+
+// Pass 2: the range's share of o = sum of bf16(exp(s - M) / L) · v, with
+// (M, L) the sequence's, merged from every range's (m, l) in split order.
+// Launched while pass 1 runs: it streams its V rows in first and waits for
+// pass 1's results only before it needs them.
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads)
+paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
+                const int32_t* __restrict__ phys,      // [B, W]
+                const int32_t* __restrict__ logical,   // [B, W]
+                const int32_t* __restrict__ kv_len,    // [B]
+                float* __restrict__ ws, int G, int W, int page, int P,
+                int64_t v_sp, int64_t v_sr, int64_t v_sg) {
+  constexpr int NS = stages<D>();
+  constexpr int CH = D / 8;
+  constexpr int EP = D / 2;              // bf16 pairs per row
+  constexpr int NH = kThreads / EP;      // row subsets
+  constexpr int RT = kRows / NH;         // rows per thread and stage
+  static_assert(kThreads % EP == 0 && NH * R * D * 4 <= NS * kRows * D * 2,
+                "tile shape");
+  __shared__ __align__(16) __nv_bfloat16 sv[NS][kRows * D];
+  __shared__ float s_p[R][kMaxRows];     // the range's P
+  __shared__ float s_M[R], s_L[R];
+  __shared__ int scratch[kWarps];
+  griddep_launch_dependents();  // pass 3 may launch now
+
+  const int bg = blockIdx.x;
+  const int b = bg / G;
+  const int g = bg - b * G;
+  const int n_split = gridDim.y;
+  const Range range(phys, logical, kv_len, b, W, page, P);
+  const Workspace out(ws, bg, gridDim.x, blockIdx.y, n_split, R, D,
+                      W * page);
+  const int rows = range.visit_rows(scratch);
+  if (rows == 0) {  // l = 0 for this range: pass 3 skips it
+    griddep_wait();  // pass 3 relies on pass 1 having finished too
+    return;
+  }
+
+  const int n_st = (rows + kRows - 1) / kRows;
+  auto fetch = [&](int st) {
+    if (st < n_st) {
+      for (int c = threadIdx.x; c < kRows * CH; c += kThreads) {
+        const int r = c / CH;
+        const int e = (c - r * CH) * 8;
+        const int idx = st * kRows + r;
+        int ph = 0, rp = 0;
+        const bool ok = idx < rows && range.locate(idx, ph, rp);
+        cp_async16(&sv[st % NS][r * D + e],
+                   v + ph * v_sp + rp * v_sr + g * v_sg + e, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) fetch(st);
+
+  griddep_wait();  // pass 1's scores and (m, l) are complete from here
+  if (threadIdx.x < R) {
+    const Workspace all(ws, bg, gridDim.x, 0, n_split, R, D, W * page);
+    const int r = threadIdx.x;
+    float mx = kNegInf;
+    for (int s = 0; s < n_split; ++s)
+      if (all.l[s * R + r] > 0.f) mx = fmaxf(mx, all.m[s * R + r]);
+    float den = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float ls = all.l[s * R + r];
+      if (ls > 0.f) den += ls * expf(all.m[s * R + r] - mx);
+    }
+    s_M[r] = mx;
+    s_L[r] = fmaxf(den, 1e-30f);
+  }
+  // P = bf16(exp(s - M) / L) of every row of the range, once (0 where
+  // masked and past the last row)
+  const float* scores = out.s + range.w0 * page;
+  const int padded = n_st * kRows;
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * padded; i += kThreads) {
+    const int r = i / padded;
+    const int idx = i - r * padded;
+    const float x =
+        idx < rows ? scores[(int64_t)r * W * page + idx] : kNegInf;
+    s_p[r][idx] =
+        x > kNegInf / 2 ? round_bf16(expf(x - s_M[r]) / s_L[r]) : 0.f;
+  }
+  __syncthreads();
+  float o[R][2];
+#pragma unroll
+  for (int r = 0; r < R; ++r) o[r][0] = o[r][1] = 0.f;
+  const int pair = threadIdx.x % EP;
+  const int sub = threadIdx.x / EP;
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();
+    fetch(st + NS - 1);
+    const __nv_bfloat16* tile = sv[st % NS];
+#pragma unroll
+    for (int j = 0; j < RT; ++j) {
+      const float2 vf = __bfloat1622float2(*reinterpret_cast<
+          const __nv_bfloat162*>(&tile[(sub + j * NH) * D + 2 * pair]));
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = s_p[r][st * kRows + sub + j * NH];
+        o[r][0] = fmaf(p, vf.x, o[r][0]);
+        o[r][1] = fmaf(p, vf.y, o[r][1]);
+      }
+    }
+  }
+
+  // the NH row subsets' sums add, in order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(&sv[0][0]);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    red[(sub * R + r) * D + 2 * pair] = o[r][0];
+    red[(sub * R + r) * D + 2 * pair + 1] = o[r][1];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    float acc = 0.f;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) acc += red[h * R * D + i];
+    out.o[i] = acc;
+  }
+}
+
+// Pass 3: out[b, g] = the ranges' partial o's added in split order; a
+// range with l = 0 (no valid row) adds nothing and its o is never read.
+template <int D, int R>
+__global__ void __launch_bounds__(kThreads)
+paged_sum_kernel(const float* __restrict__ ws,
+                 __nv_bfloat16* __restrict__ out, int n_split, int rows_w) {
+  griddep_wait();
+  const int bg = blockIdx.x;
+  const Workspace all(const_cast<float*>(ws), bg, gridDim.x, 0, n_split, R,
+                      D, rows_w);
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
+    const int r = i / D;
+    float acc = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      if (all.l[s * R + r] > 0.f) acc += all.o[s * R * D + i];
+    out[(int64_t)bg * R * D + i] = __float2bfloat16(acc);
+  }
+}
+
+// Launch with programmatic dependent launch: the kernel may start before
+// the previous one on the stream ends, and waits for it in griddep_wait.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 template <int D, int R>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* phys, const void* logical, const void* kv_len,
-                   void* out, int B, int G, int W, int page, int P,
-                   int64_t k_sp, int64_t k_sr, int64_t k_sg, int64_t v_sp,
-                   int64_t v_sr, int64_t v_sg, float scale,
-                   cudaStream_t stream) {
-  paged_decode_kernel<D, R><<<B * G, kWarps * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(phys),
-      static_cast<const int32_t*>(logical), static_cast<const int32_t*>(kv_len),
-      static_cast<__nv_bfloat16*>(out), G, W, page, P, k_sp, k_sr, k_sg, v_sp,
-      v_sr, v_sg, scale);
+                   void* out, float* ws, int B, int G, int W, int page,
+                   int P, int64_t k_sp, int64_t k_sr, int64_t k_sg,
+                   int64_t v_sp, int64_t v_sr, int64_t v_sg, float scale,
+                   int n_split, cudaStream_t stream) {
+  const dim3 grid(B * G, n_split);
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v);
+  const int32_t* ph = static_cast<const int32_t*>(phys);
+  const int32_t* lg = static_cast<const int32_t*>(logical);
+  const int32_t* kl = static_cast<const int32_t*>(kv_len);
+  paged_scores_kernel<D, R><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), ph, lg, kl, ws, G, W, page, P,
+      k_sp, k_sr, k_sg, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_dependent(paged_pv_kernel<D, R>, grid, stream, vp, ph, lg, kl,
+                         ws, G, W, page, P, v_sp, v_sr, v_sg);
+  if (err != cudaSuccess) return err;
+  err = launch_dependent(paged_sum_kernel<D, R>, dim3(B * G), stream,
+                         static_cast<const float*>(ws),
+                         static_cast<__nv_bfloat16*>(out), n_split, W * page);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// (D, R) pairs with R*D <= 1024 keep the merge buffer in static shared
-// memory (<= 32 KB); the Python wrapper checks the pair before calling.
+// (D, R) pairs with R*D <= 1024; the Python wrapper checks the pair, the
+// shapes and the strides before calling, and allocates ws: B·G·R·(n_split·
+// (D + 2) + W·page) floats.
 #define PAGED_CASE(DD, RR)                                                    \
   if (D == DD && R == RR)                                                     \
-    return static_cast<int>(launch<DD, RR>(q, k, v, phys, logical, kv_len, \
-                                           out, B, G, W, page, P, k_sp, k_sr, \
-                                           k_sg, v_sp, v_sr, v_sg, scale,     \
-                                           static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch<DD, RR>(                                   \
+        q, k, v, phys, logical, kv_len, out, static_cast<float*>(ws), B, G,   \
+        W, page, P, k_sp, k_sr, k_sg, v_sp, v_sr, v_sg, scale, n_split,       \
+        static_cast<cudaStream_t>(stream)));
 
 extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* phys, const void* logical,
-                                 const void* kv_len, void* out, int B, int G,
-                                 int R, int D, int W, int page, int P,
-                                 int64_t k_sp, int64_t k_sr, int64_t k_sg,
-                                 int64_t v_sp, int64_t v_sr, int64_t v_sg,
-                                 float scale, void* stream) {
+                                 const void* kv_len, void* out, void* ws,
+                                 int B, int G, int R, int D, int W, int page,
+                                 int P, int n_split, int64_t k_sp,
+                                 int64_t k_sr, int64_t k_sg, int64_t v_sp,
+                                 int64_t v_sr, int64_t v_sg, float scale,
+                                 void* stream) {
+  if (B <= 0 || G <= 0 || W <= 0 || page <= 0 || P <= 0 || n_split <= 0 ||
+      n_split > W || (W + n_split - 1) / n_split * page > kMaxRows)
+    return static_cast<int>(cudaErrorInvalidValue);
   PAGED_CASE(64, 1) PAGED_CASE(64, 2) PAGED_CASE(64, 4) PAGED_CASE(64, 8)
   PAGED_CASE(64, 16)
   PAGED_CASE(128, 1) PAGED_CASE(128, 2) PAGED_CASE(128, 4) PAGED_CASE(128, 8)

@@ -3,7 +3,7 @@
 Each ``csrc/*.cu`` source compiles on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), for
 ``sm_90a``. Libraries land in ``<repo>/build/``, named by a hash of the
-source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source, the shared ``csrc/*.cuh`` headers and its flags, so an edited
 source or header rebuilds and an unchanged one
 loads as is. Building happens at first use; ``build()`` starts one
 ``nvcc`` per missing source, all at once, and raises if any fails.
@@ -30,6 +30,9 @@ SOURCES = {"paged_decode": CSRC / "paged_decode.cu",
            "flash": CSRC / "flash.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# flash.cu encodes TMA tensor maps with cuTensorMapEncodeTiled, which
+# libcuda provides
+EXTRA_FLAGS = {"flash": ("-lcuda",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -46,7 +49,7 @@ def lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):   # shared by the tile kernels
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -65,7 +68,9 @@ def build(names: Optional[list[str]] = None) -> dict[str, dict]:
             out[name] = {"seconds": 0.0, "cached": True, "log": ""}
             continue
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        # libraries after the source: the linker may drop unneeded ones
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name]),
+               *EXTRA_FLAGS.get(name, ())]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, dst)

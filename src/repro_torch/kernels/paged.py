@@ -3,9 +3,13 @@ behind a checked wrapper, beside its plain PyTorch version.
 
 Replaces ``repro/kernels/paged.py::paged_decode_attention`` (Pallas, TPU).
 The kernel is bound by memory (it must read every gathered K/V row once);
-see the source's header for its design. Tensors on the CPU take the plain
-version; tensors on a GPU launch the kernel or raise — there is no
-fallback. ``kernels.LAUNCHES["paged_decode"]`` counts launches.
+it splits each sequence's block table into ``split_plan`` ranges, one
+block each, which first find the sequence's softmax statistics and then
+add their share of P·V (see the source's header;
+``ref.paged_decode_split_ref`` is the same algorithm in plain form).
+Tensors on the CPU take the plain version; tensors on a GPU launch the
+kernel or raise — there is no fallback. ``kernels.LAUNCHES
+["paged_decode"]`` counts calls that launched it.
 """
 
 from __future__ import annotations
@@ -20,6 +24,30 @@ from repro_torch.kernels import launch
 SUPPORTED = {(64, 1), (64, 2), (64, 4), (64, 8), (64, 16),
              (128, 1), (128, 2), (128, 4), (128, 8),
              (256, 1), (256, 2), (256, 4)}
+
+SMS = 132                # streaming multiprocessors of an H100 SXM
+BLOCKS_PER_SM = 4        # blocks per SM the split plan aims for
+STAGE_ROWS = 16          # rows the kernel stages at a time
+MAX_RANGE_ROWS = 256     # rows of one range the kernel holds P for
+
+
+def split_plan(b: int, g: int, w: int, page: int) -> int:
+    """How many ranges of block-table slots the kernel splits each
+    (sequence, KV head) into, from the shapes alone (kv_len's values would
+    cost a device sync per layer): enough for BLOCKS_PER_SM blocks per SM,
+    at most one per slot and at most one per STAGE_ROWS rows of a full
+    table; but at least enough that no range exceeds MAX_RANGE_ROWS
+    rows."""
+    target = -(-SMS * BLOCKS_PER_SM // (b * g))
+    most = max(1, min(w, w * page // STAGE_ROWS))
+    need = -(-w // max(1, MAX_RANGE_ROWS // page))
+    return min(w, max(need, min(target, most)))
+
+
+def split_ranges(w: int, n_split: int) -> list[tuple[int, int]]:
+    """The slots [w0, w1) of each split, as the kernel computes them."""
+    return [(s * w // n_split, (s + 1) * w // n_split)
+            for s in range(n_split)]
 
 
 def paged_decode_reference(q, k_pages, v_pages, phys, logical, kv_len, *,
@@ -56,20 +84,24 @@ def _check(q, k_pages, v_pages, phys, logical, kv_len) -> None:
         raise ValueError(f"paged_decode: pool {tuple(k_pages.shape)} does "
                          f"not match q {tuple(q.shape)}")
     if phys.dim() != 2 or phys.shape != logical.shape or phys.shape[0] != b \
-            or kv_len.shape != (b,):
+            or phys.shape[1] < 1 or kv_len.shape != (b,):
         raise ValueError("paged_decode: phys/logical [B,W] and kv_len [B] "
                          "expected")
+    if k_pages.shape[1] > MAX_RANGE_ROWS:
+        raise ValueError(f"paged_decode: page {k_pages.shape[1]} above "
+                         f"{MAX_RANGE_ROWS} rows")
     if (d, r) not in SUPPORTED:
         raise ValueError(f"paged_decode: (head_dim, R) = {(d, r)} not "
                          f"built; supported {sorted(SUPPORTED)}")
     if not q.is_contiguous():
         raise ValueError("paged_decode: q must be contiguous")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        # rows are read as bf16 pairs: unit inner stride, even strides
-        if t.stride(3) != 1 or any(s % 2 for s in t.stride()[:3]) \
-                or t.data_ptr() % 4:
+        # rows are copied 16 bytes (8 bf16) at a time
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
             raise ValueError(f"paged_decode: {name} needs a contiguous "
-                             f"head_dim and even, aligned strides")
+                             f"head_dim, strides in multiples of 8 and a "
+                             f"16-byte aligned start")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -88,14 +120,21 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     launch.require_cuda("paged_decode", q.device)
     _check(q, k_pages, v_pages, phys, logical, kv_len)
     b, g, r, d = q.shape
+    w, page = phys.shape[1], k_pages.shape[1]
+    n_split = split_plan(b, g, w, page)
     out = torch.empty_like(q)
+    # fp32 scratch: m, l and o[d] per (sequence, KV head, split, head),
+    # and the scores of every table row per (sequence, KV head, head)
+    ws = torch.empty(b * g * r * (n_split * (d + 2) + w * page),
+                     dtype=torch.float32, device=q.device)
     fn = launch.bind("paged_decode", "paged_decode_bf16",
-                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                      + [ctypes.c_int64] * 6
                      + [ctypes.c_float, ctypes.c_void_p])
     launch.launch("paged_decode", fn, q.device, q.data_ptr(),
                   k_pages.data_ptr(), v_pages.data_ptr(), phys.data_ptr(),
-                  logical.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, g,
-                  r, d, phys.shape[1], k_pages.shape[1], k_pages.shape[0],
-                  *k_pages.stride()[:3], *v_pages.stride()[:3], float(scale))
+                  logical.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                  ws.data_ptr(), b, g, r, d, w, page, k_pages.shape[0],
+                  n_split, *k_pages.stride()[:3], *v_pages.stride()[:3],
+                  float(scale))
     return out

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the prefill tile kernels, port of
-``repro.kernels.ref``: dense masked softmax, fp32 statistics, no tiling.
+``repro.kernels.ref``: dense masked softmax, fp32 statistics, no tiling;
+and K1's split-and-merge in plain form (``paged_decode_split_ref``).
 
 The wrappers (``kernels.flash``, ``kernels.sufa``, ``kernels.dlzs``) use
 them for tensors on the CPU, and the on-card checks hold each CUDA kernel
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.dlzs import pow2_quantize
+from repro_torch.kernels.paged import split_ranges
 
 NEG_INF = -1e30
 
@@ -80,3 +82,53 @@ def dlzs_block_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
     n_qt, n_kt = t // block_q, s // block_kv
     sc = sc.reshape(bh, n_qt, block_q, n_kt, block_kv)
     return sc.amax(dim=(2, 4))
+
+
+def paged_decode_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, phys: torch.Tensor,
+                           logical: torch.Tensor, kv_len: torch.Tensor, *,
+                           scale: float, n_split: int
+                           ) -> tuple[torch.Tensor, tuple]:
+    """K1's algorithm in plain form. Each of ``n_split`` ranges of
+    block-table slots (``kernels.paged.split_ranges``) gives its (m, l)
+    over scores rounded to q's dtype, as ``paged_gather_decode`` rounds
+    them; the ranges' (m, l) merge into the sequence's (M, L) in split
+    order; each range then adds its o = sum of P·v with P = exp(s - M) / L
+    rounded to q's dtype; the o's add in split order, a range with l = 0
+    adding nothing. Sums in fp32. q [B,G,R,d]; pool [P,page,G,d];
+    phys/logical [B,W]; kv_len [B]. Returns (out [B,G,R,d] in q's dtype,
+    (m, l [S,B,G,R], o [S,B,G,R,d]))."""
+    b, g, r, d = q.shape
+    n_pages, page = k_pages.shape[0], k_pages.shape[1]
+    rows = torch.arange(page, device=q.device)
+    parts = []
+    for w0, w1 in split_ranges(phys.shape[1], n_split):
+        ph = phys[:, w0:w1].long().clamp(0, n_pages - 1)       # [B, n]
+        lg = logical[:, w0:w1].long()
+        kr = k_pages[ph].reshape(b, -1, g, d)          # [B, n·page, G, d]
+        vr = v_pages[ph].float().reshape(b, -1, g, d)
+        valid = ((lg[:, :, None] >= 0) & (lg[:, :, None] * page + rows
+                                          < kv_len[:, None, None])
+                 ).reshape(b, 1, 1, -1)
+        sc = torch.einsum("bgrd,bsgd->bgrs", q.float(), kr.float())
+        sc = sc.to(q.dtype).float() * scale
+        sc = sc.masked_fill(~valid, NEG_INF)
+        m = sc.amax(dim=-1)
+        l = torch.exp(sc - m[..., None]).masked_fill(~valid, 0.0).sum(-1)
+        parts.append((sc, valid, vr, m, l))
+    m = torch.stack([p[3] for p in parts])
+    l = torch.stack([p[4] for p in parts])
+    live = l > 0
+    mx = m.masked_fill(~live, NEG_INF).amax(dim=0)
+    den = torch.zeros_like(mx)
+    for s in range(n_split):                      # the kernel's order
+        den = den + torch.where(live[s], l[s] * torch.exp(m[s] - mx), 0.0)
+    den = torch.clamp(den, min=1e-30)
+    o = torch.stack([torch.einsum(
+        "bgrs,bsgd->bgrd", (torch.exp(sc - mx[..., None]) / den[..., None])
+        .masked_fill(~valid, 0.0).to(q.dtype).float(), vr)
+        for sc, valid, vr, _, _ in parts])
+    out = torch.zeros_like(o[0])
+    for s in range(n_split):
+        out = out + torch.where(live[s][..., None], o[s], 0.0)
+    return out.to(q.dtype), (m, l, o)

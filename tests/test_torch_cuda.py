@@ -55,6 +55,54 @@ def test_paged_decode_kernel_matches_plain(cuda_device, d, r):
     assert float(got[3].float().abs().max()) == 0.0
 
 
+def _k1_inputs(b, g, r, d, w, kv_len, seed, device, page=16, n_pages=272):
+    """Block tables as the engine builds them: each sequence owns
+    ceil(kv_len / page) distinct random pages, its other slots are padding."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, g, r, d), generator=gen)
+    k = torch.randn((n_pages, page, g, d), generator=gen)
+    v = torch.randn((n_pages, page, g, d), generator=gen)
+    phys = torch.full((b, w), -1, dtype=torch.int32)
+    logical = torch.full((b, w), -1, dtype=torch.int32)
+    for i, n_rows in enumerate(kv_len):
+        n = -(-n_rows // page)
+        phys[i, :n] = (torch.randperm(n_pages - 1, generator=gen)[:n]
+                       + 1).int()
+        logical[i, :n] = torch.arange(n, dtype=torch.int32)
+    bf = [t.to(device, torch.bfloat16) for t in (q, k, v)]
+    kvl = torch.tensor(kv_len, dtype=torch.int32)
+    return bf + [t.to(device) for t in (phys, logical, kvl)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,r,w,kv_len,n_split", [
+    (33, 16, 1, 8, [128] * 20 + [77] * 13, 1),   # 528 blocks: no split
+    (33, 8, 2, 8, [128, 5] * 16 + [0], 2),
+    (1, 2, 4, 12, [150], 12),                    # the most: one per slot
+    (3, 16, 1, 130, [1040, 2064, 2064], 11),     # the whole-prompt phase
+    (4, 4, 8, 16, [1, 256, 17, 0], 16)])         # kv_len 1 and 0
+def test_paged_decode_kernel_splits(cuda_device, b, g, r, w, kv_len,
+                                    n_split):
+    """K1 against its plain version, bf16 at 2e-2, at plans of 1, 2 and
+    the most splits, at W = 130 and at kv_len 1 and 0; one counted launch
+    per call, and two calls on the same inputs give the same bits (the
+    splits merge in a fixed order, without atomics)."""
+    assert kpaged.split_plan(b, g, w, 16) == n_split
+    args = _k1_inputs(b, g, r, 128, w, kv_len, seed=b + w, device=cuda_device)
+    kernels.reset_launches()
+    got = kpaged.paged_decode_attention(*args, scale=128 ** -0.5)
+    again = kpaged.paged_decode_attention(*args, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode"] == 2
+    assert torch.equal(got, again)
+    want = kpaged.paged_decode_reference(*args, scale=128 ** -0.5)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16_TOL)
+    for i, n in enumerate(kv_len):
+        if n == 0:
+            assert float(got[i].float().abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 def test_paged_decode_kernel_rejects_cpu_fallback(cuda_device):
     """On a CUDA tensor the wrapper launches or raises: a float32 query
@@ -151,11 +199,14 @@ def test_sufa_kernel_matches_plain(cuda_device, strict, d, block, keep):
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("t,s,causal", [
     (256, 256, True), (256, 256, False), (991, 991, True), (200, 200, False),
-    (100, 300, True), (300, 100, True)])
+    (100, 300, True), (300, 100, True), (2048, 2048, True),
+    (1024, 1024, True), (1, 1, True), (1, 300, True), (129, 129, True),
+    (300, 1, True), (1, 1, False)])
 def test_flash_kernel_matches_plain(cuda_device, d, t, s, causal):
     """K4 against ``ref.flash_ref``, bf16 at 2e-2, at ragged T and S (the
-    kernel masks the edge itself) and at T > S, where the first rows see
-    no key and are zero."""
+    kernel masks the edge itself, within one tile too: T or S of 1), at
+    T > S, where the first rows see no key and are zero, and at the served
+    T = S = 2048."""
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cpu").manual_seed(d + t + s)

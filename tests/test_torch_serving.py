@@ -259,7 +259,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
 import chip_smoke
 sys.path.insert(0, {tools!r})
-import torch_profile_prefill, torch_star_drift
+import torch_profile_prefill, torch_star_drift, torch_decode_forms
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -314,6 +314,13 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                   timed=False)
     cs.check_flash("cpu", None, bh=2, t=200, causal=True, seed=2,
                    timed=False)
+    cs.check_flash("cpu", None, bh=2, t=1, causal=True, seed=2, timed=False,
+                   d=64)
+    # phase 2's K1 check: two calls bit-equal, the split plan reported
+    k1 = cs.check_paged_kernel("cpu", "rehearsal", b=2, g=2, r=2, d=64,
+                               page=16, w=6, p=16, kv_len=(90, 17), seed=5,
+                               timed=False)
+    assert k1["n_split"] == 6 and k1["violations"] == 0
     fused = cs.check_fused_star(params, cfg, seed=3, t=128, timed=False)
     assert fused["selection_agreement_min"] == 1.0
     assert len(fused["layers"]) == cfg.n_layers
