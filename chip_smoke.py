@@ -26,11 +26,15 @@ Phases, each printing its numbers on a line of its own:
    count), which runs the page scores and the sphere selection every tick;
 6. the prefill tile kernels against their plain versions on the card,
    bf16 at OLMo-1B's served shapes (BH 16, d 128, tiles 128, T = S of
-   1024 and 2048): K2 (DLZS block maxima; also non-causal, and at the
-   16-row tile of the pool probe), K3 (SU-FA, both ``strict`` modes, on
-   tiles the glue selects) and K4 (flash; also at a ragged T of 991, at
-   T = S = 1 and 129, and at d = 64), each timed beside its bound, its
-   plain version and one PyTorch call (SDPA; none computes K2's block
+   1024 and 2048), two calls bit-equal for K2 and K3: K2 (DLZS block
+   maxima; its wgmma form at the served tiles, also non-causal; its
+   mma.sync form at the pool probe's 16-row tile and at 64), K3 (SU-FA,
+   both ``strict`` modes, reading the tiles the glue selects in place
+   from their ids; its wgmma form at the served tiles and d = 64, its
+   mma.sync form at tiles of 16 and 64) and K4 (flash; also at a ragged
+   T of 991, at T = S = 1 and 129, and at d = 64), each timed beside its
+   bound, its plain version and one PyTorch call (SDPA, for K3 over the
+   gathered rows that its old contract read; none computes K2's block
    maxima);
 7. the fused STAR prefill (``kernels.ops``: K2 -> SADS -> K3) against the
    plain ``core.star_attention_scanq`` at every layer of a 2048-token
@@ -39,7 +43,8 @@ Phases, each printing its numbers on a line of its own:
 8. the whole-prompt prefill served (``SchedulerCfg(chunk_pages=None)``,
    STAR on): prompts of 1024, 1536 and 2048 tokens, each prefilled whole
    by ``lm.prefill``; K2 and K3 launch prefill calls x layers times (the
-   pool probe included), K1 ticks x layers; each first token is the
+   pool probe included), in their wgmma form for every call but the pool
+   probe's, K1 ticks x layers; each first token is the
    argmax of a cache-free STAR forward over the same bucketed prompt.
 Phase 4 also counts K4: oracle forwards x layers launches.
 
@@ -69,7 +74,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import olmo_1b  # noqa: E402
 from repro_torch.core import sads  # noqa: E402
 from repro_torch.core import star_attention as core_star  # noqa: E402
-from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import build, launch, ops  # noqa: E402
 from repro_torch.kernels import dlzs as kdlzs  # noqa: E402
 from repro_torch.kernels import flash as kflash  # noqa: E402
 from repro_torch.kernels import paged as kpaged  # noqa: E402
@@ -306,12 +311,14 @@ def serve(llm: LLM, prompts, max_tokens: int, reset: bool = True) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    form_launches = dict(kernels.FORM_LAUNCHES)
     if not all(h.done and h.outcome == "done" for h in handles):
         raise SystemExit("the engine left requests unserved")
     done = [h.tokens for h in handles]
     recs = [llm.records[h.rid] for h in handles]
     n_tok = sum(len(v) for v in done)
     return {"done": done, "ticks": tally["ticks"], "launches": launches,
+            "form_launches": form_launches,
             "decode_s": tally["decode_s"],
             "pages_total": tally["pages_total"],
             "pages_hot": tally["pages_hot"],
@@ -462,9 +469,13 @@ def check_dlzs(dev, flush, *, bh, t, block, causal, seed, timed) -> dict:
     kw = dict(causal=causal, block_q=block, block_kv=block)
     kernel = lambda: kdlzs.dlzs_block_scores(q, k, **kw)  # noqa: E731
     plain = lambda: kref.dlzs_block_ref(q, k, **kw)  # noqa: E731
-    out = held("prefill_kernel", kernel(), plain(),
-               PREFILL_TOL["dlzs_block"], kernel="dlzs_block", BH=bh, T=t,
-               S=t, d=128, block=block, causal=causal)
+    got = kernel()
+    if not torch.equal(got, kernel()):
+        raise SystemExit(f"dlzs_block T={t} block={block}: two calls on the "
+                         f"same inputs gave different bits")
+    out = held("prefill_kernel", got, plain(), PREFILL_TOL["dlzs_block"],
+               kernel="dlzs_block", form=launch.tile_form(block, block),
+               BH=bh, T=t, S=t, d=128, block=block, causal=causal)
     if timed:
         n_out = bh * (t // block) ** 2 * 4
         add_times(out, kernel, plain, None, flush,
@@ -474,37 +485,64 @@ def check_dlzs(dev, flush, *, bh, t, block, causal, seed, timed) -> dict:
     return out
 
 
-def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed) -> dict:
+def selected_pairs(idx, valid, *, t: int, s: int, block: int) -> int:
+    """(query, key) pairs K3 computes: the causal keys of each valid
+    selected tile, for each query row of its q-tile."""
+    n_qt = t // block
+    q_pos = torch.arange(t, device=idx.device).reshape(n_qt, block) + (s - t)
+    first = idx[..., None] * block                   # [BH, n_qt, keep, 1]
+    seen = (q_pos[None, :, None, :] - first + 1).clamp(0, block)
+    return int((seen * valid[..., None]).sum())
+
+
+def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
+               d=128) -> dict:
     """K3 on the tiles the glue selects for these inputs, keeping as many
-    as olmo_1b's STAR config keeps."""
-    q, k, v = prefill_inputs(bh, t, 128, seed, dev)
-    scale = 128 ** -0.5
+    as olmo_1b's STAR config keeps, read in place from the tile ids."""
+    q, k, v = prefill_inputs(bh, t, d, seed, dev)
+    scale = d ** -0.5
     keep = dataclasses.replace(olmo_1b.config().star, block_q=block,
                                block_kv=block).keep_blocks(t)
     raw = kdlzs.dlzs_block_scores(q, k, causal=True, scale=1.0,
                                   block_q=block, block_kv=block)
     idx, valid = ops.select_tiles(raw, keep, scale=scale, radius=5.0,
                                   dtype=q.dtype)
-    kg, vg, mask = ops.gather_selected(k, v, idx, valid, t=t, block_q=block,
-                                       block_kv=block, causal=True)
-    kw = dict(scale=scale, strict=strict)
-    kernel = lambda: ksufa.sufa_attention(q, kg, vg, mask, **kw)  # noqa
-    plain = lambda: ksufa.sufa_reference(q, kg, vg, mask, **kw)  # noqa
-    out = held("prefill_kernel", kernel(), plain(), PREFILL_TOL["sufa"],
-               kernel="sufa", BH=bh, T=t, d=128, block=block, keep=keep,
-               strict=strict,
-               gathered_bytes={"kg": nbytes(kg), "vg": nbytes(vg),
-                               "mask": nbytes(mask), "k": nbytes(k)})
+    kw = dict(block_q=block, block_kv=block, causal=True, scale=scale,
+              strict=strict)
+    kernel = lambda: ksufa.sufa_attention(q, k, v, idx, valid, **kw)  # noqa
+    plain = lambda: ksufa.sufa_reference(q, k, v, idx, valid, **kw)  # noqa
+    got = kernel()
+    if not torch.equal(got, kernel()):
+        raise SystemExit(f"sufa T={t} block={block}: two calls on the same "
+                         f"inputs gave different bits")
+    # the TPU contract's operands, which the served path no longer writes
+    kg, vg, mask = ksufa.gather_selected(k, v, idx, valid, t=t,
+                                         block_q=block, block_kv=block,
+                                         causal=True)
+    # distinct (head, key tile) pairs that some q-tile reads
+    reads = torch.zeros((bh, t // block), dtype=torch.int32, device=dev)
+    reads.scatter_add_(1, idx.reshape(bh, -1), valid.reshape(bh, -1).int())
+    n_tiles = int((reads > 0).sum())
+    tile_bytes = 2 * n_tiles * block * d * k.element_size()
+    out = held("prefill_kernel", got, plain(), PREFILL_TOL["sufa"],
+               kernel="sufa", form=launch.tile_form(block, block), BH=bh,
+               T=t, d=d, block=block, keep=keep, strict=strict,
+               valid_tiles=int(valid.sum()), distinct_tiles=n_tiles,
+               gathered_bytes_not_moved={
+                   "kg": nbytes(kg), "vg": nbytes(vg), "mask": nbytes(mask),
+                   "k": nbytes(k)})
     if timed:
-        # SDPA over the same gathered rows under the boolean mask
+        # SDPA over the same gathered rows under the boolean mask (the
+        # gather is outside the timed call)
         n = bh * (t // block)
-        qs = q.reshape(n, 1, block, 128)
-        ks, vs = (x.reshape(n, 1, keep * block, 128) for x in (kg, vg))
+        qs = q.reshape(n, 1, block, d)
+        ks, vs = (x.reshape(n, 1, keep * block, d) for x in (kg, vg))
         ms = mask.transpose(2, 3).reshape(n, 1, block, keep * block)
         add_times(out, kernel, plain,
                   lambda: SDPA(qs, ks, vs, attn_mask=ms, scale=scale), flush,
-                  bytes_=nbytes(q, kg, vg, mask, q),
-                  flops=4 * 128 * int(mask.count_nonzero()))
+                  bytes_=nbytes(q, q, idx, valid) + tile_bytes,
+                  flops=4 * d * selected_pairs(idx, valid, t=t, s=t,
+                                               block=block))
     emit("prefill_kernel", ok=True, **out)
     return out
 
@@ -532,16 +570,29 @@ def check_prefill_kernels(dev) -> dict:
         timed["dlzs_block"] = check_dlzs(dev, flush, bh=16, t=t, block=128,
                                          causal=True, seed=t,
                                          timed=t == 2048)
-    check_dlzs(dev, flush, bh=16, t=1024, block=128, causal=False, seed=3,
-               timed=False)
+    # non-causal, every q-tile the same work: K2's rate without the causal
+    # grid's imbalance
+    timed["dlzs_block_noncausal"] = check_dlzs(
+        dev, flush, bh=16, t=2048, block=128, causal=False, seed=3,
+        timed=True)
+    # the mma.sync form: the pool probe's one-page tile, and tiles of 64
     check_dlzs(dev, flush, bh=16, t=16, block=16, causal=True, seed=4,
-               timed=False)              # the pool probe's one-page tile
-    for t in (1024, 2048):
-        for strict in (True, False):
+               timed=False)
+    check_dlzs(dev, flush, bh=16, t=1024, block=64, causal=True, seed=5,
+               timed=False)
+    for strict in (True, False):
+        for t in (1024, 2048):
             out = check_sufa(dev, flush, bh=16, t=t, block=128,
                              strict=strict, seed=t + 5, timed=t == 2048)
             if t == 2048:
                 timed["sufa" if strict else "sufa_fast"] = out
+        check_sufa(dev, flush, bh=16, t=1024, block=128, strict=strict,
+                   seed=9, timed=False, d=64)
+        # the mma.sync form: the pool probe's tile, and tiles of 64
+        check_sufa(dev, flush, bh=16, t=16, block=16, strict=strict, seed=6,
+                   timed=False)
+        check_sufa(dev, flush, bh=16, t=1024, block=64, strict=strict,
+                   seed=7, timed=False)
     for t in (1024, 2048, 991, 1, 129):
         out = check_flash(dev, flush, bh=16, t=t, causal=True, seed=t + 7,
                           timed=t == 2048)
@@ -758,23 +809,38 @@ def serve_whole_prompt(cfg, params, prompts, max_tokens, *, device,
     finally:
         tally["restore"]()
     summary = served_summary(run, cfg.n_layers)
+    # K2 and K3 take their wgmma form where a prefill's tiles are 128 x 128
+    wgmma_calls = sum(launch.tile_form(min(cfg.star.block_q, w),
+                                       min(cfg.star.block_kv, w)) == "wgmma"
+                      for w in tally["widths"])
     summary.update(
         prefill_calls=tally["calls"], prefill_widths=tally["widths"],
         prefill_s=tally["seconds"],
         dlzs_block_launches=run["launches"]["dlzs_block"],
         sufa_launches=run["launches"]["sufa"],
         flash_launches=run["launches"]["flash"],
-        expected_prefill_launches=tally["calls"] * cfg.n_layers)
+        form_launches=run["form_launches"],
+        expected_prefill_launches=tally["calls"] * cfg.n_layers,
+        expected_wgmma_launches=wgmma_calls * cfg.n_layers)
     return llm, run, summary
 
 
 def require_prefill_launches(summary: dict, tag: str) -> None:
+    """K2 and K3 once per layer of every prefill call, in the wgmma form
+    wherever the call's tiles are 128 x 128 (all but the pool probe)."""
     want = summary["expected_prefill_launches"]
     got = (summary["dlzs_block_launches"], summary["sufa_launches"])
     if summary["prefill_calls"] == 0 or got != (want, want):
         raise SystemExit(f"{tag}: K2/K3 launched {got} times over "
                          f"{summary['prefill_calls']} prefill calls; "
                          f"expected prefill calls x layers = {want}")
+    forms = summary["form_launches"]
+    wgmma = summary["expected_wgmma_launches"]
+    got = (forms["dlzs_block/wgmma"], forms["sufa/wgmma"])
+    if wgmma == 0 or got != (wgmma, wgmma):
+        raise SystemExit(f"{tag}: K2/K3 launched their wgmma form {got} "
+                         f"times over prefill widths "
+                         f"{summary['prefill_widths']}; expected {wgmma}")
 
 
 @torch.inference_mode()
@@ -936,6 +1002,10 @@ def main() -> int:
                 "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"], **extra}
 
+    def forms(name):
+        return {f: whole["form_launches"][f"{name}/{f}"]
+                for f in ("wgmma", "mma_sync")}
+
     print(json.dumps({"kernels": [
         line("paged_decode", "paged_decode.cu",
              "src/repro/kernels/paged.py:67", main["k1_launches"], k1,
@@ -945,10 +1015,20 @@ def main() -> int:
              library_ms_w130=k1_w130["library_ms"],
              n_split_w130=k1_w130["n_split"]),
         line("dlzs_block", "dlzs_block.cu", "src/repro/kernels/dlzs.py:65",
-             whole["dlzs_block_launches"], tiles["dlzs_block"]),
+             whole["dlzs_block_launches"], tiles["dlzs_block"],
+             form=tiles["dlzs_block"]["form"],
+             launches_by_form=forms("dlzs_block"),
+             ms_noncausal=tiles["dlzs_block_noncausal"]["ms"],
+             bound_ms_noncausal=tiles["dlzs_block_noncausal"]["bound_ms"]),
         line("sufa", "sufa.cu", "src/repro/kernels/sufa.py:72",
              whole["sufa_launches"], tiles["sufa"],
-             ms_fast_path=tiles["sufa_fast"]["ms"]),
+             form=tiles["sufa"]["form"], launches_by_form=forms("sufa"),
+             ms_fast_path=tiles["sufa_fast"]["ms"],
+             ms_fast_path_repeat=tiles["sufa_fast"]["ms_repeat"],
+             plain_ms_fast_path=tiles["sufa_fast"]["plain_ms"],
+             library_ms_fast_path=tiles["sufa_fast"]["library_ms"],
+             gathered_bytes_not_moved=tiles["sufa"][
+                 "gathered_bytes_not_moved"]),
         line("flash", "flash.cu", "src/repro/kernels/flash.py:67",
              exact["k4_launches"], tiles["flash"]),
     ]}), flush=True)

@@ -87,12 +87,6 @@ __host__ __device__ constexpr int smem_bytes() {  // Q, K/V ring, alignment
   return tile_bytes<D>() * (1 + 2 * kStages) + 1024;
 }
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
@@ -269,23 +263,6 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
   }
 }
 
-// A 3-D map over a row-major [BH, rows, D] bf16 tensor, boxes of
-// 64 columns x box_rows rows of one head, 128-byte swizzle, zero fill.
-bool encode(CUtensorMap* map, const void* ptr, int BH, int rows, int D,
-            int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int BH, int T, int S, int q_offset, int causal,
@@ -299,8 +276,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     configured = true;
   }
   CUtensorMap qmap, kmap, vmap;
-  if (!encode(&qmap, q, BH, T, D, kBQ) || !encode(&kmap, k, BH, S, D, kBC) ||
-      !encode(&vmap, v, BH, S, D, kBC))
+  if (!encode_rows_map(&qmap, q, BH, T, D, kBQ) ||
+      !encode_rows_map(&kmap, k, BH, S, D, kBC) ||
+      !encode_rows_map(&vmap, v, BH, S, D, kBC))
     return cudaErrorInvalidValue;
   const dim3 grid(BH, (T + kBQ - 1) / kBQ);
   flash_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(

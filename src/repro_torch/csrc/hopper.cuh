@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
-// mbarrier hand-offs, TMA tile loads, wgmma shared-memory descriptors and
-// the wgmma products themselves, as inline PTX (no CUTLASS needed).
+// Hopper (sm_90a) building blocks of the port's warp-specialised kernels
+// (flash.cu, sufa.cu, dlzs_block.cu): mbarrier hand-offs, named barriers
+// and the async-proxy fence, TMA tile loads and the host-side tensor-map
+// encoder, wgmma shared-memory descriptors and the wgmma products
+// themselves, as inline PTX (no CUTLASS needed).
 //
 // Shared-memory tiles arrive from TMA with CU_TENSOR_MAP_SWIZZLE_128B: a
 // box is at most 64 bf16 wide (128 bytes), its rows are 128 bytes apart,
@@ -72,7 +74,40 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// -- named barriers and proxy fences ----------------------------------------
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, a multiple
+// of 32: the consumer warpgroups meet without the producer warp.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Order this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (wgmma operand reads, TMA writes) of the same bytes.
+// Each writing thread fences, then the threads meet at a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -- TMA -----------------------------------------------------------------------
+
+// A 3-D map over a row-major [BH, rows, D] bf16 tensor, boxes of 64
+// columns x box_rows rows of one head, 128-byte swizzle, zero fill past a
+// head's last row (host side; cuTensorMapEncodeTiled is libcuda's: -lcuda).
+inline bool encode_rows_map(CUtensorMap* map, const void* ptr, int BH,
+                            int rows, int D, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 // Box (c0, c1, c2) of a 3-D tensor map into shared memory at dst; completion
 // is counted in bytes on bar. Out-of-bounds elements arrive as zeros.
@@ -88,6 +123,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 }
 
 // -- wgmma -------------------------------------------------------------------
+
+// 2^x in one instruction (relative error 2^-22): the softmax kernels fold
+// scale * log2(e) into the scores and exponentiate in base 2.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Descriptor of a 128-byte-swizzled shared tile starting at p.
 __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,

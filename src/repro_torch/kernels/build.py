@@ -30,9 +30,10 @@ SOURCES = {"paged_decode": CSRC / "paged_decode.cu",
            "flash": CSRC / "flash.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# flash.cu encodes TMA tensor maps with cuTensorMapEncodeTiled, which
+# the wgmma kernels (flash.cu, and the wgmma forms in dlzs_block.cu and
+# sufa.cu) encode TMA tensor maps with cuTensorMapEncodeTiled, which
 # libcuda provides
-EXTRA_FLAGS = {"flash": ("-lcuda",)}
+EXTRA_FLAGS = {name: ("-lcuda",) for name in ("dlzs_block", "sufa", "flash")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

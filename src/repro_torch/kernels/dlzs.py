@@ -5,10 +5,13 @@ Replaces ``repro/kernels/dlzs.py::dlzs_block_scores`` (Pallas, TPU): per
 (query tile, key tile), the largest predicted score
 ``scale · Q · pow2(K)ᵀ`` under the causal mask at offset ``S − T``. Only
 the [BH, n_qt, n_kt] fp32 maxima leave the kernel. It is bound by
-operations at long T; see the source's header for its design. Tensors on
-the CPU take the plain version (``ref.dlzs_block_ref``); tensors on a GPU
-launch the kernel (bf16) or raise. ``kernels.LAUNCHES["dlzs_block"]``
-counts launches.
+operations at long T; see the source's header for its design. Two forms,
+picked by shape alone (``launch.tile_form``): ``wgmma`` + TMA for the
+served 128 x 128 tiles, ``mma_sync`` for other tiles (the pool probe's
+16). Tensors on the CPU take the plain version (``ref.dlzs_block_ref``);
+tensors on a GPU launch the kernel (bf16) or raise.
+``kernels.LAUNCHES["dlzs_block"]`` counts launches,
+``kernels.FORM_LAUNCHES`` each form's.
 """
 
 from __future__ import annotations
@@ -60,10 +63,18 @@ def dlzs_block_scores(q: torch.Tensor, k: torch.Tensor, *,
                          f"tiles {block_q} x {block_kv}")
     out = torch.empty((bh, t // block_q, s // block_kv), dtype=torch.float32,
                       device=q.device)
-    fn = launch.bind(name, "dlzs_block_bf16",
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                     + [ctypes.c_float, ctypes.c_void_p])
-    launch.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(),
-                  out.data_ptr(), bh, t, s, d, block_q, block_kv, s - t,
-                  int(causal), float(scale))
+    form = launch.tile_form(block_q, block_kv)
+    ptrs = (q.data_ptr(), k.data_ptr(), out.data_ptr())
+    if form == "wgmma":
+        fn = launch.bind(name, "dlzs_wgmma_bf16",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                         + [ctypes.c_float, ctypes.c_void_p])
+        args = (*ptrs, bh, t, s, d, int(causal), float(scale))
+    else:
+        fn = launch.bind(name, "dlzs_mma_bf16",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                         + [ctypes.c_float, ctypes.c_void_p])
+        args = (*ptrs, bh, t, s, d, block_q, block_kv, int(causal),
+                float(scale))
+    launch.launch(name, fn, q.device, *args, form=form)
     return out

@@ -19,6 +19,7 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (64, 128)     # head dims the tile kernels instantiate
 MAX_TILE = 128            # largest tile; tiles are multiples of 16
+WGMMA_TILE = 128          # K2's and K3's wgmma form takes these tiles only
 
 
 def require_cuda(kernel: str, device: torch.device) -> None:
@@ -53,6 +54,14 @@ def check_tile(kernel: str, name: str, size: int) -> None:
                          f"16 up to {MAX_TILE}")
 
 
+def tile_form(block_q: int, block_kv: int) -> str:
+    """K2's and K3's form for a tiling, by shape alone: ``wgmma`` (TMA and
+    warpgroup products) for 128 x 128 tiles, ``mma_sync`` for the rest."""
+    if block_q == block_kv == WGMMA_TILE:
+        return "wgmma"
+    return "mma_sync"
+
+
 def bind(kernel: str, symbol: str, argtypes: list) -> Callable:
     """The C entry point ``symbol`` of library ``kernel`` (built at first
     use), returning the CUDA error code as an int."""
@@ -63,12 +72,16 @@ def bind(kernel: str, symbol: str, argtypes: list) -> Callable:
     return fn
 
 
-def launch(kernel: str, fn: Callable, device: torch.device, *args) -> None:
+def launch(kernel: str, fn: Callable, device: torch.device, *args,
+           form: str | None = None) -> None:
     """Run ``fn(*args, stream)`` on the device's current stream; raise if
-    the launch reports a CUDA error, else count it."""
+    the launch reports a CUDA error, else count it (and its ``form``, for
+    a kernel that has two)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES[kernel] += 1
+    if form is not None:
+        kernels.FORM_LAUNCHES[f"{kernel}/{form}"] += 1

@@ -5,8 +5,10 @@ prefill, port of ``repro.kernels.ops``.
   K2 ``dlzs_block_scores`` (predicted tile maxima; Â stays on chip)
   -> SADS tile top-k over the [BH, n_qt, n_kt] maxima (descending, ties to
      the lower index) and the sphere validity test
-  -> gather of the selected K/V tiles and the in-tile causal mask
-  -> K3 ``sufa_attention``.
+  -> K3 ``sufa_attention``, which reads the selected K/V tiles in place
+     from the tile ids and builds the validity and causal mask itself (the
+     TPU pipeline gathers the tiles and their mask between the two
+     kernels; here only K3's plain version does).
 ``star_attention_cfg`` runs it under a ``STARConfig`` so that it computes
 what ``core.star_attention.star_attention_scanq`` computes; the model's
 STAR prefill calls it, and its dense prefill calls ``flash`` (K4).
@@ -44,8 +46,11 @@ def flash(q, k, v, *, causal=True, scale=None):
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
 
-def sufa(q, kg, vg, mask, *, strict=False, scale=None):
-    return sufa_attention(q, kg, vg, mask, scale=scale, strict=strict)
+def sufa(q, k, v, idx, valid, *, block_q=128, block_kv=128, causal=True,
+         strict=False, scale=None):
+    return sufa_attention(q, k, v, idx, valid, block_q=block_q,
+                          block_kv=block_kv, causal=causal, scale=scale,
+                          strict=strict)
 
 
 def dlzs_blockmax(q, k, *, causal=True, block_q=128, block_kv=128,
@@ -66,31 +71,6 @@ def select_tiles(raw: torch.Tensor, keep: int, *, scale: float,
     return idx, valid
 
 
-def gather_selected(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
-                    valid: torch.Tensor, *, t: int, block_q: int,
-                    block_kv: int, causal: bool):
-    """K3's operands for tile ids ``idx`` / ``valid`` [BH, n_qt, keep]:
-    the gathered K/V tiles [BH, n_qt, keep, Bc, d] and the validity x
-    in-tile causal mask [BH, n_qt, keep, Bq, Bc] (queries are the last
-    ``t`` of the S positions)."""
-    bh, s, d = k.shape
-    n_qt, keep = idx.shape[1], idx.shape[2]
-    n_kt = s // block_kv
-    rows = torch.arange(bh, device=k.device)[:, None, None]
-    kg = k.reshape(bh, n_kt, block_kv, d)[rows, idx]
-    vg = v.reshape(bh, n_kt, block_kv, d)[rows, idx]
-    mask = valid[..., None, None]
-    if causal:
-        q_pos = (torch.arange(t, device=k.device) + (s - t)).reshape(
-            n_qt, block_q)
-        kv_pos = idx[..., None] * block_kv + torch.arange(block_kv,
-                                                          device=k.device)
-        mask = mask & (kv_pos[:, :, :, None, :]
-                       <= q_pos[None, :, None, :, None])
-    mask = mask.expand(bh, n_qt, keep, block_q, block_kv).contiguous()
-    return kg, vg, mask
-
-
 def star_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, keep: int, causal: bool = True,
                          block_q: int = 128, block_kv: int = 128,
@@ -106,8 +86,7 @@ def star_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if t % block_q or s % block_kv:
         raise ValueError(f"STAR prefill: T={t}, S={s} must be multiples of "
                          f"the tiles {block_q} x {block_kv}")
-    n_qt, n_kt = t // block_q, s // block_kv
-    keep = min(keep, n_kt)
+    keep = min(keep, s // block_kv)
 
     # Stage 1+2a (K2): unscaled predicted tile maxima.
     raw = dlzs_block_scores(q, k, causal=causal, scale=1.0, block_q=block_q,
@@ -115,11 +94,10 @@ def star_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # Stage 2b: SADS tile top-k (descending) + sphere on the tiny matrix.
     idx, valid = select_tiles(raw, keep, scale=scale, radius=radius,
                               dtype=q.dtype)
-    # Gather the selected tiles, and their mask.
-    kg, vg, mask = gather_selected(k, v, idx, valid, t=t, block_q=block_q,
-                                   block_kv=block_kv, causal=causal)
-    # Stage 3 (K3): block-sparse flash over the survivors.
-    return sufa_attention(q, kg, vg, mask, scale=scale, strict=strict)
+    # Stage 3 (K3): block-sparse flash over the survivors, read in place.
+    return sufa_attention(q, k, v, idx, valid, block_q=block_q,
+                          block_kv=block_kv, causal=causal, scale=scale,
+                          strict=strict)
 
 
 def star_attention_cfg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,16 +1,27 @@
-"""K3 — SU-FA, block-sparse flash attention over gathered tiles: the CUDA
-kernel ``csrc/sufa.cu`` behind a checked wrapper, beside its plain
+"""K3 — SU-FA, block-sparse flash attention over the selected tiles: the
+CUDA kernel ``csrc/sufa.cu`` behind a checked wrapper, beside its plain
 PyTorch version.
 
 Replaces ``repro/kernels/sufa.py::sufa_attention`` (Pallas, TPU). Each
-query tile attends to ``keep`` key/value tiles gathered beforehand in
-descending predicted-max order, under an int8 or bool mask. ``strict``
-keeps FA-2's exact online rescale; ``strict=False`` freezes the running
-max at the first tile (the paper's descend-updating fast path). The
-kernel is bound by the bytes of the gathered tiles and the mask; see the
-source's header. Tensors on the CPU take the plain version; tensors on a
-GPU launch the kernel (bf16) or raise. ``kernels.LAUNCHES["sufa"]``
-counts launches.
+query tile attends to ``keep`` key/value tiles in the order SADS ranked
+them (descending predicted max). The TPU kernel takes those tiles
+gathered beforehand, with a mask, because its static BlockSpecs cannot
+follow tile ids; this one takes the ids (``idx``) and their validity and
+reads the selected tiles of K and V in place, building the validity and
+causal mask from positions. ``strict`` keeps FA-2's exact online rescale;
+``strict=False`` freezes each row's running max at the first tile in
+which it sees a key (the paper's descend-updating fast path). The kernel
+is bound by the bytes of Q, the output and the distinct selected tiles;
+see the source's header. Two forms, picked by shape alone
+(``launch.tile_form``): ``wgmma`` + TMA for the served 128 x 128 tiles,
+``mma_sync`` for other tiles (the pool probe's 16).
+
+The plain version (``sufa_reference``) gathers the selected tiles and
+their mask (``gather_selected``, what the TPU contract's caller builds)
+and runs the exact masked softmax or the frozen-max recurrence over them.
+Tensors on the CPU take it; tensors on a GPU launch the kernel (bf16) or
+raise. ``kernels.LAUNCHES["sufa"]`` counts launches,
+``kernels.FORM_LAUNCHES`` each form's.
 """
 
 from __future__ import annotations
@@ -24,13 +35,36 @@ import torch
 from repro_torch.kernels import launch, ref
 from repro_torch.kernels.ref import NEG_INF
 
-MASK_DTYPES = (torch.int8, torch.uint8, torch.bool)
+
+def gather_selected(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
+                    valid: torch.Tensor, *, t: int, block_q: int,
+                    block_kv: int, causal: bool):
+    """The TPU contract's operands for tile ids ``idx`` / ``valid`` [BH,
+    n_qt, keep]: the gathered K/V tiles [BH, n_qt, keep, Bc, d] and the
+    validity x in-tile causal mask [BH, n_qt, keep, Bq, Bc] (queries are
+    the last ``t`` of the S positions)."""
+    bh, s, d = k.shape
+    n_qt, keep = idx.shape[1], idx.shape[2]
+    n_kt = s // block_kv
+    rows = torch.arange(bh, device=k.device)[:, None, None]
+    kg = k.reshape(bh, n_kt, block_kv, d)[rows, idx]
+    vg = v.reshape(bh, n_kt, block_kv, d)[rows, idx]
+    mask = valid[..., None, None]
+    if causal:
+        q_pos = (torch.arange(t, device=k.device) + (s - t)).reshape(
+            n_qt, block_q)
+        kv_pos = idx[..., None] * block_kv + torch.arange(block_kv,
+                                                          device=k.device)
+        mask = mask & (kv_pos[:, :, :, None, :]
+                       <= q_pos[None, :, None, :, None])
+    mask = mask.expand(bh, n_qt, keep, block_q, block_kv).contiguous()
+    return kg, vg, mask
 
 
 def _descend_reference(q, kg, vg, mask, *, scale: float) -> torch.Tensor:
     """The fast path's recurrence (``strict=False``), tile by tile as the
-    TPU kernel runs it: the max is set by the first tile with a visible
-    key and never rescaled."""
+    TPU kernel runs it: each row's max is set by the first tile in which
+    it sees a key and never rescaled."""
     bh, t, d = q.shape
     _, n_qt, keep, _, _ = kg.shape
     qt = q.reshape(bh, n_qt, t // n_qt, d).float()
@@ -48,49 +82,74 @@ def _descend_reference(q, kg, vg, mask, *, scale: float) -> torch.Tensor:
     return out.reshape(bh, t, d).to(q.dtype)
 
 
-def sufa_reference(q, kg, vg, mask, *, scale: float,
-                   strict: bool) -> torch.Tensor:
-    """The plain version: the exact masked softmax (``ref.sufa_ref``) for
-    ``strict``, else the frozen-max recurrence."""
+def sufa_reference(q, k, v, idx, valid, *, block_q: int, block_kv: int,
+                   causal: bool, scale: float, strict: bool) -> torch.Tensor:
+    """The plain version: gather the selected tiles and their mask, then
+    the exact masked softmax (``ref.sufa_ref``) for ``strict``, else the
+    frozen-max recurrence."""
+    kg, vg, mask = gather_selected(k, v, idx, valid, t=q.shape[1],
+                                   block_q=block_q, block_kv=block_kv,
+                                   causal=causal)
     if strict:
         return ref.sufa_ref(q, kg, vg, mask, scale=scale)
     return _descend_reference(q, kg, vg, mask, scale=scale)
 
 
-def sufa_attention(q: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
-                   mask: torch.Tensor, *, scale: Optional[float] = None,
+def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   idx: torch.Tensor, valid: torch.Tensor, *,
+                   block_q: int = 128, block_kv: int = 128,
+                   causal: bool = True, scale: Optional[float] = None,
                    strict: bool = False) -> torch.Tensor:
-    """q [BH, T, d]; kg/vg [BH, n_qt, keep, Bc, d] (gathered, descending
-    order); mask [BH, n_qt, keep, Bq, Bc] (validity x causal x sphere)
+    """q [BH, T, d], k/v [BH, S, d] (the queries are the last T of the S
+    positions); idx [BH, T/block_q, keep] key-tile ids in visiting order
+    (descending predicted max), valid [BH, T/block_q, keep] bool
     -> [BH, T, d] in q's dtype."""
     bh, t, d = q.shape
-    _, n_qt, keep, bc, _ = kg.shape
-    bq = t // n_qt
+    s = k.shape[1]
     scale = scale or (1.0 / math.sqrt(d))
     if q.device.type == "cpu":
-        return sufa_reference(q, kg, vg, mask, scale=scale, strict=strict)
+        return sufa_reference(q, k, v, idx, valid, block_q=block_q,
+                              block_kv=block_kv, causal=causal, scale=scale,
+                              strict=strict)
     name = "sufa"
     launch.require_cuda(name, q.device)
-    launch.check_operands(name, q=q, kg=kg, vg=vg)
-    if kg.shape != (bh, n_qt, keep, bc, d) or vg.shape != kg.shape \
-            or bq * n_qt != t or mask.shape != (bh, n_qt, keep, bq, bc):
-        raise ValueError(f"{name}: q {tuple(q.shape)}, kg {tuple(kg.shape)},"
-                         f" vg {tuple(vg.shape)}, mask {tuple(mask.shape)} "
-                         f"do not describe one tiling")
-    if mask.device != q.device or mask.dtype not in MASK_DTYPES \
-            or not mask.is_contiguous():
-        raise TypeError(f"{name}: mask must be a contiguous int8, uint8 or "
-                        f"bool tensor on {q.device}")
+    launch.check_operands(name, q=q, k=k, v=v)
     launch.check_head_dim(name, d)
-    launch.check_tile(name, "block_q", bq)
-    launch.check_tile(name, "block_kv", bc)
-    if keep < 1:
-        raise ValueError(f"{name}: keep must be at least 1")
+    launch.check_tile(name, "block_q", block_q)
+    launch.check_tile(name, "block_kv", block_kv)
+    if k.dim() != 3 or v.shape != k.shape or k.shape[0] != bh \
+            or k.shape[2] != d or t % block_q or s % block_kv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} must be [BH,T,d] and [BH,S,d] "
+                         f"with T, S multiples of the tiles {block_q} x "
+                         f"{block_kv}")
+    n_qt = t // block_q
+    if idx.dim() != 3 or idx.shape[:2] != (bh, n_qt) or idx.shape[2] < 1 \
+            or valid.shape != idx.shape:
+        raise ValueError(f"{name}: idx {tuple(idx.shape)} and valid "
+                         f"{tuple(valid.shape)} must both be [BH={bh}, "
+                         f"n_qt={n_qt}, keep >= 1]")
+    if idx.device != q.device or valid.device != q.device \
+            or idx.dtype != torch.int64 or valid.dtype != torch.bool:
+        raise TypeError(f"{name}: idx must be int64 and valid bool, both "
+                        f"on {q.device}")
+    idx, valid = idx.contiguous(), valid.contiguous()
+    keep = idx.shape[2]
     out = torch.empty_like(q)
-    fn = launch.bind(name, "sufa_bf16",
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                     + [ctypes.c_float, ctypes.c_void_p])
-    launch.launch(name, fn, q.device, q.data_ptr(), kg.data_ptr(),
-                  vg.data_ptr(), mask.data_ptr(), out.data_ptr(), bh, n_qt,
-                  keep, bq, bc, d, int(strict), float(scale))
+    form = launch.tile_form(block_q, block_kv)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
+            valid.data_ptr(), out.data_ptr())
+    if form == "wgmma":
+        fn = launch.bind(name, "sufa_wgmma_bf16",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                         + [ctypes.c_float, ctypes.c_void_p])
+        args = (*ptrs, bh, t, s, keep, d, int(causal), int(strict),
+                float(scale))
+    else:
+        fn = launch.bind(name, "sufa_mma_bf16",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                         + [ctypes.c_float, ctypes.c_void_p])
+        args = (*ptrs, bh, t, s, keep, block_q, block_kv, d, int(causal),
+                int(strict), float(scale))
+    launch.launch(name, fn, q.device, *args, form=form)
     return out

@@ -156,20 +156,59 @@ def test_dlzs_block_kernel_matches_plain(cuda_device, d, t, s, block,
                                want[~masked].cpu().numpy(), **K2_TOL)
 
 
-def _gathered(q, k, v, keep, block, gen):
-    """(kg, vg, mask) as the fused glue builds them (causal), from a
-    random tile order and a random validity pattern."""
-    from repro_torch.kernels import ops
-    bh, t, _ = q.shape
-    n_qt, n_kt = t // block, k.shape[1] // block
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,s,causal", [
+    (128, 128, True), (1024, 1024, True), (2048, 2048, True),
+    (1024, 1024, False), (256, 640, True), (128, 384, False)])
+def test_dlzs_block_wgmma_form(cuda_device, d, t, s, causal):
+    """K2's wgmma form (128 x 128 tiles) against ``ref.dlzs_block_ref`` at
+    1e-4, up to the served T = S = 2048 and at S > T; one launch, counted
+    under its form; two calls give the same bits."""
+    from repro_torch.kernels import dlzs as kdlzs
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cpu").manual_seed(d + t + s)
+    q = _bf16((4, t, d), gen, cuda_device)
+    k = _bf16((4, s, d), gen, cuda_device, scale=3.0)
+    kernels.reset_launches()
+    got = kdlzs.dlzs_block_scores(q, k, causal=causal)
+    again = kdlzs.dlzs_block_scores(q, k, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES["dlzs_block/wgmma"] == 2
+    assert torch.equal(got, again)
+    want = ref.dlzs_block_ref(q, k, causal=causal)
+    masked = want <= -1e29
+    assert torch.equal(got <= -1e29, masked)
+    np.testing.assert_allclose(got[~masked].cpu().numpy(),
+                               want[~masked].cpu().numpy(), **K2_TOL)
+
+
+def _selection(bh, t, s, keep, block_q, block_kv, gen, device):
+    """Tile ids in a random order and a random validity pattern (some
+    q-tiles with their first tile invalid)."""
+    n_qt, n_kt = t // block_q, s // block_kv
     idx = torch.stack([torch.randperm(n_kt, generator=gen)[:keep]
                        for _ in range(bh * n_qt)]).reshape(bh, n_qt, keep)
     valid = torch.rand((bh, n_qt, keep), generator=gen) < 0.8
-    valid[..., 0] = True
-    kg, vg, mask = ops.gather_selected(
-        k, v, idx.to(q.device), valid.to(q.device), t=t, block_q=block,
-        block_kv=block, causal=True)
-    return kg, vg, mask.to(torch.int8)
+    valid[..., -1] = True
+    return idx.to(device), valid.to(device)
+
+
+def _check_sufa(q, k, v, idx, valid, *, block, strict, causal=True,
+                form):
+    from repro_torch.kernels import sufa as ksufa
+    kw = dict(block_q=block, block_kv=block, causal=causal, strict=strict)
+    kernels.reset_launches()
+    got = ksufa.sufa_attention(q, k, v, idx, valid, **kw)
+    again = ksufa.sufa_attention(q, k, v, idx, valid, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sufa"] == 2
+    assert kernels.FORM_LAUNCHES[f"sufa/{form}"] == 2
+    assert torch.equal(got, again)
+    want = ksufa.sufa_reference(q, k, v, idx, valid,
+                                scale=q.shape[-1] ** -0.5, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **SUFA_TOL)
 
 
 @pytest.mark.cuda
@@ -178,21 +217,52 @@ def _gathered(q, k, v, keep, block, gen):
                                           (128, 128, 4), (64, 48, 1)])
 def test_sufa_kernel_matches_plain(cuda_device, strict, d, block, keep):
     """K3 in both modes against ``kernels.sufa.sufa_reference`` (the exact
-    masked softmax, or the frozen-max recurrence), bf16 at 3e-2, with
-    invalid tiles and rows that see no key in their first tile."""
-    from repro_torch.kernels import sufa as ksufa
+    masked softmax, or the frozen-max recurrence, over the gathered
+    tiles), bf16 at 3e-2, reading the tiles in place from ids in a random
+    order, with invalid tiles and rows that see no key in their first
+    tile; tiles of 128 take the wgmma form, the others mma.sync."""
     gen = torch.Generator(device="cpu").manual_seed(d + block + keep)
     t = 4 * block
     q, k, v = (_bf16((3, t, d), gen, cuda_device) for _ in range(3))
-    kg, vg, mask = _gathered(q, k, v, keep, block, gen)
-    kernels.reset_launches()
-    got = ksufa.sufa_attention(q, kg, vg, mask, strict=strict)
+    idx, valid = _selection(3, t, t, keep, block, block, gen, cuda_device)
+    _check_sufa(q, k, v, idx, valid, block=block, strict=strict,
+                form="wgmma" if block == 128 else "mma_sync")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block,t,s,keep,causal", [
+    (128, 2048, 2048, 4, True), (128, 512, 1024, 3, True),
+    (128, 384, 384, 1, True), (128, 256, 768, 2, False),
+    (16, 64, 96, 3, True), (48, 96, 192, 2, True), (64, 128, 256, 4, False)])
+def test_sufa_kernel_forms(cuda_device, strict, d, block, t, s, keep,
+                           causal):
+    """Both forms (wgmma at 128 tiles, mma.sync at 16/48/64) in both modes
+    at d 64 and 128: the served T = S = 2048, S > T, keep 1, non-causal;
+    two calls bit-equal."""
+    gen = torch.Generator(device="cpu").manual_seed(d + block + t + s)
+    q = _bf16((2, t, d), gen, cuda_device)
+    k, v = (_bf16((2, s, d), gen, cuda_device) for _ in range(2))
+    idx, valid = _selection(2, t, s, keep, block, block, gen, cuda_device)
+    _check_sufa(q, k, v, idx, valid, block=block, strict=strict,
+                causal=causal, form="wgmma" if block == 128 else "mma_sync")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 32])
+def test_sufa_kernel_all_invalid_rows_are_zero(cuda_device, block):
+    """A q-tile with no valid tile writes zeros, in both forms."""
+    from repro_torch.kernels import sufa as ksufa
+    gen = torch.Generator(device="cpu").manual_seed(block)
+    q, k, v = (_bf16((2, 2 * block, 64), gen, cuda_device) for _ in range(3))
+    idx, valid = _selection(2, 2 * block, 2 * block, 2, block, block, gen,
+                            cuda_device)
+    valid[1, 0] = False
+    got = ksufa.sufa_attention(q, k, v, idx, valid, block_q=block,
+                               block_kv=block, strict=False)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["sufa"] == 1
-    want = ksufa.sufa_reference(q, kg, vg, mask, scale=d ** -0.5,
-                                strict=strict)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **SUFA_TOL)
+    assert float(got[1, :block].float().abs().max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -254,11 +324,12 @@ def _fp32_calls(device):
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import sufa as ksufa
     q = torch.zeros((2, 64, 64), device=device)
-    kg = torch.zeros((2, 1, 1, 64, 64), device=device)
-    mask = torch.ones((2, 1, 1, 64, 64), device=device, dtype=torch.int8)
+    idx = torch.zeros((2, 1, 1), device=device, dtype=torch.int64)
+    valid = torch.ones((2, 1, 1), device=device, dtype=torch.bool)
     return {"dlzs_block": lambda: kdlzs.dlzs_block_scores(
                 q, q, block_q=64, block_kv=64),
-            "sufa": lambda: ksufa.sufa_attention(q, kg, kg, mask),
+            "sufa": lambda: ksufa.sufa_attention(q, q, q, idx, valid,
+                                                 block_q=64, block_kv=64),
             "flash": lambda: kflash.flash_attention(q, q, q)}
 
 
@@ -271,3 +342,27 @@ def test_prefill_kernel_rejects_cpu_fallback(cuda_device, kernel):
     with pytest.raises(TypeError):
         _fp32_calls(cuda_device)[kernel]()
     assert kernels.LAUNCHES[kernel] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["idx_int32", "valid_int8", "idx_shape",
+                                  "tiles", "idx_on_cpu"])
+def test_sufa_kernel_rejects_bad_ids(cuda_device, case):
+    """K3's wrapper raises on tile ids it cannot launch on (and counts
+    nothing): int32 ids, an int8 validity, ids of another tiling, T not a
+    multiple of the q-tile, ids left on the CPU."""
+    from repro_torch.kernels import sufa as ksufa
+    q = torch.zeros((2, 256, 64), device=cuda_device, dtype=torch.bfloat16)
+    idx = torch.zeros((2, 2, 1), device=cuda_device, dtype=torch.int64)
+    valid = torch.ones((2, 2, 1), device=cuda_device, dtype=torch.bool)
+    kw = dict(block_q=128, block_kv=128)
+    call, err = {
+        "idx_int32": ((q, q, q, idx.int(), valid), TypeError),
+        "valid_int8": ((q, q, q, idx, valid.to(torch.int8)), TypeError),
+        "idx_shape": ((q, q, q, idx[:, :1], valid[:, :1]), ValueError),
+        "tiles": ((q[:, :200].contiguous(), q, q, idx, valid), ValueError),
+        "idx_on_cpu": ((q, q, q, idx.cpu(), valid.cpu()), TypeError)}[case]
+    kernels.reset_launches()
+    with pytest.raises(err):
+        ksufa.sufa_attention(*call, **kw)
+    assert kernels.LAUNCHES["sufa"] == 0

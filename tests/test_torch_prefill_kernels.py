@@ -2,7 +2,9 @@
 maxima, K3 SU-FA, K4 flash) and the fused STAR glue (``kernels.ops``)
 against the JAX package's Pallas kernels in interpret mode
 (``repro.kernels.ops``), its oracles (``repro.kernels.ref``) and its core
-STAR pipeline.
+STAR pipeline. K3 takes tile ids and reads the selected tiles in place;
+its yardstick is the Pallas kernel fed the tiles and mask that the JAX
+fused pipeline gathers for the same ids.
 
 The shapes mirror tests/test_kernels.py. Inputs are drawn with numpy from
 fixed seeds and handed to both packages. Tolerances: 2e-5 in fp32 (the
@@ -182,12 +184,13 @@ def test_pow2_bitwise_is_exact():
 
 # -- K3: SU-FA -----------------------------------------------------------------
 
-def _gathered(q, k, v, keep, block=64, causal=False, order="predicted",
-              seed=0):
-    """(kg, vg, mask) as numpy, built as tests/test_kernels.py builds them
-    (tile order from the reference's predicted maxima), or in a random
-    order that the fast path's frozen max does not assume."""
-    bh, t, d = q.shape
+def _selection(q, k, keep, block=64, causal=False, order="predicted",
+               seed=0):
+    """(idx int64, valid bool) [BH, n_qt, keep] as numpy, selected as
+    tests/test_kernels.py selects them (tile order from the reference's
+    predicted maxima), or in a random order that the fast path's frozen
+    max does not assume."""
+    bh, t, _ = q.shape
     s = k.shape[1]
     n_qt, n_kt = t // block, s // block
     bmax = np.asarray(jref.dlzs_block_ref(jnp.asarray(q), jnp.asarray(k),
@@ -200,31 +203,57 @@ def _gathered(q, k, v, keep, block=64, causal=False, order="predicted",
         idx = np.stack([rng.permutation(n_kt)[:keep]
                         for _ in range(bh * n_qt)]).reshape(bh, n_qt, keep)
         vals = np.take_along_axis(bmax, idx, axis=-1)
-    valid = vals > -1e29
-    take = lambda x: np.take_along_axis(
-        x.reshape(bh, 1, n_kt, block, d), idx[..., None, None], axis=2)
-    mask = np.broadcast_to(valid[..., None, None],
-                           (bh, n_qt, keep, block, block))
+    return idx.astype(np.int64), vals > -1e29
+
+
+def _pallas_sufa(jq, jk, jv, idx, valid, *, block_q=64, block_kv=64,
+                 causal=False, strict):
+    """The Pallas kernel (interpret mode) on the operands the JAX fused
+    pipeline gathers for tile ids ``idx`` / ``valid``
+    (repro/kernels/ops.py::star_attention_fused)."""
+    bh, t, d = jq.shape
+    s = jk.shape[1]
+    n_qt, n_kt = t // block_q, s // block_kv
+    keep = idx.shape[-1]
+    idx, valid = jnp.asarray(idx), jnp.asarray(valid)
+    take = lambda x: jnp.take_along_axis(  # noqa: E731
+        x.reshape(bh, n_kt, block_kv, d)[:, None], idx[..., None, None],
+        axis=2)
+    mask = jnp.broadcast_to(valid[..., None, None],
+                            (bh, n_qt, keep, block_q, block_kv))
     if causal:
-        q_pos = (np.arange(t) + (s - t)).reshape(n_qt, block)
-        kv_pos = idx[..., None] * block + np.arange(block)
+        q_pos = (jnp.arange(t) + (s - t)).reshape(n_qt, block_q)
+        kv_pos = idx[..., None] * block_kv + jnp.arange(block_kv)
         mask = mask & (kv_pos[:, :, :, None, :]
                        <= q_pos[None, :, None, :, None])
-    return take(k), take(v), np.ascontiguousarray(mask).astype(np.int8)
+    return jops.sufa(jq, take(jk), take(jv), mask, strict=strict)
+
+
+def _port_sufa(q, k, v, idx, valid, *, block_q=64, block_kv=64,
+               causal=False, strict):
+    return tops.sufa(q, k, v, torch.from_numpy(idx), torch.from_numpy(valid),
+                     block_q=block_q, block_kv=block_kv, causal=causal,
+                     strict=strict)
 
 
 @pytest.mark.parametrize("keep", [1, 2, 4])
 def test_sufa_strict_matches_pallas_and_ref(keep):
+    """K3's contract (tile ids read in place) against the Pallas kernel
+    over the JAX gather of the same tiles, and against the reference's
+    exact masked softmax over them."""
     q, k, v = _qkv(2, 128, 256, 64, seed=4)
-    kg, vg, mask = _gathered(q, k, v, keep)
-    (jq, jkg, jvg), (tq, tkg, tvg) = _both((q, kg, vg))
+    idx, valid = _selection(q, k, keep)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v))
     kernels.reset_launches()
-    got = tops.sufa(tq, tkg, tvg, torch.from_numpy(mask), strict=True)
+    got = _port_sufa(tq, tk, tv, idx, valid, strict=True)
     assert kernels.LAUNCHES["sufa"] == 0
-    jm = jnp.asarray(mask)
-    _close(got, jops.sufa(jq, jkg, jvg, jm, strict=True), TOL["float32"],
-           "pallas")
-    _close(got, jref.sufa_ref(jq, jkg, jvg, jm), TOL["float32"], "ref")
+    _close(got, _pallas_sufa(jq, jk, jv, idx, valid, strict=True),
+           TOL["float32"], "pallas")
+    take = lambda x: np.take_along_axis(  # noqa: E731
+        x.reshape(2, 1, 4, 64, 64), idx[..., None, None], axis=2)
+    mask = np.broadcast_to(valid[..., None, None], (2, 2, keep, 64, 64))
+    _close(got, jref.sufa_ref(jq, jnp.asarray(take(k)), jnp.asarray(take(v)),
+                              jnp.asarray(mask)), TOL["float32"], "ref")
 
 
 @pytest.mark.parametrize("order", ["predicted", "random"])
@@ -234,22 +263,82 @@ def test_sufa_fast_path_matches_pallas(order, causal):
     the exact ref: out of order it is a different function, and the
     plain version follows the kernel's recurrence."""
     q, k, v = _qkv(2, 128, 512, 64, seed=5)
-    kg, vg, mask = _gathered(q, k, v, 4, causal=causal, order=order, seed=5)
-    (jq, jkg, jvg), (tq, tkg, tvg) = _both((q, kg, vg))
-    got = tops.sufa(tq, tkg, tvg, torch.from_numpy(mask), strict=False)
-    _close(got, jops.sufa(jq, jkg, jvg, jnp.asarray(mask), strict=False),
-           TOL["float32"])
+    idx, valid = _selection(q, k, 4, causal=causal, order=order, seed=5)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v))
+    got = _port_sufa(tq, tk, tv, idx, valid, causal=causal, strict=False)
+    _close(got, _pallas_sufa(jq, jk, jv, idx, valid, causal=causal,
+                             strict=False), TOL["float32"])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sufa_dtype_sweep(dtype):
     q, k, v = _qkv(1, 128, 256, 32, seed=6)
-    kg, vg, mask = _gathered(q, k, v, keep=2)
-    (jq, jkg, jvg), (tq, tkg, tvg) = _both((q, kg, vg), dtype)
-    got = tops.sufa(tq, tkg, tvg, torch.from_numpy(mask).bool(), strict=True)
+    idx, valid = _selection(q, k, keep=2)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), dtype)
+    got = _port_sufa(tq, tk, tv, idx, valid, strict=True)
     assert got.dtype == getattr(torch, dtype)
     tol = SUFA_BF16 if dtype == "bfloat16" else TOL["float32"]
-    _close(got, jops.sufa(jq, jkg, jvg, jnp.asarray(mask), strict=True), tol)
+    _close(got, _pallas_sufa(jq, jk, jv, idx, valid, strict=True), tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+def test_sufa_modes_orders_and_tiles(causal, strict, dtype):
+    """Both modes, in the predicted and a random order, on tiles of 32
+    with S > T (the queries are the last T positions), at SU-FA's fp32
+    and bf16 bounds."""
+    q, k, v = _qkv(2, 64, 128, 32, seed=13)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), dtype)
+    tol = SUFA_BF16 if dtype == "bfloat16" else TOL["float32"]
+    for order in ("predicted", "random"):
+        idx, valid = _selection(q, k, 3, block=32, causal=causal,
+                                order=order, seed=13)
+        got = _port_sufa(tq, tk, tv, idx, valid, block_q=32, block_kv=32,
+                         causal=causal, strict=strict)
+        _close(got, _pallas_sufa(jq, jk, jv, idx, valid, block_q=32,
+                                 block_kv=32, causal=causal, strict=strict),
+               tol, order)
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_sufa_invalid_tiles_change_nothing(strict):
+    """A tile with valid=False adds nothing in either mode (K3 skips it):
+    invalid tiles first, between and last in the order, and a q-tile with
+    no valid tile at all (its rows are zero); the same ids with the
+    invalid ones dropped give the same output."""
+    q, k, v = _qkv(2, 128, 256, 32, seed=14)
+    idx, _ = _selection(q, k, 4, block=32, order="random", seed=14)
+    valid = np.random.RandomState(14).rand(*idx.shape) < 0.5
+    valid[0, 0] = [False, True, False, True]
+    valid[0, 1] = [True, False, False, False]
+    valid[1, 2] = False
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v))
+    kw = dict(block_q=32, block_kv=32, causal=True, strict=strict)
+    got = _port_sufa(tq, tk, tv, idx, valid, **kw)
+    _close(got, _pallas_sufa(jq, jk, jv, idx, valid, **kw), TOL["float32"])
+    assert float(got[1, 64:96].abs().max()) == 0.0
+    moved = np.argsort(~valid, axis=-1, kind="stable")    # valid ones first
+    _close(got, _port_sufa(tq, tk, tv, np.take_along_axis(idx, moved, -1),
+                           np.take_along_axis(valid, moved, -1), **kw),
+           TOL["float32"], "invalid tiles last")
+
+
+def test_sufa_fast_path_row_unseen_in_first_tile():
+    """Under the fast path a row's max is frozen by the first tile in
+    which that row sees a key. With q-tiles of 64 and key tiles of 32,
+    causal, q-tile 1 (rows 64..127) visits key tile 3 (keys 96..127)
+    first: rows 64..95 see none of it, so their max comes from the next
+    tile, while rows 96..127 freeze theirs on tile 3."""
+    q, k, v = _qkv(1, 128, 128, 32, seed=15)
+    idx = np.array([[[0, 1, 2], [3, 0, 2]]], np.int64)
+    valid = np.ones(idx.shape, bool)
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v))
+    kw = dict(block_q=64, block_kv=32, causal=True, strict=False)
+    got = _port_sufa(tq, tk, tv, idx, valid, **kw)
+    want = _pallas_sufa(jq, jk, jv, idx, valid, **kw)
+    _close(got, want, TOL["float32"])
+    assert np.isfinite(_np32(got)).all()
 
 
 # -- the fused STAR prefill ------------------------------------------------------

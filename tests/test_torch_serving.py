@@ -312,6 +312,16 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                   timed=False)
     cs.check_sufa("cpu", None, bh=2, t=256, block=128, strict=False, seed=1,
                   timed=False)
+    # the mma.sync forms' tiles; K3's count of computed pairs (its bound)
+    assert cs.check_dlzs("cpu", None, bh=2, t=64, block=16, causal=True,
+                         seed=0, timed=False)["form"] == "mma_sync"
+    k3 = cs.check_sufa("cpu", None, bh=2, t=64, block=16, strict=True,
+                       seed=1, timed=False, d=64)
+    assert k3["form"] == "mma_sync" and 0 < k3["distinct_tiles"] <= 8
+    every = torch.tensor([[[0, 1], [0, 1]]])
+    assert cs.selected_pairs(every, torch.ones_like(every, dtype=torch.bool),
+                             t=32, s=32, block=16) == \
+        cs.visible_pairs(32, 32, True)
     cs.check_flash("cpu", None, bh=2, t=200, causal=True, seed=2,
                    timed=False)
     cs.check_flash("cpu", None, bh=2, t=1, causal=True, seed=2, timed=False,
@@ -344,6 +354,8 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert first["first_tokens_checked"] == 3 and first["exact"] == 3
     with pytest.raises(SystemExit, match="expected prefill calls x layers"):
         cs.require_prefill_launches(whole, "cpu")
+    # the smoke config's STAR tiles of 16 take the mma.sync forms
+    assert whole["expected_wgmma_launches"] == 0
 
 
 def _run_smoke(cwd):
