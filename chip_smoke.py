@@ -14,7 +14,15 @@ Phases, each printing its numbers on a line of its own:
    and at a GQA case with padded slots, bf16 at 2e-2, two calls bit-equal,
    with each split plan and, for the first two, the time beside its
    bound, the plain version's and one PyTorch call's (SDPA over the
-   gathered rows, a yardstick the port never calls);
+   gathered rows, a yardstick the port never calls); then K1's int8 form
+   (the cold KV tier) at the main path's shape with about half the slots
+   marked, against its plain version at 2e-2, two calls bit-equal, timed
+   the same way (SDPA over the gathered rows dequantized beforehand), and
+   with ``quant`` present but an all-False qmask, bit-equal to the fp
+   form. Its codes are drawn apart from the fp rows, each page at its own
+   magnitude, and the fp form and the plain version fed the next page's
+   scales must each break the tolerance and lie 4x the kernel's error
+   off: the check can tell an ignored qmask or a wrong scale;
 3. the main path: full-width OLMo-1B (random weights from a seed) served
    through ``LLM.from_config(backend="paged")``: TTFT, tokens/s, decode
    ticks, and K1's launches, which must equal ticks x layers;
@@ -45,7 +53,30 @@ Phases, each printing its numbers on a line of its own:
    by ``lm.prefill``; K2 and K3 launch prefill calls x layers times (the
    pool probe included), in their wgmma form for every call but the pool
    probe's, K1 ticks x layers; each first token is the
-   argmax of a cache-free STAR forward over the same bucketed prompt.
+   argmax of a cache-free STAR forward over the same bucketed prompt;
+9. disaggregated serving (``DisaggRouter.from_config``): a prefill and a
+   decode instance of full-width OLMo-1B over phase 3's params, each with
+   512 pages, whole-prompt prefill and decode bounded at 8 pages with the
+   int8 cold tier (``kv_quant="int8"``; the prefill instance decodes each
+   request's first token before the hop, so it carries the same decode
+   tuning), serve phase 8's prompts 32 tokens each; after every router
+   tick page conservation and the refcount watchdog hold on both pools.
+   The tokens must equal one instance's of the same configs; 3 hops, 0
+   faults, payload bytes, both pools drained, pages quantized; K1 once
+   per layer of every decode tick on either instance, in its int8 form
+   on ticks where a gathered slot reads the tier and in its fp form on
+   the others; K2 and K3 once per layer of every prefill call. Then one
+   hop is lost to an injected fault (``FaultPlan``): every request still
+   finishes, by decode-side recompute. Then the int8 tier is read: pages
+   of 128 (STAR's q-tile, so prefixes are shared), the 2048-token prompt
+   and, once its hop has landed, its first 1024 tokens as a second
+   request, which shares the first's pages that the first's decode
+   quantized; gathered slots must read the int8 tier (with distinct
+   prompts they never do: a page leaves a lone sequence's hot set for
+   good), and the tokens must equal one instance's that gets the second
+   request at the same point. TTFT, tokens/s, decode ms per tick,
+   transfer ms and bytes, quantized pages and int8 slots read are
+   printed.
 Phase 4 also counts K4: oracle forwards x layers launches.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
@@ -80,9 +111,11 @@ from repro_torch.kernels import flash as kflash  # noqa: E402
 from repro_torch.kernels import paged as kpaged  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sufa as ksufa  # noqa: E402
-from repro_torch.kvcache import bucketing  # noqa: E402
+from repro_torch.kvcache import bucketing, quant  # noqa: E402
 from repro_torch.models import attention, lm  # noqa: E402
-from repro_torch.serving import LLM, PagedEngineCfg, SchedulerCfg  # noqa: E402
+from repro_torch import obs as tobs  # noqa: E402
+from repro_torch.serving import (LLM, DisaggRouter, FaultPlan,  # noqa: E402
+                                 PagedEngineCfg, SchedulerCfg)
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 SEED = 0
@@ -90,6 +123,7 @@ SEED = 0
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 TOL = 2e-2                  # bf16 bound of tests/test_kernels.py
+REACH = 4                   # a wrong int8 form lies >= 4x K1's error off
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: each timed launch starts cold
 
 MAIN_PROMPTS = (256, 384, 512, 704, 896, 960)
@@ -97,6 +131,10 @@ MAIN_MAX_TOKENS = 32
 # OLMo-1B's published context is 2048; 1536 is padded to its 2048 bucket
 WHOLE_PROMPTS = (1024, 1536, 2048)
 WHOLE_MAX_TOKENS = 16
+# phase 9: the whole-prompt prompts, 32 tokens each, decode bounded at 8
+# pages (the cold tier is read from the first page the window leaves)
+DISAGG_MAX_TOKENS = 32
+DISAGG_HOT_WIDTH = 8
 # K2: fp32 sums of exact bf16 x pow2 products, only their order differs
 # from the plain version's; K3: tests/test_kernels.py's SU-FA bf16 bound
 PREFILL_TOL = {"dlzs_block": 1e-4, "sufa": 3e-2, "flash": TOL}
@@ -214,12 +252,13 @@ def paged_work(q, k, phys, kv_len) -> tuple[int, int]:
     return kv_bytes + io_bytes, 4 * rows * g * r * d
 
 
-def sdpa_call(q, k, v, phys, logical, kv_len, scale):
+def sdpa_call(q, k, v, phys, logical, kv_len, scale, quant=None):
     """One PyTorch call computing the same attention: SDPA over the rows
-    gathered beforehand (the gather itself is not in the timed call)."""
+    gathered (and, with ``quant``, dequantized) beforehand; the gather
+    itself is not in the timed call."""
     from repro_torch.kvcache.paged_attention import _gather_hot
     b, g, r, d = q.shape
-    kg, vg, valid = _gather_hot(k, v, phys, logical, kv_len)
+    kg, vg, valid = _gather_hot(k, v, phys, logical, kv_len, quant)
     kh = kg.transpose(1, 2).repeat_interleave(r, dim=1).contiguous()
     vh = vg.transpose(1, 2).repeat_interleave(r, dim=1).contiguous()
     qh = q.reshape(b, g * r, 1, d)
@@ -258,15 +297,121 @@ def check_paged_kernel(device, name, b, g, r, d, page, w, p, kv_len, seed,
     return out
 
 
+def int8_tier(k, phys, seed, share=0.5):
+    """An int8 tier for every page and a qmask marking about ``share`` of
+    the slots. The codes quantize (``kvcache.quant``, as the served path
+    quantizes a page) K and V rows drawn apart from the fp slabs', each
+    page at a magnitude of its own, so that a form reading a marked slot's
+    fp rows, or another page's scale, lands far from the plain version. V
+    spans 2^±4; K spans 2^±1, because wider scores would make the bf16
+    rounding of scores, which the kernel shares with its plain version
+    only up to the order of fp32 sums, the larger difference."""
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    shape = k.shape
+    span = {"k": 1.0, "v": 4.0}
+    rows = {}
+    for name in ("k", "v"):
+        mag = 2.0 ** ((2 * torch.rand(shape[0], generator=gen) - 1)
+                      * span[name])
+        rows[name] = (torch.randn(shape, generator=gen)
+                      * mag[:, None, None, None]).to(k.device, k.dtype)
+    kq, ks = quant.quantize_rows(rows["k"])
+    vq, vs = quant.quantize_rows(rows["v"])
+    qmask = (torch.rand(phys.shape, generator=gen) < share).to(phys.device)
+    return {"kq": kq, "vq": vq, "k_scale": ks, "v_scale": vs,
+            "qmask": qmask}
+
+
+def int8_work(q, k, phys, logical, kv_len, qmask) -> tuple[int, int]:
+    """Bytes and operations of the int8 form's work: the fp K/V rows of
+    unmarked slots and the int8 rows and two page scales of marked ones,
+    below kv_len; q, the output and the tables once; 4·R·d operations per
+    row pair and head, and one product per dequantized element."""
+    b, g, r, d = q.shape
+    page = k.shape[1]
+    w = phys.shape[1]
+    first = logical.long() * page
+    rows = ((kv_len.long()[:, None] - first).clamp(0, page)
+            * (logical >= 0)).cpu()                      # [B, W]
+    marked = qmask.cpu() & (rows > 0)
+    rows_q = int(rows[marked].sum())
+    rows_all = int(rows.sum())
+    kv_bytes = ((rows_all - rows_q) * 2 * k.element_size() + rows_q * 2) \
+        * g * d + int(marked.sum()) * 2 * 4
+    io_bytes = 2 * nbytes(q) + (2 * b * w + b) * 4 + b * w
+    return kv_bytes + io_bytes, 4 * rows_all * g * r * d + 2 * rows_q * g * d
+
+
+def check_paged_int8(device, name, b, g, r, d, page, w, p, kv_len, seed,
+                     timed: bool) -> dict:
+    """K1's int8 form against its plain version with about half the slots
+    marked; two calls bit-equal; with an all-False qmask, bit-equal to the
+    fp form's launch. The check's reach is shown on the same inputs: the
+    fp form (a form that ignored qmask) and the plain version fed the
+    next page's scales (a form that took another page's scale) must each
+    break the tolerance and lie at least REACH times the kernel's error
+    from the plain version."""
+    q, k, v, phys, logical, kvl = paged_inputs(b, g, r, d, page, w, p,
+                                               kv_len, seed, device)
+    tier = int8_tier(k, phys, seed)
+    scale = 1.0 / math.sqrt(d)
+    kernel = lambda: kpaged.paged_decode_attention(  # noqa: E731
+        q, k, v, phys, logical, kvl, scale=scale, quant=tier)
+    plain = lambda: kpaged.paged_decode_reference(  # noqa: E731
+        q, k, v, phys, logical, kvl, scale=scale, quant=tier)
+    got, want = kernel(), plain()
+    valid = logical >= 0
+    out = held("k1_int8_parity", got, want, TOL, case=name,
+               shape=[b, g, r, d], page=page, W=w, P=p, kv_len=list(kv_len),
+               n_split=kpaged.split_plan(b, g, w, page),
+               slots_marked=int((tier["qmask"] & valid).sum()),
+               slots_valid=int(valid.sum()))
+    if not torch.equal(got, kernel()):
+        raise SystemExit(f"k1_int8_parity {name}: two calls on the same "
+                         f"inputs gave different bits")
+    none = dict(tier, qmask=torch.zeros_like(tier["qmask"]))
+    fp = kpaged.paged_decode_attention(q, k, v, phys, logical, kvl,
+                                       scale=scale)
+    if not torch.equal(kpaged.paged_decode_attention(
+            q, k, v, phys, logical, kvl, scale=scale, quant=none), fp):
+        raise SystemExit(f"k1_int8_parity {name}: an all-False qmask did "
+                         f"not give the fp form's bits")
+    out["all_false_bit_equal_fp"] = True
+    other_page = dict(tier, k_scale=tier["k_scale"].roll(1),
+                      v_scale=tier["v_scale"].roll(1))
+    for key, wrong in (("fp_form", fp), ("other_page_scale",
+                                         kpaged.paged_decode_reference(
+                                             q, k, v, phys, logical, kvl,
+                                             scale=scale,
+                                             quant=other_page))):
+        err = (wrong.float() - want.float()).abs()
+        out[f"max_abs_err_{key}"] = float(err.max())
+        out[f"violations_{key}"] = int(
+            (err > TOL + TOL * want.float().abs()).sum())
+        if not out[f"violations_{key}"] or \
+                out[f"max_abs_err_{key}"] < REACH * out["max_abs_err"]:
+            emit("k1_int8_parity", ok=False, **out)
+            raise SystemExit(f"k1_int8_parity {name}: the check cannot "
+                             f"tell the {key} from the kernel: {out}")
+    if timed:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+        bytes_, flops = int8_work(q, k, phys, logical, kvl, tier["qmask"])
+        add_times(out, kernel, plain,
+                  sdpa_call(q, k, v, phys, logical, kvl, scale, tier), flush,
+                  bytes_=bytes_, flops=flops)
+        del flush
+    emit("k1_int8_parity", ok=True, **out)
+    return out
+
+
 # -- phases 3-5: the served path ----------------------------------------------
 
-def count_decode_ticks(llm: LLM) -> dict:
+def count_decode_ticks(backend) -> dict:
     """Wrap the backend's decode step: ``ticks`` counts steps that ran (one
     K1 launch per layer each); ``decode_s`` sums their host time through
     the device's completion (the engine reads the step's tokens back right
     after, so the added synchronise moves no work); ``pages_total`` /
     ``pages_hot`` sum the resident and gathered pages of every step."""
-    backend = llm.engine.backend
     step = backend.decode_step
     on_card = backend.device.type == "cuda"
     tally = {"ticks": 0, "decode_s": 0.0, "pages_total": 0, "pages_hot": 0}
@@ -298,7 +443,7 @@ def serve(llm: LLM, prompts, max_tokens: int, reset: bool = True) -> dict:
     first token of each request is read back to the host, so TTFT
     includes the device's work). The launch counts start at 0 here unless
     ``reset`` is False (the caller zeroed them earlier)."""
-    tally = count_decode_ticks(llm)
+    tally = count_decode_ticks(llm.engine.backend)
     if reset:
         kernels.reset_launches()
     t0 = time.perf_counter()
@@ -871,6 +1016,331 @@ def check_first_tokens(params, cfg, prompts, done, pow2: bool) -> dict:
             "bf16_ties": n_tie}
 
 
+# -- phase 9: disaggregated serving with the int8 cold tier -------------------
+
+def disagg_cfgs(n_pages: int, hot_pages: int, hot_width: int,
+                page_size: int = 16):
+    """Both instances' (and the single reference's) engine and scheduler
+    configs: whole-prompt prefill, decode bounded at ``hot_width`` pages
+    with the int8 cold tier. The prefill instance decodes each request's
+    first token after its prefill, in the same tick and before the hop
+    (the reference's router does too), so it carries the decode tuning:
+    every decoded token then runs in one form, the single instance's."""
+    return (PagedEngineCfg(max_batch=4, page_size=page_size,
+                           n_pages=n_pages, hot_pages=hot_pages, eos_id=-1),
+            SchedulerCfg(chunk_pages=None, decode_hot_width=hot_width,
+                         kv_quant="int8"))
+
+
+def count_int8_reads(backend) -> dict:
+    """Wrap the backend's page-state step: ``slots`` counts the gathered
+    slots (valid ones) that read the int8 tier, over every decode step,
+    and ``ticks`` the steps with a marked slot (the others carry no
+    qmask and run K1's fp form)."""
+    real = backend._page_state
+    tally = {"slots": 0, "ticks": 0}
+
+    def counted(*args, **kw):
+        ps = real(*args, **kw)
+        if "qmask" in ps:
+            tally["ticks"] += 1
+            tally["slots"] += int((ps["qmask"]
+                                   & (ps["logical"] >= 0)).sum())
+        return ps
+
+    backend._page_state = counted
+    tally["restore"] = lambda: setattr(backend, "_page_state", real)
+    return tally
+
+
+def time_transfers(transfer, on_card: bool) -> dict:
+    """Host time of each hop's ``begin`` (export to host rows, validate,
+    stage) + ``complete`` (adopt on the decode instance; its rows upload
+    at the decode instance's next swap-in)."""
+    begin, complete = transfer.begin, transfer.complete
+    tally = {"ms": [], "bytes": []}
+
+    def timed_begin(rid):
+        t0 = time.perf_counter()
+        out = begin(rid)
+        tally["t0"] = t0
+        if out is not None:
+            tally["bytes"].append(out["bytes"])
+        return out
+
+    def timed_complete(rid):
+        out = complete(rid)
+        if on_card:
+            torch.cuda.synchronize()
+        tally["ms"].append(1e3 * (time.perf_counter() - tally.pop("t0")))
+        return out
+
+    transfer.begin, transfer.complete = timed_begin, timed_complete
+    tally["restore"] = lambda: (setattr(transfer, "begin", begin),
+                                setattr(transfer, "complete", complete))
+    return tally
+
+
+def drive_disagg(router, prompts, max_tokens: int, on_card: bool,
+                 follow_up=None):
+    """Submit every prompt and tick the router to idle, holding page
+    conservation and the refcount watchdog on BOTH pools after every tick
+    (``tests/disagg_scenarios.py``'s rule); the fabric must end empty.
+    ``follow_up``, a prompt, is submitted once the first hop has landed.
+    Returns the handles, the router ticks, the wall seconds, the seconds
+    of it the checks took and how many tokens the first request had when
+    the follow-up was submitted."""
+    handles = [router.submit(p, max_tokens=max_tokens) for p in prompts]
+    t0 = time.perf_counter()
+    ticks = 0
+    checks_s = 0.0
+    follow_at = None
+    while router.has_work():
+        router.tick()
+        if follow_up is not None and router.transfer.n_transfers:
+            follow_at = len(handles[0].tokens)
+            handles.append(router.submit(follow_up, max_tokens=max_tokens))
+            follow_up = None
+        ticks += 1
+        t_check = time.perf_counter()
+        for name, eng in (("prefill", router.prefill),
+                          ("decode", router.engine)):
+            err = tobs.conservation_error(eng.accounting_snapshot())
+            wd = tobs.reconcile_refs(eng._expected_refs(),
+                                     eng.backend.pool_refs())
+            if err or not wd.ok:
+                raise SystemExit(f"disagg: {name} pool at router tick "
+                                 f"{ticks}: conservation error {err}, "
+                                 f"watchdog {wd.describe()}")
+        checks_s += time.perf_counter() - t_check
+        if ticks > 100_000:
+            raise SystemExit("disagg: the router never drained")
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if router.transfer.in_flight() or len(router.transfer.staging):
+        raise SystemExit("disagg: a transfer was left in flight or staged")
+    return handles, ticks, wall, checks_s, follow_at
+
+
+def serve_disagg(cfg, params, prompts, max_tokens, *, device, generator,
+                 n_pages, hot_pages, hot_width, fault_plan=None,
+                 page_size: int = 16, follow_up=None) -> tuple:
+    """The instance pair (``DisaggRouter.from_config``, one params tree,
+    one telemetry), served from a zero launch count. Returns the router,
+    the served tokens and the summary."""
+    on_card = torch.device(device).type == "cuda"
+    pcfg, scfg = disagg_cfgs(n_pages, hot_pages, hot_width, page_size)
+    router = DisaggRouter.from_config(
+        cfg, params=params, device=device, generator=generator,
+        prefill_engine_cfg=pcfg, decode_engine_cfg=pcfg,
+        prefill_sched_cfg=scfg, decode_sched_cfg=scfg,
+        fault_plan=fault_plan)
+    pre_ticks = count_decode_ticks(router.prefill.backend)
+    dec_ticks = count_decode_ticks(router.engine.backend)
+    pre_reads = count_int8_reads(router.prefill.backend)
+    dec_reads = count_int8_reads(router.engine.backend)
+    hops = time_transfers(router.transfer, on_card)
+    prefills = count_prefills(on_card)
+    kernels.reset_launches()
+    try:
+        handles, ticks, wall, checks_s, follow_at = drive_disagg(
+            router, prompts, max_tokens, on_card, follow_up)
+    finally:
+        for t in (pre_ticks, dec_ticks, pre_reads, dec_reads, hops,
+                  prefills):
+            t["restore"]()
+    launches = dict(kernels.LAUNCHES)
+    forms = dict(kernels.FORM_LAUNCHES)
+    tokens = [h.tokens for h in handles]
+    ttft = [1e3 * router.records[h.rid].ttft for h in handles]
+    n_tok = sum(len(t) for t in tokens)
+    tr = router.transfer.stats()
+    wgmma_calls = sum(launch.tile_form(min(cfg.star.block_q, w),
+                                       min(cfg.star.block_kv, w)) == "wgmma"
+                      for w in prefills["widths"])
+    pre_q = router.prefill.backend.page_accounting()["quantize_events"]
+    dec_q = router.engine.backend.page_accounting()["quantize_events"]
+    summary = {
+        "requests": len(handles), "outcomes": [h.outcome for h in handles],
+        "follow_up_after_tokens": follow_at, "tokens": n_tok,
+        "wall_s": wall, "tok_s": n_tok / wall,
+        "router_ticks": ticks, "checks_s": checks_s,
+        "ttft_ms_p50": float(np.median(ttft)), "ttft_ms_max": float(max(ttft)),
+        "prefill_side_decode_ticks": pre_ticks["ticks"],
+        "decode_side_ticks": dec_ticks["ticks"],
+        "decode_ms_per_tick": 1e3 * dec_ticks["decode_s"]
+        / max(dec_ticks["ticks"], 1),
+        "transfers": tr["n_transfers"], "transfer_faults": tr["n_faults"],
+        "transfer_recomputes": tr["n_recompute"],
+        "transfer_bytes_total": tr["bytes_total"],
+        "transfer_bytes": hops["bytes"], "transfer_ms": hops["ms"],
+        "transfer_ms_mean": float(np.mean(hops["ms"])) if hops["ms"]
+        else None,
+        "quantize_events_prefill_side": pre_q,
+        "quantize_events_decode_side": dec_q,
+        "int8_slots_read_prefill_side": pre_reads["slots"],
+        "int8_slots_read_decode_side": dec_reads["slots"],
+        "hot_width": hot_width,
+        "prefill_calls": prefills["calls"],
+        "prefill_widths": prefills["widths"],
+        "prefill_s": prefills["seconds"],
+        "k1_launches": launches["paged_decode"],
+        "k1_fp_launches": forms["paged_decode/fp"],
+        "k1_int8_launches": forms["paged_decode/int8"],
+        "expected_k1_launches": (pre_ticks["ticks"] + dec_ticks["ticks"])
+        * cfg.n_layers,
+        "expected_k1_int8_launches": (pre_reads["ticks"]
+                                      + dec_reads["ticks"]) * cfg.n_layers,
+        "dlzs_block_launches": launches["dlzs_block"],
+        "sufa_launches": launches["sufa"],
+        "form_launches": forms,
+        "expected_prefill_launches": prefills["calls"] * cfg.n_layers,
+        "expected_wgmma_launches": wgmma_calls * cfg.n_layers}
+    return router, tokens, summary
+
+
+def require_disagg(summary: dict, router, n_requests: int, tag: str,
+                   reads: bool) -> None:
+    """Phase 9's holds on a fault-free pair: one hop per request, bytes on
+    the wire, both pools drained, pages quantized and, with ``reads``,
+    gathered slots read from the int8 tier."""
+    fails = []
+    if summary["outcomes"] != ["done"] * n_requests:
+        fails.append(f"outcomes {summary['outcomes']}")
+    if summary["transfers"] != n_requests or summary["transfer_faults"]:
+        fails.append(f"{summary['transfers']} transfers, "
+                     f"{summary['transfer_faults']} faults")
+    if summary["transfer_bytes_total"] <= 0:
+        fails.append("no payload bytes crossed the fabric")
+    for name, eng in (("prefill", router.prefill), ("decode", router.engine)):
+        st = eng.stats()
+        if st["pool"].live or st["swap"].entries:
+            fails.append(f"{name} pool not drained: {st['pool'].live} live, "
+                         f"{st['swap'].entries} parked")
+    if summary["quantize_events_decode_side"] <= 0:
+        fails.append("the decode side quantized no page")
+    if reads and summary["int8_slots_read_prefill_side"] \
+            + summary["int8_slots_read_decode_side"] <= 0:
+        fails.append("no gathered slot read the int8 tier")
+    if fails:
+        raise SystemExit(f"{tag}: " + "; ".join(fails))
+
+
+def require_disagg_launches(summary: dict, tag: str) -> None:
+    """K1 once per layer of every decode tick on either instance: in its
+    int8 form on ticks with a slot marked, in its fp form on the others;
+    K2/K3 once per layer of every prefill call."""
+    want = summary["expected_k1_launches"]
+    want_int8 = summary["expected_k1_int8_launches"]
+    if want == 0 or (summary["k1_launches"], summary["k1_int8_launches"],
+                     summary["k1_fp_launches"]) != (want, want_int8,
+                                                    want - want_int8):
+        raise SystemExit(f"{tag}: K1 launched {summary['k1_launches']} "
+                         f"times, {summary['k1_int8_launches']} in its int8 "
+                         f"form and {summary['k1_fp_launches']} in its fp "
+                         f"form; expected decode ticks x layers = {want}, "
+                         f"{want_int8} of them int8 (ticks with a marked "
+                         f"slot x layers)")
+    require_prefill_launches(summary, tag)
+
+
+def serve_follow_up(llm: LLM, first, follow_up, max_tokens: int) -> tuple:
+    """One instance serves ``first`` and, after the tick that prefilled
+    it and emitted its first tokens, ``follow_up``: the pair submits its
+    follow-up after that same tick, in which the first hop lands. The
+    pair's decode instance has by then decoded the first request once
+    more; were that step to quantize a page the follow-up's window later
+    reads, the tokens could part, which the comparison would show.
+    Returns the tokens and how many the first request had at that
+    point."""
+    handles = [llm.submit(first, max_tokens=max_tokens)]
+    while not handles[0].tokens:
+        if not llm.has_work():
+            raise SystemExit("the single instance emitted no token")
+        llm.tick()
+    follow_at = len(handles[0].tokens)
+    handles.append(llm.submit(follow_up, max_tokens=max_tokens))
+    llm.run_until_done()
+    if not all(h.done and h.outcome == "done" for h in handles):
+        raise SystemExit("the single instance left requests unserved")
+    return [h.tokens for h in handles], follow_at
+
+
+def require_same_tokens(tokens, want, tag: str) -> None:
+    if tokens != want:
+        diff = [(i, next((j for j, (a, b) in enumerate(zip(t, w)) if a != b),
+                         min(len(t), len(w))))
+                for i, (t, w) in enumerate(zip(tokens, want)) if t != w]
+        raise SystemExit(f"{tag}: the pair's tokens differ from one "
+                         f"instance's at (request, token) {diff}")
+
+
+def check_disagg(cfg, params, prompts, max_tokens, *, device, generator,
+                 n_pages, hot_pages, hot_width, tier_prompt=None) -> dict:
+    """Phase 9: the pair against one instance of the same configs, token
+    for token; a run that loses one hop (decode-side recompute); and a
+    run whose second request reads pages of the first's from the int8
+    tier (``tier_prompt`` and its first half; default: the longest
+    prompt), also against one instance, which gets the second request at
+    the same point, token for token."""
+    kw = dict(device=device, generator=generator, n_pages=n_pages,
+              hot_pages=hot_pages, hot_width=hot_width)
+    router, tokens, pair = serve_disagg(cfg, params, prompts, max_tokens,
+                                        **kw)
+    require_disagg(pair, router, len(prompts), "disaggregated serving",
+                   reads=False)
+    del router
+    pcfg, scfg = disagg_cfgs(n_pages, hot_pages, hot_width)
+    single = LLM.from_config(cfg, backend="paged", params=params,
+                             device=device, generator=generator,
+                             engine_cfg=pcfg, sched_cfg=scfg)
+    require_same_tokens(tokens, serve(single, prompts, max_tokens)["done"],
+                        "disaggregated serving")
+    del single
+    plan = FaultPlan(schedule={"transfer": {0}})
+    router, f_tokens, faulted = serve_disagg(cfg, params, prompts,
+                                             max_tokens, fault_plan=plan,
+                                             **kw)
+    if faulted["outcomes"] != ["done"] * len(prompts) or \
+            faulted["transfer_faults"] != 1 or plan.fired() != 1:
+        raise SystemExit(f"disaggregated serving with a lost hop: outcomes "
+                         f"{faulted['outcomes']}, "
+                         f"{faulted['transfer_faults']} faults")
+    del router
+    # the int8 tier read: a request on a page-aligned prefix of an earlier,
+    # longer one arrives after that one's first decode quantized its cold
+    # pages, and its own window selects some of them (pages of the STAR
+    # q-tile, so that sharing a page never splits a tile)
+    page = cfg.star.block_q
+    long_prompt = max(prompts, key=len) if tier_prompt is None \
+        else tier_prompt
+    short = long_prompt[:len(long_prompt) // 2 // page * page]
+    n_pages = 2 * -(-(len(long_prompt) + max_tokens) // page) + 2
+    router, read_tokens, read = serve_disagg(
+        cfg, params, [long_prompt], max_tokens, page_size=page,
+        follow_up=short, **dict(kw, n_pages=n_pages, hot_pages=n_pages - 1))
+    require_disagg(read, router, 2, "int8 tier read", reads=True)
+    del router
+    pcfg, scfg = disagg_cfgs(n_pages, n_pages - 1, hot_width, page)
+    single = LLM.from_config(cfg, backend="paged", params=params,
+                             device=device, generator=generator,
+                             engine_cfg=pcfg, sched_cfg=scfg)
+    want, follow_at = serve_follow_up(single, long_prompt, short, max_tokens)
+    del single
+    read["single_follow_up_after_tokens"] = follow_at
+    require_same_tokens(read_tokens, want, "int8 tier read")
+    return {"pair": pair, "tier_read": read, "tokens_equal_single": True,
+            "tier_read_tokens_equal_single": True,
+            "faulted": {k: faulted[k] for k in (
+                "outcomes", "transfers", "transfer_faults", "tokens",
+                "tok_s", "ttft_ms_p50", "ttft_ms_max", "prefill_calls",
+                "decode_side_ticks", "quantize_events_decode_side")},
+            "faulted_tokens_equal_fault_free": f_tokens == tokens,
+            "faulted_tokens": f_tokens, "tokens": tokens,
+            "tier_read_tokens": read_tokens}
+
+
 # -- main ---------------------------------------------------------------------
 
 def print_device_line() -> None:
@@ -917,6 +1387,11 @@ def main() -> int:
     gqa = check_paged_kernel(dev, "gqa_r4_padded", b=3, g=4, r=4, d=128,
                              page=16, w=16, p=256, kv_len=(256, 201, 37),
                              seed=2, timed=False)
+    # the int8 form at the main path's shape, about half the slots marked
+    k1_int8 = check_paged_int8(dev, "main_path_int8", b=4, g=16, r=1,
+                               d=128, page=16, w=64, p=1024,
+                               kv_len=(1024, 1000, 777, 500), seed=1,
+                               timed=True)
 
     # 3. the main path: full-width OLMo-1B on the paged engine
     cfg = olmo_1b.config()
@@ -990,6 +1465,18 @@ def main() -> int:
     emit("whole_prompt_prefill", **whole)
     require_launches(whole, "whole-prompt prefill")
     require_prefill_launches(whole, "whole-prompt prefill")
+    del whole_llm
+    torch.cuda.empty_cache()
+
+    # 9. disaggregated serving: prefill and decode instances over one
+    # params tree, the int8 cold tier, a hop lost to an injected fault
+    disagg = check_disagg(cfg, params, whole_prompts, DISAGG_MAX_TOKENS,
+                          device=dev, generator=gen, n_pages=512,
+                          hot_pages=130, hot_width=DISAGG_HOT_WIDTH)
+    emit("disaggregated_serving", **disagg)
+    pair = disagg["pair"]
+    require_disagg_launches(pair, "disaggregated serving")
+    require_disagg_launches(disagg["tier_read"], "int8 tier read")
 
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
@@ -1014,6 +1501,24 @@ def main() -> int:
              plain_ms_w130=k1_w130["plain_ms"],
              library_ms_w130=k1_w130["library_ms"],
              n_split_w130=k1_w130["n_split"]),
+        # the int8 form: the reference serves this read path through its
+        # XLA gather (src/repro/kvcache/paged_attention.py:68); it runs on
+        # the decode ticks that read the tier, those of the tier-read run
+        line("paged_decode/int8", "paged_decode.cu",
+             "src/repro/kernels/paged.py:67",
+             disagg["tier_read"]["k1_int8_launches"], k1_int8,
+             slots_marked=k1_int8["slots_marked"],
+             slots_valid=k1_int8["slots_valid"],
+             max_abs_err_fp_form=k1_int8["max_abs_err_fp_form"],
+             max_abs_err_other_page_scale=k1_int8[
+                 "max_abs_err_other_page_scale"],
+             launches_from="phase 9's tier-read run, both instances",
+             launches_fp_form_tier_read=disagg["tier_read"][
+                 "k1_fp_launches"],
+             launches_pair=pair["k1_int8_launches"],
+             slots_read_tier_read=disagg["tier_read"][
+                 "int8_slots_read_prefill_side"]
+             + disagg["tier_read"]["int8_slots_read_decode_side"]),
         line("dlzs_block", "dlzs_block.cu", "src/repro/kernels/dlzs.py:65",
              whole["dlzs_block_launches"], tiles["dlzs_block"],
              form=tiles["dlzs_block"]["form"],

@@ -56,6 +56,22 @@
 //     d = 128), masked rows zero-filled without a read; several blocks
 //     share an SM. A 32 KB ring, with a block's whole range in flight at
 //     once, measured slower: each block's first stage then lands last.
+//   * The int8 cold tier (kv_quant="int8"). A second form of the three
+//     kernels (template flag Q; launches without the tier run the fp form,
+//     whose arithmetic is unchanged) reads, for each slot its qmask marks,
+//     the slot's rows from the int8 mirror slabs kq/vq ([P, page, G, d],
+//     through their own strides) instead of the bf16 slabs: half the
+//     bytes, through the same cp.async ring (an int8 row lands in the
+//     first half of its row's place), and the consumer turns each code
+//     into bf16(float(code) · scale[page]), one fp32 product rounded to
+//     nearest, exactly as the plain gather
+//     (kvcache.paged_attention._gather_hot) dequantizes. The
+//     producer reads a row's mask beside its block-table entry and copies
+//     its page scale with cp.async into the stage's scale row, so no
+//     thread waits on a scale before the stage is consumed. The mask is
+//     per slot, so with page 16 a stage is one slot and its branch is
+//     uniform. Unmarked slots read their fp rows, so an all-False qmask
+//     gives the fp form's bits.
 //   * Arithmetic. A row's score comes from 8 threads (a 3-step shuffle);
 //     the first of them writes it and keeps its rows' max, and the 16 row
 //     owners merge their (m, l) at the end, so a stage needs one barrier.
@@ -66,8 +82,9 @@
 // Later work: the kernel takes about 4x its bound, in two passes that each
 // wait on DRAM and then on a few hundred cycles of work per stage; the
 // tick is bound by the host, so CUDA-graph capture of the decode step
-// comes first (PERF.md). Then an int8 dequant lane, and the (m, l, o)
-// output itself for the spatial merge.
+// comes first (PERF.md). The int8 form converts each code where it is
+// used, once per pass, a simple lane before a fast one. Then the (m, l,
+// o) output itself for the spatial merge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +117,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -122,6 +146,21 @@ __device__ __forceinline__ void griddep_wait() {
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// The int8 mirror tier of one slab (K or V): codes [P, page, G, D] int8
+// through their strides, f32 scales [P], and the step's qmask [B, W]
+// (nonzero: the slot reads its int8 rows). Unused by the fp form.
+struct Int8Tier {
+  const int8_t* codes;
+  const float* scale;
+  const uint8_t* qmask;
+  int64_t sp, sr, sg;
+};
+
+// bf16(float(code) · scale): the plain gather's dequantization
+__device__ __forceinline__ float dequant(int8_t code, float scale) {
+  return round_bf16(static_cast<float>(code) * scale);
 }
 
 // The workspace, fp32: m and l [B·G, n_split, R], o [B·G, n_split, R, D],
@@ -147,8 +186,10 @@ struct Range {
   int w0, w1, len, page, n_pages;
   const int32_t* phys;
   const int32_t* logical;
+  const uint8_t* qmask;  // null in the fp form
   __device__ Range(const int32_t* phys_all, const int32_t* logical_all,
-                   const int32_t* kv_len, int b, int W, int page_, int P) {
+                   const int32_t* kv_len, const uint8_t* qmask_all, int b,
+                   int W, int page_, int P) {
     w0 = (int)((int64_t)blockIdx.y * W / gridDim.y);
     w1 = (int)((int64_t)(blockIdx.y + 1) * W / gridDim.y);
     len = kv_len[b];
@@ -156,10 +197,13 @@ struct Range {
     n_pages = P;
     phys = phys_all + (int64_t)b * W;
     logical = logical_all + (int64_t)b * W;
+    qmask = qmask_all ? qmask_all + (int64_t)b * W : nullptr;
   }
-  // where row idx of the range lives; false where it is masked
-  __device__ bool locate(int idx, int& ph, int& rp) const {
-    const int wi = idx / page;
+
+  // where row idx of the range lives (slot w0 + wi); false where it is
+  // masked
+  __device__ bool locate(int idx, int& ph, int& rp, int& wi) const {
+    wi = idx / page;
     rp = idx - wi * page;
     const int lg = logical[w0 + wi];
     // padded slots are masked; the clamp keeps any id inside the pool
@@ -185,9 +229,61 @@ struct Range {
   }
 };
 
+// A row's int8 codes in the int8 form: the first D bytes of its place in
+// the stage's bf16 tile.
+__device__ __forceinline__ int8_t* codes_of(__nv_bfloat16* tile, int r,
+                                            int D) {
+  return reinterpret_cast<int8_t*>(tile + r * D);
+}
+__device__ __forceinline__ const int8_t* codes_of(const __nv_bfloat16* tile,
+                                                  int r, int D) {
+  return reinterpret_cast<const int8_t*>(tile + r * D);
+}
+
+// Issue the copies of stage st (rows [st·kRows, st·kRows + kRows) of the
+// range) into ring slot st % NS: bf16 rows into tile, 16 bytes a copy,
+// masked rows zero-filled without a read. In the int8 form a row of a
+// marked slot copies its D codes into its place instead (16 codes a copy)
+// and its page scale into scales[r], and q8s[r] says which rows did.
+// Commits one group.
+template <int D, bool Q>
+__device__ __forceinline__ void fetch_stage(
+    int st, int n_st, int rows, const Range& range, int g,
+    const __nv_bfloat16* __restrict__ src, int64_t sp, int64_t sr,
+    int64_t sg, const Int8Tier& tier, __nv_bfloat16* tile, float* scales,
+    uint8_t* q8s) {
+  constexpr int CH = D / 8;  // 16-byte bf16 chunks per row
+  if (st < n_st) {
+    for (int c = threadIdx.x; c < kRows * CH; c += kThreads) {
+      const int r = c / CH;
+      const int e = (c - r * CH) * 8;
+      const int idx = st * kRows + r;
+      int ph = 0, rp = 0, wi = 0;
+      const bool ok = idx < rows && range.locate(idx, ph, rp, wi);
+      bool q8 = false;
+      if constexpr (Q) {
+        q8 = ok && range.qmask[range.w0 + wi];
+        if (e == 0) {
+          q8s[r] = q8;
+          if (q8) cp_async4(&scales[r], tier.scale + ph);
+        }
+        if (q8 && (e & 15) == 0)
+          cp_async16(codes_of(tile, r, D) + e,
+                     tier.codes + ph * tier.sp + rp * tier.sr + g * tier.sg +
+                         e,
+                     true);
+      }
+      if (!q8)
+        cp_async16(&tile[r * D + e], src + ph * sp + rp * sr + g * sg + e,
+                   ok);
+    }
+  }
+  cp_async_commit();  // empty groups keep the count uniform
+}
+
 // Pass 1: the range's scaled scores (bf16(q·k) · scale, NEG_INF where
 // masked) into the workspace, and its (m, l).
-template <int D, int R>
+template <int D, int R, bool Q>
 __global__ void __launch_bounds__(kThreads)
 paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
                     const __nv_bfloat16* __restrict__ k,   // [P, page, G, D]
@@ -195,12 +291,15 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
                     const int32_t* __restrict__ logical,   // [B, W]
                     const int32_t* __restrict__ kv_len,    // [B]
                     float* __restrict__ ws, int G, int W, int page, int P,
-                    int64_t k_sp, int64_t k_sr, int64_t k_sg, float scale) {
+                    int64_t k_sp, int64_t k_sr, int64_t k_sg, float scale,
+                    Int8Tier tier) {
   constexpr int NS = stages<D>();
   constexpr int CH = D / 8;              // 16-byte chunks per row
   constexpr int TPR = kThreads / kRows;  // threads per row
   static_assert(CH % TPR == 0, "tile shape");
   __shared__ __align__(16) __nv_bfloat16 sk[NS][kRows * D];
+  __shared__ float s_sc[Q ? NS : 1][kRows];     // int8 rows' page scales
+  __shared__ uint8_t s_q8[Q ? NS : 1][kRows];   // rows read as int8
   __shared__ __align__(16) float sq[R][D];
   __shared__ float s_m[R][kRows], s_l[R][kRows];
   __shared__ int scratch[kWarps];
@@ -209,7 +308,7 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
   const int bg = blockIdx.x;
   const int b = bg / G;
   const int g = bg - b * G;
-  const Range range(phys, logical, kv_len, b, W, page, P);
+  const Range range(phys, logical, kv_len, tier.qmask, b, W, page, P);
   const Workspace out(ws, bg, gridDim.x, blockIdx.y, gridDim.y, R, D,
                       W * page);
   const __nv_bfloat16* qb = q + (int64_t)bg * R * D;
@@ -225,18 +324,9 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
   }
   const int n_st = (rows + kRows - 1) / kRows;
   auto fetch = [&](int st) {
-    if (st < n_st) {
-      for (int c = threadIdx.x; c < kRows * CH; c += kThreads) {
-        const int r = c / CH;
-        const int e = (c - r * CH) * 8;
-        const int idx = st * kRows + r;
-        int ph = 0, rp = 0;
-        const bool ok = idx < rows && range.locate(idx, ph, rp);
-        cp_async16(&sk[st % NS][r * D + e],
-                   k + ph * k_sp + rp * k_sr + g * k_sg + e, ok);
-      }
-    }
-    cp_async_commit();  // empty groups keep the count uniform
+    const int slot = st % NS;
+    fetch_stage<D, Q>(st, n_st, rows, range, g, k, k_sp, k_sr, k_sg, tier,
+                      sk[slot], s_sc[Q ? slot : 0], s_q8[Q ? slot : 0]);
   };
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) fetch(st);
@@ -255,25 +345,43 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
     fetch(st + NS - 1);
     const __nv_bfloat16* tile = sk[st % NS];
     const int idx = st * kRows + srow;
-    int ph, rp;
-    const bool ok = idx < rows && range.locate(idx, ph, rp);
+    int ph, rp, wi;
+    const bool ok = idx < rows && range.locate(idx, ph, rp, wi);
+    // >= 0: this row reads its int8 codes at this page scale
+    const int ring = Q ? st % NS : 0;
+    const float qs = Q && s_q8[ring][srow] ? s_sc[ring][srow] : -1.f;
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll
     for (int u = 0; u < CH / TPR; ++u) {
       const int c = part + u * TPR;  // a row's 8 threads read 128 bytes
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(&tile[srow * D + c * 8]);
-      const __nv_bfloat162* two =
-          reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float kx[8];
+      if (Q && qs >= 0.f) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(
+            codes_of(tile, srow, D) + c * 8);
+        const int8_t* codes = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kx[e] = dequant(codes[e], qs);
+      } else {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(&tile[srow * D + c * 8]);
+        const __nv_bfloat162* two =
+            reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 kf = __bfloat1622float2(two[e]);
+          kx[2 * e] = kf.x;
+          kx[2 * e + 1] = kf.y;
+        }
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 kf = __bfloat1622float2(two[e]);
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          acc[r] = fmaf(sq[r][c * 8 + 2 * e], kf.x,
-                        fmaf(sq[r][c * 8 + 2 * e + 1], kf.y, acc[r]));
+          acc[r] = fmaf(sq[r][c * 8 + 2 * e], kx[2 * e],
+                        fmaf(sq[r][c * 8 + 2 * e + 1], kx[2 * e + 1],
+                             acc[r]));
       }
     }
 #pragma unroll
@@ -321,22 +429,23 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
 // (M, L) the sequence's, merged from every range's (m, l) in split order.
 // Launched while pass 1 runs: it streams its V rows in first and waits for
 // pass 1's results only before it needs them.
-template <int D, int R>
+template <int D, int R, bool Q>
 __global__ void __launch_bounds__(kThreads)
 paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
                 const int32_t* __restrict__ phys,      // [B, W]
                 const int32_t* __restrict__ logical,   // [B, W]
                 const int32_t* __restrict__ kv_len,    // [B]
                 float* __restrict__ ws, int G, int W, int page, int P,
-                int64_t v_sp, int64_t v_sr, int64_t v_sg) {
+                int64_t v_sp, int64_t v_sr, int64_t v_sg, Int8Tier tier) {
   constexpr int NS = stages<D>();
-  constexpr int CH = D / 8;
   constexpr int EP = D / 2;              // bf16 pairs per row
   constexpr int NH = kThreads / EP;      // row subsets
   constexpr int RT = kRows / NH;         // rows per thread and stage
   static_assert(kThreads % EP == 0 && NH * R * D * 4 <= NS * kRows * D * 2,
                 "tile shape");
   __shared__ __align__(16) __nv_bfloat16 sv[NS][kRows * D];
+  __shared__ float s_sc[Q ? NS : 1][kRows];     // int8 rows' page scales
+  __shared__ uint8_t s_q8[Q ? NS : 1][kRows];   // rows read as int8
   __shared__ float s_p[R][kMaxRows];     // the range's P
   __shared__ float s_M[R], s_L[R];
   __shared__ int scratch[kWarps];
@@ -346,7 +455,7 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   const int b = bg / G;
   const int g = bg - b * G;
   const int n_split = gridDim.y;
-  const Range range(phys, logical, kv_len, b, W, page, P);
+  const Range range(phys, logical, kv_len, tier.qmask, b, W, page, P);
   const Workspace out(ws, bg, gridDim.x, blockIdx.y, n_split, R, D,
                       W * page);
   const int rows = range.visit_rows(scratch);
@@ -357,18 +466,9 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
 
   const int n_st = (rows + kRows - 1) / kRows;
   auto fetch = [&](int st) {
-    if (st < n_st) {
-      for (int c = threadIdx.x; c < kRows * CH; c += kThreads) {
-        const int r = c / CH;
-        const int e = (c - r * CH) * 8;
-        const int idx = st * kRows + r;
-        int ph = 0, rp = 0;
-        const bool ok = idx < rows && range.locate(idx, ph, rp);
-        cp_async16(&sv[st % NS][r * D + e],
-                   v + ph * v_sp + rp * v_sr + g * v_sg + e, ok);
-      }
-    }
-    cp_async_commit();
+    const int slot = st % NS;
+    fetch_stage<D, Q>(st, n_st, rows, range, g, v, v_sp, v_sr, v_sg, tier,
+                      sv[slot], s_sc[Q ? slot : 0], s_q8[Q ? slot : 0]);
   };
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) fetch(st);
@@ -414,11 +514,21 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
     const __nv_bfloat16* tile = sv[st % NS];
 #pragma unroll
     for (int j = 0; j < RT; ++j) {
-      const float2 vf = __bfloat1622float2(*reinterpret_cast<
-          const __nv_bfloat162*>(&tile[(sub + j * NH) * D + 2 * pair]));
+      const int row = sub + j * NH;
+      float2 vf;
+      const int ring = Q ? st % NS : 0;
+      const float qs = Q && s_q8[ring][row] ? s_sc[ring][row] : -1.f;
+      if (Q && qs >= 0.f) {
+        const char2 codes = *reinterpret_cast<const char2*>(
+            codes_of(tile, row, D) + 2 * pair);
+        vf = make_float2(dequant(codes.x, qs), dequant(codes.y, qs));
+      } else {
+        vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            &tile[row * D + 2 * pair]));
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const float p = s_p[r][st * kRows + sub + j * NH];
+        const float p = s_p[r][st * kRows + row];
         o[r][0] = fmaf(p, vf.x, o[r][0]);
         o[r][1] = fmaf(p, vf.y, o[r][1]);
       }
@@ -479,26 +589,27 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <int D, int R>
+template <int D, int R, bool Q>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* phys, const void* logical, const void* kv_len,
                    void* out, float* ws, int B, int G, int W, int page,
                    int P, int64_t k_sp, int64_t k_sr, int64_t k_sg,
                    int64_t v_sp, int64_t v_sr, int64_t v_sg, float scale,
-                   int n_split, cudaStream_t stream) {
+                   int n_split, const Int8Tier& tier_k,
+                   const Int8Tier& tier_v, cudaStream_t stream) {
   const dim3 grid(B * G, n_split);
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v);
   const int32_t* ph = static_cast<const int32_t*>(phys);
   const int32_t* lg = static_cast<const int32_t*>(logical);
   const int32_t* kl = static_cast<const int32_t*>(kv_len);
-  paged_scores_kernel<D, R><<<grid, kThreads, 0, stream>>>(
+  paged_scores_kernel<D, R, Q><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), ph, lg, kl, ws, G, W, page, P,
-      k_sp, k_sr, k_sg, scale);
+      k_sp, k_sr, k_sg, scale, tier_k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_dependent(paged_pv_kernel<D, R>, grid, stream, vp, ph, lg, kl,
-                         ws, G, W, page, P, v_sp, v_sr, v_sg);
+  err = launch_dependent(paged_pv_kernel<D, R, Q>, grid, stream, vp, ph, lg,
+                         kl, ws, G, W, page, P, v_sp, v_sr, v_sg, tier_v);
   if (err != cudaSuccess) return err;
   err = launch_dependent(paged_sum_kernel<D, R>, dim3(B * G), stream,
                          static_cast<const float*>(ws),
@@ -507,32 +618,55 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+bool bad_shape(int B, int G, int W, int page, int P, int n_split) {
+  return B <= 0 || G <= 0 || W <= 0 || page <= 0 || P <= 0 || n_split <= 0 ||
+         n_split > W || (W + n_split - 1) / n_split * page > kMaxRows;
+}
+
 }  // namespace
 
 // (D, R) pairs with R*D <= 1024; the Python wrapper checks the pair, the
 // shapes and the strides before calling, and allocates ws: B·G·R·(n_split·
 // (D + 2) + W·page) floats.
-#define PAGED_CASE(DD, RR)                                                    \
+#define PAGED_CASES(Q)                                                        \
+  PAGED_CASE(64, 1, Q) PAGED_CASE(64, 2, Q) PAGED_CASE(64, 4, Q)              \
+  PAGED_CASE(64, 8, Q) PAGED_CASE(64, 16, Q)                                  \
+  PAGED_CASE(128, 1, Q) PAGED_CASE(128, 2, Q) PAGED_CASE(128, 4, Q)           \
+  PAGED_CASE(128, 8, Q)                                                       \
+  PAGED_CASE(256, 1, Q) PAGED_CASE(256, 2, Q) PAGED_CASE(256, 4, Q)
+#define PAGED_CASE(DD, RR, Q)                                                 \
   if (D == DD && R == RR)                                                     \
-    return static_cast<int>(launch<DD, RR>(                                   \
+    return static_cast<int>(launch<DD, RR, Q>(                                \
         q, k, v, phys, logical, kv_len, out, static_cast<float*>(ws), B, G,   \
         W, page, P, k_sp, k_sr, k_sg, v_sp, v_sr, v_sg, scale, n_split,       \
-        static_cast<cudaStream_t>(stream)));
+        tier_k, tier_v, static_cast<cudaStream_t>(stream)));
 
-extern "C" int paged_decode_bf16(const void* q, const void* k, const void* v,
-                                 const void* phys, const void* logical,
-                                 const void* kv_len, void* out, void* ws,
-                                 int B, int G, int R, int D, int W, int page,
-                                 int P, int n_split, int64_t k_sp,
-                                 int64_t k_sr, int64_t k_sg, int64_t v_sp,
-                                 int64_t v_sr, int64_t v_sg, float scale,
-                                 void* stream) {
-  if (B <= 0 || G <= 0 || W <= 0 || page <= 0 || P <= 0 || n_split <= 0 ||
-      n_split > W || (W + n_split - 1) / n_split * page > kMaxRows)
+// One entry point for both forms: with kq null the fp form runs (the tier
+// arguments are ignored); otherwise the int8 form, which also reads the
+// tier's codes (kq, vq, int8 [P, page, G, D] through their strides,
+// 16-byte aligned), scales (k_scale, v_scale, f32 [P]) and the step's
+// qmask (bool [B, W]).
+extern "C" int paged_decode(
+    const void* q, const void* k, const void* v, const void* phys,
+    const void* logical, const void* kv_len, void* out, void* ws,
+    const void* kq, const void* vq, const void* k_scale, const void* v_scale,
+    const void* qmask, int B, int G, int R, int D, int W, int page, int P,
+    int n_split, int64_t k_sp, int64_t k_sr, int64_t k_sg, int64_t v_sp,
+    int64_t v_sr, int64_t v_sg, int64_t kq_sp, int64_t kq_sr, int64_t kq_sg,
+    int64_t vq_sp, int64_t vq_sr, int64_t vq_sg, float scale, void* stream) {
+  if (bad_shape(B, G, W, page, P, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
-  PAGED_CASE(64, 1) PAGED_CASE(64, 2) PAGED_CASE(64, 4) PAGED_CASE(64, 8)
-  PAGED_CASE(64, 16)
-  PAGED_CASE(128, 1) PAGED_CASE(128, 2) PAGED_CASE(128, 4) PAGED_CASE(128, 8)
-  PAGED_CASE(256, 1) PAGED_CASE(256, 2) PAGED_CASE(256, 4)
+  const uint8_t* mask = static_cast<const uint8_t*>(qmask);
+  const Int8Tier tier_k = {static_cast<const int8_t*>(kq),
+                           static_cast<const float*>(k_scale), mask,
+                           kq_sp, kq_sr, kq_sg};
+  const Int8Tier tier_v = {static_cast<const int8_t*>(vq),
+                           static_cast<const float*>(v_scale), mask,
+                           vq_sp, vq_sr, vq_sg};
+  if (kq == nullptr) {
+    PAGED_CASES(false)
+  } else {
+    PAGED_CASES(true)
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,9 +7,14 @@ it splits each sequence's block table into ``split_plan`` ranges, one
 block each, which first find the sequence's softmax statistics and then
 add their share of P·V (see the source's header;
 ``ref.paged_decode_split_ref`` is the same algorithm in plain form).
-Tensors on the CPU take the plain version; tensors on a GPU launch the
-kernel or raise — there is no fallback. ``kernels.LAUNCHES
-["paged_decode"]`` counts calls that launched it.
+With ``quant`` (the int8 cold tier: ``kvcache.quant``'s mirror slabs,
+their page scales and the step's ``qmask``) the kernel's int8 form runs:
+a marked slot reads ``bf16(float(code) · scale)`` as the plain gather
+does. Tensors on the CPU take the plain version; tensors on a GPU launch
+the kernel or raise — there is no fallback. ``kernels.LAUNCHES
+["paged_decode"]`` counts calls that launched it (either form),
+``kernels.FORM_LAUNCHES["paged_decode/fp"]`` and ``["paged_decode/int8"]``
+those of each form.
 """
 
 from __future__ import annotations
@@ -51,13 +56,15 @@ def split_ranges(w: int, n_split: int) -> list[tuple[int, int]]:
 
 
 def paged_decode_reference(q, k_pages, v_pages, phys, logical, kv_len, *,
-                           scale: float) -> torch.Tensor:
+                           scale: float, quant=None) -> torch.Tensor:
     """The plain version: ``kvcache.paged_attention.paged_gather_decode``
-    on the kernel's [B, G, R, d] query layout."""
+    (with ``quant``, its int8 read path) on the kernel's [B, G, R, d]
+    query layout."""
     from repro_torch.kvcache.paged_attention import paged_gather_decode
     b, g, r, d = q.shape
     o = paged_gather_decode(q.reshape(b, g * r, d), k_pages, v_pages, phys,
-                            logical, kv_len, n_kv=g, scale=scale)
+                            logical, kv_len, n_kv=g, scale=scale,
+                            quant=quant)
     return o.reshape(b, g, r, d)
 
 
@@ -104,19 +111,51 @@ def _check(q, k_pages, v_pages, phys, logical, kv_len) -> None:
                              f"16-byte aligned start")
 
 
+def _check_quant(quant: dict, k_pages, phys) -> None:
+    """The int8 tier as the kernel reads it: codes in the pool's layout
+    (16-byte copies), f32 scales [P], a contiguous bool qmask [B, W]."""
+    dev = k_pages.device
+    for name in ("kq", "vq", "k_scale", "v_scale", "qmask"):
+        if quant[name].device != dev:
+            raise ValueError(f"paged_decode: quant {name} on "
+                             f"{quant[name].device}, pool on {dev}")
+    for name in ("kq", "vq"):
+        t = quant[name]
+        if t.dtype != torch.int8 or t.shape != k_pages.shape:
+            raise TypeError(f"paged_decode: quant {name} must be int8 of "
+                            f"the pool's shape {tuple(k_pages.shape)}")
+        if t.stride(3) != 1 or any(x % 16 for x in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"paged_decode: quant {name} needs a "
+                             f"contiguous head_dim, strides in multiples of "
+                             f"16 and a 16-byte aligned start")
+    for name in ("k_scale", "v_scale"):
+        t = quant[name]
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.shape != k_pages.shape[:1]:
+            raise TypeError(f"paged_decode: quant {name} must be "
+                            f"contiguous float32 [P]")
+    m = quant["qmask"]
+    if m.dtype != torch.bool or not m.is_contiguous() \
+            or m.shape != phys.shape:
+        raise TypeError("paged_decode: qmask must be contiguous bool [B, W]")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, phys: torch.Tensor,
                            logical: torch.Tensor, kv_len: torch.Tensor, *,
-                           scale: float) -> torch.Tensor:
+                           scale: float, quant=None) -> torch.Tensor:
     """q [B,G,R,d]; k/v pool slabs in their native layout [P,page,G,d];
-    phys/logical [B,W] int32 (-1 = padded slot); kv_len [B] int32.
-    Returns [B,G,R,d] in q's dtype.
+    phys/logical [B,W] int32 (-1 = padded slot); kv_len [B] int32;
+    ``quant`` None or the int8 tier {kq, vq: int8 [P,page,G,d]; k_scale,
+    v_scale: f32 [P]; qmask: bool [B,W]}. Returns [B,G,R,d] in q's dtype.
 
-    On the CPU: the plain version. On a GPU: the CUDA kernel (bf16 only),
-    launched on the current stream, or an exception."""
+    On the CPU: the plain version. On a GPU: the CUDA kernel (bf16 only;
+    its int8 form with ``quant``), launched on the current stream, or an
+    exception."""
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pages, v_pages, phys, logical,
-                                      kv_len, scale=scale)
+                                      kv_len, scale=scale, quant=quant)
     launch.require_cuda("paged_decode", q.device)
     _check(q, k_pages, v_pages, phys, logical, kv_len)
     b, g, r, d = q.shape
@@ -127,14 +166,22 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     # and the scores of every table row per (sequence, KV head, head)
     ws = torch.empty(b * g * r * (n_split * (d + 2) + w * page),
                      dtype=torch.float32, device=q.device)
-    fn = launch.bind("paged_decode", "paged_decode_bf16",
-                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                     + [ctypes.c_int64] * 6
+    if quant is None:   # the fp form: no tier, null pointers
+        tier, strides, form = (None,) * 5, (0,) * 6, "fp"
+    else:
+        _check_quant(quant, k_pages, phys)
+        tier = tuple(quant[name].data_ptr() for name in
+                     ("kq", "vq", "k_scale", "v_scale", "qmask"))
+        strides = (*quant["kq"].stride()[:3], *quant["vq"].stride()[:3])
+        form = "int8"
+    fn = launch.bind("paged_decode", "paged_decode",
+                     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
+                     + [ctypes.c_int64] * 12
                      + [ctypes.c_float, ctypes.c_void_p])
     launch.launch("paged_decode", fn, q.device, q.data_ptr(),
                   k_pages.data_ptr(), v_pages.data_ptr(), phys.data_ptr(),
                   logical.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                  ws.data_ptr(), b, g, r, d, w, page, k_pages.shape[0],
-                  n_split, *k_pages.stride()[:3], *v_pages.stride()[:3],
-                  float(scale))
+                  ws.data_ptr(), *tier, b, g, r, d, w, page,
+                  k_pages.shape[0], n_split, *k_pages.stride()[:3],
+                  *v_pages.stride()[:3], *strides, float(scale), form=form)
     return out

@@ -67,3 +67,13 @@ def gather_bytes_per_page(cache_layers) -> int:
         return 0
     return sum(_nbytes(l) for l in kv) // kv[0].shape[1]
 
+
+
+def quant_bytes_per_page(cache_layers) -> int:
+    """Bytes one page occupies in the int8 mirror tier (codes + scales);
+    0 when the tier is absent."""
+    qs = [leaf for key in ("kq", "vq", "k_scale", "v_scale")
+          for leaf in leaves_by_key(cache_layers, key)]
+    if not qs:
+        return 0
+    return sum(_nbytes(l) for l in qs) // qs[0].shape[1]

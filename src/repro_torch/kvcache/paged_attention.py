@@ -40,15 +40,32 @@ def _row_valid(logical: torch.Tensor, kv_len: torch.Tensor, page: int
     return valid & (row_pos < kv_len[:, None])
 
 
-def _gather_hot(k_pages, v_pages, phys, logical, kv_len):
+def _gather_hot(k_pages, v_pages, phys, logical, kv_len, quant=None):
     """Pull the hot pages into [B, S_hot, nkv, d] rows + validity mask.
     ``phys`` entries < 0 are padded slots (gather clipped to page 0, the
-    scratch page, and masked out via ``logical``)."""
+    scratch page, and masked out via ``logical``).
+
+    ``quant`` (optional) is the int8 cold-tier read path: a dict with the
+    tier slabs ``kq``/``vq`` [P, page, nkv, d] int8, per-page scales
+    ``k_scale``/``v_scale`` [P] f32 and ``qmask`` [B, W] bool marking the
+    gathered slots that hold quantized content. A marked slot reads
+    ``(float(kq) * scale)`` rounded once to the pool's dtype; other slots
+    read the fp slab bit for bit, so an all-False qmask is the fp path."""
     page = k_pages.shape[1]
     b, w = phys.shape
     safe = torch.clamp(phys, min=0).long()
-    kg = k_pages[safe].reshape(b, w * page, *k_pages.shape[2:])
-    vg = v_pages[safe].reshape(b, w * page, *v_pages.shape[2:])
+    kg = k_pages[safe]                                 # [B, W, page, nkv, d]
+    vg = v_pages[safe]
+    if quant is not None:
+        qm = quant["qmask"][:, :, None, None, None]
+        ks = quant["k_scale"][safe][:, :, None, None, None]
+        vs = quant["v_scale"][safe][:, :, None, None, None]
+        kq = quant["kq"][safe].float()
+        vq = quant["vq"][safe].float()
+        kg = torch.where(qm, (kq * ks).to(kg.dtype), kg)
+        vg = torch.where(qm, (vq * vs).to(vg.dtype), vg)
+    kg = kg.reshape(b, w * page, *k_pages.shape[2:])
+    vg = vg.reshape(b, w * page, *v_pages.shape[2:])
     return kg, vg, _row_valid(logical, kv_len, page)
 
 
@@ -62,13 +79,15 @@ def _scores(q, kg, valid, n_kv, scale):
 def paged_gather_decode(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, phys: torch.Tensor,
                         logical: torch.Tensor, kv_len: torch.Tensor, *,
-                        n_kv: int, scale: Optional[float] = None
-                        ) -> torch.Tensor:
+                        n_kv: int, scale: Optional[float] = None,
+                        quant=None) -> torch.Tensor:
     """Plain paged decode. q [B,nh,d]; k/v pages [P,page,nkv,d];
-    phys/logical [B,W]; kv_len [B] -> [B,nh,d]."""
+    phys/logical [B,W]; kv_len [B] -> [B,nh,d]. ``quant`` enables the
+    int8 cold-tier read path (``_gather_hot``)."""
     b, nh, d = q.shape
     scale = scale or (1.0 / math.sqrt(d))
-    kg, vg, valid = _gather_hot(k_pages, v_pages, phys, logical, kv_len)
+    kg, vg, valid = _gather_hot(k_pages, v_pages, phys, logical, kv_len,
+                                quant)
     sc = _scores(q, kg, valid, n_kv, scale)
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.exp(sc - m)
@@ -82,15 +101,18 @@ def paged_gather_decode(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_gather_decode_stats(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor, phys: torch.Tensor,
                               logical: torch.Tensor, kv_len: torch.Tensor,
-                              *, n_kv: int, scale: Optional[float] = None
+                              *, n_kv: int, scale: Optional[float] = None,
+                              quant=None
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Unnormalized partial-softmax state ``(m, l, o)`` — m/l [B,G,R] f32,
     o [B,G,R,d] f32 — of a paged decode step. A sequence with no valid
-    row yields m = NEG_INF / l = 0 / o = 0, the merge's neutral element."""
+    row yields m = NEG_INF / l = 0 / o = 0, the merge's neutral element.
+    ``quant`` as in ``paged_gather_decode``."""
     b, nh, d = q.shape
     scale = scale or (1.0 / math.sqrt(d))
-    kg, vg, valid = _gather_hot(k_pages, v_pages, phys, logical, kv_len)
+    kg, vg, valid = _gather_hot(k_pages, v_pages, phys, logical, kv_len,
+                                quant)
     sc = _scores(q, kg, valid, n_kv, scale)
     m = sc.amax(dim=-1)
     p = torch.exp(sc - m[..., None])
@@ -137,16 +159,14 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     tiles the trailing two axes; on the GPU that copy would move the
     entire pool twice per layer per decode tick, for nothing.
 
-    ``quant`` (the int8 cold-tier read path) is not ported yet and raises
-    (ROADMAP §1 item 3, ``quant.py`` and the kernel's dequant lane).
+    ``quant`` (the int8 cold-tier read path, see ``_gather_hot``) follows
+    the device too: the plain gather on the CPU, K1's int8 form on a GPU.
+    The reference serves it through its XLA gather, its Pallas kernel
+    having no dequant lane; here it never falls back to the gather.
     """
-    if quant is not None:
-        raise NotImplementedError(
-            "int8 cold-tier decode (kv_quant) is not ported yet: "
-            "ROADMAP §1 item 3 (quant.py) and §2 K1 dequant lane")
     from repro_torch.kernels.paged import paged_decode_attention
     b, nh, d = q.shape
     scale = scale or (1.0 / math.sqrt(d))
     o = paged_decode_attention(_group(q, n_kv), k_pages, v_pages, phys,
-                               logical, kv_len, scale=scale)
+                               logical, kv_len, scale=scale, quant=quant)
     return o.reshape(b, nh, d)

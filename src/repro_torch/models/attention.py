@@ -346,8 +346,10 @@ def apply_decode_paged(params, cfg: AttentionCfg, x, cache, lengths,
     (-1 = pad) and write_page/write_off [B], the new token's pool row. The
     new K/V row is written into the pool, then attention reads only the W
     hot pages (``kvcache.paged_attention.paged_decode``: the CUDA kernel
-    on a GPU). With an ``audit`` key, the returned cache also carries
-    ``audit_mass`` [B, W], the exact per-page softmax mass (obs.audit).
+    on a GPU). With the int8 tier in the cache and a ``qmask`` [B, W] in
+    ``page_state``, marked slots read their int8 rows. With an ``audit``
+    key, the returned cache also carries ``audit_mass`` [B, W], the exact
+    per-page softmax mass (obs.audit), read from the fp slab.
     """
     from repro_torch.kvcache import paged_attention as kv_paged
 
@@ -368,9 +370,16 @@ def apply_decode_paged(params, cfg: AttentionCfg, x, cache, lengths,
         new_cache["audit_mass"] = kv_paged.page_attention_mass(
             q[:, 0], cache["k"], page_state["phys"], page_state["logical"],
             kv_len, n_kv=cfg.n_kv, scale=scale)
+    quant = None
+    if "kq" in cache and "qmask" in page_state:
+        # int8 cold-tier read path: the slots the backend marked read
+        # their dequantized int8 rows (kvcache.quant)
+        quant = {"kq": cache["kq"], "vq": cache["vq"],
+                 "k_scale": cache["k_scale"], "v_scale": cache["v_scale"],
+                 "qmask": page_state["qmask"]}
     o = kv_paged.paged_decode(
         q[:, 0], cache["k"], cache["v"], page_state["phys"],
         page_state["logical"], kv_len, n_kv=cfg.n_kv, scale=scale,
-        quant=page_state.get("qmask"))
+        quant=quant)
     y = _out_proj(params, o.reshape(b, cfg.n_heads, cfg.head_dim))
     return y[:, None, :], new_cache

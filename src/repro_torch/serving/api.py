@@ -151,7 +151,7 @@ class LLM:
         with 0 on the device) draws the random weights when
         ``params`` is None and then drives sampled decode. ``sched_cfg``
         defaults to the batched prefill with the ``prefill_tokens="auto"``
-        budget controller; ``kv_quant="int8"`` raises (not ported yet).
+        budget controller; ``kv_quant="int8"`` adds the int8 cold tier.
         ``telemetry`` (an ``obs.Telemetry``) enables tracing + metrics;
         ``audit_cfg`` tunes the sampled DLZS prediction audit.
         """

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kvcache import (SCRATCH, PagePool, PagedAllocator,
-                                 PoolExhausted, bucketing, metrics)
+                                 PoolExhausted, bucketing, metrics, quant)
 from repro_torch.models import lm
 from repro_torch.obs import NULL_TELEMETRY
 from repro_torch.serving.engine_core import EngineCore
@@ -35,9 +35,6 @@ from repro_torch.serving.scheduler import (NeedPages, SchedulerCfg,
 from repro_torch.tree import tree_items, tree_map
 
 __all__ = ["PagedEngineCfg", "PagedBackend", "PagedServingEngine"]
-
-KV_QUANT_TODO = ("kv_quant='int8' (the int8 cold tier) is not ported yet: "
-                 "ROADMAP §1 item 3 (quant.py) and §2 K1 dequant lane")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +65,10 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 
 def _to_device(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """Host rows -> ``like``'s device and dtype. bf16 arrives as its int16
+    bits, or as a numpy bfloat16 (``ml_dtypes``) array, read as bits."""
+    if arr.dtype.name == "bfloat16":
+        arr = arr.view(np.int16)
     t = torch.from_numpy(np.ascontiguousarray(arr)).to(like.device)
     return t.view(torch.bfloat16) if like.dtype == torch.bfloat16 \
         else t.to(like.dtype)
@@ -82,8 +83,9 @@ class PagedBackend:
             raise ValueError("paged engine supports attention-only patterns")
         if not model_cfg.causal:
             raise ValueError("paged engine needs a causal decoder-only model")
-        if scfg.kv_quant is not None:
-            raise NotImplementedError(KV_QUANT_TODO)
+        if scfg.kv_quant not in (None, "int8"):
+            raise ValueError(
+                f"kv_quant={scfg.kv_quant!r}: choose None or 'int8'")
         self.cfg = model_cfg
         self.pcfg = pcfg
         self.params = params
@@ -104,7 +106,7 @@ class PagedBackend:
         self.hot_width = (min(pcfg.hot_pages, scfg.decode_hot_width)
                           if self.sparse_decode else pcfg.hot_pages)
         self.hot_radius = scfg.decode_hot_radius
-        self.kv_quant = False
+        self.kv_quant = scfg.kv_quant == "int8"
         self.decode_sparsity = None  # telemetry dict, set per decode step
 
         # Prefix sharing is exact only if a full page never splits a STAR
@@ -152,6 +154,10 @@ class PagedBackend:
                                      + tuple(leaf.shape[2:]),
                                      dtype=leaf.dtype, device=self.device),
             cache_one["layers"])
+        if self.kv_quant:
+            # the int8 cold tier rides IN the cache tree, so swap and
+            # transfer payloads carry its rows and scales with the fp ones
+            layers = quant.add_quant_slabs(layers)
         self.cache = {"layers": layers,
                       "lengths": self._ints(np.zeros((pcfg.max_batch,)))}
         self.last_token = self._ints(np.zeros((pcfg.max_batch, 1)))
@@ -160,7 +166,8 @@ class PagedBackend:
         self.page_bytes_full = metrics.bytes_per_page(self.cache["layers"])
         self.page_bytes_gather = metrics.gather_bytes_per_page(
             self.cache["layers"])
-        self.page_bytes_int8 = 0     # no int8 tier (ROADMAP §1 item 3)
+        self.page_bytes_int8 = metrics.quant_bytes_per_page(
+            self.cache["layers"])
 
     def _ints(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=torch.int32,
@@ -173,9 +180,12 @@ class PagedBackend:
 
     def _scatter(self, one_layers, phys: np.ndarray) -> None:
         """Write prefilled rows [L, 1, T_pad, ...] into pool pages
-        ``phys`` (padding and shared pages target the scratch page)."""
+        ``phys`` (padding and shared pages target the scratch page). The
+        int8 tier is left as it is: fresh pages are fp until they leave
+        the DLZS hot set."""
         idx = self._ints(phys).long()
-        for (path, pool), (_, one) in zip(tree_items(self.cache["layers"]),
+        base, _ = quant.split_quant(self.cache["layers"])
+        for (path, pool), (_, one) in zip(tree_items(base),
                                           tree_items(one_layers)):
             rows = one[:, 0]
             rows = rows.reshape(rows.shape[0], -1, self.page_size,
@@ -190,6 +200,12 @@ class PagedBackend:
     def _pull_scores(self) -> np.ndarray:
         with torch.no_grad():
             return metrics.page_scores(self.cache["layers"]).cpu().numpy()
+
+    def export_page_scores(self, table, js) -> list[float]:
+        """Per-page DLZS scores for a transfer payload (advisory: the
+        importer recomputes scores from the uploaded page content)."""
+        scores = self._pull_scores()
+        return [float(scores[table[j]]) for j in js]
 
     # -- admission ------------------------------------------------------------
 
@@ -358,10 +374,12 @@ class PagedBackend:
         # bounded sphere selection every step
         growers = sum(1 for s in slots
                       if int(lengths[s]) // page == len(tables[s]))
-        need_scores = (self.sparse_decode
+        need_scores = (self.sparse_decode or self.kv_quant
                        or any(len(tables[s]) > w for s in slots)
                        or self.pool.free_pages() < growers)
         scores = self._pull_scores() if need_scores else None
+        resident: set[int] = set()
+        hot_pids: set[int] = set()
         pages_total = pages_hot = 0
         per_slot: dict[int, tuple[int, int]] = {}
         for slot in slots:
@@ -390,13 +408,41 @@ class PagedBackend:
             pages_total += n_res
             pages_hot += n_hot
             per_slot[slot] = (n_res, n_hot)
+            if self.kv_quant:
+                resident.update(pid for pid in table if pid >= 0)
+                hot_pids.update(int(p) for p in ph if p >= 0)
         self.decode_sparsity = {"pages_total": pages_total,
                                 "pages_hot": pages_hot,
                                 "shard_skips": 0,
                                 "per_slot": per_slot}
-        return {"phys": self._ints(phys), "logical": self._ints(logical),
-                "write_page": self._ints(write_page),
-                "write_off": self._ints(write_off)}
+        out = {"phys": self._ints(phys), "logical": self._ints(logical),
+               "write_page": self._ints(write_page),
+               "write_off": self._ints(write_off)}
+        if self.kv_quant:
+            qmask = self._quantize_cold(resident, hot_pids, phys)
+            if qmask.any():   # else the decode runs K1's fp form
+                out["qmask"] = torch.as_tensor(qmask, device=self.device)
+        return out
+
+    def _quantize_cold(self, resident: set, hot_pids: set,
+                       phys: np.ndarray) -> np.ndarray:
+        """Quantize the pages that left the DLZS hot set and build the
+        step's [B, W] qmask. A page hot for ANY sequence stays fp; a page
+        already quantized that turns hot again reads its int8 copy (the
+        tier is a one-way door until the page is freed), which is what
+        ``qmask`` marks."""
+        tracker = self.pool.quant
+        to_q = sorted(pid for pid in resident - hot_pids
+                      if not tracker.is_quant(pid))
+        if to_q:
+            quant.quantize_pages(self.cache["layers"],
+                                 self._ints(to_q).long())
+            for pid in to_q:
+                tracker.mark(pid)
+        qmask = np.zeros(phys.shape, bool)
+        for i in range(phys.shape[0]):
+            qmask[i] = [tracker.is_quant(int(p)) for p in phys[i]]
+        return qmask
 
     @torch.no_grad()
     def decode_step(self, slots, tables, lengths):
@@ -430,10 +476,21 @@ class PagedBackend:
         return {int(j) for j in hot if j >= 0}
 
     def gather_park(self, table, js):
-        """Pull pages ``js`` to the host (flat payload order)."""
-        idx = self._ints([table[j] for j in js]).long()
-        return tree_map(lambda pool: _to_host(pool[:, idx]),
+        """Pull pages ``js`` to the host (flat payload order). With the
+        int8 tier, the scales of pages whose flag is clear are sent as 0:
+        a recycled page keeps its last owner's scale on the device, and
+        the receiver reads a positive scale as "quantized"."""
+        pids = [table[j] for j in js]
+        idx = self._ints(pids).long()
+        rows = tree_map(lambda pool: _to_host(pool[:, idx]),
                         self.cache["layers"])
+        if self.kv_quant:
+            fp = [i for i, pid in enumerate(pids)
+                  if not self.pool.quant.is_quant(pid)]
+            for path, leaf in tree_items(rows):
+                if path[-1] in ("k_scale", "v_scale"):
+                    leaf[:, fp] = 0.0
+        return rows
 
     def can_hold(self, park_js) -> bool:
         return (self.pool.free_pages() + len(self.pool.evictable())
@@ -445,28 +502,57 @@ class PagedBackend:
         return lambda j: self.alloc.extend(scores)
 
     def upload_park(self, rows, uploads) -> None:
+        """Write payload rows back at new physical ids, leaf by key path
+        (a payload's tree may list its keys in another order). A payload
+        from an instance without the int8 tier has no tier leaves: those
+        pages get zero codes and scales here and read as fp; tier leaves
+        this pool lacks are ignored (the fp rows are kept beside them)."""
         idx = self._ints([pid for _, _, pid in uploads]).long()
         pos = [p for p, _, _ in uploads]
-        for (_, pool), (_, r) in zip(tree_items(self.cache["layers"]),
-                                     tree_items(rows)):
-            pool[:, idx] = _to_device(r[:, pos], pool)
+        for path, pool in tree_items(self.cache["layers"]):
+            r = rows
+            for key in path:
+                r = r.get(key) if path[-1] in quant.QUANT_KEYS else r[key]
+                if r is None:
+                    break
+            if r is None:
+                pool[:, idx] = 0
+            else:
+                pool[:, idx] = _to_device(r[:, pos], pool)
+        if self.kv_quant:
+            self._restore_quant_flags(rows, uploads)
+
+    def _restore_quant_flags(self, rows, uploads) -> None:
+        """Swap-in wrote the payload's int8-tier rows back with the fp
+        rows; re-derive which restored pages were quantized from its
+        per-page scales (a written scale is positive, an fp-only page
+        carries the zeroed slab row)."""
+        scale = quant.find_scale(rows)
+        if scale is None:
+            return
+        for pos, _, pid in uploads:
+            if float(np.max(scale[:, pos])) > 0.0:
+                self.pool.quant.mark(pid)
 
     # -- observability --------------------------------------------------------
 
     def page_accounting(self) -> dict:
         """Host-side pool census for obs.accounting (no device syncs)."""
         pool = self.pool
-        live = shared = 0
+        live = shared = q_live = 0
         for pid in range(1, pool.n_pages):
             r = pool.ref(pid)
             if r > 0:
                 live += 1
                 if r > 1:
                     shared += 1
+                if pool.quant.is_quant(pid):
+                    q_live += 1
         return {"capacity": pool.n_pages - 1, "live": live,
                 "free": pool.free_pages(), "cached": len(pool.evictable()),
                 "shared": shared, "unique": live - shared,
-                "quantized_live": 0, "quantize_events": 0,
+                "quantized_live": q_live,
+                "quantize_events": pool.quant.stats().quantize_events,
                 "per_shard": None}
 
     def pool_refs(self) -> dict:
@@ -550,7 +636,7 @@ class PagedBackend:
     def stats(self) -> dict:
         pool = self.pool.stats()
         per_page = metrics.bytes_per_page(self.cache["layers"])
-        return {
+        out = {
             "pool": pool,
             "bytes_per_page": per_page,
             "working_set_bytes": pool.peak_live * per_page,
@@ -559,6 +645,25 @@ class PagedBackend:
             "prefill_batch_compiles": len(self._prefill_batch_shapes),
             "hot_width": self.hot_width,
         }
+        if self.kv_quant:
+            base, tier = quant.split_quant(self.cache["layers"])
+            fp_pp = metrics.bytes_per_page(base)
+            q_pp = metrics.bytes_per_page(tier)
+            acct = self.page_accounting()
+            q_live = acct["quantized_live"]
+            frac = q_live / max(acct["live"], 1)
+            blended = max((1 - frac) * fp_pp + frac * q_pp, 1.0)
+            out["kv_quant"] = {
+                "pages_quantized_live": q_live,
+                "quantize_events": acct["quantize_events"],
+                "bytes_per_page_fp": fp_pp,
+                "bytes_per_page_int8": q_pp,
+                # pages the same byte budget would hold if cold pages
+                # were stored int8-only, at the current hot/cold mix
+                "effective_capacity_pages": int(pool.capacity * fp_pp
+                                                / blended),
+            }
+        return out
 
 
 class PagedServingEngine(EngineCore):

@@ -115,6 +115,88 @@ def test_paged_decode_kernel_rejects_cpu_fallback(cuda_device):
                                       ints[:, 0].contiguous(), scale=0.125)
 
 
+def _k1_tier(k, v, phys, mode, seed):
+    """The int8 cold tier of every page (``kvcache.quant``) and a qmask:
+    about half the slots (padded ones included), all, or none. Page 0,
+    where padded slots point, gets scale 0, which must read as zeros."""
+    from repro_torch.kvcache import quant
+    kq, ks = quant.quantize_rows(k)
+    vq, vs = quant.quantize_rows(v)
+    ks[0] = vs[0] = 0.0
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    qmask = {"mixed": torch.rand(phys.shape, generator=gen) < 0.5,
+             "all": torch.ones(phys.shape, dtype=torch.bool),
+             "none": torch.zeros(phys.shape, dtype=torch.bool)}[mode]
+    return {"kq": kq, "vq": vq, "k_scale": ks, "v_scale": vs,
+            "qmask": qmask.to(phys.device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mixed", "all", "none"])
+@pytest.mark.parametrize("b,g,r,d,w,kv_len,page", [
+    (4, 16, 1, 128, 64, [1024, 1000, 777, 500], 16),  # the main path
+    (3, 4, 4, 128, 16, [256, 201, 37], 16),           # GQA, padded slots
+    (3, 4, 4, 64, 16, [256, 0, 93], 16),              # d 64, kv_len 0
+    (2, 8, 2, 64, 9, [140, 17], 16),
+    (2, 16, 1, 128, 8, [1000, 700], 128)])            # phase 9's tier read
+def test_paged_decode_int8_lane_matches_plain(cuda_device, mode, b, g, r, d,
+                                              w, kv_len, page):
+    """K1's int8 form against its plain version (``_gather_hot(quant=)``),
+    bf16 at 2e-2; two calls bit-equal; one counted int8-form launch per
+    call. With an all-False qmask it gives the fp form's bits."""
+    args = _k1_inputs(b, g, r, d, w, kv_len, seed=w + d, device=cuda_device,
+                      page=page, n_pages=64 if page == 128 else 272)
+    q, k, v, phys = args[:4]
+    tier = _k1_tier(k, v, phys, mode, seed=b + w)
+    kernels.reset_launches()
+    got = kpaged.paged_decode_attention(*args, scale=d ** -0.5, quant=tier)
+    again = kpaged.paged_decode_attention(*args, scale=d ** -0.5, quant=tier)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode"] == 2
+    assert kernels.FORM_LAUNCHES["paged_decode/int8"] == 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got.float()).all())
+    want = kpaged.paged_decode_reference(*args, scale=d ** -0.5, quant=tier)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16_TOL)
+    fp = kpaged.paged_decode_attention(*args, scale=d ** -0.5)
+    assert kernels.FORM_LAUNCHES["paged_decode/fp"] == 1
+    if mode == "none":
+        assert torch.equal(got, fp)
+    else:
+        assert not torch.equal(got, fp)
+    for i, n in enumerate(kv_len):
+        if n == 0:
+            assert float(got[i].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_paged_decode_quant_never_takes_the_gather(cuda_device,
+                                                   monkeypatch):
+    """``kvcache.paged_attention.paged_decode(quant=...)`` on CUDA tensors
+    launches K1's int8 form and never enters the plain gather; a tier the
+    kernel does not take raises instead of falling back."""
+    from repro_torch.kvcache import paged_attention as tpa
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain gather ran on the card")
+    monkeypatch.setattr(tpa, "_gather_hot", refuse)
+    args = _k1_inputs(2, 4, 2, 128, 8, [100, 64], seed=3,
+                      device=cuda_device)
+    q, k, v, phys = args[:4]
+    tier = _k1_tier(k, v, phys, "mixed", seed=4)
+    kernels.reset_launches()
+    out = tpa.paged_decode(q.reshape(2, 8, 128), k, v, *args[3:], n_kv=4,
+                           quant=tier)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 8, 128)
+    assert kernels.FORM_LAUNCHES["paged_decode/int8"] == 1
+    with pytest.raises(TypeError, match="qmask"):
+        tpa.paged_decode(q.reshape(2, 8, 128), k, v, *args[3:], n_kv=4,
+                         quant=dict(tier, qmask=tier["qmask"].int()))
+    assert kernels.FORM_LAUNCHES["paged_decode/int8"] == 1
+
+
 # -- the prefill tile kernels: K2 (DLZS block maxima), K3 (SU-FA), K4 --------
 
 # K2's maxima are fp32 sums of exact bf16 x pow2 products: only the order

@@ -154,10 +154,16 @@ def test_kernel_wrapper_rejects_bad_inputs(bad):
 
 
 def test_paged_decode_quant_raises():
+    """An int8 tier without its qmask is refused, never read as the fp
+    path (the tier's read path itself: tests/test_torch_quant.py)."""
     q, kp, vp, phys, logical, kv_len, nkv = _paged_inputs()
-    with pytest.raises(NotImplementedError, match="int8"):
-        tpa.paged_decode(*_torch((q, kp, vp, phys, logical, kv_len),
-                                 "float32"), n_kv=nkv, quant={})
+    args = _torch((q, kp, vp, phys, logical, kv_len), "float32")
+    tier = {"kq": torch.zeros(kp.shape, dtype=torch.int8),
+            "vq": torch.zeros(kp.shape, dtype=torch.int8),
+            "k_scale": torch.ones(kp.shape[0]),
+            "v_scale": torch.ones(kp.shape[0])}
+    with pytest.raises(KeyError, match="qmask"):
+        tpa.paged_decode(*args, n_kv=nkv, quant=tier)
 
 
 def test_page_scores_match():

@@ -5,8 +5,10 @@ the ``LLM`` front door, held against the reference.
   ``make_llm`` factory: the JAX ``SchedulerCfg`` each scenario builds is
   turned into the port's through ``dataclasses.asdict``, the weights come
   from ``repro.models.lm.init`` through the converter, and parity is
-  judged against the JAX dense oracle (``_dense_oracle``) token for token.
-  The int8 cold tier is not ported: its scenario must raise.
+  judged against the JAX dense oracle (``_dense_oracle``) token for token;
+  ``scenario_decode_sparse_pressure`` runs the int8 cold tier.
+* The chaos scenarios (``engine_core_scenarios.run_chaos``) with the same
+  factory and the port's ``FaultPlan``/``FaultyBackend``.
 * Bounded DLZS sparse decode (``decode_hot_width``) against the JAX paged
   engine on the same weights, token for token.
 * The entry points: unported backends and options raise, naming their
@@ -74,13 +76,29 @@ def _torch_factory(tcfg, tparams):
 def test_paged_port_conformance(smoke_lm, scenario):
     jcfg, jparams, tcfg, tparams = smoke_lm
     bp = scen.BACKEND_PARAMS["paged"]
-    make_llm = _torch_factory(tcfg, tparams)
-    if scenario is scen.scenario_decode_sparse_pressure:
-        # needs kv_quant="int8", the cold tier a later slice ports
-        with pytest.raises(NotImplementedError, match="int8.*ROADMAP"):
-            scenario(make_llm, jcfg, jparams, bp)
-        return
-    scenario(make_llm, jcfg, jparams, bp)
+    scenario(_torch_factory(tcfg, tparams), jcfg, jparams, bp)
+
+
+def test_paged_port_chaos(smoke_lm, monkeypatch):
+    """``run_chaos`` (fault storms at every backend seam, a seeded storm,
+    cancellation and deadlines) with the torch factory: the scenarios'
+    ``from repro.serving import FaultPlan, FaultyBackend`` resolve to the
+    port's classes, and their telemetry (``from repro import obs``) to the
+    port's ``Telemetry``, for this test's duration."""
+    import repro.obs as jobs
+    import repro.serving as jserving
+
+    from repro_torch import obs as tobs
+    from repro_torch.serving import FaultPlan, FaultyBackend
+    monkeypatch.setattr(jserving, "FaultPlan", FaultPlan)
+    monkeypatch.setattr(jserving, "FaultyBackend", FaultyBackend)
+    monkeypatch.setattr(jobs, "Telemetry", tobs.Telemetry)
+    jcfg, jparams, tcfg, tparams = smoke_lm
+    log = []
+    scen.run_chaos(_torch_factory(tcfg, tparams), jcfg, jparams,
+                   scen.BACKEND_PARAMS["paged"], log=log.append)
+    assert len(log) == len(scen.CHAOS_SCENARIOS)
+    assert all(line.endswith("OK") for line in log), log
 
 
 def test_sparse_decode_matches_reference_engine(smoke_lm):
@@ -232,11 +250,27 @@ def test_from_config_serves_on_cpu_when_asked():
 @pytest.mark.parametrize("kw,match", [
     (dict(backend="dense"), "ROADMAP"),
     (dict(backend="spatial"), "ROADMAP"),
-    (dict(sched_cfg=SchedulerCfg(kv_quant="int8")), "int8.*ROADMAP"),
 ])
 def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         LLM.from_config(tsmoke("olmo_1b"), device="cpu", **kw)
+
+
+def test_from_config_serves_the_int8_tier():
+    """``SchedulerCfg(kv_quant="int8")`` serves (cold pages quantize under
+    a bounded hot width); an unknown tier is refused."""
+    cfg = tsmoke("olmo_1b")
+    pcfg = PagedEngineCfg(max_batch=2, n_pages=16, hot_pages=4, eos_id=-1)
+    llm = LLM.from_config(cfg, device="cpu", engine_cfg=pcfg,
+                          sched_cfg=SchedulerCfg(chunk_pages=1,
+                                                 decode_hot_width=2,
+                                                 kv_quant="int8"))
+    h = llm.submit(np.arange(50, dtype=np.int32), max_tokens=6)
+    assert len(h.result()) == 6
+    assert llm.stats()["kv_quant"]["quantize_events"] > 0
+    with pytest.raises(ValueError, match="kv_quant"):
+        LLM.from_config(cfg, device="cpu", engine_cfg=pcfg,
+                        sched_cfg=SchedulerCfg(kv_quant="fp8"))
 
 
 def test_registry_names_unported_archs():
@@ -257,9 +291,14 @@ sys.path[:0] = [{src!r}, {root!r}]
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
+new = ("repro_torch.kvcache.quant", "repro_torch.kvcache.wire",
+       "repro_torch.serving.faults", "repro_torch.serving.disagg.transfer",
+       "repro_torch.serving.disagg.router")
+assert all(n in sys.modules for n in new), new
 import chip_smoke
 sys.path.insert(0, {tools!r})
 import torch_profile_prefill, torch_star_drift, torch_decode_forms
+import torch_k1_int8
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -356,6 +395,37 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
         cs.require_prefill_launches(whole, "cpu")
     # the smoke config's STAR tiles of 16 take the mma.sync forms
     assert whole["expected_wgmma_launches"] == 0
+    # phase 2's int8 case: half the slots marked, all-False = the fp form
+    k1q = cs.check_paged_int8("cpu", "rehearsal", b=2, g=2, r=2, d=64,
+                              page=16, w=6, p=16, kv_len=(90, 17), seed=5,
+                              timed=False)
+    assert k1q["all_false_bit_equal_fp"] and 0 < k1q["slots_marked"] < 8
+    assert k1q["violations_fp_form"] > 0 \
+        and k1q["violations_other_page_scale"] > 0
+    q, k, v, phys, logical, kvl = cs.paged_inputs(2, 2, 1, 64, 16, 6, 16,
+                                                  (90, 17), 5, "cpu")
+    bytes_, _ = cs.int8_work(q, k, phys, logical, kvl,
+                             torch.zeros_like(phys, dtype=torch.bool))
+    assert bytes_ == cs.paged_work(q, k, phys, kvl)[0] + phys.numel()
+    # phase 9: the pair equals one instance token for token, the int8
+    # tier is quantized and read, a lost hop recovers by recompute
+    disagg = cs.check_disagg(cfg, params, whole_prompts, 8, device="cpu",
+                             generator=gen, n_pages=64, hot_pages=8,
+                             hot_width=4,
+                             tier_prompt=cs.make_prompts(cfg, (160,), 5)[0])
+    pair, read = disagg["pair"], disagg["tier_read"]
+    assert disagg["tokens_equal_single"] and pair["transfers"] == 3
+    assert pair["quantize_events_decode_side"] > 0
+    assert pair["prefill_calls"] == 3 and pair["k1_launches"] == 0
+    assert disagg["faulted"]["transfer_faults"] == 1
+    assert read["transfers"] == 2 and read["int8_slots_read_prefill_side"] \
+        + read["int8_slots_read_decode_side"] > 0
+    assert disagg["tier_read_tokens_equal_single"]
+    assert 0 < read["expected_k1_int8_launches"] \
+        < read["expected_k1_launches"]
+    assert pair["expected_k1_int8_launches"] == 0
+    with pytest.raises(SystemExit, match="expected decode ticks x layers"):
+        cs.require_disagg_launches(pair, "cpu")
 
 
 def _run_smoke(cwd):
