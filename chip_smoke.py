@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printing its numbers on a line of its own:
 
 1. the card's name and power limit; the build of every CUDA kernel from
-   ``src/repro_torch/csrc`` (nvcc, sm_90a) into ``build/``;
+   ``src/repro_torch/csrc`` (nvcc, sm_90a) into ``build/``, with ptxas's
+   registers and spills for each kernel instantiation;
 2. K1 (paged decode) against its plain PyTorch version on the card, at the
    main path's shapes, at the whole-prompt phase's decode shape (W = 130)
    and at a GQA case with padded slots, bf16 at 2e-2, two calls bit-equal,
@@ -22,7 +23,10 @@ Phases, each printing its numbers on a line of its own:
    form. Its codes are drawn apart from the fp rows, each page at its own
    magnitude, and the fp form and the plain version fed the next page's
    scales must each break the tolerance and lie 4x the kernel's error
-   off: the check can tell an ignored qmask or a wrong scale;
+   off: the check can tell an ignored qmask or a wrong scale. Both forms
+   again, timed, at the decode shapes of the wide GQA groups: ChatGLM3-6B
+   (G 2, R 16, W covering phase 10's longest sequence) and StarCoder2-15B
+   (G 4, R 12);
 3. the main path: full-width OLMo-1B (random weights from a seed) served
    through ``LLM.from_config(backend="paged")``: TTFT, tokens/s, decode
    ticks, and K1's launches, which must equal ticks x layers;
@@ -43,7 +47,13 @@ Phases, each printing its numbers on a line of its own:
    T of 991, at T = S = 1 and 129, and at d = 64), each timed beside its
    bound, its plain version and one PyTorch call (SDPA, for K3 over the
    gathered rows that its old contract read; none computes K2's block
-   maxima);
+   maxima); and K3 with STAR's element-level sphere mask (its mma.sync
+   form, T = 2048, tiles 128, both modes), with the share of keys the
+   sphere drops and the share of mask elements a default cuBLAS product
+   would set otherwise; then, untimed, phases 10-12's shapes: K2, K3
+   (both modes, with and without the element mask) and K4 at ChatGLM3-6B's
+   longest prompt (BH 32, T 4096), and K3's element mask at star_paper's
+   (BH 32, T 2048);
 7. the fused STAR prefill (``kernels.ops``: K2 -> SADS -> K3) against the
    plain ``core.star_attention_scanq`` at every layer of a 2048-token
    STAR forward, each fed the same q/k/v: the share of (head, q-tile)
@@ -76,7 +86,27 @@ Phases, each printing its numbers on a line of its own:
    good), and the tokens must equal one instance's that gets the second
    request at the same point. TTFT, tokens/s, decode ms per tick,
    transfer ms and bytes, quantized pages and int8 slots read are
-   printed.
+   printed;
+10. ChatGLM3-6B at full width and depth (28 layers, 32 heads over 2 KV
+   heads, random weights from a seed) served through the paged engine
+   with whole-prompt prefill, prompts of 1024, 2048 and 4096 tokens, 16
+   tokens each: with STAR on, K1 launches = ticks x 28 (R = 16) and K2/K3
+   = prefill calls x 28 (BH 32), each first token the argmax of a
+   cache-free STAR forward or a 1-step tie; the fused STAR prefill
+   against the plain scanq as in phase 7, at layers 0, 7, 14 and 21 of a
+   4096-token forward; then the same requests with
+   ``star=None`` (a STAR prefill keeps other K/V than a dense one, so only
+   that setting has a dense oracle), every token held by phase 4's rule
+   against a K4 forward;
+11. the same requests through the dense slot engine
+   (``LLM.from_config(backend="dense")``, ``star=None``): K4 once per
+   layer of each prefill and no other kernel, every token held by phase
+   4's rule;
+12. StarCoder2-15B (K1 at R = 12) and star_paper (LLaMA-7B's shape) at
+   their published widths with depth cut to 4 layers, one 2048-token
+   prompt each through the paged engine (star_paper also with
+   ``STARConfig(elementwise=True)``, K3's element mask): launch counts and
+   first tokens as in phase 10.
 Phase 4 also counts K4: oracle forwards x layers launches.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
@@ -91,6 +121,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -102,7 +133,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
-from repro_torch.configs import olmo_1b  # noqa: E402
+from repro_torch.configs import (chatglm3_6b, olmo_1b,  # noqa: E402
+                                 star_paper, starcoder2_15b)
 from repro_torch.core import sads  # noqa: E402
 from repro_torch.core import star_attention as core_star  # noqa: E402
 from repro_torch.kernels import build, launch, ops  # noqa: E402
@@ -114,8 +146,8 @@ from repro_torch.kernels import sufa as ksufa  # noqa: E402
 from repro_torch.kvcache import bucketing, quant  # noqa: E402
 from repro_torch.models import attention, lm  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
-from repro_torch.serving import (LLM, DisaggRouter, FaultPlan,  # noqa: E402
-                                 PagedEngineCfg, SchedulerCfg)
+from repro_torch.serving import (LLM, DisaggRouter, EngineCfg,  # noqa: E402
+                                 FaultPlan, PagedEngineCfg, SchedulerCfg)
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 SEED = 0
@@ -135,6 +167,14 @@ WHOLE_MAX_TOKENS = 16
 # pages (the cold tier is read from the first page the window leaves)
 DISAGG_MAX_TOKENS = 32
 DISAGG_HOT_WIDTH = 8
+# phases 10-11: ChatGLM3-6B at full width and depth; its published context
+# is 8192
+GLM_PROMPTS = (1024, 2048, 4096)
+GLM_MAX_TOKENS = 16
+# phase 12: StarCoder2-15B and star_paper (LLaMA-7B) at their published
+# widths, depth cut to CUT_LAYERS, one CUT_PROMPT-token prompt each
+CUT_LAYERS = 4
+CUT_PROMPT = 2048
 # K2: fp32 sums of exact bf16 x pow2 products, only their order differs
 # from the plain version's; K3: tests/test_kernels.py's SU-FA bf16 bound
 PREFILL_TOL = {"dlzs_block": 1e-4, "sufa": 3e-2, "flash": TOL}
@@ -641,21 +681,37 @@ def selected_pairs(idx, valid, *, t: int, s: int, block: int) -> int:
 
 
 def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
-               d=128) -> dict:
+               d=128, elementwise=False) -> dict:
     """K3 on the tiles the glue selects for these inputs, keeping as many
-    as olmo_1b's STAR config keeps, read in place from the tile ids."""
+    as olmo_1b's STAR config keeps (ChatGLM3-6B's and star_paper's are the
+    same: top-k 0.2, tiles 128, radius 5), read in place from the tile
+    ids. With
+    ``elementwise`` K3 also applies the element-level sphere (the config's
+    radius): its plain version computes the estimates as an fp32-summed
+    bf16 product (the kernel's arithmetic up to the order of that sum),
+    and the share of mask elements that a default cuBLAS product
+    (reduced-precision reductions allowed) would set otherwise is
+    printed beside the share of visible keys the sphere drops."""
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
     scale = d ** -0.5
-    keep = dataclasses.replace(olmo_1b.config().star, block_q=block,
+    star = olmo_1b.config().star
+    keep = dataclasses.replace(star, block_q=block,
                                block_kv=block).keep_blocks(t)
     raw = kdlzs.dlzs_block_scores(q, k, causal=True, scale=1.0,
                                   block_q=block, block_kv=block)
-    idx, valid = ops.select_tiles(raw, keep, scale=scale, radius=5.0,
+    idx, valid = ops.select_tiles(raw, keep, scale=scale, radius=star.radius,
                                   dtype=q.dtype)
     kw = dict(block_q=block, block_kv=block, causal=True, scale=scale,
               strict=strict)
+    if elementwise:
+        kw.update(elementwise=True, radius=star.radius)
     kernel = lambda: ksufa.sufa_attention(q, k, v, idx, valid, **kw)  # noqa
-    plain = lambda: ksufa.sufa_reference(q, k, v, idx, valid, **kw)  # noqa
+
+    def plain():
+        if not elementwise:
+            return ksufa.sufa_reference(q, k, v, idx, valid, **kw)
+        with fp32_summed_bf16_gemms():
+            return ksufa.sufa_reference(q, k, v, idx, valid, **kw)
     got = kernel()
     if not torch.equal(got, kernel()):
         raise SystemExit(f"sufa T={t} block={block}: two calls on the same "
@@ -664,30 +720,47 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
     kg, vg, mask = ksufa.gather_selected(k, v, idx, valid, t=t,
                                          block_q=block, block_kv=block,
                                          causal=True)
+    extra = {}
+    if elementwise:
+        visible = mask
+        with fp32_summed_bf16_gemms():
+            mask = ksufa.sphere_mask(q, kg, visible, scale=scale,
+                                     radius=star.radius)
+        default = ksufa.sphere_mask(q, kg, visible, scale=scale,
+                                    radius=star.radius)
+        n_visible = int(visible.sum())
+        extra = {"radius": star.radius, "visible_keys": n_visible,
+                 "sphere_dropped_share": 1 - int(mask.sum()) / n_visible,
+                 "mask_elements_differ_default_gemm_share":
+                     int((mask != default).sum()) / mask.numel()}
     # distinct (head, key tile) pairs that some q-tile reads
     reads = torch.zeros((bh, t // block), dtype=torch.int32, device=dev)
     reads.scatter_add_(1, idx.reshape(bh, -1), valid.reshape(bh, -1).int())
     n_tiles = int((reads > 0).sum())
     tile_bytes = 2 * n_tiles * block * d * k.element_size()
     out = held("prefill_kernel", got, plain(), PREFILL_TOL["sufa"],
-               kernel="sufa", form=launch.tile_form(block, block), BH=bh,
-               T=t, d=d, block=block, keep=keep, strict=strict,
-               valid_tiles=int(valid.sum()), distinct_tiles=n_tiles,
-               gathered_bytes_not_moved={
+               kernel="sufa", form=launch.tile_form(block, block,
+                                                    elementwise),
+               BH=bh, T=t, d=d, block=block, keep=keep, strict=strict,
+               elementwise=elementwise, valid_tiles=int(valid.sum()),
+               distinct_tiles=n_tiles, gathered_bytes_not_moved={
                    "kg": nbytes(kg), "vg": nbytes(vg), "mask": nbytes(mask),
-                   "k": nbytes(k)})
+                   "k": nbytes(k)}, **extra)
     if timed:
         # SDPA over the same gathered rows under the boolean mask (the
-        # gather is outside the timed call)
+        # gather, and the element mask's estimates, outside the timed call)
         n = bh * (t // block)
         qs = q.reshape(n, 1, block, d)
         ks, vs = (x.reshape(n, 1, keep * block, d) for x in (kg, vg))
         ms = mask.transpose(2, 3).reshape(n, 1, block, keep * block)
+        pairs = selected_pairs(idx, valid, t=t, s=t, block=block)
+        # the element mask: one estimate (2·d) per visible pair, then the
+        # exact score and P·V (4·d) for the pairs it keeps
+        flops = 2 * d * pairs + 4 * d * int(mask.sum()) if elementwise \
+            else 4 * d * pairs
         add_times(out, kernel, plain,
                   lambda: SDPA(qs, ks, vs, attn_mask=ms, scale=scale), flush,
-                  bytes_=nbytes(q, q, idx, valid) + tile_bytes,
-                  flops=4 * d * selected_pairs(idx, valid, t=t, s=t,
-                                               block=block))
+                  bytes_=nbytes(q, q, idx, valid) + tile_bytes, flops=flops)
     emit("prefill_kernel", ok=True, **out)
     return out
 
@@ -738,6 +811,12 @@ def check_prefill_kernels(dev) -> dict:
                    timed=False)
         check_sufa(dev, flush, bh=16, t=1024, block=64, strict=strict,
                    seed=7, timed=False)
+        # the element-level sphere (the mma.sync form at the served tiles)
+        out = check_sufa(dev, flush, bh=16, t=2048, block=128,
+                         strict=strict, seed=2053, timed=strict,
+                         elementwise=True)
+        if strict:
+            timed["sufa_elementwise"] = out
     for t in (1024, 2048, 991, 1, 129):
         out = check_flash(dev, flush, bh=16, t=t, causal=True, seed=t + 7,
                           timed=t == 2048)
@@ -745,6 +824,19 @@ def check_prefill_kernels(dev) -> dict:
             timed["flash"] = out
     check_flash(dev, flush, bh=16, t=1024, causal=True, seed=11, timed=False,
                 d=64)
+    # phases 10-12's shapes: ChatGLM3-6B's longest whole prompt (32 heads,
+    # K/V expanded from its 2 KV heads), and star_paper's 32 heads at its
+    # 2048-token prompt under the element mask
+    check_dlzs(dev, flush, bh=32, t=4096, block=128, causal=True, seed=41,
+               timed=False)
+    for strict in (True, False):
+        check_sufa(dev, flush, bh=32, t=4096, block=128, strict=strict,
+                   seed=42, timed=False)
+        check_sufa(dev, flush, bh=32, t=4096, block=128, strict=strict,
+                   seed=43, timed=False, elementwise=True)
+        check_sufa(dev, flush, bh=32, t=2048, block=128, strict=strict,
+                   seed=44, timed=False, elementwise=True)
+    check_flash(dev, flush, bh=32, t=4096, causal=True, seed=45, timed=False)
     del flush
     return timed
 
@@ -754,8 +846,9 @@ def check_prefill_kernels(dev) -> dict:
 @contextlib.contextmanager
 def fp32_summed_bf16_gemms():
     """cuBLAS bf16 GEMMs rounded once from their fp32 sum, as the plain STAR
-    form's predicted scores assume; only phase 7's plain reference runs
-    under it, the served phases keep the library's default."""
+    form's predicted scores assume; only the plain references of phases 6
+    (K3's element mask), 7 and 10 run under it, the served phases keep the
+    library's default."""
     matmul = torch.backends.cuda.matmul
     old = matmul.allow_bf16_reduced_precision_reduction
     matmul.allow_bf16_reduced_precision_reduction = False
@@ -877,19 +970,22 @@ def check_layer(q, k, v, star, *, timed: bool) -> dict:
 
 @torch.inference_mode()
 def check_fused_star(params, cfg, seed: int, t: int = 2048,
-                     timed: bool = True) -> dict:
-    """The glue against the plain STAR form at every layer of one STAR
-    forward, each layer's two forms fed the same q/k/v: rows whose kept
-    tile sets agree must agree in value to SU-FA's bf16 bound, scaled by
-    the output's magnitude (the plain form rounds each score to bf16
-    before its softmax, K3 keeps fp32); the agreement itself must reach
-    99% of the rows in every layer. Layer 0 is timed."""
+                     timed: bool = True, every: int = 1,
+                     tag: str = "fused_star") -> dict:
+    """The glue against the plain STAR form at every ``every``-th layer of
+    one STAR forward, each layer's two forms fed the same q/k/v: rows
+    whose kept tile sets agree must agree in value to SU-FA's bf16 bound,
+    scaled by the output's magnitude (the plain form rounds each score to
+    bf16 before its softmax, K3 keeps fp32); the agreement itself must
+    reach 99% of the rows in every layer checked. Layer 0 is timed."""
     star = cfg.star
+    inputs = star_layer_inputs(params, cfg, t, seed)[::every]
     layers = [check_layer(q, k, v, star, timed=timed and i == 0)
-              for i, (q, k, v) in enumerate(star_layer_inputs(params, cfg, t,
-                                                              seed))]
+              for i, (q, k, v) in enumerate(inputs)]
+    del inputs
     nh = cfg.n_heads
     out = {"T": t, "heads": nh, "keep": star.keep_blocks(t),
+           "layers_checked": list(range(0, cfg.n_layers, every)),
            "rows_per_layer": nh * (t // star.block_q),
            "selection_agreement_min": min(
                c["selection_agreement"] for c in layers),
@@ -902,9 +998,10 @@ def check_fused_star(params, cfg, seed: int, t: int = 2048,
                    plain_ms=layers[0]["plain_ms"])
     ok = all(c["selection_agreement"] >= 0.99 and
              c["max_abs_err_agreeing"] <= c["tolerance"] for c in layers)
-    emit("fused_star", ok=ok, **out)
+    emit(tag, ok=ok, **out)
     if not ok:
-        raise SystemExit(f"fused STAR prefill disagrees with scanq: {out}")
+        raise SystemExit(f"{tag}: fused STAR prefill disagrees with scanq: "
+                         f"{out}")
     return out
 
 
@@ -934,11 +1031,12 @@ def count_prefills(on_card: bool) -> dict:
 
 
 def serve_whole_prompt(cfg, params, prompts, max_tokens, *, device,
-                       generator):
+                       generator, n_pages: int = 512):
     """A paged engine whose prefill is one ``lm.prefill`` per prompt
     (``chunk_pages=None``), served from a zero launch count so the pool
     probe's prefill is counted too. hot_pages covers the longest
-    sequence, so decode is exact."""
+    sequence, so decode is exact. With STAR on each prefill runs K2 and
+    K3 per layer (K3's element-mask form with ``elementwise``), else K4."""
     longest = -(-(max(len(p) for p in prompts) + max_tokens) // 16)
     kernels.reset_launches()
     tally = count_prefills(torch.device(device).type == "cuda")
@@ -947,17 +1045,21 @@ def serve_whole_prompt(cfg, params, prompts, max_tokens, *, device,
             cfg, backend="paged", params=params, device=device,
             generator=generator,
             engine_cfg=PagedEngineCfg(max_batch=4, page_size=16,
-                                      n_pages=512, hot_pages=longest + 1,
-                                      eos_id=-1),
+                                      n_pages=n_pages,
+                                      hot_pages=longest + 1, eos_id=-1),
             sched_cfg=SchedulerCfg(chunk_pages=None))
         run = serve(llm, prompts, max_tokens, reset=False)
     finally:
         tally["restore"]()
     summary = served_summary(run, cfg.n_layers)
+    star = cfg.star
     # K2 and K3 take their wgmma form where a prefill's tiles are 128 x 128
-    wgmma_calls = sum(launch.tile_form(min(cfg.star.block_q, w),
-                                       min(cfg.star.block_kv, w)) == "wgmma"
-                      for w in tally["widths"])
+    # (K3 not with the element mask, which lives in its mma.sync form)
+    wgmma_calls = 0 if star is None else sum(
+        launch.tile_form(min(star.block_q, w), min(star.block_kv, w))
+        == "wgmma" for w in tally["widths"])
+    per_call = 0 if star is None else cfg.n_layers
+    elem = star is not None and star.elementwise
     summary.update(
         prefill_calls=tally["calls"], prefill_widths=tally["widths"],
         prefill_s=tally["seconds"],
@@ -965,14 +1067,21 @@ def serve_whole_prompt(cfg, params, prompts, max_tokens, *, device,
         sufa_launches=run["launches"]["sufa"],
         flash_launches=run["launches"]["flash"],
         form_launches=run["form_launches"],
-        expected_prefill_launches=tally["calls"] * cfg.n_layers,
-        expected_wgmma_launches=wgmma_calls * cfg.n_layers)
+        expected_prefill_launches=tally["calls"] * per_call,
+        expected_flash_launches=tally["calls"] * (cfg.n_layers - per_call),
+        expected_wgmma_launches=wgmma_calls * cfg.n_layers,
+        expected_sufa_wgmma_launches=0 if elem
+        else wgmma_calls * per_call,
+        expected_sufa_elementwise_launches=tally["calls"] * per_call
+        if elem else 0)
     return llm, run, summary
 
 
 def require_prefill_launches(summary: dict, tag: str) -> None:
     """K2 and K3 once per layer of every prefill call, in the wgmma form
-    wherever the call's tiles are 128 x 128 (all but the pool probe)."""
+    wherever the call's tiles are 128 x 128 (all but the pool probe; K3's
+    element-mask calls all in its mma.sync form); K4 once per layer of a
+    dense prefill call."""
     want = summary["expected_prefill_launches"]
     got = (summary["dlzs_block_launches"], summary["sufa_launches"])
     if summary["prefill_calls"] == 0 or got != (want, want):
@@ -981,11 +1090,21 @@ def require_prefill_launches(summary: dict, tag: str) -> None:
                          f"expected prefill calls x layers = {want}")
     forms = summary["form_launches"]
     wgmma = summary["expected_wgmma_launches"]
-    got = (forms["dlzs_block/wgmma"], forms["sufa/wgmma"])
-    if wgmma == 0 or got != (wgmma, wgmma):
-        raise SystemExit(f"{tag}: K2/K3 launched their wgmma form {got} "
-                         f"times over prefill widths "
-                         f"{summary['prefill_widths']}; expected {wgmma}")
+    got = (forms["dlzs_block/wgmma"], forms["sufa/wgmma"],
+           forms["sufa/elementwise"])
+    want = (wgmma, summary.get("expected_sufa_wgmma_launches", wgmma),
+            summary.get("expected_sufa_elementwise_launches", 0))
+    if (want[0] == 0 and summary["expected_prefill_launches"]) \
+            or got != want:
+        raise SystemExit(f"{tag}: K2/K3 launched their wgmma forms and "
+                         f"K3 its element-mask form {got} times over "
+                         f"prefill widths {summary['prefill_widths']}; "
+                         f"expected {want}")
+    flash = summary.get("expected_flash_launches")
+    if flash is not None and summary["flash_launches"] != flash:
+        raise SystemExit(f"{tag}: K4 launched {summary['flash_launches']} "
+                         f"times; expected dense prefill calls x layers = "
+                         f"{flash}")
 
 
 @torch.inference_mode()
@@ -1341,7 +1460,245 @@ def check_disagg(cfg, params, prompts, max_tokens, *, device, generator,
             "tier_read_tokens": read_tokens}
 
 
+# -- phases 10-12: ChatGLM3-6B, the dense engine, the other configs ----------
+
+def count_dense_decode(on_card: bool) -> dict:
+    """Wrap ``lm.decode_step`` (the dense slot engine's decode): ``ticks``
+    and their host time through the device's end."""
+    real = lm.decode_step
+    tally = {"ticks": 0, "decode_s": 0.0}
+
+    def counted(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        tally["decode_s"] += time.perf_counter() - t0
+        tally["ticks"] += 1
+        return out
+
+    lm.decode_step = counted
+    tally["restore"] = lambda: setattr(lm, "decode_step", real)
+    return tally
+
+
+def serve_dense(cfg, params, prompts, max_tokens, *, device,
+                generator) -> tuple:
+    """The dense slot engine (``LLM.from_config(backend="dense")``) over
+    the prompts, from a zero launch count: one ``lm.prefill`` per request
+    (K4 per layer with ``star=None``) and a plain-PyTorch decode over the
+    dense cache, which launches no kernel of the port."""
+    max_len = -(-(max(len(p) for p in prompts) + max_tokens + 1) // 16) * 16
+    llm = LLM.from_config(cfg, backend="dense", params=params,
+                          device=device, generator=generator,
+                          engine_cfg=EngineCfg(max_batch=4, max_len=max_len,
+                                               eos_id=-1))
+    on_card = torch.device(device).type == "cuda"
+    ticks = count_dense_decode(on_card)
+    prefills = count_prefills(on_card)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    handles = [llm.submit(p, max_tokens=max_tokens) for p in prompts]
+    try:
+        llm.run_until_done()
+    finally:
+        ticks["restore"]()
+        prefills["restore"]()
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if not all(h.done and h.outcome == "done" for h in handles):
+        raise SystemExit("the dense engine left requests unserved")
+    done = [h.tokens for h in handles]
+    ttft = [1e3 * llm.records[h.rid].ttft for h in handles]
+    n_tok = sum(len(t) for t in done)
+    slab = sum(x.numel() * x.element_size()
+               for x in tree_leaves(llm.engine.cache["layers"]))
+    summary = {"requests": len(done), "tokens": n_tok, "wall_s": wall,
+               "tok_s": n_tok / wall, "ttft_ms_p50": float(np.median(ttft)),
+               "ttft_ms_max": float(max(ttft)), "max_len": max_len,
+               "slab_bytes": slab, "decode_ticks": ticks["ticks"],
+               "decode_ms_per_tick": 1e3 * ticks["decode_s"]
+               / max(ticks["ticks"], 1),
+               "prefill_calls": prefills["calls"],
+               "prefill_widths": prefills["widths"],
+               "prefill_s": prefills["seconds"], "launches": launches,
+               "expected_flash_launches": prefills["calls"] * cfg.n_layers}
+    return done, summary
+
+
+def require_dense_launches(summary: dict, tag: str) -> None:
+    """The dense engine: K4 once per layer of each prefill, nothing else."""
+    launches = summary["launches"]
+    if launches["flash"] != summary["expected_flash_launches"] or \
+            launches["paged_decode"] or launches["dlzs_block"] \
+            or launches["sufa"]:
+        raise SystemExit(f"{tag}: launches {launches}; expected K4 "
+                         f"prefill calls x layers = "
+                         f"{summary['expected_flash_launches']} and no "
+                         f"other kernel")
+
+
+@torch.inference_mode()
+def warm_prefill(params, cfg, t: int) -> None:
+    """One ``lm.prefill`` of a t-token prompt, so the served numbers that
+    follow do not carry the first call's library set-up."""
+    dev = params["embed"].device
+    toks = torch.as_tensor(make_prompts(cfg, (t,), SEED + 99)[0][None],
+                           device=dev)
+    lm.prefill(params, cfg, {"tokens": toks})
+    sync(dev)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def init_params(cfg, gen, dev) -> tuple:
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = lm.init(cfg, gen, dev)
+    sync(dev)
+    return params, {"init_s": time.perf_counter() - t0,
+                    "params": sum(t.numel() for t in tree_leaves(params))}
+
+
+def check_chatglm(cfg, dev, gen, lengths=GLM_PROMPTS,
+                  max_tokens=GLM_MAX_TOKENS) -> dict:
+    """Phases 10-11: ChatGLM3-6B at full width and depth (K1 at R = 16,
+    K2/K3 at BH = 32). 10a: STAR on, whole-prompt prefill through the
+    paged engine, each first token against a cache-free STAR forward;
+    then, as phase 7 does, the glue against the plain scanq at every 7th
+    layer of a forward of the longest prompt. 10b: the exact-parity
+    setting (``star=None``: a STAR prefill keeps other K/V than a dense
+    one, so only that setting can be held to a dense forward): the same
+    prompts through the paged engine, every decoded token held by phase
+    4's rule against a dense K4 forward.
+    11: the same requests through the dense slot engine, held the same
+    way. Returns each run's summary."""
+    params, info = init_params(cfg, gen, dev)
+    emit("chatglm3_init", dtype=str(cfg.dtype), **info)
+    prompts = make_prompts(cfg, lengths, SEED + 5)
+    dense = dataclasses.replace(cfg, star=None)
+    warm_prefill(params, cfg, lengths[0])
+    warm_prefill(params, dense, lengths[0])
+    n_pages = 2 * -(-(sum(lengths) + len(lengths) * max_tokens) // 16)
+    llm, run, star = serve_whole_prompt(cfg, params, prompts, max_tokens,
+                                        device=dev, generator=gen,
+                                        n_pages=n_pages)
+    star.update(check_first_tokens(params, cfg, prompts, run["done"],
+                                   llm.engine.backend.pcfg.bucket_pow2))
+    star.update(slab_bytes=llm.engine.backend.stats()["slab_bytes"],
+                bytes_per_page=llm.engine.backend.page_bytes_full)
+    emit("chatglm3_served", attention="star", **star)
+    require_launches(star, "ChatGLM3-6B served")
+    require_prefill_launches(star, "ChatGLM3-6B served")
+    del llm
+    free_cache(dev)
+    fused = check_fused_star(params, cfg, SEED + 7, t=max(lengths),
+                             timed=False, every=7, tag="chatglm3_fused_star")
+    llm, run, exact_run = serve_whole_prompt(
+        dense, params, prompts, max_tokens, device=dev, generator=gen,
+        n_pages=n_pages)
+    del llm
+    free_cache(dev)
+    require_launches(exact_run, "ChatGLM3-6B served, star=None")
+    require_prefill_launches(exact_run, "ChatGLM3-6B served, star=None")
+    exact_run.update(check_exact(params, cfg, prompts, run["done"]))
+    emit("chatglm3_served", attention="dense", **exact_run)
+    require_k4(exact_run, "ChatGLM3-6B exactness")
+    done, dense_run = serve_dense(dense, params, prompts, max_tokens,
+                                  device=dev, generator=gen)
+    require_dense_launches(dense_run, "dense engine")
+    dense_run.update(check_exact(params, cfg, prompts, done))
+    dense_run["tokens_equal_paged"] = sum(
+        a == b for x, y in zip(done, run["done"]) for a, b in zip(x, y))
+    emit("dense_engine", **dense_run)
+    require_k4(dense_run, "dense engine exactness")
+    del params
+    return {"star": star, "fused": fused, "exact": exact_run,
+            "dense": dense_run}
+
+
+def require_k4(summary: dict, tag: str) -> None:
+    if summary["k4_launches"] != summary["expected_k4_launches"]:
+        raise SystemExit(f"{tag}: K4 launched {summary['k4_launches']} "
+                         f"times over {summary['forwards']} oracle "
+                         f"forwards; expected forwards x layers = "
+                         f"{summary['expected_k4_launches']}")
+
+
+def free_cache(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def check_cut_config(name: str, cfg, dev, gen, *, layers=CUT_LAYERS,
+                     prompt_len=CUT_PROMPT, max_tokens=GLM_MAX_TOKENS,
+                     elementwise_too: bool = False) -> dict:
+    """Phase 12: a config at its published widths with its depth cut to
+    CUT_LAYERS, one CUT_PROMPT-token prompt served whole through the paged
+    engine with STAR on: K1 and K2/K3 launch counts, the first token
+    against a cache-free STAR forward. With ``elementwise_too`` the same
+    again under ``STARConfig(elementwise=True)`` (K3's element mask)."""
+    published = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    params, info = init_params(cfg, gen, dev)
+    prompts = make_prompts(cfg, (prompt_len,), SEED + 6)
+    out = {}
+    variants = [("star", cfg)]
+    if elementwise_too:
+        variants.append(("star_elementwise", dataclasses.replace(
+            cfg, star=dataclasses.replace(cfg.star, elementwise=True))))
+    for key, c in variants:
+        warm_prefill(params, c, prompt_len)
+        llm, run, summary = serve_whole_prompt(c, params, prompts,
+                                               max_tokens, device=dev,
+                                               generator=gen)
+        summary.update(check_first_tokens(
+            params, c, prompts, run["done"],
+            llm.engine.backend.pcfg.bucket_pow2))
+        del llm
+        emit("cut_config", config=name, attention=key, layers=layers,
+             reduced=f"n_layers {layers} of {published}",
+             group=cfg.n_heads // cfg.n_kv, **info, **summary)
+        require_launches(summary, f"{name} {key}")
+        require_prefill_launches(summary, f"{name} {key}")
+        out[key] = summary
+    del params
+    free_cache(dev)
+    return out
+
+
 # -- main ---------------------------------------------------------------------
+
+def demangle(mangled: str) -> str:
+    """``name<args>`` of a kernel template instantiation whose arguments
+    are ints and bools (``...19paged_scores_kernelILi64ELi1ELb1EEEv...`` ->
+    ``paged_scores_kernel<64,1,1>``); the mangled name if it is not one."""
+    pattern = r"(?=(\d{1,2})([A-Za-z_]\w*?kernel)I((?:L[ib]\d+E)+)E)"
+    for m in re.finditer(pattern, mangled):
+        if int(m[1]) == len(m[2]):
+            args = re.findall(r"(\d+)E", m[3])
+            return f"{m[2]}<{','.join(args)}>"
+    return mangled
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel instantiation, line) for each register, spill, wgmma and
+    warning line of ``nvcc -Xptxas=-v``'s log; the instantiation is read
+    from the mangled name ptxas reports before them, as ``name<args>``."""
+    out, fn = [], ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = demangle(line.split("for", 1)[1].strip())
+        elif any(w in line for w in ("registers", "spill", "wgmma",
+                                     "warning")):
+            out.append((fn, line.strip()))
+    return out
+
 
 def print_device_line() -> None:
     print(json.dumps({"ok": True, "device": {
@@ -1369,10 +1726,8 @@ def main() -> int:
          libs={k: {"cached": v["cached"], "seconds": v["seconds"]}
                for k, v in built.items()})
     for name, info in built.items():
-        for line in info["log"].splitlines():
-            if any(w in line for w in ("registers", "spill", "wgmma",
-                                        "warning")):
-                print(f"ptxas[{name}] {line.strip()}", flush=True)
+        for fn, line in ptxas_report(info["log"]):
+            print(f"ptxas[{name}] {fn} {line}", flush=True)
 
     # 2. K1 against its plain version: main-path shapes, phase 8's decode
     # shape (W = 130), and a GQA case
@@ -1392,6 +1747,23 @@ def main() -> int:
                                d=128, page=16, w=64, p=1024,
                                kv_len=(1024, 1000, 777, 500), seed=1,
                                timed=True)
+    # the wide GQA groups at their served decode shapes, both forms:
+    # ChatGLM3-6B (G 2, R 16; W covers phase 10's longest sequence) and
+    # StarCoder2-15B (G 4, R 12; phase 12's one 2048-token prompt)
+    glm_w = -(-(max(GLM_PROMPTS) + GLM_MAX_TOKENS) // 16) + 1
+    glm_kv = tuple(n + GLM_MAX_TOKENS for n in GLM_PROMPTS)
+    sc2_w = -(-(CUT_PROMPT + GLM_MAX_TOKENS) // 16) + 1
+    sc2_kv = (CUT_PROMPT + GLM_MAX_TOKENS,)
+    k1_r16 = {form: check(dev, f"chatglm3_decode_{form}", b=3, g=2, r=16,
+                          d=128, page=16, w=glm_w, p=512, kv_len=glm_kv,
+                          seed=4, timed=True)
+              for form, check in (("fp", check_paged_kernel),
+                                  ("int8", check_paged_int8))}
+    k1_r12 = {form: check(dev, f"starcoder2_decode_{form}", b=1, g=4, r=12,
+                          d=128, page=16, w=sc2_w, p=256, kv_len=sc2_kv,
+                          seed=5, timed=True)
+              for form, check in (("fp", check_paged_kernel),
+                                  ("int8", check_paged_int8))}
 
     # 3. the main path: full-width OLMo-1B on the paged engine
     cfg = olmo_1b.config()
@@ -1477,6 +1849,20 @@ def main() -> int:
     pair = disagg["pair"]
     require_disagg_launches(pair, "disaggregated serving")
     require_disagg_launches(disagg["tier_read"], "int8 tier read")
+    del params
+    torch.cuda.empty_cache()
+
+    # 10-11. ChatGLM3-6B at full width: the paged engine (STAR, then the
+    # exact-parity setting) and the dense slot engine
+    glm = check_chatglm(chatglm3_6b.config(), dev, gen)
+
+    # 12. StarCoder2-15B (K1 at R = 12) and star_paper (LLaMA-7B's shape;
+    # also with K3's element mask), published widths, depth cut
+    cut = {"starcoder2_15b": check_cut_config(
+               "starcoder2_15b", starcoder2_15b.config(), dev, gen),
+           "star_paper": check_cut_config(
+               "star_paper", star_paper.config(), dev, gen,
+               elementwise_too=True)}
 
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
@@ -1488,6 +1874,11 @@ def main() -> int:
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"],
                 "library_ms": case["library_ms"], **extra}
+
+    def int8_keys(case):
+        return {f"{key}_int8": case[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+            "slots_marked", "slots_valid")}
 
     def forms(name):
         return {f: whole["form_launches"][f"{name}/{f}"]
@@ -1536,6 +1927,30 @@ def main() -> int:
                  "gathered_bytes_not_moved"]),
         line("flash", "flash.cu", "src/repro/kernels/flash.py:67",
              exact["k4_launches"], tiles["flash"]),
+        # K1 at ChatGLM3-6B's group (R = 16): phase 10a's served path;
+        # its int8 form timed beside it (no served path reads the tier
+        # at this group)
+        line("paged_decode/r16", "paged_decode.cu",
+             "src/repro/kernels/paged.py:67", glm["star"]["k1_launches"],
+             k1_r16["fp"], launches_from="phase 10a, ChatGLM3-6B served",
+             **int8_keys(k1_r16["int8"])),
+        line("paged_decode/r12", "paged_decode.cu",
+             "src/repro/kernels/paged.py:67",
+             cut["starcoder2_15b"]["star"]["k1_launches"], k1_r12["fp"],
+             launches_from="phase 12, StarCoder2-15B served",
+             **int8_keys(k1_r12["int8"])),
+        # K3's element mask (its mma.sync form): phase 12's star_paper run
+        # with STARConfig(elementwise=True)
+        line("sufa/elementwise", "sufa.cu", "src/repro/kernels/sufa.py:72",
+             cut["star_paper"]["star_elementwise"]["form_launches"][
+                 "sufa/elementwise"], tiles["sufa_elementwise"],
+             launches_from="phase 12, star_paper served with "
+                           "elementwise=True",
+             sphere_dropped_share=tiles["sufa_elementwise"][
+                 "sphere_dropped_share"],
+             mask_elements_differ_default_gemm_share=tiles[
+                 "sufa_elementwise"][
+                 "mask_elements_differ_default_gemm_share"]),
     ]}), flush=True)
     print_device_line()
     return 0

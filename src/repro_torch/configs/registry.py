@@ -1,16 +1,16 @@
 """Architecture registry of the port. Only the families whose blocks are
 ported resolve; every other architecture of ``repro.configs`` raises
-``KeyError("... not yet ported ...")`` (ROADMAP §1 item 7)."""
+``KeyError("... not yet ported ...")`` (ROADMAP §1 item 4)."""
 
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ("olmo_1b",)
+ARCHS = ("olmo_1b", "chatglm3_6b", "starcoder2_15b", "star_paper",
+         "nemotron_4_340b")
 NOT_YET_PORTED = (
     "grok_1_314b", "olmoe_1b_7b", "xlstm_125m", "seamless_m4t_large_v2",
-    "jamba_1_5_large_398b", "chatglm3_6b", "starcoder2_15b",
-    "nemotron_4_340b", "internvl2_26b", "star_paper",
+    "jamba_1_5_large_398b", "internvl2_26b",
 )
 
 
@@ -18,7 +18,7 @@ def _module(name: str):
     name = name.replace("-", "_").replace(".", "_")
     if name in NOT_YET_PORTED:
         raise KeyError(f"arch {name!r} is not yet ported to repro_torch "
-                       f"(ROADMAP §1 item 7); ported: {ARCHS}")
+                       f"(ROADMAP §1 item 4); ported: {ARCHS}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{name}")

@@ -1,5 +1,6 @@
-"""SADS — Sphere-search Aided Distributed Sorting (paper §IV-B), tile-level
-selection; PyTorch port of ``repro.core.sads``.
+"""SADS — Sphere-search Aided Distributed Sorting (paper §IV-B): element
+selection for decode and tile selection for prefill; PyTorch port of
+``repro.core.sads``.
 
 A query tile keeps the top ``keep`` KV tiles ranked by predicted tile max;
 a sphere of radius ``r`` around the row's best tile drops tiles whose
@@ -18,6 +19,51 @@ from typing import NamedTuple
 import torch
 
 NEG_INF = -1e30
+
+
+class SADSSelection(NamedTuple):
+    """Element-level selection result (flattened over segments)."""
+
+    indices: torch.Tensor  # [..., k_total] global column ids, segment-major
+    valid: torch.Tensor    # [..., k_total] bool: in-sphere, not masked
+    values: torch.Tensor   # [..., k_total] the survivors' estimated scores
+
+
+def sads_select(scores: torch.Tensor, k_total: int, n_segments: int,
+                radius: float = 5.0) -> SADSSelection:
+    """Element-level SADS over the last axis (the decode path). scores
+    [..., S] are estimated scores, already NEG_INF at masked positions;
+    each of ``n_segments`` segments keeps its top k_total / n_segments
+    (descending, ties to the lower index) inside a sphere of ``radius``
+    around its own max."""
+    s = scores.shape[-1]
+    if s % n_segments:
+        raise ValueError(f"S={s} not divisible by n_segments={n_segments}")
+    if k_total % n_segments:
+        raise ValueError(f"k={k_total} not divisible by "
+                         f"n_segments={n_segments}")
+    seg_len = s // n_segments
+    k_seg = k_total // n_segments
+    segs = scores.reshape(*scores.shape[:-1], n_segments, seg_len)
+    vals, idx = top_k_lower_index_ties(segs, k_seg)  # [..., n, k/n]
+    seg_max = vals[..., :1]                          # the sphere's centre
+    valid = (vals >= (seg_max - radius)) & (vals > NEG_INF / 2)
+    gidx = idx + (torch.arange(n_segments, device=scores.device)
+                  * seg_len)[:, None]
+
+    def flat(a):
+        return a.reshape(*a.shape[:-2], k_total)
+    return SADSSelection(flat(gidx), flat(valid), flat(vals))
+
+
+def gather_selected(kv: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Gather selected rows: kv [..., S, d], indices [..., k] -> [..., k,
+    d] (leading dims of ``kv`` broadcast against ``indices``')."""
+    lead = torch.broadcast_shapes(kv.shape[:-2], indices.shape[:-1])
+    kv = kv.expand(*lead, *kv.shape[-2:])
+    idx = indices.expand(*lead, indices.shape[-1])
+    return torch.gather(kv, -2, idx[..., None].expand(*idx.shape,
+                                                      kv.shape[-1]))
 
 
 class BlockSelection(NamedTuple):

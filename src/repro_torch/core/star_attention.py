@@ -2,16 +2,19 @@
 compute. PyTorch port of ``repro.core.star_attention``.
 
 These run in plain PyTorch, as the JAX reference hands them to XLA. The
-model's STAR prefill does not call them: it runs the fused tile kernels
-(K2 DLZS block maxima -> SADS -> K3 SU-FA) through
+model's STAR prefill does not call the prefill forms: it runs the fused
+tile kernels (K2 DLZS block maxima -> SADS -> K3 SU-FA) through
 ``kernels.ops.star_attention_cfg``, which computes what
 ``star_attention_scanq`` computes. These stay as the plain form the tests
-and the on-card smoke hold that path against.
+and the on-card smoke hold that path against. ``star_decode`` is the dense
+slot engine's sparse decode (``models.attention.apply_decode``).
 
 Entry points:
   * ``star_attention``       — tile-granular prefill attention (one head).
   * ``star_attention_scanq`` — the same over query chunks, memory O(chunk),
                                with causal ``prefix_groups``.
+  * ``star_decode``          — element-granular decode against a dense
+                               (optionally LZ-compressed) KV cache.
   * ``dense_attention``      — the non-sparse baseline.
 """
 
@@ -180,3 +183,37 @@ def star_attention_scanq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal=causal, q_offset=q_offset + c * chunk,
                 k_pow2=k_pow2[:prefix], scale=scale))
     return torch.cat(outs, dim=0)
+
+
+def star_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                cfg: STARConfig, *, length: torch.Tensor,
+                k_lz: Optional[torch.Tensor] = None,
+                n_segments: Optional[int] = None,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """Element-granular STAR decode: one query per head against a KV cache.
+
+    q [..., d]; k/v [..., S_max, d] and ``k_lz`` (int8 LZ codes of k) with
+    leading dims that broadcast against q's (the reference vmaps one head
+    at a time; here the heads are a batch, so a GQA group's queries share
+    their cache rows); ``length`` [...] (broadcast likewise) marks each
+    row's valid prefix. Prediction reads the LZ codes when given; the
+    formal stage gathers only the selected rows."""
+    s, d = k.shape[-2], k.shape[-1]
+    scale = scale or (1.0 / math.sqrt(d))
+    n_seg = n_segments or max(1, s // cfg.block_kv)
+    s_hat = predict_scores(q[..., None, :], k, scale=scale,
+                           k_lz=k_lz)[..., 0, :]             # [..., S]
+    valid = torch.arange(s, device=q.device) < length[..., None]
+    s_hat = s_hat.masked_fill(~valid, NEG_INF)
+
+    k_total = max(n_seg, int(s * cfg.top_k_ratio) // n_seg * n_seg)
+    sel = sads.sads_select(s_hat, k_total, n_seg, cfg.radius)
+    kg = sads.gather_selected(k, sel.indices)                # [..., k, d]
+    vg = sads.gather_selected(v, sel.indices)
+    sc = (kg @ q[..., None])[..., 0].float() * scale        # exact, k only
+    sc = sc.masked_fill(~sel.valid, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m).masked_fill(sc <= NEG_INF / 2, 0.0)
+    out = (p[..., None, :] @ vg.float())[..., 0, :] / torch.clamp(
+        p.sum(dim=-1, keepdim=True), min=1e-30)
+    return out.to(q.dtype)

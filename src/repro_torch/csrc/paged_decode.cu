@@ -98,6 +98,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;            // rows per stage
 constexpr int kRingBytes = 16384;    // one pass streams K or V
 constexpr int kMaxRows = 256;        // rows of one range (split_plan)
+constexpr int kMergeChunk = 64;      // splits staged at a time by pass 2
 
 template <int D>
 __host__ __device__ constexpr int stages() {
@@ -448,6 +449,7 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   __shared__ uint8_t s_q8[Q ? NS : 1][kRows];   // rows read as int8
   __shared__ float s_p[R][kMaxRows];     // the range's P
   __shared__ float s_M[R], s_L[R];
+  __shared__ float s_ml[2][kMergeChunk * R];  // staged (m, l) of splits
   __shared__ int scratch[kWarps];
   griddep_launch_dependents();  // pass 3 may launch now
 
@@ -474,19 +476,39 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   for (int st = 0; st < NS - 1; ++st) fetch(st);
 
   griddep_wait();  // pass 1's scores and (m, l) are complete from here
-  if (threadIdx.x < R) {
+  {
+    // (M, L) of the sequence: head r's thread walks the splits in order,
+    // twice (max, then the rescaled sum), from (m, l) that the whole
+    // block stages kMergeChunk splits at a time (one thread reading
+    // n_split values from device memory in turn waited on each load)
     const Workspace all(ws, bg, gridDim.x, 0, n_split, R, D, W * page);
     const int r = threadIdx.x;
-    float mx = kNegInf;
-    for (int s = 0; s < n_split; ++s)
-      if (all.l[s * R + r] > 0.f) mx = fmaxf(mx, all.m[s * R + r]);
-    float den = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float ls = all.l[s * R + r];
-      if (ls > 0.f) den += ls * expf(all.m[s * R + r] - mx);
+    float mx = kNegInf, den = 0.f;
+    for (int sweep = 0; sweep < 2; ++sweep) {
+      for (int s0 = 0; s0 < n_split; s0 += kMergeChunk) {
+        const int n = min(kMergeChunk, n_split - s0);
+        __syncthreads();
+        for (int i = threadIdx.x; i < n * R; i += kThreads) {
+          s_ml[0][i] = all.m[s0 * R + i];
+          s_ml[1][i] = all.l[s0 * R + i];
+        }
+        __syncthreads();
+        if (r < R) {
+          for (int s = 0; s < n; ++s) {
+            const float ls = s_ml[1][s * R + r];
+            if (ls <= 0.f) continue;
+            if (sweep == 0)
+              mx = fmaxf(mx, s_ml[0][s * R + r]);
+            else
+              den += ls * expf(s_ml[0][s * R + r] - mx);
+          }
+        }
+      }
     }
-    s_M[r] = mx;
-    s_L[r] = fmaxf(den, 1e-30f);
+    if (r < R) {
+      s_M[r] = mx;
+      s_L[r] = fmaxf(den, 1e-30f);
+    }
   }
   // P = bf16(exp(s - M) / L) of every row of the range, once (0 where
   // masked and past the last row)
@@ -555,21 +577,27 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
 
 // Pass 3: out[b, g] = the ranges' partial o's added in split order; a
 // range with l = 0 (no valid row) adds nothing and its o is never read.
+// A (B·G, ceil(R·D / kThreads)) grid, one output per thread: with a wide
+// GQA group (R·D of 1536-2048) and a short block table split many ways,
+// one block per (b, g) walking R·D outputs x n_split ranges took most of
+// the call. The split loop is unrolled for independent loads; the sum
+// keeps its order, so the bits are those of one thread per output.
 template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
 paged_sum_kernel(const float* __restrict__ ws,
                  __nv_bfloat16* __restrict__ out, int n_split, int rows_w) {
   griddep_wait();
   const int bg = blockIdx.x;
+  const int i = blockIdx.y * kThreads + threadIdx.x;
+  if (i >= R * D) return;
   const Workspace all(const_cast<float*>(ws), bg, gridDim.x, 0, n_split, R,
                       D, rows_w);
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D;
-    float acc = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      if (all.l[s * R + r] > 0.f) acc += all.o[s * R * D + i];
-    out[(int64_t)bg * R * D + i] = __float2bfloat16(acc);
-  }
+  const int r = i / D;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < n_split; ++s)
+    if (all.l[s * R + r] > 0.f) acc += all.o[s * R * D + i];
+  out[(int64_t)bg * R * D + i] = __float2bfloat16(acc);
 }
 
 // Launch with programmatic dependent launch: the kernel may start before
@@ -611,8 +639,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = launch_dependent(paged_pv_kernel<D, R, Q>, grid, stream, vp, ph, lg,
                          kl, ws, G, W, page, P, v_sp, v_sr, v_sg, tier_v);
   if (err != cudaSuccess) return err;
-  err = launch_dependent(paged_sum_kernel<D, R>, dim3(B * G), stream,
-                         static_cast<const float*>(ws),
+  err = launch_dependent(paged_sum_kernel<D, R>,
+                         dim3(B * G, (R * D + kThreads - 1) / kThreads),
+                         stream, static_cast<const float*>(ws),
                          static_cast<__nv_bfloat16*>(out), n_split, W * page);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -625,14 +654,16 @@ bool bad_shape(int B, int G, int W, int page, int P, int n_split) {
 
 }  // namespace
 
-// (D, R) pairs with R*D <= 1024; the Python wrapper checks the pair, the
+// (D, R) pairs with R*D <= 1024, and the GQA groups of ChatGLM3-6B (128,
+// 16) and StarCoder2-15B (128, 12), whose P·V reduction still fits the
+// ring (pass 2's static_assert); the Python wrapper checks the pair, the
 // shapes and the strides before calling, and allocates ws: B·G·R·(n_split·
 // (D + 2) + W·page) floats.
 #define PAGED_CASES(Q)                                                        \
   PAGED_CASE(64, 1, Q) PAGED_CASE(64, 2, Q) PAGED_CASE(64, 4, Q)              \
   PAGED_CASE(64, 8, Q) PAGED_CASE(64, 16, Q)                                  \
   PAGED_CASE(128, 1, Q) PAGED_CASE(128, 2, Q) PAGED_CASE(128, 4, Q)           \
-  PAGED_CASE(128, 8, Q)                                                       \
+  PAGED_CASE(128, 8, Q) PAGED_CASE(128, 12, Q) PAGED_CASE(128, 16, Q)         \
   PAGED_CASE(256, 1, Q) PAGED_CASE(256, 2, Q) PAGED_CASE(256, 4, Q)
 #define PAGED_CASE(DD, RR, Q)                                                 \
   if (D == DD && R == RR)                                                     \

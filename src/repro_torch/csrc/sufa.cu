@@ -45,6 +45,18 @@
 //     S = Q . K^T runs over the whole tile (the frozen max needs the whole
 //     first tile's maximum), then its V rows take the same buffer for
 //     P . V with P rounded to bf16.
+//
+// The element-level sphere mask (STARConfig(elementwise=True); the
+// reference applies it in repro/core/star_attention.py::star_attention)
+// runs in the mma.sync form at every tile size (ELEM): a first sweep over
+// the same tile ids stages pow2(K) and takes, per query row, the largest
+// DLZS estimate A = bf16(bf16(q . pow2(k)) * scale) over the visible keys
+// of the valid tiles, rounded as the plain form (dlzs.dlzs_scores in the
+// model dtype) rounds it; the second sweep is the usual recurrence, which
+// stages pow2(K) once more after each tile's S and drops every key whose
+// estimate lies below bf16(row max - radius), on top of the causal mask.
+// The estimate is an fp32 sum of exact bf16 x power-of-two products, so
+// it matches the plain form up to the order of that sum.
 // D is 64 or 128. The kernels allocate nothing and launch on the caller's
 // stream; the C entry points return cudaGetLastError() (the wgmma form
 // encodes its tensor maps with libcuda's cuTensorMapEncodeTiled: -lcuda).
@@ -311,7 +323,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 constexpr int kMaxTile = 128;
 
-template <int D, int BC, bool STRICT>
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// The plain form's DLZS estimate of one score from its fp32 sum q . pow2(k):
+// rounded to bf16, scaled, rounded again (bf16 tensor times a float).
+__device__ __forceinline__ float dlzs_estimate(float dot, float scale) {
+  return round_bf16(round_bf16(dot) * scale);
+}
+
+template <int D, int BC, bool STRICT, bool ELEM>
 __global__ void __launch_bounds__(256)
 sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
                 const uint16_t* __restrict__ k,      // [BH, S, D]
@@ -319,7 +341,8 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
                 const int64_t* __restrict__ idx,     // [BH, n_qt, keep]
                 const uint8_t* __restrict__ valid,   // [BH, n_qt, keep]
                 uint16_t* __restrict__ out,          // [BH, T, D]
-                int S, int keep, int block_q, int causal, float scale) {
+                int S, int keep, int block_q, int causal, float scale,
+                float radius) {
   constexpr int LD = D + 8;
   constexpr int NT = BC / 8;  // 8-key score tiles
   __shared__ __align__(16) uint16_t tile[kMaxTile * LD];
@@ -345,6 +368,36 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
   uint32_t a[D / 16][4];
   load_a_frags<D, LD>(a, tile, warp * 16, lane);
 
+  // ELEM: each row's sphere edge, bf16(max of its visible estimates -
+  // radius), from a first sweep over the valid tiles with pow2(K) staged
+  float edge[2] = {kNegInf, kNegInf};
+  if constexpr (ELEM) {
+    float top[2] = {kNegInf, kNegInf};
+    for (int j = 0; j < keep; ++j) {
+      const int kt = selected(ids, ok, j, n_kt);
+      if (kt < 0) continue;  // block-uniform
+      const int kv0 = kt * BC;
+      __syncthreads();  // every warp is done with the previous tile
+      load_rows<D>(tile, kb, kv0, BC, S, true);
+      __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float e[4];
+        qk_tile<D, LD>(e, a, tile, nt * 8, lane);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qp = qpos + (i >= 2 ? 8 : 0);
+          const int col = kv0 + nt * 8 + t2 + (i & 1);
+          if (!(causal && col > qp))
+            top[i >> 1] = fmaxf(top[i >> 1], dlzs_estimate(e[i], scale));
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      edge[h] = round_bf16(quad_max(top[h]) - radius);
+  }
+
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
   float o[D / 8][4];
@@ -361,15 +414,25 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) qk_tile<D, LD>(s[nt], a, tile, nt * 8, lane);
+    if constexpr (ELEM) {  // pow2(K) of the same tile, for the estimates
+      __syncthreads();
+      load_rows<D>(tile, kb, kv0, BC, S, true);
+      __syncthreads();
+    }
 
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
+      float e[4];
+      if constexpr (ELEM) qk_tile<D, LD>(e, a, tile, nt * 8, lane);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qp = qpos + (i >= 2 ? 8 : 0);
         const int col = kv0 + nt * 8 + t2 + (i & 1);
-        const float x = causal && col > qp ? kNegInf : s[nt][i] * scale;
+        bool drop = causal && col > qp;
+        if constexpr (ELEM)
+          drop = drop || dlzs_estimate(e[i], scale) < edge[i >> 1];
+        const float x = drop ? kNegInf : s[nt][i] * scale;
         s[nt][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
       }
@@ -442,20 +505,23 @@ template <int D, int BC>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int64_t* idx, const uint8_t* valid, void* out,
                        int BH, int T, int S, int keep, int block_q,
-                       int causal, bool strict, float scale,
-                       cudaStream_t stream) {
+                       int causal, bool strict, bool elementwise, float scale,
+                       float radius, cudaStream_t stream) {
   const dim3 grid(T / block_q, BH);
   const dim3 block(block_q / 16 * 32);
   const uint16_t* qp = static_cast<const uint16_t*>(q);
   const uint16_t* kp = static_cast<const uint16_t*>(k);
   const uint16_t* vp = static_cast<const uint16_t*>(v);
   uint16_t* op = static_cast<uint16_t*>(out);
-  if (strict)
-    sufa_mma_kernel<D, BC, true><<<grid, block, 0, stream>>>(
-        qp, kp, vp, idx, valid, op, S, keep, block_q, causal, scale);
-  else
-    sufa_mma_kernel<D, BC, false><<<grid, block, 0, stream>>>(
-        qp, kp, vp, idx, valid, op, S, keep, block_q, causal, scale);
+#define SUFA_MMA(SS, EE)                                                     \
+  if (strict == SS && elementwise == EE)                                    \
+    sufa_mma_kernel<D, BC, SS, EE><<<grid, block, 0, stream>>>(              \
+        qp, kp, vp, idx, valid, op, S, keep, block_q, causal, scale, radius);
+  SUFA_MMA(true, false)
+  SUFA_MMA(false, false)
+  SUFA_MMA(true, true)
+  SUFA_MMA(false, true)
+#undef SUFA_MMA
   return cudaGetLastError();
 }
 
@@ -494,16 +560,18 @@ extern "C" int sufa_wgmma_bf16(const void* q, const void* k, const void* v,
   if (D == DD && block_kv == BB)                                             \
     return static_cast<int>(launch_mma<DD, BB>(                              \
         q, k, v, ip, vp, out, BH, T, S, keep, block_q, causal, strict != 0,  \
-        scale, st));
+        elementwise != 0, scale, radius, st));
 #define SUFA_TILES(DD)                                                      \
   SUFA_CASE(DD, 16) SUFA_CASE(DD, 32) SUFA_CASE(DD, 48) SUFA_CASE(DD, 64)   \
   SUFA_CASE(DD, 80) SUFA_CASE(DD, 96) SUFA_CASE(DD, 112) SUFA_CASE(DD, 128)
 
+// elementwise != 0 runs the element-level sphere mask at radius (ELEM).
 extern "C" int sufa_mma_bf16(const void* q, const void* k, const void* v,
                              const void* idx, const void* valid, void* out,
                              int BH, int T, int S, int keep, int block_q,
                              int block_kv, int D, int causal, int strict,
-                             float scale, void* stream) {
+                             int elementwise, float scale, float radius,
+                             void* stream) {
   if (bad_shape(BH, T, S, keep, block_q, block_kv))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* ip = static_cast<const int64_t*>(idx);

@@ -4,8 +4,10 @@ Every wrapper counts its launches in ``LAUNCHES`` (a plain integer per
 kernel name, bumped only where the kernel is launched) so a run can show
 that its main path went through the kernel and not the plain version.
 K2 and K3 have two forms each (``wgmma`` for 128 x 128 tiles, ``mma_sync``
-for the others), and K1 an fp and an int8 form (the cold KV tier);
-``FORM_LAUNCHES`` counts those launches by form.
+for the others), K3's ``mma_sync`` form also carries the element-level
+sphere mask (``sufa/elementwise`` counts those launches too), and K1 has
+an fp and an int8 form (the cold KV tier); ``FORM_LAUNCHES`` counts
+launches by form.
 """
 
 LAUNCHES: dict[str, int] = {"paged_decode": 0, "dlzs_block": 0, "sufa": 0,
@@ -13,6 +15,7 @@ LAUNCHES: dict[str, int] = {"paged_decode": 0, "dlzs_block": 0, "sufa": 0,
 FORM_LAUNCHES: dict[str, int] = {"dlzs_block/wgmma": 0,
                                  "dlzs_block/mma_sync": 0,
                                  "sufa/wgmma": 0, "sufa/mma_sync": 0,
+                                 "sufa/elementwise": 0,
                                  "paged_decode/fp": 0,
                                  "paged_decode/int8": 0}
 

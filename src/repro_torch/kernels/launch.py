@@ -54,10 +54,12 @@ def check_tile(kernel: str, name: str, size: int) -> None:
                          f"16 up to {MAX_TILE}")
 
 
-def tile_form(block_q: int, block_kv: int) -> str:
+def tile_form(block_q: int, block_kv: int, elementwise: bool = False) -> str:
     """K2's and K3's form for a tiling, by shape alone: ``wgmma`` (TMA and
-    warpgroup products) for 128 x 128 tiles, ``mma_sync`` for the rest."""
-    if block_q == block_kv == WGMMA_TILE:
+    warpgroup products) for 128 x 128 tiles, ``mma_sync`` for the rest.
+    K3's element-level sphere mask lives in the ``mma_sync`` form only, so
+    ``elementwise`` calls take it at every tile size."""
+    if block_q == block_kv == WGMMA_TILE and not elementwise:
         return "wgmma"
     return "mma_sync"
 

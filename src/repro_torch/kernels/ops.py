@@ -10,8 +10,10 @@ prefill, port of ``repro.kernels.ops``.
      TPU pipeline gathers the tiles and their mask between the two
      kernels; here only K3's plain version does).
 ``star_attention_cfg`` runs it under a ``STARConfig`` so that it computes
-what ``core.star_attention.star_attention_scanq`` computes; the model's
-STAR prefill calls it, and its dense prefill calls ``flash`` (K4).
+what ``core.star_attention.star_attention_scanq`` computes, the
+element-level sphere mask of ``elementwise=True`` included (K3 applies
+it); the model's STAR prefill calls it, and its dense prefill calls
+``flash`` (K4).
 
 Every call goes through the wrappers, so on the CPU the plain versions
 run and on a GPU the kernels launch.
@@ -75,9 +77,11 @@ def star_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, keep: int, causal: bool = True,
                          block_q: int = 128, block_kv: int = 128,
                          radius: float = 5.0, strict: bool = False,
+                         elementwise: bool = False,
                          scale: Optional[float] = None) -> torch.Tensor:
     """The kernel-side STAR pipeline. q [BH, T, d], k/v [BH, S, d]
-    -> [BH, T, d]; the queries are the last T of the S positions."""
+    -> [BH, T, d]; the queries are the last T of the S positions.
+    ``elementwise`` adds the element-level sphere inside the kept tiles."""
     bh, t, d = q.shape
     s = k.shape[1]
     scale = scale or (1.0 / math.sqrt(d))
@@ -97,7 +101,8 @@ def star_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # Stage 3 (K3): block-sparse flash over the survivors, read in place.
     return sufa_attention(q, k, v, idx, valid, block_q=block_q,
                           block_kv=block_kv, causal=causal, scale=scale,
-                          strict=strict)
+                          strict=strict, elementwise=elementwise,
+                          radius=radius)
 
 
 def star_attention_cfg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,11 +115,10 @@ def star_attention_cfg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fused call covers the whole T. With ``prefix_groups`` G > 1 (causal,
     T == S, T longer than one chunk) group g's queries run over the
     visible prefix ``k[:(g+1)·S/G]`` alone, with ``keep`` recomputed for
-    that prefix, as ``scanq`` does."""
-    if cfg.elementwise:
-        raise NotImplementedError(
-            "STAR prefill: element-level sphere masks (elementwise=True) "
-            "have no kernel form")
+    that prefix, as ``scanq`` does. With ``elementwise`` each query row
+    also drops the keys of its kept tiles whose estimate lies more than
+    ``radius`` below its best (K3's element mask; its plain version on the
+    CPU)."""
     bh, t, _ = q.shape
     s = k.shape[1]
     # the model's gathered SU-FA is the strict recurrence
@@ -140,5 +144,6 @@ def star_attention_cfg(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(star_attention_fused(
             qg, kp, vp, keep=tiles.keep_blocks(prefix), causal=causal,
             block_q=tiles.block_q, block_kv=tiles.block_kv,
-            radius=cfg.radius, strict=strict, scale=scale))
+            radius=cfg.radius, strict=strict, elementwise=cfg.elementwise,
+            scale=scale))
     return outs[0] if groups == 1 else torch.cat(outs, dim=1)

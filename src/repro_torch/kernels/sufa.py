@@ -14,7 +14,12 @@ which it sees a key (the paper's descend-updating fast path). The kernel
 is bound by the bytes of Q, the output and the distinct selected tiles;
 see the source's header. Two forms, picked by shape alone
 (``launch.tile_form``): ``wgmma`` + TMA for the served 128 x 128 tiles,
-``mma_sync`` for other tiles (the pool probe's 16).
+``mma_sync`` for other tiles (the pool probe's 16). ``elementwise`` adds
+STAR's element-level sphere mask (``STARConfig(elementwise=True)``): a
+key is dropped where its DLZS estimate, rounded as
+``core.dlzs.dlzs_scores`` rounds it, lies more than ``radius`` below the
+row's largest estimate over its visible selected keys; that flag runs in
+the ``mma_sync`` form at every tile size.
 
 The plain version (``sufa_reference``) gathers the selected tiles and
 their mask (``gather_selected``, what the TPU contract's caller builds)
@@ -32,6 +37,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import kernels
+from repro_torch.core.dlzs import pow2_quantize
 from repro_torch.kernels import launch, ref
 from repro_torch.kernels.ref import NEG_INF
 
@@ -82,14 +89,34 @@ def _descend_reference(q, kg, vg, mask, *, scale: float) -> torch.Tensor:
     return out.reshape(bh, t, d).to(q.dtype)
 
 
+def sphere_mask(q, kg, mask, *, scale: float, radius: float
+                ) -> torch.Tensor:
+    """The element-level sphere on top of ``mask`` [BH, n_qt, keep, Bq,
+    Bc]: keep a key where its DLZS estimate bf16(q · pow2(k)) · scale (in
+    q's dtype, as ``core.dlzs.dlzs_scores``) is at least the row's largest
+    estimate over its visible keys less ``radius`` (what
+    ``core.star_attention.star_attention`` builds with ``elementwise``)."""
+    bh, t, d = q.shape
+    n_qt = kg.shape[1]
+    qt = q.reshape(bh, n_qt, t // n_qt, d)
+    est = torch.einsum("bqtd,bqjcd->bqjtc", qt, pow2_quantize(kg)) * scale
+    est = est.masked_fill(~mask, NEG_INF)
+    top = est.amax(dim=(2, 4), keepdim=True)
+    return mask & (est >= top - radius)
+
+
 def sufa_reference(q, k, v, idx, valid, *, block_q: int, block_kv: int,
-                   causal: bool, scale: float, strict: bool) -> torch.Tensor:
-    """The plain version: gather the selected tiles and their mask, then
-    the exact masked softmax (``ref.sufa_ref``) for ``strict``, else the
-    frozen-max recurrence."""
+                   causal: bool, scale: float, strict: bool,
+                   elementwise: bool = False, radius: float = 5.0
+                   ) -> torch.Tensor:
+    """The plain version: gather the selected tiles and their mask (with
+    ``elementwise``, the sphere's too), then the exact masked softmax
+    (``ref.sufa_ref``) for ``strict``, else the frozen-max recurrence."""
     kg, vg, mask = gather_selected(k, v, idx, valid, t=q.shape[1],
                                    block_q=block_q, block_kv=block_kv,
                                    causal=causal)
+    if elementwise:
+        mask = sphere_mask(q, kg, mask, scale=scale, radius=radius)
     if strict:
         return ref.sufa_ref(q, kg, vg, mask, scale=scale)
     return _descend_reference(q, kg, vg, mask, scale=scale)
@@ -99,18 +126,21 @@ def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    idx: torch.Tensor, valid: torch.Tensor, *,
                    block_q: int = 128, block_kv: int = 128,
                    causal: bool = True, scale: Optional[float] = None,
-                   strict: bool = False) -> torch.Tensor:
+                   strict: bool = False, elementwise: bool = False,
+                   radius: float = 5.0) -> torch.Tensor:
     """q [BH, T, d], k/v [BH, S, d] (the queries are the last T of the S
     positions); idx [BH, T/block_q, keep] key-tile ids in visiting order
     (descending predicted max), valid [BH, T/block_q, keep] bool
-    -> [BH, T, d] in q's dtype."""
+    -> [BH, T, d] in q's dtype. ``elementwise`` applies the element-level
+    sphere of ``radius`` inside the selected tiles."""
     bh, t, d = q.shape
     s = k.shape[1]
     scale = scale or (1.0 / math.sqrt(d))
     if q.device.type == "cpu":
         return sufa_reference(q, k, v, idx, valid, block_q=block_q,
                               block_kv=block_kv, causal=causal, scale=scale,
-                              strict=strict)
+                              strict=strict, elementwise=elementwise,
+                              radius=radius)
     name = "sufa"
     launch.require_cuda(name, q.device)
     launch.check_operands(name, q=q, k=k, v=v)
@@ -136,7 +166,7 @@ def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     idx, valid = idx.contiguous(), valid.contiguous()
     keep = idx.shape[2]
     out = torch.empty_like(q)
-    form = launch.tile_form(block_q, block_kv)
+    form = launch.tile_form(block_q, block_kv, elementwise)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
             valid.data_ptr(), out.data_ptr())
     if form == "wgmma":
@@ -147,9 +177,11 @@ def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 float(scale))
     else:
         fn = launch.bind(name, "sufa_mma_bf16",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                         + [ctypes.c_float, ctypes.c_void_p])
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         args = (*ptrs, bh, t, s, keep, block_q, block_kv, d, int(causal),
-                int(strict), float(scale))
+                int(strict), int(elementwise), float(scale), float(radius))
     launch.launch(name, fn, q.device, *args, form=form)
+    if elementwise:
+        kernels.FORM_LAUNCHES[f"{name}/elementwise"] += 1
     return out

@@ -3,13 +3,15 @@
 PyTorch port of the attention-only subset of ``repro.models.attention``:
 full-sequence prefill (K4 flash, or the STAR pipeline's K2 -> SADS -> K3,
 both through ``kernels.ops``), the page-aligned chunk prefill (per
-sequence and batched varlen), and one-token decode against the paged
-pool. Cross-attention, the dense-slot decode and the spatial
-(sequence-sharded) forms are later slices (ROADMAP §1).
+sequence and batched varlen), one-token decode against the paged pool,
+and one-token decode against the dense slot cache (the dense engine's).
+Cross-attention and the spatial (sequence-sharded) forms are later
+slices (ROADMAP §1).
 
 Where the reference updates a donated cache functionally
-(``cache.at[...].set``), the port writes the pool slab IN PLACE
-(``Tensor.index_put_``): the slab the caller passes is the live pool.
+(``cache.at[...].set``), the port writes the pool slab or the dense slab
+IN PLACE (``Tensor.index_put_``): the slab the caller passes is the live
+cache.
 """
 
 from __future__ import annotations
@@ -335,6 +337,56 @@ def apply_prefill_chunk_batch(params, cfg: AttentionCfg, x, positions,
     o = _attend(qg, k_all, v_all, mask, scale)
     out = _out_proj(params, o.reshape(b, t, cfg.n_heads, cfg.head_dim))
     return out, _chunk_cache(cfg, k, v)
+
+
+def apply_decode(params, cfg: AttentionCfg, x, cache, lengths):
+    """One-token decode against a dense slot cache. x [B,1,H]; cache k/v
+    [B,S_max,nkv,dh] (+ ``k_lz``; this layer's slab, written IN PLACE);
+    lengths [B]. The new token's K/V land at position ``lengths`` (clamped
+    into the slab, as the reference's ``dynamic_update_slice`` clamps a
+    free slot's ever-growing length); attention covers [0, lengths].
+
+    Grouped GQA: the R query heads of a KV head read its cache rows, never
+    a copy repeated to n_heads. Plain PyTorch, as the reference leaves this
+    path to XLA: ``star_decode`` with STAR on, else a masked softmax.
+    Returns (y [B,1,H], the cache dict)."""
+    from repro_torch.core.star_attention import star_decode
+
+    b = x.shape[0]
+    s_max = cache["k"].shape[1]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q, k_new, v_new = _project_qkv(params, cfg, x, lengths[:, None])
+
+    # in place of the reference's per-sequence dynamic_update_slice
+    idx = (torch.arange(b, device=x.device),
+           torch.clamp(lengths.long(), max=s_max - 1))
+    cache["k"].index_put_(idx, k_new[:, 0].to(cache["k"].dtype))
+    cache["v"].index_put_(idx, v_new[:, 0].to(cache["v"].dtype))
+    if cfg.lz_cache and "k_lz" in cache:
+        cache["k_lz"].index_put_(idx, dlzs.lz_pack(k_new)[:, 0])
+
+    n_rep = cfg.n_heads // cfg.n_kv
+    qg = q[:, 0].reshape(b, cfg.n_kv, n_rep, cfg.head_dim)  # [B,g,r,d]
+    kc = cache["k"].transpose(1, 2)                       # [B,g,S,d]
+    vc = cache["v"].transpose(1, 2)
+    kv_len = lengths + 1
+
+    if cfg.star is not None:
+        lz = None
+        if cfg.lz_cache and "k_lz" in cache:
+            lz = cache["k_lz"].transpose(1, 2)[:, :, None]
+        o = star_decode(qg, kc[:, :, None], vc[:, :, None], cfg.star,
+                        length=kv_len[:, None, None], k_lz=lz, scale=scale)
+    else:
+        sc = torch.einsum("bgrd,bgsd->bgrs", qg, kc).float() * scale
+        pos = torch.arange(s_max, device=x.device)
+        sc = sc.masked_fill(pos[None, None, None, :]
+                            >= kv_len[:, None, None, None], NEG_INF)
+        o = torch.einsum("bgrs,bgsd->bgrd", _softmax_rows(sc).to(x.dtype),
+                         vc)
+
+    y = _out_proj(params, o.reshape(b, cfg.n_heads, cfg.head_dim))
+    return y[:, None, :], cache
 
 
 def apply_decode_paged(params, cfg: AttentionCfg, x, cache, lengths,

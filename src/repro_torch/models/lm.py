@@ -1,5 +1,6 @@
 """Attention-only causal decoder LM: prefill, chunked paged prefill, paged
-decode. PyTorch port of the attention-only subset of ``repro.models.lm``.
+decode and dense-cache decode. PyTorch port of the attention-only subset
+of ``repro.models.lm``.
 
 Parameters are nested dicts with the reference's keys; each super-block
 leaf is stacked on a leading layer axis exactly like the reference's
@@ -23,7 +24,7 @@ from repro_torch.core.star_attention import STARConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, mlp
 
-UNPORTED_FAMILIES = ("ROADMAP §1 item 7 (other model families: MoE, SSM, "
+UNPORTED_FAMILIES = ("ROADMAP §1 item 4 (other model families: MoE, SSM, "
                      "xLSTM, cross-attention, encoder-decoder)")
 
 
@@ -158,9 +159,12 @@ def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
             params["core"], acfg, h, positions, cache["attn"],
             page_state["past_phys"], page_state["past_logical"],
             page_state["past_len"])
-    elif mode == "decode":
+    elif mode == "decode" and page_state is not None:
         y, new_cache["attn"] = attention.apply_decode_paged(
             params["core"], acfg, h, cache["attn"], lengths, page_state)
+    elif mode == "decode":
+        y, new_cache["attn"] = attention.apply_decode(
+            params["core"], acfg, h, cache["attn"], lengths)
     else:
         y, c = attention.apply_prefill(
             params["core"], acfg, h, positions,
@@ -178,8 +182,9 @@ def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
                lengths=None, cache_len=None, page_state=None):
     """Loop the super-block over the layer axis. Returns (x, caches):
     prefill modes stack each layer's fresh cache on axis 0 ([L, ...]);
-    decode writes the pool slabs in place and returns a shallow copy of
-    the cache tree (plus ``audit_mass`` [L, B, W] when auditing)."""
+    decode writes the pool (or dense) slabs in place and returns a shallow
+    copy of the cache tree (plus ``audit_mass`` [L, B, W] when
+    auditing)."""
     check_supported(cfg)
     per_layer = []
     for i in range(cfg.n_repeat):
@@ -286,6 +291,20 @@ def prefill_chunk_batch_paged(params, cfg: ModelCfg, batch, cache,
                                  page_state=pack_state)
     x_last = x[0][pack_state["last_index"].long()][None]
     return logits(params, cfg, x_last)[0], {"layers": chunk_caches}
+
+
+def decode_step(params, cfg: ModelCfg, tokens, cache):
+    """One decode step against the dense slot cache (written in place):
+    tokens [B, 1]; ``cache["layers"]`` leaves are [L, B, S_max, nkv, dh]
+    (what ``prefill(cache_len=S_max)`` returns). Returns (logits [B,
+    vocab_padded], {"layers", "lengths": lengths + 1})."""
+    x = params["embed"][tokens.long()]
+    lengths = cache["lengths"]
+    x, new_caches = _run_stack(params["blocks"], cfg, x, lengths[:, None],
+                               mode="decode", caches=cache["layers"],
+                               lengths=lengths)
+    return logits(params, cfg, x)[:, 0], {"layers": new_caches,
+                                          "lengths": lengths + 1}
 
 
 def decode_step_paged(params, cfg: ModelCfg, tokens, cache, page_state):

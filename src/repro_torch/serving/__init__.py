@@ -1,6 +1,6 @@
 from repro_torch.serving.api import LLM, RequestHandle
 from repro_torch.serving.disagg import DisaggRouter, KVTransfer
-from repro_torch.serving.engine import Request
+from repro_torch.serving.engine import EngineCfg, Request, ServingEngine
 from repro_torch.serving.engine_core import Backend, EngineCore
 from repro_torch.serving.faults import FaultInjected, FaultPlan, FaultyBackend
 from repro_torch.serving.paged import (PagedBackend, PagedEngineCfg,
@@ -11,7 +11,8 @@ from repro_torch.serving.scheduler import (AdmissionCfg, BudgetController,
 from repro_torch.serving.swap_policy import RetryGovernor
 
 __all__ = ["AdmissionCfg", "Backend", "BudgetController", "DisaggRouter",
-           "EngineCore", "ExecFault", "FaultInjected", "FaultPlan",
-           "FaultyBackend", "KVTransfer", "LLM", "NeedPages", "PagedBackend",
-           "PagedEngineCfg", "PagedServingEngine", "Request",
-           "RequestHandle", "RetryGovernor", "Scheduler", "SchedulerCfg"]
+           "EngineCfg", "EngineCore", "ExecFault", "FaultInjected",
+           "FaultPlan", "FaultyBackend", "KVTransfer", "LLM", "NeedPages",
+           "PagedBackend", "PagedEngineCfg", "PagedServingEngine",
+           "Request", "RequestHandle", "RetryGovernor", "Scheduler",
+           "SchedulerCfg", "ServingEngine"]

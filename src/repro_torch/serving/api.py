@@ -1,5 +1,5 @@
-"""The serving front door of the port: ``LLM`` over the paged engine.
-PyTorch port of ``repro.serving.api``.
+"""The serving front door of the port: ``LLM`` over the paged engine or
+the dense slot oracle. PyTorch port of ``repro.serving.api``.
 
     llm = LLM.from_config(cfg, backend="paged")     # cuda by default
     h = llm.submit(prompt, max_tokens=64, sla="interactive")
@@ -10,8 +10,9 @@ PyTorch port of ``repro.serving.api``.
 
 ``LLM`` owns request ids, submit-time records and the serve loop;
 ``EngineCore`` owns slots, tables and the swap area; the ``PagedBackend``
-owns device state. The dense slot engine and the spatial runtime are not
-ported yet (ROADMAP §1 items 5-6): ``from_config`` raises for them.
+owns device state. ``backend="dense"`` serves the dense slot engine
+(``serving.engine.ServingEngine``), the parity oracle. The spatial runtime
+is not ported yet (ROADMAP §1 item 3): ``from_config`` raises for it.
 """
 
 from __future__ import annotations
@@ -27,8 +28,7 @@ from repro_torch.serving.engine import Request
 
 BACKENDS = ("dense", "paged", "spatial")
 UNPORTED_BACKENDS = {
-    "dense": "ROADMAP §1 item 6 (dense slot ServingEngine)",
-    "spatial": "ROADMAP §1 item 5 (spatial, sequence-sharded serving)",
+    "spatial": "ROADMAP §1 item 3 (spatial, sequence-sharded serving)",
 }
 
 
@@ -119,7 +119,8 @@ class LLM:
     """Front-door serving interface over a constructed engine.
 
     Use ``LLM.from_config`` to build engine + backend in one call, or
-    pass any ``EngineCore`` engine (``PagedServingEngine``)."""
+    pass any engine exposing ``submit / step / queue / active``
+    (``PagedServingEngine``, the dense ``ServingEngine``)."""
 
     def __init__(self, engine, telemetry=None):
         self.engine = engine
@@ -133,6 +134,9 @@ class LLM:
         #                         a long-lived serve loop stays O(active)
         #                         per tick, not O(all-time requests)
         self._next_rid = 0
+        # the dense slot engine predates the scheduler protocol: its tick
+        # is an explicit admit() + generator-style step()
+        self._dense = not hasattr(engine, "sched")
 
     # -- construction --------------------------------------------------------
 
@@ -144,8 +148,10 @@ class LLM:
                     audit_cfg=None) -> "LLM":
         """Build params (if not given), the backend engine, and the LLM.
 
-        ``backend="paged"`` is the single page pool (``PagedEngineCfg``);
-        ``"dense"`` and ``"spatial"`` are not ported yet and raise.
+        ``backend="paged"`` is the single page pool (``PagedEngineCfg``),
+        ``"dense"`` the dense slot oracle (``EngineCfg``; ``sched_cfg`` and
+        ``audit_cfg`` do not apply to it); ``"spatial"`` is not ported yet
+        and raises.
         ``device`` defaults to ``cuda`` and raises without a GPU; the
         tests pass ``device="cpu"``. ``generator`` (default: one seeded
         with 0 on the device) draws the random weights when
@@ -159,6 +165,7 @@ class LLM:
 
         from repro_torch.device import resolve_device
         from repro_torch.models import lm
+        from repro_torch.serving.engine import EngineCfg, ServingEngine
         from repro_torch.serving.paged import (PagedEngineCfg,
                                                PagedServingEngine)
         from repro_torch.serving.scheduler import SchedulerCfg
@@ -176,6 +183,10 @@ class LLM:
             generator.manual_seed(0)
         if params is None:
             params = lm.init(model_cfg, generator, dev)
+        if backend == "dense":
+            eng = ServingEngine(model_cfg, params, engine_cfg or EngineCfg(),
+                                generator=generator)
+            return cls(eng, telemetry=telemetry)
         scfg = sched_cfg or SchedulerCfg(prefill_tokens="auto")
         eng = PagedServingEngine(model_cfg, params,
                                  engine_cfg or PagedEngineCfg(), scfg,
@@ -241,6 +252,13 @@ class LLM:
         return self.engine.cancel(rid, reason=reason)
 
     def _step_engines(self) -> list[Request]:
+        if self._dense:
+            span = self.tel.tracer.span("tick")
+            with span:
+                self.engine.admit()
+                finished = list(self.engine.step() or ())
+            finished += self.engine.drain_terminal()
+            return finished
         # core engines trace their own tick span inside step() and
         # fold abnormal terminals into the finished list themselves
         return self.engine.step() or []

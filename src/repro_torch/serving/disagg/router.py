@@ -51,7 +51,7 @@ from repro_torch.serving.engine import Request
 from repro_torch.serving.swap_policy import RetryGovernor
 
 UNPORTED_BACKENDS = {
-    "spatial": "ROADMAP §1 item 5 (spatial, sequence-sharded serving)",
+    "spatial": "ROADMAP §1 item 3 (spatial, sequence-sharded serving)",
 }
 
 

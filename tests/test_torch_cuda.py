@@ -171,6 +171,40 @@ def test_paged_decode_int8_lane_matches_plain(cuda_device, mode, b, g, r, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("b,g,r,w,kv_len", [
+    (3, 2, 16, 258, [1040, 2064, 4112]),   # ChatGLM3-6B's served decode
+    (1, 4, 12, 130, [2064]),               # StarCoder2-15B's
+    (4, 2, 16, 9, [140, 17, 0, 1]),
+    (3, 4, 12, 16, [256, 201, 37])])
+def test_paged_decode_wide_gqa_groups(cuda_device, quant, b, g, r, w,
+                                      kv_len):
+    """K1 at the GQA groups of ChatGLM3-6B (R = 16) and StarCoder2-15B
+    (R = 12, not a power of two), fp and int8 forms, against its plain
+    version, bf16 at 2e-2; two calls bit-equal; one counted launch each."""
+    args = _k1_inputs(b, g, r, 128, w, kv_len, seed=r + w,
+                      device=cuda_device)
+    tier = _k1_tier(args[1], args[2], args[3], "mixed", seed=b + r) \
+        if quant else None
+    kernels.reset_launches()
+    got = kpaged.paged_decode_attention(*args, scale=128 ** -0.5, quant=tier)
+    again = kpaged.paged_decode_attention(*args, scale=128 ** -0.5,
+                                          quant=tier)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode"] == 2
+    assert kernels.FORM_LAUNCHES["paged_decode/int8" if quant
+                                 else "paged_decode/fp"] == 2
+    assert torch.equal(got, again)
+    want = kpaged.paged_decode_reference(*args, scale=128 ** -0.5,
+                                         quant=tier)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16_TOL)
+    for i, n in enumerate(kv_len):
+        if n == 0:
+            assert float(got[i].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 def test_paged_decode_quant_never_takes_the_gather(cuda_device,
                                                    monkeypatch):
     """``kvcache.paged_attention.paged_decode(quant=...)`` on CUDA tensors
@@ -329,6 +363,48 @@ def test_sufa_kernel_forms(cuda_device, strict, d, block, t, s, keep,
     idx, valid = _selection(2, t, s, keep, block, block, gen, cuda_device)
     _check_sufa(q, k, v, idx, valid, block=block, strict=strict,
                 causal=causal, form="wgmma" if block == 128 else "mma_sync")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("d,block,t,s,keep,causal", [
+    (128, 128, 1024, 1024, 3, True), (64, 16, 64, 96, 3, True),
+    (128, 64, 128, 256, 4, False), (128, 48, 96, 192, 2, True)])
+def test_sufa_kernel_elementwise(cuda_device, strict, d, block, t, s, keep,
+                                 causal):
+    """K3's element-level sphere mask (the mma.sync form at every tile
+    size, 128 included) against ``sufa_reference(elementwise=True)``, bf16
+    at 3e-2, both modes; two calls bit-equal; at radius 2 the mask drops
+    keys (the output differs from the tile-level call's). The plain
+    version's estimates come from an fp32-summed bf16 product, as the
+    kernel's."""
+    from repro_torch.kernels import sufa as ksufa
+    gen = torch.Generator(device="cpu").manual_seed(d + block + t + s)
+    q = _bf16((2, t, d), gen, cuda_device)
+    k, v = (_bf16((2, s, d), gen, cuda_device) for _ in range(2))
+    idx, valid = _selection(2, t, s, keep, block, block, gen, cuda_device)
+    kw = dict(block_q=block, block_kv=block, causal=causal, strict=strict,
+              radius=2.0)
+    kernels.reset_launches()
+    got = ksufa.sufa_attention(q, k, v, idx, valid, elementwise=True, **kw)
+    again = ksufa.sufa_attention(q, k, v, idx, valid, elementwise=True,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES["sufa/mma_sync"] == 2
+    assert kernels.FORM_LAUNCHES["sufa/elementwise"] == 2
+    assert torch.equal(got, again)
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = ksufa.sufa_reference(q, k, v, idx, valid, scale=d ** -0.5,
+                                    elementwise=True, **kw)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = old
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **SUFA_TOL)
+    tiles = ksufa.sufa_attention(q, k, v, idx, valid, **kw)
+    assert float((tiles.float() - got.float()).abs().max()) > 3e-2
 
 
 @pytest.mark.cuda

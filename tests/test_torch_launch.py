@@ -1,0 +1,86 @@
+"""The port's serving launcher (``python -m repro_torch.launch.serve``),
+the twin of ``repro.launch.serve``, served at smoke size on the CPU: the
+dense and paged engines and the disaggregated pair, the SLA and shedding
+flags, the trace and the metrics exposition. Without ``--device cpu`` it
+runs on ``cuda`` and raises without one; ``--engine spatial`` names its
+ROADMAP item."""
+
+import dataclasses
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# Smoke shapes run as fast on one thread, and the other test workers
+# keep the remaining cores.
+torch.set_num_threads(1)
+
+from repro_torch.launch import serve  # noqa: E402
+
+SMALL = ["--device", "cpu", "--requests", "3", "--prompt-len", "16",
+         "--max-tokens", "5"]
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "chatglm3_6b"])
+@pytest.mark.parametrize("mode", [["--engine", "dense"],
+                                  ["--engine", "paged"], ["--disagg"]],
+                         ids=["dense", "paged", "disagg"])
+def test_launcher_serves(capsys, mode, arch):
+    """Every request is served to its budget; the disaggregated pair runs,
+    as the reference's does, on the router's default engine configs, whose
+    EOS id (1) may end a request early."""
+    rep = serve.main(["--arch", arch, *SMALL, *mode])
+    toks = rep["tokens_by_request"]
+    assert rep["requests"] == 3 and rep["tokens"] == sum(map(len, toks))
+    for t in toks:
+        assert all(0 <= x < 512 for x in t)
+        assert len(t) == 5 or ("--disagg" in mode and t[-1] == 1)
+    line = capsys.readouterr().out.splitlines()[0]
+    assert line.startswith(f"[serve] {arch} (smoke, ")
+    assert "3 requests" in line and "cpu" in line
+    if "--disagg" in mode:
+        assert "transfers=" in line and "transfer_bytes=" in line
+
+
+def test_launcher_sla_shedding_trace_and_metrics(capsys, tmp_path):
+    trace = tmp_path / "run.json"
+    prom = tmp_path / "run.prom"
+    rep = serve.main(["--arch", "starcoder2_15b", *SMALL, "--sla-mix",
+                      "--sla-deadlines", "--shed-watermarks", "8", "2",
+                      "--trace", str(trace), "--metrics", str(prom)])
+    assert set(rep["per_sla"]) == {"interactive", "standard", "batch"}
+    assert json.loads(trace.read_text())["traceEvents"]
+    assert "engine_ttft_seconds" in prom.read_text()
+    out = capsys.readouterr().out
+    assert "interactive=" in out and "metrics ->" in out
+
+
+def test_launcher_without_telemetry_ignores_trace(capsys, tmp_path):
+    serve.main(["--arch", "nemotron_4_340b", *SMALL, "--no-telemetry",
+                "--trace", str(tmp_path / "t.json")])
+    assert "--trace ignored" in capsys.readouterr().out
+    assert not (tmp_path / "t.json").exists()
+
+
+def test_launcher_refusals(monkeypatch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--engine", "spatial", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="pool-backed"):
+        serve.main(["--engine", "dense", "--disagg", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown or unported"):
+        serve.main(["--arch", "olmoe_1b_7b", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "olmo_1b"])
+
+
+def test_launcher_chunks_whole_star_tiles():
+    """The paged engine's prefill chunk is a whole number of STAR q-tiles
+    (the backend refuses others): 4 pages at the smoke tiles of 16, 8 at
+    the published tiles of 128."""
+    from repro_torch.configs import get_config, get_smoke_config
+    assert serve.tile_chunk_pages(get_smoke_config("olmo_1b"), 16) == 4
+    assert serve.tile_chunk_pages(get_config("chatglm3_6b"), 16) == 8
+    assert serve.tile_chunk_pages(get_config("star_paper"), 32) == 4
+    assert serve.tile_chunk_pages(dataclasses.replace(
+        get_config("starcoder2_15b"), star=None), 16) == 4

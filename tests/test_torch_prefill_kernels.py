@@ -456,11 +456,32 @@ def test_star_cfg_scan_mode_matches_scanq(strict):
     _close(got[0], want, TOL["float32"])
 
 
-def test_star_cfg_refuses_elementwise_masks():
-    q = torch.zeros((1, 32, 16))
-    cfg = tstar.STARConfig(block_q=16, block_kv=16, elementwise=True)
-    with pytest.raises(NotImplementedError, match="elementwise"):
-        tops.star_attention_cfg(q, q, q, cfg, causal=True)
+@pytest.mark.parametrize("mode", ["strict", "fast"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_star_cfg_elementwise_matches_scanq(causal, mode):
+    """``STARConfig(elementwise=True)``: the glue (K2 -> SADS -> K3 with
+    its element mask; plain versions on the CPU) computes what JAX
+    ``star_attention_scanq`` computes, over two q-chunks, in the gathered
+    (strict) form and the scan form's fast path. A radius of 2 makes the
+    element sphere drop keys that the tile selection keeps, so the result
+    differs from the same config without it."""
+    rs = np.random.RandomState(13)
+    q, k, v = (rs.randn(3, 128, 16).astype(np.float32) for _ in range(3))
+    k[:, :8] *= 3.0
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v))
+    cfg = dict(top_k_ratio=0.5, block_q=16, block_kv=16, radius=2.0,
+               elementwise=True, use_scan=mode == "fast",
+               strict=mode == "strict")
+    got = tops.star_attention_cfg(tq, tk, tv, tstar.STARConfig(**cfg),
+                                  causal=causal)
+    want = np.stack([np.asarray(jstar.star_attention_scanq(
+        jq[i], jk[i], jv[i], jstar.STARConfig(**cfg), causal=causal))
+        for i in range(3)])
+    _close(got, want, TOL["float32"])
+    tile_only = tops.star_attention_cfg(
+        tq, tk, tv, tstar.STARConfig(**dict(cfg, elementwise=False)),
+        causal=causal)
+    assert float((tile_only - got).abs().max()) > 1e-2
 
 
 def test_star_cfg_follows_scanq_chunk_rule():

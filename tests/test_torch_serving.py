@@ -248,12 +248,34 @@ def test_from_config_serves_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(backend="dense"), "ROADMAP"),
     (dict(backend="spatial"), "ROADMAP"),
 ])
 def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         LLM.from_config(tsmoke("olmo_1b"), device="cpu", **kw)
+
+
+def test_from_config_serves_the_dense_backend():
+    """``backend="dense"`` builds the dense slot oracle on the device asked
+    for; its tick traces a span, and a one-token request finishes at its
+    prefill."""
+    from repro_torch import obs as tobs
+    from repro_torch.serving import EngineCfg, ServingEngine
+    tel = tobs.Telemetry()
+    llm = LLM.from_config(tsmoke("chatglm3_6b"), backend="dense",
+                          device="cpu", telemetry=tel,
+                          generator=torch.Generator().manual_seed(3),
+                          engine_cfg=EngineCfg(max_batch=2, max_len=64,
+                                               eos_id=-1))
+    assert isinstance(llm.engine, ServingEngine)
+    assert llm.engine.device.type == "cpu"
+    hs = [llm.submit(np.arange(16, dtype=np.int32), max_tokens=n)
+          for n in (4, 1, 3)]
+    llm.run_until_done()
+    assert [len(h.tokens) for h in hs] == [4, 1, 3]
+    assert all(h.outcome == "done" for h in hs)
+    assert llm.metrics()["requests"] == 3
+    assert any(e.get("name") == "tick" for e in tel.tracer.events)
 
 
 def test_from_config_serves_the_int8_tier():
@@ -370,6 +392,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
                                page=16, w=6, p=16, kv_len=(90, 17), seed=5,
                                timed=False)
     assert k1["n_split"] == 6 and k1["violations"] == 0
+    # phase 1's ptxas report names each instantiation
+    log = ("ptxas info    : Function properties for _ZN48_GLOBAL__N__8c22_15"
+           "_paged_decode_cu_fed0b86b19paged_scores_kernelILi64ELi1ELb1EEEvP"
+           "K13__nv_bfloat16\n    16 bytes stack frame, 12 bytes spill stores"
+           ", 12 bytes spill loads\n")
+    assert cs.ptxas_report(log) == [(
+        "paged_scores_kernel<64,1,1>",
+        "16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads")]
     fused = cs.check_fused_star(params, cfg, seed=3, t=128, timed=False)
     assert fused["selection_agreement_min"] == 1.0
     assert len(fused["layers"]) == cfg.n_layers
@@ -426,6 +456,62 @@ def test_chip_smoke_phases_rehearse_on_cpu(monkeypatch):
     assert pair["expected_k1_int8_launches"] == 0
     with pytest.raises(SystemExit, match="expected decode ticks x layers"):
         cs.require_disagg_launches(pair, "cpu")
+
+
+def test_chip_smoke_model_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 10-12 on the CPU at smoke size: ChatGLM3's smoke config
+    served with STAR (first tokens equal a STAR forward's), in the
+    exact-parity setting and through the dense engine (every token the
+    dense argmax or a bf16 tie), and the depth-cut configs, star_paper
+    also with K3's element mask. The launch checks, which the CPU cannot
+    meet, are recorded instead of run; their expectations are held."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    held = []
+    for name in ("require_launches", "require_prefill_launches",
+                 "require_k4", "require_dense_launches"):
+        monkeypatch.setattr(cs, name, lambda summary, tag, name=name:
+                            held.append((name, tag, summary)))
+    gen = torch.Generator().manual_seed(0)
+    glm = cs.check_chatglm(tsmoke("chatglm3_6b"), "cpu", gen,
+                           lengths=(32, 64, 48), max_tokens=4)
+    assert glm["star"]["first_tokens_checked"] == 3
+    assert glm["star"]["exact"] + glm["star"]["bf16_ties"] == 3
+    assert glm["fused"]["selection_agreement_min"] == 1.0
+    assert glm["fused"]["T"] == 64 and glm["fused"]["layers_checked"] == [0]
+    for run in (glm["exact"], glm["dense"]):
+        assert run["tokens_checked"] == 12
+        assert run["exact"] + run["bf16_ties"] == 12
+    assert glm["star"]["expected_prefill_launches"] == \
+        glm["star"]["prefill_calls"] * 2 > 0
+    assert glm["exact"]["expected_prefill_launches"] == 0
+    assert glm["exact"]["expected_flash_launches"] == \
+        glm["exact"]["prefill_calls"] * 2
+    assert glm["dense"]["expected_flash_launches"] == 3 * 2
+    assert glm["dense"]["decode_ticks"] > 0
+    cut = cs.check_cut_config("star_paper", tsmoke("star_paper"), "cpu",
+                              gen, layers=2, prompt_len=128, max_tokens=3,
+                              elementwise_too=True)
+    elem = cut["star_elementwise"]
+    assert elem["expected_sufa_elementwise_launches"] == \
+        elem["prefill_calls"] * 2 and elem["expected_sufa_wgmma_launches"] \
+        == 0 and elem["tokens"] == 3 and elem["exact"] == 1
+    sc2 = cs.check_cut_config("starcoder2_15b", tsmoke("starcoder2_15b"),
+                              "cpu", gen, layers=1, prompt_len=64,
+                              max_tokens=3)["star"]
+    assert sc2["expected_launches"] == sc2["decode_ticks"] > 0
+    assert {name for name, _, _ in held} == {
+        "require_launches", "require_prefill_launches", "require_k4",
+        "require_dense_launches"}
+    # phase 6's element-mask case (plain against plain here)
+    k3 = cs.check_sufa("cpu", None, bh=2, t=256, block=128, strict=True,
+                       seed=1, timed=False, elementwise=True)
+    assert k3["form"] == "mma_sync" and 0 <= k3["sphere_dropped_share"] < 1
+    assert k3["mask_elements_differ_default_gemm_share"] == 0.0
+    # phase 6's cases at phases 10-12's 32 heads
+    k3 = cs.check_sufa("cpu", None, bh=32, t=256, block=128, strict=False,
+                       seed=2, timed=False, elementwise=True)
+    assert k3["BH"] == 32 and k3["form"] == "mma_sync"
 
 
 def _run_smoke(cwd):

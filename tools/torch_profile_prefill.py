@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Where one whole-prompt prefill of the PyTorch port's olmo_1b spends its
-time on a GPU.
+"""Where one whole-prompt prefill of the PyTorch port spends its time on
+a GPU.
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 tools/torch_profile_prefill.py
+    python3 tools/torch_profile_prefill.py [--arch chatglm3_6b] [--tokens 4096]
 
-It builds the kernels, draws olmo_1b's weights from seed 0, and runs one
-2048-token ``lm.prefill`` with STAR on (K2 -> SADS -> K3) and off (K4),
-alternating the two six times (the first pair is the warm-up). For each
-it prints one JSON line: the host time through the device's end
-(median of the last five, and all five), then one more run under
-``torch.profiler`` with its wall, the kernels' summed device time, the
-busy time (the union of the kernels' intervals), the busy share of the
-unprofiled median wall (the profiler slows the host, not the kernels)
-and of the profiled wall, and the kernels that take the most device
-time.
+It builds the kernels, draws the config's full-size weights (default
+olmo_1b) from seed 0, and runs one ``--tokens``-token (default 2048)
+``lm.prefill`` with STAR on (K2 -> SADS -> K3) and off (K4), alternating
+the two six times (the first pair is the warm-up). For each it prints
+one JSON line: the host time through the device's end (median of the
+last five, and all five), then one more run under ``torch.profiler``
+with its wall, the kernels' summed device time, the busy time (the union
+of the kernels' intervals), the busy share of the unprofiled median wall
+(the profiler slows the host, not the kernels) and of the profiled wall,
+the kernels that take the most device time, and the device time of the
+GQA expansion (``attention._repeat_kv``, which copies K and V to
+n_heads width before K2, K3 and K4) with its share of the device time.
+The expansion is also timed alone with CUDA events (K and V of every
+layer, at the prefill's shape).
 """
 
 from __future__ import annotations
@@ -33,13 +37,13 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import olmo_1b  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import attention, lm  # noqa: E402
 
 SEED = 0
-T = 2048
 REPEATS = 6
+REPEAT_KV = "_repeat_kv"   # the profiler range around each GQA expansion
 
 
 def emit(tag: str, **fields) -> None:
@@ -70,26 +74,71 @@ def device_kernels(prof) -> tuple[float, float, list]:
         for name, (calls, us) in top]
 
 
+def repeat_kv_device_ms(prof) -> float:
+    """Device time (ms) of the kernels launched inside the profiler ranges
+    named REPEAT_KV."""
+    total = 0.0
+    for e in prof.events():
+        if e.name == REPEAT_KV:
+            total += e.device_time_total if hasattr(e, "device_time_total") \
+                else e.cuda_time_total
+    return total / 1e3
+
+
+def time_repeat_kv(cfg, t: int, dev) -> dict:
+    """``attention._repeat_kv`` alone on one layer's K (or V) at the
+    prefill's shape, median device time of 20 calls (CUDA events), and
+    the sum over K and V of every layer."""
+    n_rep = cfg.n_heads // cfg.n_kv
+    x = torch.randn((1, t, cfg.n_kv, cfg.dh), device=dev).to(cfg.dtype)
+    times = []
+    for i in range(23):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        attention._repeat_kv(x, n_rep)
+        b.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(a.elapsed_time(b))
+    one = float(np.median(times))
+    return {"n_rep": n_rep, "ms_one_call": one,
+            "ms_per_prefill": one * 2 * cfg.n_layers,
+            "bytes_written_per_prefill": 2 * cfg.n_layers * t * cfg.n_heads
+            * cfg.dh * x.element_size()}
+
+
 @torch.inference_mode()
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo_1b")
+    ap.add_argument("--tokens", type=int, default=2048)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_prefill: no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     dev = torch.device("cuda")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0], flush=True)
     build.build()
-    cfg = olmo_1b.config()
+    cfg = get_config(args.arch)
+    t = args.tokens
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     params = lm.init(cfg, gen, dev)
     rng = np.random.RandomState(SEED + 5)
     batch = {"tokens": torch.as_tensor(
-        rng.randint(2, cfg.vocab, size=(1, T)).astype(np.int32), device=dev)}
-    last = torch.tensor([T - 1], dtype=torch.int32, device=dev)
+        rng.randint(2, cfg.vocab, size=(1, t)).astype(np.int32), device=dev)}
+    last = torch.tensor([t - 1], dtype=torch.int32, device=dev)
+    real_repeat = attention._repeat_kv
+
+    def ranged_repeat(kv, n_rep):
+        with record_function(REPEAT_KV):
+            return real_repeat(kv, n_rep)
     modes = {"star": cfg, "dense": dataclasses.replace(cfg, star=None)}
 
     def run(c):
@@ -103,19 +152,29 @@ def main() -> int:
             run(c)
             walls[name].append(time.perf_counter() - t0)
     for name, c in modes.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(c)
-            wall = 1e3 * (time.perf_counter() - t0)
+        attention._repeat_kv = ranged_repeat
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(c)
+                wall = 1e3 * (time.perf_counter() - t0)
+        finally:
+            attention._repeat_kv = real_repeat
         device_ms, busy_ms, top = device_kernels(prof)
+        repeat_ms = repeat_kv_device_ms(prof)
         unprofiled = 1e3 * float(np.median(walls[name][1:]))
-        emit("profile_prefill", attention=name, T=T,
+        emit("profile_prefill", arch=args.arch, attention=name, T=t,
              wall_ms_unprofiled=unprofiled,
              wall_ms_unprofiled_all=[1e3 * w for w in walls[name][1:]],
              wall_ms_profiled=wall, device_ms=device_ms, busy_ms=busy_ms,
              busy_share=busy_ms / unprofiled,
-             busy_share_profiled=busy_ms / wall, kernels=top[:14])
+             busy_share_profiled=busy_ms / wall,
+             repeat_kv_device_ms=repeat_ms,
+             repeat_kv_share_of_device=repeat_ms / device_ms,
+             kernels=top[:14])
+    emit("repeat_kv_alone", arch=args.arch, T=t, **time_repeat_kv(cfg, t,
+                                                                  dev))
     return 0
 
 
