@@ -26,7 +26,14 @@ Phases, each printing its numbers on a line of its own:
    off: the check can tell an ignored qmask or a wrong scale. Both forms
    again, timed, at the decode shapes of the wide GQA groups: ChatGLM3-6B
    (G 2, R 16, W covering phase 10's longest sequence) and StarCoder2-15B
-   (G 4, R 12);
+   (G 4, R 12). Then K1's unnormalised (m, l, o) form over sequence-sharded
+   pools (every shard in one launch sequence), fp and int8 lanes, at phase
+   13's decode shape (4 shards, B 4, G 16, R 1, d 128) and at ChatGLM3-6B's
+   group (R 16), each timed beside its bound (the K/V rows read across all
+   shards), its plain version and one PyTorch call that yields the same
+   merge state (memory-efficient SDPA over every shard's gathered rows with
+   its log-sum-exp), and untimed with a shard that holds no row: m, l and
+   o/l at 2e-2, two calls bit-equal, the empty shard's state neutral;
 3. the main path: full-width OLMo-1B (random weights from a seed) served
    through ``LLM.from_config(backend="paged")``: TTFT, tokens/s, decode
    ticks, and K1's launches, which must equal ticks x layers;
@@ -107,6 +114,19 @@ Phases, each printing its numbers on a line of its own:
    prompt each through the paged engine (star_paper also with
    ``STARConfig(elementwise=True)``, K3's element mask): launch counts and
    first tokens as in phase 10.
+13. the spatial (sequence-sharded) engine: full-width OLMo-1B (phase 3's
+   seed, ``star=None``) through ``LLM.from_config(backend="spatial")``, 4
+   shards on the card of 64 pages each, hot width covering each shard's
+   pages, prompts of 1024, 1536 and 2048 tokens, 16 tokens each. A paged
+   engine with one shard's pool (64 pages) must refuse the 2048-token
+   prompt (129 pages) that the spatial engine serves. K1's stats form must
+   launch ticks x 16 times (once per layer for every shard) and the
+   normalised K1 never; every token is held by phase 4's rule against a K4
+   forward. Then a run with the decode width bounded at 8 pages a shard,
+   and a lone short request on the same engine, whose hot sets leave two
+   shards empty: the per-shard skip counts, read from the host after the
+   run, must be populated. TTFT, tokens/s and decode ms per tick are
+   printed.
 Phase 4 also counts K4: oracle forwards x layers launches.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
@@ -148,6 +168,7 @@ from repro_torch.models import attention, lm  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
 from repro_torch.serving import (LLM, DisaggRouter, EngineCfg,  # noqa: E402
                                  FaultPlan, PagedEngineCfg, SchedulerCfg)
+from repro_torch.spatial import SpatialEngineCfg  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 SEED = 0
@@ -175,6 +196,14 @@ GLM_MAX_TOKENS = 16
 # widths, depth cut to CUT_LAYERS, one CUT_PROMPT-token prompt each
 CUT_LAYERS = 4
 CUT_PROMPT = 2048
+# phase 13: OLMo-1B through the spatial engine, 4 shards of 64 pages on
+# the card; the 2048-token prompt needs 129 pages, twice one shard's pool;
+# the bounded run gathers at most 8 pages a shard
+SPATIAL_PROMPTS = (1024, 1536, 2048)
+SPATIAL_MAX_TOKENS = 16
+SPATIAL_SHARDS = 4
+SPATIAL_PAGES_LOCAL = 64
+SPATIAL_HOT_WIDTH = 8
 # K2: fp32 sums of exact bf16 x pow2 products, only their order differs
 # from the plain version's; K3: tests/test_kernels.py's SU-FA bf16 bound
 PREFILL_TOL = {"dlzs_block": 1e-4, "sufa": 3e-2, "flash": TOL}
@@ -362,22 +391,32 @@ def int8_tier(k, phys, seed, share=0.5):
             "qmask": qmask}
 
 
-def int8_work(q, k, phys, logical, kv_len, qmask) -> tuple[int, int]:
-    """Bytes and operations of the int8 form's work: the fp K/V rows of
-    unmarked slots and the int8 rows and two page scales of marked ones,
-    below kv_len; q, the output and the tables once; 4·R·d operations per
-    row pair and head, and one product per dequantized element."""
-    b, g, r, d = q.shape
-    page = k.shape[1]
-    w = phys.shape[1]
+def kv_read(k, logical, kv_len, qmask=None) -> tuple[int, int, int]:
+    """The K/V rows that block tables [..., B, W] name below kv_len [B],
+    each read once: their bytes (the fp rows of unmarked slots at the
+    slab's width; the int8 rows and two fp32 page scales of slots
+    ``qmask`` marks), the rows read, and the marked rows among them."""
+    page, g, d = k.shape[-3:]
     first = logical.long() * page
     rows = ((kv_len.long()[:, None] - first).clamp(0, page)
-            * (logical >= 0)).cpu()                      # [B, W]
-    marked = qmask.cpu() & (rows > 0)
+            * (logical >= 0)).cpu()                      # [..., B, W]
+    marked = (qmask.cpu() if qmask is not None
+              else torch.zeros_like(rows, dtype=torch.bool)) & (rows > 0)
     rows_q = int(rows[marked].sum())
     rows_all = int(rows.sum())
     kv_bytes = ((rows_all - rows_q) * 2 * k.element_size() + rows_q * 2) \
         * g * d + int(marked.sum()) * 2 * 4
+    return kv_bytes, rows_all, rows_q
+
+
+def int8_work(q, k, phys, logical, kv_len, qmask) -> tuple[int, int]:
+    """Bytes and operations of the int8 form's work: the K/V rows as
+    ``kv_read`` counts them; q, the output, the tables and qmask once;
+    4·R·d operations per row pair and head, and one product per
+    dequantized element."""
+    b, g, r, d = q.shape
+    w = phys.shape[1]
+    kv_bytes, rows_all, rows_q = kv_read(k, logical, kv_len, qmask)
     io_bytes = 2 * nbytes(q) + (2 * b * w + b) * 4 + b * w
     return kv_bytes + io_bytes, 4 * rows_all * g * r * d + 2 * rows_q * g * d
 
@@ -441,6 +480,191 @@ def check_paged_int8(device, name, b, g, r, d, page, w, p, kv_len, seed,
                   bytes_=bytes_, flops=flops)
         del flush
     emit("k1_int8_parity", ok=True, **out)
+    return out
+
+
+def sharded_inputs(n_sh, b, g, r, d, page, w, p, kv_len, seed, device,
+                   empty_shard=None):
+    """A sequence-sharded pool as the spatial engine builds it: global page
+    j of a sequence on shard j % n_sh at a random local id (of the shard's
+    P pages), its table entry carrying the GLOBAL logical index; W slots a
+    shard. ``empty_shard`` holds no page of any sequence."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, g, r, d), generator=gen)
+    k = torch.randn((n_sh, p, page, g, d), generator=gen)
+    v = torch.randn((n_sh, p, page, g, d), generator=gen)
+    phys = torch.full((n_sh, b, w), -1, dtype=torch.int32)
+    logical = torch.full((n_sh, b, w), -1, dtype=torch.int32)
+    for i, n_rows in enumerate(kv_len):
+        n = -(-n_rows // page)
+        for sh in range(n_sh):
+            js = list(range(sh, n, n_sh))
+            if sh == empty_shard or not js:
+                continue
+            phys[sh, i, :len(js)] = (torch.randperm(p - 1, generator=gen)
+                                     [:len(js)] + 1).int()
+            logical[sh, i, :len(js)] = torch.tensor(js, dtype=torch.int32)
+    kvl = torch.tensor(kv_len, dtype=torch.int32)
+    bf = [t.to(device, torch.bfloat16) for t in (q, k, v)]
+    return bf + [t.to(device) for t in (phys, logical, kvl)]
+
+
+def stats_work(q, k, logical, kv_len, qmask=None) -> tuple[int, int]:
+    """Bytes and operations of the stats form's work: the K/V rows every
+    shard's tables name below kv_len, across all shards, as ``kv_read``
+    counts them (with ``qmask``, the int8 lane: marked slots at 1 byte an
+    element plus their page scales); q, the tables (and qmask) once, the
+    fp32 (m, l, o) written once; 4·R·d operations per row pair and head,
+    and one product per dequantized element."""
+    b, g, r, d = q.shape
+    n_sh = logical.shape[0]
+    kv_bytes, rows_all, rows_q = kv_read(k, logical, kv_len, qmask)
+    io_bytes = nbytes(q) + n_sh * b * g * r * (d + 2) * 4 \
+        + (2 * logical.numel() + kv_len.numel()) * 4 \
+        + (0 if qmask is None else logical.numel())
+    return kv_bytes + io_bytes, 4 * rows_all * g * r * d + 2 * rows_q * g * d
+
+
+def stats_library(q, k, v, phys, logical, kv_len, scale, quant=None):
+    """One PyTorch call yielding the same merge state: memory-efficient
+    SDPA over every shard's gathered rows (shards folded into the batch,
+    gathered and dequantized beforehand, outside the timed call) with its
+    log-sum-exp; (m, l, o) = (lse, 1, o) is the state the merge takes.
+    Returns the call and its state's o/l error against the plain version
+    (its P·V is bf16, so the error is in bf16 steps of o)."""
+    from repro_torch.kvcache.paged_attention import (
+        _gather_hot, fold_shards, fold_tier)
+    b, g, r, d = q.shape
+    n_sh, _, w = phys.shape
+    kf, pf = fold_shards(k, phys)
+    kg, vg, valid = _gather_hot(kf, v.reshape(kf.shape), pf,
+                                logical.reshape(n_sh * b, w),
+                                kv_len.repeat(n_sh), fold_tier(quant))
+    rows = kg.shape[1]
+    pad = -rows % 16                 # the kernel's bias alignment
+    kh = torch.nn.functional.pad(kg.transpose(1, 2), (0, 0, 0, pad))
+    vh = torch.nn.functional.pad(vg.transpose(1, 2), (0, 0, 0, pad))
+    kh = kh.repeat_interleave(r, dim=1).contiguous()
+    vh = vh.repeat_interleave(r, dim=1).contiguous()
+    qh = q.reshape(1, b, g * r, 1, d).expand(n_sh, b, g * r, 1, d).reshape(
+        n_sh * b, g * r, 1, d).contiguous()
+    ok = torch.nn.functional.pad(valid, (0, pad))
+    bias = torch.zeros(ok.shape, dtype=q.dtype, device=q.device)
+    bias = bias.masked_fill(~ok, float("-inf"))[:, None, None, :].expand(
+        n_sh * b, g * r, 1, rows + pad).contiguous()
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, bias, True, 0.0, False, scale=scale)
+    o = call()[0]
+    _, wl, wo = kpaged.paged_decode_stats_reference(q, k, v, phys, logical,
+                                                    kv_len, scale=scale,
+                                                    quant=quant)
+    live = (wl > 0).reshape(n_sh * b, g * r)
+    want = (wo / torch.clamp(wl, min=1e-30)[..., None]).reshape(
+        n_sh * b, g * r, d)
+    err = (o[:, :, 0].float() - want)[live].abs().max()
+    return call, float(err)
+
+
+def stats_reach(out, tag, name, q, k, v, phys, logical, kv_len, scale,
+                tier, want) -> None:
+    """The int8 lane check's reach, on the inputs it held: an all-False
+    qmask must give the fp lane's bits; the fp lane (a form that ignored
+    qmask) and the plain version fed the next page's scales (a form that
+    took another page's scale) must each break the tolerance on o/l and
+    lie at least REACH times the kernel's error from ``want``."""
+    def stats(fn, quant):
+        return fn(q, k, v, phys, logical, kv_len, scale=scale, quant=quant)
+    none = dict(tier, qmask=torch.zeros_like(tier["qmask"]))
+    fp = stats(kpaged.paged_decode_stats_attention, None)
+    if not all(torch.equal(x, y) for x, y in zip(
+            stats(kpaged.paged_decode_stats_attention, none), fp)):
+        raise SystemExit(f"{tag} {name}: an all-False qmask did not give "
+                         f"the fp lane's bits")
+    out["all_false_bit_equal_fp"] = True
+    other_page = dict(tier, k_scale=tier["k_scale"].roll(1),
+                      v_scale=tier["v_scale"].roll(1))
+    for key, (_, wl, wo) in (("fp_form", fp), ("other_page_scale", stats(
+            kpaged.paged_decode_stats_reference, other_page))):
+        err = (wo / torch.clamp(wl, min=1e-30)[..., None] - want).abs()
+        out[f"max_abs_err_{key}"] = float(err.max())
+        out[f"violations_{key}"] = int(
+            (err > TOL + TOL * want.abs()).sum())
+        if not out[f"violations_{key}"] or \
+                out[f"max_abs_err_{key}"] < REACH * out["max_abs_err"]:
+            emit(tag, ok=False, **out)
+            raise SystemExit(f"{tag} {name}: the check cannot tell the "
+                             f"{key} from the kernel: {out}")
+
+
+def check_paged_stats(device, name, n_sh, b, g, r, d, page, w, p, kv_len,
+                      seed, timed: bool, quant: bool = False,
+                      empty_shard=None) -> dict:
+    """K1's (m, l, o) form over ``n_sh`` shards in one launch sequence
+    against its plain version (``paged_gather_decode_stats`` per shard):
+    m, l and o/l at the bf16 bound, two calls bit-equal, and (m, l, o) =
+    (NEG_INF, 0, 0) wherever a shard holds no valid row of a sequence. With
+    ``quant`` the int8 lane, about half the slots marked, its tier drawn
+    apart from the fp rows, held as ``check_paged_int8`` holds the
+    normalised form's: an all-False qmask gives the fp lane's bits, and
+    the fp lane and the plain version fed the next page's scales each
+    break the tolerance on o/l and lie at least REACH times the kernel's
+    error off."""
+    q, k, v, phys, logical, kvl = sharded_inputs(
+        n_sh, b, g, r, d, page, w, p, kv_len, seed, device, empty_shard)
+    tier = None
+    if quant:
+        tier = int8_tier(k.view(n_sh * p, *k.shape[2:]), phys, seed)
+        for key in ("kq", "vq", "k_scale", "v_scale"):
+            tier[key] = tier[key].view(n_sh, p, *tier[key].shape[1:])
+    scale = 1.0 / math.sqrt(d)
+    kernel = lambda: kpaged.paged_decode_stats_attention(  # noqa: E731
+        q, k, v, phys, logical, kvl, scale=scale, quant=tier)
+    plain = lambda: kpaged.paged_decode_stats_reference(  # noqa: E731
+        q, k, v, phys, logical, kvl, scale=scale, quant=tier)
+    (m, l, o), (wm, wl, wo) = kernel(), plain()
+    tag = "k1_stats_parity"
+    live = wl > 0
+    case = dict(case=name, shards=n_sh, shape=[b, g, r, d], page=page,
+                W=w, P=p, kv_len=list(kv_len), lane="int8" if quant else "fp",
+                empty_shard=empty_shard,
+                n_split=kpaged.split_plan(n_sh * b, g, w, page))
+    if not torch.equal(live, l > 0):
+        raise SystemExit(f"{tag} {name}: the kernel's empty states differ "
+                         f"from its plain version's")
+    out = held(tag, o / torch.clamp(l, min=1e-30)[..., None],
+               wo / torch.clamp(wl, min=1e-30)[..., None], TOL, **case)
+    out["max_abs_err_m"] = held(tag, m[live], wm[live], TOL,
+                                **case)["max_abs_err"]
+    out["max_abs_err_l"] = held(tag, l[live], wl[live], TOL,
+                                **case)["max_abs_err"]
+    dead = ~live
+    if not (bool((m[dead] == -1e30).all()) and bool((l[dead] == 0).all())
+            and bool((o[dead] == 0).all())):
+        raise SystemExit(f"{tag} {name}: a shard without a valid row did "
+                         f"not give the neutral state")
+    out["states_empty"] = int(dead.sum())
+    again = kernel()
+    if not all(torch.equal(x, y) for x, y in zip((m, l, o), again)):
+        raise SystemExit(f"{tag} {name}: two calls on the same inputs gave "
+                         f"different bits")
+    if quant:
+        stats_reach(out, tag, name, q, k, v, phys, logical, kvl, scale, tier,
+                    wo / torch.clamp(wl, min=1e-30)[..., None])
+    if timed:
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+        bytes_, flops = stats_work(q, k, logical, kvl,
+                                   None if tier is None else tier["qmask"])
+        library, lib_err = stats_library(q, k, v, phys, logical, kvl, scale,
+                                         tier)
+        add_times(out, kernel, plain, library, flush, bytes_=bytes_,
+                  flops=flops)
+        out["library"] = ("aten._scaled_dot_product_efficient_attention "
+                          "over the gathered rows, with its lse")
+        out["library_state_max_abs_err"] = lib_err
+        del flush
+    emit(tag, ok=True, **out)
     return out
 
 
@@ -1672,6 +1896,136 @@ def check_cut_config(name: str, cfg, dev, gen, *, layers=CUT_LAYERS,
     return out
 
 
+# -- phase 13: the spatial (sequence-sharded) engine --------------------------
+
+def spatial_llm(cfg, params, *, device, generator, n_shards, pages_local,
+                hot_pages_local, hot_width=None) -> LLM:
+    return LLM.from_config(
+        cfg, backend="spatial", params=params, device=device,
+        generator=generator,
+        engine_cfg=SpatialEngineCfg(n_shards=n_shards, max_batch=4,
+                                    page_size=16, n_pages_local=pages_local,
+                                    hot_pages_local=hot_pages_local,
+                                    eos_id=-1),
+        sched_cfg=SchedulerCfg(chunk_pages=8, prefill_tokens="auto",
+                               decode_hot_width=hot_width))
+
+
+def spatial_summary(run: dict, llm: LLM, n_layers: int) -> dict:
+    """Served numbers of a spatial run, its launches (the stats form once
+    per layer of every tick, for all shards at once; the normalised K1
+    never) and the per-shard skip counts the backend kept on the host."""
+    ttft = run["ttft_ms"]
+    st = llm.engine.backend.stats()
+    return {"requests": len(run["done"]), "tokens": run["tokens"],
+            "wall_s": run["wall_s"], "tok_s": run["tok_s"],
+            "ttft_ms_p50": float(np.median(ttft)),
+            "ttft_ms_max": float(max(ttft)),
+            "decode_ticks": run["ticks"],
+            "decode_ms_per_tick": 1e3 * run["decode_s"]
+            / max(run["ticks"], 1),
+            "k1_stats_launches": run["launches"]["paged_decode_stats"],
+            "k1_stats_fp_launches": run["form_launches"][
+                "paged_decode_stats/fp"],
+            "k1_normalised_launches": run["launches"]["paged_decode"],
+            "expected_stats_launches": run["ticks"] * n_layers,
+            "pages_resident_per_tick": run["pages_total"]
+            / max(run["ticks"], 1),
+            "pages_gathered_per_tick": run["pages_hot"]
+            / max(run["ticks"], 1),
+            "shard_skips": st["shard_skips"],
+            "decode_steps_total": st["decode_steps"],
+            "hot_width": st["hot_width"], "n_shards": st["n_shards"],
+            "slab_bytes": st["slab_bytes"]}
+
+
+def require_spatial_launches(summary: dict, tag: str) -> None:
+    if summary["decode_ticks"] == 0 or summary["k1_stats_launches"] != \
+            summary["expected_stats_launches"] \
+            or summary["k1_normalised_launches"] != 0:
+        raise SystemExit(
+            f"{tag}: K1's stats form launched "
+            f"{summary['k1_stats_launches']} times over "
+            f"{summary['decode_ticks']} decode ticks (expected ticks x "
+            f"layers = {summary['expected_stats_launches']}), the "
+            f"normalised form {summary['k1_normalised_launches']} times "
+            f"(expected 0)")
+
+
+def check_spatial(cfg, dev, gen, *, lengths=SPATIAL_PROMPTS,
+                  max_tokens=SPATIAL_MAX_TOKENS, n_shards=SPATIAL_SHARDS,
+                  pages_local=SPATIAL_PAGES_LOCAL,
+                  hot_width=SPATIAL_HOT_WIDTH, short_len=20) -> dict:
+    """Phase 13: OLMo-1B (phase 3's seed) with ``star=None`` through the
+    spatial engine, ``n_shards`` shards of ``pages_local`` pages on one
+    card. The longest prompt must be refused by a paged engine of one
+    shard's pool and served here; K1's stats form launches ticks x layers
+    times and the normalised form never; every token is held by phase 4's
+    rule against a K4 forward. Then the decode width bounded at
+    ``hot_width`` pages a shard, the same prompts and a lone
+    ``short_len``-token request: pages gathered fall below pages resident
+    and the per-shard skip counts, read after the run, are populated."""
+    dense = dataclasses.replace(cfg, star=None)
+    params, info = init_params(dense, gen, dev)
+    prompts = make_prompts(dense, lengths, SEED + 8)
+    need = -(-(max(lengths) + max_tokens) // 16)
+    hot_local = -(-need // n_shards)
+    one_pool = LLM.from_config(
+        dense, backend="paged", params=params, device=dev, generator=gen,
+        engine_cfg=PagedEngineCfg(max_batch=4, page_size=16,
+                                  n_pages=pages_local, hot_pages=pages_local,
+                                  eos_id=-1),
+        sched_cfg=SchedulerCfg(chunk_pages=8))
+    try:
+        one_pool.submit(prompts[-1], max_tokens=max_tokens)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise SystemExit(f"a paged engine of {pages_local} pages admitted "
+                         f"a {max(lengths)}-token prompt ({need} pages)")
+    del one_pool
+    llm = spatial_llm(dense, params, device=dev, generator=gen,
+                      n_shards=n_shards, pages_local=pages_local,
+                      hot_pages_local=hot_local)
+    # warm-up request (cuBLAS handles, allocator), not counted
+    serve(llm, make_prompts(dense, (128,), SEED + 1), 2)
+    llm.clear_finished()
+    run = serve(llm, prompts, max_tokens)
+    served = spatial_summary(run, llm, dense.n_layers)
+    served.update(pages_needed_longest=need, one_pool_pages=pages_local,
+                  one_pool_refused=refused, **info)
+    require_spatial_launches(served, "spatial engine")
+    exact = check_exact(params, dense, prompts, run["done"])
+    require_k4(exact, "spatial engine exactness")
+    served["exactness"] = exact
+    emit("spatial_served", **served)
+    del llm
+    free_cache(dev)
+
+    bounded = spatial_llm(dense, params, device=dev, generator=gen,
+                          n_shards=n_shards, pages_local=pages_local,
+                          hot_pages_local=hot_local, hot_width=hot_width)
+    b_run = serve(bounded, prompts, max_tokens)
+    b_sum = spatial_summary(b_run, bounded, dense.n_layers)
+    require_spatial_launches(b_sum, "spatial engine, bounded width")
+    if not b_sum["pages_gathered_per_tick"] < \
+            b_sum["pages_resident_per_tick"]:
+        raise SystemExit("spatial bounded run gathered every resident page")
+    lone = serve(bounded, make_prompts(dense, (short_len,), SEED + 10),
+                 max_tokens)
+    lone_sum = spatial_summary(lone, bounded, dense.n_layers)
+    require_spatial_launches(lone_sum, "spatial engine, lone request")
+    skips = lone_sum["shard_skips"]
+    if sum(skips) == 0 or len(skips) != n_shards:
+        raise SystemExit(f"spatial bounded run: per-shard skip counts not "
+                         f"populated: {skips}")
+    b_sum.update(lone_request=lone_sum, shard_skips=skips)
+    emit("spatial_bounded", **b_sum)
+    del bounded, params
+    free_cache(dev)
+    return {"served": served, "bounded": b_sum}
+
+
 # -- main ---------------------------------------------------------------------
 
 def demangle(mangled: str) -> str:
@@ -1764,6 +2118,27 @@ def main() -> int:
                           seed=5, timed=True)
               for form, check in (("fp", check_paged_kernel),
                                   ("int8", check_paged_int8))}
+    # K1's (m, l, o) form: phase 13's decode shape (4 shards, the three
+    # requests at their last tick and an idle slot; W covers each shard's
+    # pages) and ChatGLM3-6B's group, both lanes, timed; a shard with no
+    # row, untimed
+    sp_kv = tuple(n + SPATIAL_MAX_TOKENS for n in SPATIAL_PROMPTS) + (1,)
+    sp_w = -(-(-(-max(sp_kv) // 16)) // SPATIAL_SHARDS)
+    k1_stats = {lane: check_paged_stats(
+        dev, f"spatial_decode_{lane}", SPATIAL_SHARDS, b=4, g=16, r=1,
+        d=128, page=16, w=sp_w, p=SPATIAL_PAGES_LOCAL, kv_len=sp_kv, seed=6,
+        timed=True, quant=lane == "int8") for lane in ("fp", "int8")}
+    glm_sw = -(-glm_w // SPATIAL_SHARDS)
+    k1_stats_r16 = {lane: check_paged_stats(
+        dev, f"spatial_chatglm3_{lane}", SPATIAL_SHARDS, b=3, g=2, r=16,
+        d=128, page=16, w=glm_sw, p=glm_sw + 8, kv_len=glm_kv, seed=7,
+        timed=True, quant=lane == "int8") for lane in ("fp", "int8")}
+    for lane in ("fp", "int8"):
+        check_paged_stats(dev, f"spatial_empty_shard_{lane}",
+                          SPATIAL_SHARDS, b=4, g=16, r=1, d=128, page=16,
+                          w=sp_w, p=SPATIAL_PAGES_LOCAL,
+                          kv_len=(1040, 33, 500, 1), seed=8, timed=False,
+                          quant=lane == "int8", empty_shard=2)
 
     # 3. the main path: full-width OLMo-1B on the paged engine
     cfg = olmo_1b.config()
@@ -1864,6 +2239,10 @@ def main() -> int:
                "star_paper", star_paper.config(), dev, gen,
                elementwise_too=True)}
 
+    # 13. the spatial engine: OLMo-1B (phase 3's seed, star=None) over 4
+    # shards on the card; K1's (m, l, o) form on every decode layer
+    spatial = check_spatial(olmo_1b.config(), dev, gen)
+
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
@@ -1879,6 +2258,10 @@ def main() -> int:
         return {f"{key}_int8": case[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
             "slots_marked", "slots_valid")}
+
+    def int8_keys_stats(case):
+        return {f"{key}_int8": case[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
 
     def forms(name):
         return {f: whole["form_launches"][f"{name}/{f}"]
@@ -1951,6 +2334,23 @@ def main() -> int:
              mask_elements_differ_default_gemm_share=tiles[
                  "sufa_elementwise"][
                  "mask_elements_differ_default_gemm_share"]),
+        # K1's unnormalised (m, l, o) form: phase 13's served path, every
+        # shard in one launch sequence (the reference computes this state
+        # in XLA, src/repro/kvcache/paged_attention.py:136; its TPU kernel
+        # keeps it in _paged_kernel and divides in the wrapper)
+        line("paged_decode_stats", "paged_decode.cu",
+             "src/repro/kernels/paged.py:67",
+             spatial["served"]["k1_stats_launches"], k1_stats["fp"],
+             launches_from="phase 13, OLMo-1B over 4 shards",
+             launches_bounded_run=spatial["bounded"]["k1_stats_launches"],
+             library=k1_stats["fp"]["library"],
+             max_abs_err_m=k1_stats["fp"]["max_abs_err_m"],
+             max_abs_err_l=k1_stats["fp"]["max_abs_err_l"],
+             n_split=k1_stats["fp"]["n_split"],
+             **int8_keys_stats(k1_stats["int8"]),
+             r16={lane: {key: k1_stats_r16[lane][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "library_ms")} for lane in ("fp", "int8")}),
     ]}), flush=True)
     print_device_line()
     return 0

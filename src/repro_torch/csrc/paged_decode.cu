@@ -79,12 +79,31 @@
 //     the stage's rows for all R heads, so every K/V row loaded serves the
 //     whole GQA group.
 //
+//   * The unnormalised (m, l, o) form (template flag ST; its own entry
+//     point, paged_decode_stats), for the spatial engine's cross-shard
+//     merge. It is the state the TPU kernel itself keeps (_paged_kernel's
+//     fp32 o, m, l) and computes what the plain
+//     kvcache.paged_attention.paged_gather_decode_stats computes: scores
+//     rounded to bf16 as in the other form, P = exp(s - M) kept in fp32
+//     (neither divided nor rounded), V widened to fp32, and fp32 (m, l, o)
+//     written by pass 3 in split order without a rounding (no atomics:
+//     two calls give identical bits). Pass 1 computes what the other
+//     form's pass 1 computes. All shards run in one launch sequence: the
+//     shard axis folds into the batch axis. Rows b = s·Bq + j of the block
+//     tables are shard s's sequence j: they read query row j and
+//     kv_len[j], and their physical ids index shard s's pool, pages
+//     [s·P, (s + 1)·P) of the [S·P, page, G, D] slab (Range<true>; the
+//     other form instantiates Range<false>, without that arithmetic). A
+//     shard with no valid row for a sequence takes the early exit and
+//     writes (m = NEG_INF, l = 0, o = 0), the merge's neutral state: no
+//     host branch decides which shards run. Both lanes (fp and int8) have
+//     the form.
+//
 // Later work: the kernel takes about 4x its bound, in two passes that each
 // wait on DRAM and then on a few hundred cycles of work per stage; the
 // tick is bound by the host, so CUDA-graph capture of the decode step
 // comes first (PERF.md). The int8 form converts each code where it is
-// used, once per pass, a simple lane before a fast one. Then the (m, l,
-// o) output itself for the spatial merge.
+// used, once per pass, a simple lane before a fast one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -182,20 +201,26 @@ struct Workspace {
   }
 };
 
-// The block's range of one sequence's block table.
+// The block's range of one sequence's block table. In the stats form
+// (FOLD) row b of the tables is shard b / Bq's sequence b % Bq, and its
+// pages are [shard·P, (shard + 1)·P) of the slab; the other form reads
+// row b as sequence b of the one pool, and carries none of that
+// arithmetic (its registers are those of the form before the fold).
+template <bool FOLD>
 struct Range {
-  int w0, w1, len, page, n_pages;
+  int w0, w1, len, page, n_pages, base;
   const int32_t* phys;
   const int32_t* logical;
   const uint8_t* qmask;  // null in the fp form
   __device__ Range(const int32_t* phys_all, const int32_t* logical_all,
                    const int32_t* kv_len, const uint8_t* qmask_all, int b,
-                   int W, int page_, int P) {
+                   int Bq, int W, int page_, int P) {
     w0 = (int)((int64_t)blockIdx.y * W / gridDim.y);
     w1 = (int)((int64_t)(blockIdx.y + 1) * W / gridDim.y);
-    len = kv_len[b];
+    len = kv_len[FOLD ? b % Bq : b];
     page = page_;
     n_pages = P;
+    base = FOLD ? (b / Bq) * P : 0;
     phys = phys_all + (int64_t)b * W;
     logical = logical_all + (int64_t)b * W;
     qmask = qmask_all ? qmask_all + (int64_t)b * W : nullptr;
@@ -207,8 +232,10 @@ struct Range {
     wi = idx / page;
     rp = idx - wi * page;
     const int lg = logical[w0 + wi];
-    // padded slots are masked; the clamp keeps any id inside the pool
+    // padded slots are masked; the clamp keeps any id inside the shard's
+    // pool
     ph = min(max(phys[w0 + wi], 0), n_pages - 1);
+    if constexpr (FOLD) ph += base;
     return lg >= 0 && lg * page + rp < len;
   }
   // rows to visit, up to the last valid row (0: none); every thread
@@ -247,9 +274,9 @@ __device__ __forceinline__ const int8_t* codes_of(const __nv_bfloat16* tile,
 // marked slot copies its D codes into its place instead (16 codes a copy)
 // and its page scale into scales[r], and q8s[r] says which rows did.
 // Commits one group.
-template <int D, bool Q>
+template <int D, bool Q, bool FOLD>
 __device__ __forceinline__ void fetch_stage(
-    int st, int n_st, int rows, const Range& range, int g,
+    int st, int n_st, int rows, const Range<FOLD>& range, int g,
     const __nv_bfloat16* __restrict__ src, int64_t sp, int64_t sr,
     int64_t sg, const Int8Tier& tier, __nv_bfloat16* tile, float* scales,
     uint8_t* q8s) {
@@ -283,17 +310,18 @@ __device__ __forceinline__ void fetch_stage(
 }
 
 // Pass 1: the range's scaled scores (bf16(q·k) · scale, NEG_INF where
-// masked) into the workspace, and its (m, l).
-template <int D, int R, bool Q>
+// masked) into the workspace, and its (m, l); in the stats form (ST)
+// over the shards folded into the batch.
+template <int D, int R, bool Q, bool ST>
 __global__ void __launch_bounds__(kThreads)
 paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
                     const __nv_bfloat16* __restrict__ k,   // [P, page, G, D]
                     const int32_t* __restrict__ phys,      // [B, W]
                     const int32_t* __restrict__ logical,   // [B, W]
                     const int32_t* __restrict__ kv_len,    // [B]
-                    float* __restrict__ ws, int G, int W, int page, int P,
-                    int64_t k_sp, int64_t k_sr, int64_t k_sg, float scale,
-                    Int8Tier tier) {
+                    float* __restrict__ ws, int Bq, int G, int W, int page,
+                    int P, int64_t k_sp, int64_t k_sr, int64_t k_sg,
+                    float scale, Int8Tier tier) {
   constexpr int NS = stages<D>();
   constexpr int CH = D / 8;              // 16-byte chunks per row
   constexpr int TPR = kThreads / kRows;  // threads per row
@@ -309,10 +337,12 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
   const int bg = blockIdx.x;
   const int b = bg / G;
   const int g = bg - b * G;
-  const Range range(phys, logical, kv_len, tier.qmask, b, W, page, P);
+  const Range<ST> range(phys, logical, kv_len, tier.qmask, b, Bq, W, page,
+                        P);
   const Workspace out(ws, bg, gridDim.x, blockIdx.y, gridDim.y, R, D,
                       W * page);
-  const __nv_bfloat16* qb = q + (int64_t)bg * R * D;
+  const __nv_bfloat16* qb =
+      q + (ST ? ((int64_t)(b % Bq) * G + g) * R * D : (int64_t)bg * R * D);
   for (int i = threadIdx.x; i < R * D; i += kThreads)
     sq[i / D][i % D] = __bfloat162float(qb[i]);
   const int rows = range.visit_rows(scratch);
@@ -326,8 +356,9 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
   const int n_st = (rows + kRows - 1) / kRows;
   auto fetch = [&](int st) {
     const int slot = st % NS;
-    fetch_stage<D, Q>(st, n_st, rows, range, g, k, k_sp, k_sr, k_sg, tier,
-                      sk[slot], s_sc[Q ? slot : 0], s_q8[Q ? slot : 0]);
+    fetch_stage<D, Q, ST>(st, n_st, rows, range, g, k, k_sp, k_sr, k_sg,
+                          tier, sk[slot], s_sc[Q ? slot : 0],
+                          s_q8[Q ? slot : 0]);
   };
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) fetch(st);
@@ -427,17 +458,19 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
 }
 
 // Pass 2: the range's share of o = sum of bf16(exp(s - M) / L) · v, with
-// (M, L) the sequence's, merged from every range's (m, l) in split order.
-// Launched while pass 1 runs: it streams its V rows in first and waits for
-// pass 1's results only before it needs them.
-template <int D, int R, bool Q>
+// (M, L) the sequence's, merged from every range's (m, l) in split order;
+// in the stats form (ST) P = exp(s - M) in fp32, neither divided nor
+// rounded. Launched while pass 1 runs: it streams its V rows in first and
+// waits for pass 1's results only before it needs them.
+template <int D, int R, bool Q, bool ST>
 __global__ void __launch_bounds__(kThreads)
 paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
                 const int32_t* __restrict__ phys,      // [B, W]
                 const int32_t* __restrict__ logical,   // [B, W]
                 const int32_t* __restrict__ kv_len,    // [B]
-                float* __restrict__ ws, int G, int W, int page, int P,
-                int64_t v_sp, int64_t v_sr, int64_t v_sg, Int8Tier tier) {
+                float* __restrict__ ws, int Bq, int G, int W, int page,
+                int P, int64_t v_sp, int64_t v_sr, int64_t v_sg,
+                Int8Tier tier) {
   constexpr int NS = stages<D>();
   constexpr int EP = D / 2;              // bf16 pairs per row
   constexpr int NH = kThreads / EP;      // row subsets
@@ -457,7 +490,8 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   const int b = bg / G;
   const int g = bg - b * G;
   const int n_split = gridDim.y;
-  const Range range(phys, logical, kv_len, tier.qmask, b, W, page, P);
+  const Range<ST> range(phys, logical, kv_len, tier.qmask, b, Bq, W, page,
+                        P);
   const Workspace out(ws, bg, gridDim.x, blockIdx.y, n_split, R, D,
                       W * page);
   const int rows = range.visit_rows(scratch);
@@ -469,8 +503,9 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   const int n_st = (rows + kRows - 1) / kRows;
   auto fetch = [&](int st) {
     const int slot = st % NS;
-    fetch_stage<D, Q>(st, n_st, rows, range, g, v, v_sp, v_sr, v_sg, tier,
-                      sv[slot], s_sc[Q ? slot : 0], s_q8[Q ? slot : 0]);
+    fetch_stage<D, Q, ST>(st, n_st, rows, range, g, v, v_sp, v_sr, v_sg,
+                          tier, sv[slot], s_sc[Q ? slot : 0],
+                          s_q8[Q ? slot : 0]);
   };
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) fetch(st);
@@ -511,7 +546,7 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
     }
   }
   // P = bf16(exp(s - M) / L) of every row of the range, once (0 where
-  // masked and past the last row)
+  // masked and past the last row); exp(s - M) in the stats form
   const float* scores = out.s + range.w0 * page;
   const int padded = n_st * kRows;
   __syncthreads();
@@ -520,8 +555,11 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
     const int idx = i - r * padded;
     const float x =
         idx < rows ? scores[(int64_t)r * W * page + idx] : kNegInf;
-    s_p[r][idx] =
-        x > kNegInf / 2 ? round_bf16(expf(x - s_M[r]) / s_L[r]) : 0.f;
+    if constexpr (ST)
+      s_p[r][idx] = x > kNegInf / 2 ? expf(x - s_M[r]) : 0.f;
+    else
+      s_p[r][idx] =
+          x > kNegInf / 2 ? round_bf16(expf(x - s_M[r]) / s_L[r]) : 0.f;
   }
   __syncthreads();
   float o[R][2];
@@ -577,15 +615,20 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
 
 // Pass 3: out[b, g] = the ranges' partial o's added in split order; a
 // range with l = 0 (no valid row) adds nothing and its o is never read.
+// The other form rounds it to bf16; the stats form (ST) writes it in fp32,
+// and the first thread of each head also writes the sequence's (M, L),
+// merged from the ranges' (m, l) in split order as pass 2 merges them
+// (NEG_INF and 0 where no range holds a valid row).
 // A (B·G, ceil(R·D / kThreads)) grid, one output per thread: with a wide
 // GQA group (R·D of 1536-2048) and a short block table split many ways,
 // one block per (b, g) walking R·D outputs x n_split ranges took most of
 // the call. The split loop is unrolled for independent loads; the sum
 // keeps its order, so the bits are those of one thread per output.
-template <int D, int R>
+template <int D, int R, bool ST>
 __global__ void __launch_bounds__(kThreads)
-paged_sum_kernel(const float* __restrict__ ws,
-                 __nv_bfloat16* __restrict__ out, int n_split, int rows_w) {
+paged_sum_kernel(const float* __restrict__ ws, void* __restrict__ out,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
+                 int n_split, int rows_w) {
   griddep_wait();
   const int bg = blockIdx.x;
   const int i = blockIdx.y * kThreads + threadIdx.x;
@@ -597,7 +640,23 @@ paged_sum_kernel(const float* __restrict__ ws,
 #pragma unroll 8
   for (int s = 0; s < n_split; ++s)
     if (all.l[s * R + r] > 0.f) acc += all.o[s * R * D + i];
-  out[(int64_t)bg * R * D + i] = __float2bfloat16(acc);
+  if constexpr (ST) {
+    static_cast<float*>(out)[(int64_t)bg * R * D + i] = acc;
+    if (i == r * D) {
+      float mx = kNegInf, den = 0.f;
+      for (int s = 0; s < n_split; ++s)
+        if (all.l[s * R + r] > 0.f) mx = fmaxf(mx, all.m[s * R + r]);
+      for (int s = 0; s < n_split; ++s) {
+        const float ls = all.l[s * R + r];
+        if (ls > 0.f) den += ls * expf(all.m[s * R + r] - mx);
+      }
+      m_out[(int64_t)bg * R + r] = mx;
+      l_out[(int64_t)bg * R + r] = den;
+    }
+  } else {
+    static_cast<__nv_bfloat16*>(out)[(int64_t)bg * R * D + i] =
+        __float2bfloat16(acc);
+  }
 }
 
 // Launch with programmatic dependent launch: the kernel may start before
@@ -617,39 +676,48 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-template <int D, int R, bool Q>
+template <int D, int R, bool Q, bool ST>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* phys, const void* logical, const void* kv_len,
-                   void* out, float* ws, int B, int G, int W, int page,
-                   int P, int64_t k_sp, int64_t k_sr, int64_t k_sg,
-                   int64_t v_sp, int64_t v_sr, int64_t v_sg, float scale,
-                   int n_split, const Int8Tier& tier_k,
-                   const Int8Tier& tier_v, cudaStream_t stream) {
+                   void* out, float* m_out, float* l_out, float* ws, int B,
+                   int Bq, int G, int W, int page, int P, int64_t k_sp,
+                   int64_t k_sr, int64_t k_sg, int64_t v_sp, int64_t v_sr,
+                   int64_t v_sg, float scale, int n_split,
+                   const Int8Tier& tier_k, const Int8Tier& tier_v,
+                   cudaStream_t stream) {
   const dim3 grid(B * G, n_split);
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v);
   const int32_t* ph = static_cast<const int32_t*>(phys);
   const int32_t* lg = static_cast<const int32_t*>(logical);
   const int32_t* kl = static_cast<const int32_t*>(kv_len);
-  paged_scores_kernel<D, R, Q><<<grid, kThreads, 0, stream>>>(
+  paged_scores_kernel<D, R, Q, ST><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k), ph, lg, kl, ws, G, W, page, P,
-      k_sp, k_sr, k_sg, scale, tier_k);
+      static_cast<const __nv_bfloat16*>(k), ph, lg, kl, ws, Bq, G, W, page,
+      P, k_sp, k_sr, k_sg, scale, tier_k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_dependent(paged_pv_kernel<D, R, Q>, grid, stream, vp, ph, lg,
-                         kl, ws, G, W, page, P, v_sp, v_sr, v_sg, tier_v);
+  err = launch_dependent(paged_pv_kernel<D, R, Q, ST>, grid, stream, vp, ph,
+                         lg, kl, ws, Bq, G, W, page, P, v_sp, v_sr, v_sg,
+                         tier_v);
   if (err != cudaSuccess) return err;
-  err = launch_dependent(paged_sum_kernel<D, R>,
+  err = launch_dependent(paged_sum_kernel<D, R, ST>,
                          dim3(B * G, (R * D + kThreads - 1) / kThreads),
-                         stream, static_cast<const float*>(ws),
-                         static_cast<__nv_bfloat16*>(out), n_split, W * page);
+                         stream, static_cast<const float*>(ws), out, m_out,
+                         l_out, n_split, W * page);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int G, int W, int page, int P, int n_split) {
-  return B <= 0 || G <= 0 || W <= 0 || page <= 0 || P <= 0 || n_split <= 0 ||
-         n_split > W || (W + n_split - 1) / n_split * page > kMaxRows;
+bool bad_shape(int B, int Bq, int G, int W, int page, int P, int n_split) {
+  return B <= 0 || Bq <= 0 || B % Bq != 0 || G <= 0 || W <= 0 || page <= 0 ||
+         P <= 0 || n_split <= 0 || n_split > W ||
+         (W + n_split - 1) / n_split * page > kMaxRows;
+}
+
+Int8Tier tier_of(const void* codes, const void* scale, const void* qmask,
+                 int64_t sp, int64_t sr, int64_t sg) {
+  return {static_cast<const int8_t*>(codes), static_cast<const float*>(scale),
+          static_cast<const uint8_t*>(qmask), sp, sr, sg};
 }
 
 }  // namespace
@@ -659,18 +727,21 @@ bool bad_shape(int B, int G, int W, int page, int P, int n_split) {
 // ring (pass 2's static_assert); the Python wrapper checks the pair, the
 // shapes and the strides before calling, and allocates ws: B·G·R·(n_split·
 // (D + 2) + W·page) floats.
-#define PAGED_CASES(Q)                                                        \
-  PAGED_CASE(64, 1, Q) PAGED_CASE(64, 2, Q) PAGED_CASE(64, 4, Q)              \
-  PAGED_CASE(64, 8, Q) PAGED_CASE(64, 16, Q)                                  \
-  PAGED_CASE(128, 1, Q) PAGED_CASE(128, 2, Q) PAGED_CASE(128, 4, Q)           \
-  PAGED_CASE(128, 8, Q) PAGED_CASE(128, 12, Q) PAGED_CASE(128, 16, Q)         \
-  PAGED_CASE(256, 1, Q) PAGED_CASE(256, 2, Q) PAGED_CASE(256, 4, Q)
-#define PAGED_CASE(DD, RR, Q)                                                 \
+#define PAGED_CASES(Q, ST)                                                    \
+  PAGED_CASE(64, 1, Q, ST) PAGED_CASE(64, 2, Q, ST) PAGED_CASE(64, 4, Q, ST)  \
+  PAGED_CASE(64, 8, Q, ST) PAGED_CASE(64, 16, Q, ST)                          \
+  PAGED_CASE(128, 1, Q, ST) PAGED_CASE(128, 2, Q, ST)                         \
+  PAGED_CASE(128, 4, Q, ST) PAGED_CASE(128, 8, Q, ST)                         \
+  PAGED_CASE(128, 12, Q, ST) PAGED_CASE(128, 16, Q, ST)                       \
+  PAGED_CASE(256, 1, Q, ST) PAGED_CASE(256, 2, Q, ST)                         \
+  PAGED_CASE(256, 4, Q, ST)
+#define PAGED_CASE(DD, RR, Q, ST)                                             \
   if (D == DD && R == RR)                                                     \
-    return static_cast<int>(launch<DD, RR, Q>(                                \
-        q, k, v, phys, logical, kv_len, out, static_cast<float*>(ws), B, G,   \
-        W, page, P, k_sp, k_sr, k_sg, v_sp, v_sr, v_sg, scale, n_split,       \
-        tier_k, tier_v, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch<DD, RR, Q, ST>(                            \
+        q, k, v, phys, logical, kv_len, out, m_out, l_out,                    \
+        static_cast<float*>(ws), B, Bq, G, W, page, P, k_sp, k_sr, k_sg,      \
+        v_sp, v_sr, v_sg, scale, n_split, tier_k, tier_v,                     \
+        static_cast<cudaStream_t>(stream)));
 
 // One entry point for both forms: with kq null the fp form runs (the tier
 // arguments are ignored); otherwise the int8 form, which also reads the
@@ -685,19 +756,46 @@ extern "C" int paged_decode(
     int n_split, int64_t k_sp, int64_t k_sr, int64_t k_sg, int64_t v_sp,
     int64_t v_sr, int64_t v_sg, int64_t kq_sp, int64_t kq_sr, int64_t kq_sg,
     int64_t vq_sp, int64_t vq_sr, int64_t vq_sg, float scale, void* stream) {
-  if (bad_shape(B, G, W, page, P, n_split))
+  const int Bq = B;
+  float* m_out = nullptr;
+  float* l_out = nullptr;
+  if (bad_shape(B, Bq, G, W, page, P, n_split))
     return static_cast<int>(cudaErrorInvalidValue);
-  const uint8_t* mask = static_cast<const uint8_t*>(qmask);
-  const Int8Tier tier_k = {static_cast<const int8_t*>(kq),
-                           static_cast<const float*>(k_scale), mask,
-                           kq_sp, kq_sr, kq_sg};
-  const Int8Tier tier_v = {static_cast<const int8_t*>(vq),
-                           static_cast<const float*>(v_scale), mask,
-                           vq_sp, vq_sr, vq_sg};
+  const Int8Tier tier_k = tier_of(kq, k_scale, qmask, kq_sp, kq_sr, kq_sg);
+  const Int8Tier tier_v = tier_of(vq, v_scale, qmask, vq_sp, vq_sr, vq_sg);
   if (kq == nullptr) {
-    PAGED_CASES(false)
+    PAGED_CASES(false, false)
   } else {
-    PAGED_CASES(true)
+    PAGED_CASES(true, false)
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The unnormalised (m, l, o) form over S shards folded into the batch:
+// B = S·Bq rows of phys/logical/qmask ([S, Bq, W], shard-local ids), q
+// [Bq, G, R, D] and kv_len [Bq] shared by the shards, slabs [S·P, page, G,
+// D] (and the int8 tier [S·P, ...], scales [S·P]) with P pages a shard.
+// Writes fp32 m_out, l_out [B, G, R] and o_out [B, G, R, D].
+extern "C" int paged_decode_stats(
+    const void* q, const void* k, const void* v, const void* phys,
+    const void* logical, const void* kv_len, void* m_ptr, void* l_ptr,
+    void* o_ptr, void* ws, const void* kq, const void* vq,
+    const void* k_scale, const void* v_scale, const void* qmask, int B,
+    int Bq, int G, int R, int D, int W, int page, int P, int n_split,
+    int64_t k_sp, int64_t k_sr, int64_t k_sg, int64_t v_sp, int64_t v_sr,
+    int64_t v_sg, int64_t kq_sp, int64_t kq_sr, int64_t kq_sg, int64_t vq_sp,
+    int64_t vq_sr, int64_t vq_sg, float scale, void* stream) {
+  if (bad_shape(B, Bq, G, W, page, P, n_split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* out = o_ptr;
+  float* m_out = static_cast<float*>(m_ptr);
+  float* l_out = static_cast<float*>(l_ptr);
+  const Int8Tier tier_k = tier_of(kq, k_scale, qmask, kq_sp, kq_sr, kq_sg);
+  const Int8Tier tier_v = tier_of(vq, v_scale, qmask, vq_sp, vq_sr, vq_sg);
+  if (kq == nullptr) {
+    PAGED_CASES(false, true)
+  } else {
+    PAGED_CASES(true, true)
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

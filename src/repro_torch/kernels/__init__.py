@@ -7,17 +7,21 @@ K2 and K3 have two forms each (``wgmma`` for 128 x 128 tiles, ``mma_sync``
 for the others), K3's ``mma_sync`` form also carries the element-level
 sphere mask (``sufa/elementwise`` counts those launches too), and K1 has
 an fp and an int8 form (the cold KV tier); ``FORM_LAUNCHES`` counts
-launches by form.
+launches by form. K1's unnormalised (m, l, o) form for the spatial merge
+(``kernels.paged.paged_decode_stats_attention``) counts under its own
+name, ``paged_decode_stats``, in both lanes.
 """
 
-LAUNCHES: dict[str, int] = {"paged_decode": 0, "dlzs_block": 0, "sufa": 0,
-                            "flash": 0}
+LAUNCHES: dict[str, int] = {"paged_decode": 0, "paged_decode_stats": 0,
+                            "dlzs_block": 0, "sufa": 0, "flash": 0}
 FORM_LAUNCHES: dict[str, int] = {"dlzs_block/wgmma": 0,
                                  "dlzs_block/mma_sync": 0,
                                  "sufa/wgmma": 0, "sufa/mma_sync": 0,
                                  "sufa/elementwise": 0,
                                  "paged_decode/fp": 0,
-                                 "paged_decode/int8": 0}
+                                 "paged_decode/int8": 0,
+                                 "paged_decode_stats/fp": 0,
+                                 "paged_decode_stats/int8": 0}
 
 
 def reset_launches() -> None:

@@ -15,6 +15,14 @@ the kernel or raise — there is no fallback. ``kernels.LAUNCHES
 ["paged_decode"]`` counts calls that launched it (either form),
 ``kernels.FORM_LAUNCHES["paged_decode/fp"]`` and ``["paged_decode/int8"]``
 those of each form.
+
+``paged_decode_stats_attention`` is K1's unnormalised (m, l, o) form, for
+the spatial engine: the per-shard partial softmax state, over every shard
+of a sequence-sharded pool in one launch sequence (the shard axis folds
+into the batch axis), in the fp and int8 lanes. Its launches count under
+``kernels.LAUNCHES["paged_decode_stats"]`` (and
+``FORM_LAUNCHES["paged_decode_stats/fp"]`` / ``["/int8"]``), never under
+``"paged_decode"``.
 """
 
 from __future__ import annotations
@@ -69,7 +77,11 @@ def paged_decode_reference(q, k_pages, v_pages, phys, logical, kv_len, *,
     return o.reshape(b, g, r, d)
 
 
-def _check(q, k_pages, v_pages, phys, logical, kv_len) -> None:
+def _check(q, k_pages, v_pages, phys, logical, kv_len, shards: int = 1
+           ) -> None:
+    """The normalised form's operands. The stats form checks its folded
+    view of the shards with this too: ``shards`` table rows [S·B, W] per
+    query and kv_len [B]."""
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("phys", phys), ("logical", logical),
@@ -91,10 +103,11 @@ def _check(q, k_pages, v_pages, phys, logical, kv_len) -> None:
     if k_pages.shape[2] != g or k_pages.shape[3] != d:
         raise ValueError(f"paged_decode: pool {tuple(k_pages.shape)} does "
                          f"not match q {tuple(q.shape)}")
-    if phys.dim() != 2 or phys.shape != logical.shape or phys.shape[0] != b \
-            or phys.shape[1] < 1 or kv_len.shape != (b,):
-        raise ValueError("paged_decode: phys/logical [B,W] and kv_len [B] "
-                         "expected")
+    if phys.dim() != 2 or phys.shape != logical.shape \
+            or phys.shape[0] != shards * b or phys.shape[1] < 1 \
+            or kv_len.shape != (b,):
+        raise ValueError("paged_decode: phys/logical [B,W] (one row per "
+                         "shard and sequence) and kv_len [B] expected")
     if k_pages.shape[1] > MAX_RANGE_ROWS:
         raise ValueError(f"paged_decode: page {k_pages.shape[1]} above "
                          f"{MAX_RANGE_ROWS} rows")
@@ -186,3 +199,92 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                   k_pages.shape[0], n_split, *k_pages.stride()[:3],
                   *v_pages.stride()[:3], *strides, float(scale), form=form)
     return out
+
+
+# -- the unnormalised (m, l, o) form over sharded pools ------------------------
+
+def paged_decode_stats_reference(q, k_pages, v_pages, phys, logical, kv_len,
+                                 *, scale: float, quant=None):
+    """The plain version of the stats form:
+    ``kvcache.paged_attention.paged_gather_decode_stats`` over the folded
+    shards. q [B,G,R,d] shared by the shards; slabs [S,P,page,G,d];
+    phys/logical [S,B,W]; kv_len [B]. Returns m/l [S,B,G,R] and
+    o [S,B,G,R,d], fp32."""
+    from repro_torch.kvcache.paged_attention import (
+        fold_shards, fold_tier, paged_gather_decode_stats)
+    b, g, r, d = q.shape
+    s, _, w = phys.shape
+    kf, pf = fold_shards(k_pages, phys)
+    m, l, o = paged_gather_decode_stats(
+        q.reshape(1, b, g * r, d).expand(s, b, g * r, d).reshape(
+            s * b, g * r, d),
+        kf, v_pages.reshape(kf.shape), pf, logical.reshape(s * b, w),
+        kv_len.repeat(s), n_kv=g, scale=scale, quant=fold_tier(quant))
+    return m.reshape(s, b, g, r), l.reshape(s, b, g, r), \
+        o.reshape(s, b, g, r, d)
+
+
+def paged_decode_stats_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor, phys: torch.Tensor,
+                                 logical: torch.Tensor, kv_len: torch.Tensor,
+                                 *, scale: float, quant=None):
+    """Per-shard partial softmax state of one decode step over a
+    sequence-sharded pool: q [B,G,R,d] (the query every shard sees); k/v
+    slabs [S,P,page,G,d] (S shards of P pages; each shard's slab a slice
+    of one tensor, read as [S·P, ...]); phys/logical [S,B,W] int32 with
+    shard-LOCAL physical ids (-1 = padded slot); kv_len [B] int32;
+    ``quant`` None or the int8 tier {kq, vq: int8 [S,P,page,G,d]; k_scale,
+    v_scale: f32 [S,P]; qmask: bool [S,B,W]}.
+
+    Returns fp32 (m, l) [S,B,G,R] and o [S,B,G,R,d]: o = sum of P·v and
+    l = sum of P with P = exp(s - m), m the row max, over the shard's
+    valid rows; a shard with none for a sequence gives m = NEG_INF, l = 0,
+    o = 0, the merge's neutral element. On the CPU: the plain version. On
+    a GPU: one launch sequence of K1's stats form for all S shards, or an
+    exception."""
+    if q.device.type == "cpu":
+        return paged_decode_stats_reference(q, k_pages, v_pages, phys,
+                                            logical, kv_len, scale=scale,
+                                            quant=quant)
+    launch.require_cuda("paged_decode_stats", q.device)
+    if k_pages.dim() != 5 or phys.dim() != 3 \
+            or phys.shape[0] != k_pages.shape[0]:
+        raise ValueError("paged_decode_stats: slabs [S,P,page,G,d] and "
+                         "phys/logical [S,B,W] of one shard count expected")
+    s, p = k_pages.shape[:2]
+    b, g, r, d = q.shape
+    w = phys.shape[2]
+    # the folded view must alias the slabs: a copy would move the pool
+    kf = k_pages.view(s * p, *k_pages.shape[2:])
+    vf = v_pages.view(s * p, *v_pages.shape[2:])
+    pf = phys.view(s * b, w)
+    lf = logical.view(s * b, w)
+    _check(q, kf, vf, pf, lf, kv_len, shards=s)
+    page = kf.shape[1]
+    n_split = split_plan(s * b, g, w, page)
+    m = torch.empty((s, b, g, r), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    o = torch.empty((s, b, g, r, d), dtype=torch.float32, device=q.device)
+    ws = torch.empty(s * b * g * r * (n_split * (d + 2) + w * page),
+                     dtype=torch.float32, device=q.device)
+    if quant is None:
+        tier, strides, form = (None,) * 5, (0,) * 6, "fp"
+    else:
+        from repro_torch.kvcache.paged_attention import fold_tier
+        fq = fold_tier(quant)
+        _check_quant(fq, kf, pf)
+        tier = tuple(fq[name].data_ptr() for name in
+                     ("kq", "vq", "k_scale", "v_scale", "qmask"))
+        strides = (*fq["kq"].stride()[:3], *fq["vq"].stride()[:3])
+        form = "int8"
+    fn = launch.bind("paged_decode", "paged_decode_stats",
+                     [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
+                     + [ctypes.c_int64] * 12
+                     + [ctypes.c_float, ctypes.c_void_p])
+    launch.launch("paged_decode_stats", fn, q.device, q.data_ptr(),
+                  kf.data_ptr(), vf.data_ptr(), pf.data_ptr(),
+                  lf.data_ptr(), kv_len.data_ptr(), m.data_ptr(),
+                  l.data_ptr(), o.data_ptr(), ws.data_ptr(), *tier, s * b, b,
+                  g, r, d, w, page, p, n_split, *kf.stride()[:3],
+                  *vf.stride()[:3], *strides, float(scale), form=form)
+    return m, l, o

@@ -7,6 +7,10 @@
 * ``paged_decode`` — dispatch on the tensors' device: the plain version on
   the CPU, the hand-written CUDA kernel (``kernels.paged``) on a GPU. There
   is no fallback on a CUDA tensor: the kernel launches or raises.
+* ``paged_decode_stats`` — the sequence-sharded decode's per-shard partial
+  state (m, l, o) over a pool of S shards (slabs [S, P, page, nkv, d]),
+  dispatched the same way: ``paged_gather_decode_stats`` over the folded
+  shards on the CPU, K1's stats form on a GPU.
 
 Both touch only the ``W`` hot pages the allocator selected, so decode
 compute and memory traffic scale with the retained working set, not the
@@ -76,6 +80,30 @@ def _scores(q, kg, valid, n_kv, scale):
     return sc.masked_fill(~valid[:, None, None, :], NEG_INF)
 
 
+def fold_shards(k_pages: torch.Tensor, phys: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A sharded pool slab [S, P, ...] read as one pool [S·P, ...] (a view
+    where the slab allows one), and block tables [S, B, W] of shard-local
+    ids as [S·B, W] rows of that pool: shard s's ids offset by s·P,
+    padding kept at -1. K1's stats form does the same in place."""
+    s, p = k_pages.shape[:2]
+    off = (torch.arange(s, device=phys.device, dtype=phys.dtype)
+           * p)[:, None, None]
+    flat = torch.where(phys >= 0, phys + off, phys)
+    return (k_pages.reshape(s * p, *k_pages.shape[2:]),
+            flat.reshape(-1, phys.shape[-1]))
+
+
+def fold_tier(quant):
+    """The int8 tier of a sharded pool ({kq, vq: [S, P, ...]; k_scale,
+    v_scale: [S, P]; qmask: [S, B, W]}) read as ``fold_shards`` reads the
+    slabs: [S·P, ...], [S·P] and [S·B, W], views that alias the tier (the
+    kernel's operands must not be copies). None stays None."""
+    if quant is None:
+        return None
+    return {name: t.view(-1, *t.shape[2:]) for name, t in quant.items()}
+
+
 def paged_gather_decode(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, phys: torch.Tensor,
                         logical: torch.Tensor, kv_len: torch.Tensor, *,
@@ -124,23 +152,40 @@ def paged_gather_decode_stats(q: torch.Tensor, k_pages: torch.Tensor,
 def page_attention_mass(q: torch.Tensor, k_pages: torch.Tensor,
                         phys: torch.Tensor, logical: torch.Tensor,
                         kv_len: torch.Tensor, *, n_kv: int,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        sharded: bool = False) -> torch.Tensor:
     """Exact per-page attention mass of one decode query (the audit probe):
     [B, W] f32, the softmax mass each gathered page receives, averaged over
-    heads. V is never gathered."""
+    heads. V is never gathered.
+
+    ``sharded`` is the sequence-sharded form (the reference's ``axis=``):
+    k_pages [S, P, page, nkv, d] and phys/logical [S, B, W] (shard-local
+    ids) give [S, B, W] masses, the softmax normalised over ALL shards
+    (the reference's pmax/psum: a max and a shard-order sum over the
+    shard axis), so each sequence's masses sum to 1 across the shards.
+    A shard with no resident page gets zeros."""
     b, nh, d = q.shape
+    scale = scale or (1.0 / math.sqrt(d))
+    s = phys.shape[0] if sharded else 1
+    if sharded:
+        k_pages, phys = fold_shards(k_pages, phys)
+        q = q.repeat(s, 1, 1)
+        logical = logical.reshape(phys.shape)
+        kv_len = kv_len.repeat(s)
     page = k_pages.shape[1]
     w = phys.shape[1]
-    scale = scale or (1.0 / math.sqrt(d))
     safe = torch.clamp(phys, min=0).long()
-    kg = k_pages[safe].reshape(b, w * page, *k_pages.shape[2:])
+    kg = k_pages[safe].reshape(s * b, w * page, *k_pages.shape[2:])
     sc = _scores(q, kg, _row_valid(logical, kv_len, page), n_kv, scale)
-    m = sc.amax(dim=-1)                                # [B, G, R]
+    sc = sc.reshape(s, b, *sc.shape[1:])               # [S, B, G, R, rows]
+    m = sc.amax(dim=-1).amax(dim=0)                    # [B, G, R]
     p = torch.exp(sc - m[..., None])
     p = p.masked_fill(sc <= NEG_INF / 2, 0.0)
-    probs = p / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
-    mass = probs.mean(dim=(1, 2))                      # head-averaged [B, S]
-    return mass.reshape(b, w, page).sum(dim=-1)        # [B, W]
+    l = torch.cumsum(p.sum(dim=-1), dim=0)[-1]         # shard order
+    probs = p / torch.clamp(l, min=1e-30)[..., None]
+    mass = probs.mean(dim=(2, 3))                      # head-averaged
+    mass = mass.reshape(s, b, w, page).sum(dim=-1)     # [S, B, W]
+    return mass if sharded else mass[0]
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -170,3 +215,24 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     o = paged_decode_attention(_group(q, n_kv), k_pages, v_pages, phys,
                                logical, kv_len, scale=scale, quant=quant)
     return o.reshape(b, nh, d)
+
+
+def paged_decode_stats(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, phys: torch.Tensor,
+                       logical: torch.Tensor, kv_len: torch.Tensor, *,
+                       n_kv: int, scale: Optional[float] = None,
+                       quant=None):
+    """Per-shard partial decode state over a sequence-sharded pool,
+    dispatched on the tensors' device: ``paged_gather_decode_stats`` over
+    the folded shards on the CPU, K1's stats form
+    (``kernels.paged.paged_decode_stats_attention``) on a GPU, one launch
+    sequence for every shard. q [B,nh,d] (every shard's query); slabs
+    [S,P,page,nkv,d]; phys/logical [S,B,W] shard-local; kv_len [B];
+    ``quant`` the int8 tier with [S, ...] leaves and qmask [S,B,W].
+    Returns m/l [S,B,G,R] and o [S,B,G,R,d], fp32."""
+    from repro_torch.kernels.paged import paged_decode_stats_attention
+    b, nh, d = q.shape
+    scale = scale or (1.0 / math.sqrt(d))
+    return paged_decode_stats_attention(_group(q, n_kv), k_pages, v_pages,
+                                        phys, logical, kv_len, scale=scale,
+                                        quant=quant)

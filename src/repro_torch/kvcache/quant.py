@@ -143,3 +143,30 @@ def quantize_pages(layers, phys):
         return d
     _map_attn(layers, upd)
     return layers
+
+
+def quantize_pages_sharded(layers, phys):
+    """Spatial variant of ``quantize_pages``: leaves [L, S, P, ...] (the
+    port's sharded slabs: the layer axis first, so each layer's [S, P,
+    ...] slab is one block) and ``phys`` [S, N] shard-local page ids, one
+    row per shard (padding on the scratch page). The reference vmaps
+    ``quantize_pages`` over its [S, L, P, ...] slabs; here the shards fold
+    into one page axis [L, S·P, ...] and one gather/scatter covers them,
+    with the same codes and scales. Writes in place; returns ``layers``."""
+    ids = torch.as_tensor(phys, dtype=torch.long)
+
+    def upd(d):
+        n_l, s, p = d["k"].shape[:3]
+        at = ids.to(d["k"].device)
+        at = (at + torch.arange(s, device=at.device)[:, None] * p
+              ).reshape(-1)
+
+        def flat(t):
+            return t.view(n_l, s * p, *t.shape[3:])
+        for src, qk, sk in (("k", "kq", "k_scale"), ("v", "vq", "v_scale")):
+            q, scale = quantize_rows(flat(d[src])[:, at])
+            flat(d[qk])[:, at] = q
+            flat(d[sk])[:, at] = scale
+        return d
+    _map_attn(layers, upd)
+    return layers

@@ -7,16 +7,21 @@ of the ported backends:
 * ``--engine paged``   — the default: the paged KV-cache engine with
   chunked prefill and the preemption scheduler (batched varlen prefill
   with the ``prefill_tokens="auto"`` budget controller by default).
+* ``--engine spatial`` — the sequence-sharded engine (``--shards N``,
+  ``--pages`` per shard): context striped page by page over N shard
+  pools, every shard on ``--device``. It serves dense-attention configs,
+  so the config's STAR is switched off, as the reference launcher does.
+  The reference re-executes itself with more fake XLA devices when it
+  has fewer than N; torch has no such limit, so this one does not.
 * ``--engine dense``   — the dense slot engine, kept as the parity
   oracle and footprint baseline; serve it only to compare against the
-  paged engine.
-* ``--engine spatial`` — not ported yet: it raises, naming its ROADMAP
-  item.
+  pool-backed engines.
 
 ``--disagg`` serves through the prefill/decode-disaggregated router
-(``repro_torch.serving.disagg``): submits land on a prefill-tuned paged
-instance and the KVTransfer fabric hands each request to a decode-tuned
-paged instance at the phase boundary.
+(``repro_torch.serving.disagg``): submits land on a prefill-tuned
+instance of ``--engine`` (paged or spatial) and the KVTransfer fabric
+hands each request to a decode-tuned paged instance at the phase
+boundary.
 
 Requests carry an SLA class (``--sla-mix`` cycles interactive / standard
 / batch) that the scheduler maps onto priorities. ``--sla-deadlines``
@@ -51,9 +56,6 @@ import sys
 import time
 
 SLA_CYCLE = ("interactive", "standard", "batch")
-UNPORTED_ENGINES = {
-    "spatial": "ROADMAP §1 item 3 (spatial, sequence-sharded serving)",
-}
 
 
 def _parse_args(argv=None):
@@ -66,8 +68,11 @@ def _parse_args(argv=None):
                     choices=("dense", "paged", "spatial"))
     ap.add_argument("--disagg", action="store_true",
                     help="prefill/decode disaggregation: serve through "
-                         "a (prefill-tuned, decode-tuned) paged instance "
-                         "pair joined by the KVTransfer fabric")
+                         "a (prefill-tuned, decode-tuned) instance pair "
+                         "of --engine (paged/spatial) and paged joined by "
+                         "the KVTransfer fabric")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="sequence shards (spatial engine)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-tokens", type=int, default=16)
@@ -75,17 +80,17 @@ def _parse_args(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--pages", type=int, default=64,
-                    help="pool pages (paged)")
+                    help="pool pages (paged: total; spatial: per shard)")
     ap.add_argument("--sla-mix", action="store_true",
                     help="cycle requests through interactive/standard/"
                          "batch SLA classes")
     ap.add_argument("--sla-deadlines", action="store_true",
                     help="enforce the SLA-tier default TTFT/e2e deadline "
-                         "budgets (paged; expired requests end with "
-                         "outcome 'expired')")
+                         "budgets (paged/spatial; expired requests end "
+                         "with outcome 'expired')")
     ap.add_argument("--shed-watermarks", nargs=2, type=int, default=None,
                     metavar=("HIGH", "LOW"),
-                    help="enable admission shedding (paged): shed "
+                    help="enable admission shedding (paged/spatial): shed "
                          "sheddable waiting requests when the backlog "
                          "crosses HIGH, until it is back at LOW")
     ap.add_argument("--shed-below-priority", type=int, default=0,
@@ -122,11 +127,8 @@ def main(argv=None) -> dict:
     """Serve ``--requests`` random prompts; prints one summary line and
     returns the run's ``LLM.metrics()`` (plus ``tokens`` per request)."""
     args = _parse_args(argv)
-    if args.engine in UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet: "
-            f"{UNPORTED_ENGINES[args.engine]}")
 
+    import dataclasses
     import pathlib
 
     import numpy as np
@@ -138,14 +140,18 @@ def main(argv=None) -> dict:
     from repro_torch.models import lm
     from repro_torch.serving import (LLM, AdmissionCfg, DisaggRouter,
                                      EngineCfg, PagedEngineCfg, SchedulerCfg)
+    from repro_torch.spatial import SpatialEngineCfg
 
     if args.arch not in ARCHS:
         raise SystemExit(f"unknown or unported arch {args.arch}; choose "
                          f"from {sorted(ARCHS)}")
     if args.disagg and args.engine == "dense":
-        raise SystemExit("--disagg needs a pool-backed engine (paged)")
+        raise SystemExit("--disagg needs a pool-backed engine "
+                         "(paged/spatial)")
     dev = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if args.engine == "spatial" and cfg.star is not None:
+        cfg = dataclasses.replace(cfg, star=None)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = lm.init(cfg, gen, dev)
@@ -153,11 +159,16 @@ def main(argv=None) -> dict:
     if args.engine == "dense":
         engine_cfg = EngineCfg(max_batch=args.slots, max_len=args.max_len,
                                eos_id=-1)
-    else:
+    elif args.engine == "paged":
         engine_cfg = PagedEngineCfg(
             max_batch=args.slots, page_size=args.page_size,
             n_pages=args.pages, hot_pages=args.max_len // args.page_size,
             eos_id=-1)
+    else:
+        engine_cfg = SpatialEngineCfg(
+            n_shards=args.shards, max_batch=args.slots,
+            page_size=args.page_size, n_pages_local=args.pages,
+            hot_pages_local=args.max_len // args.page_size, eos_id=-1)
     chunk = tile_chunk_pages(cfg, args.page_size)
     sched_cfg = None
     if args.sla_deadlines or args.shed_watermarks:
@@ -184,12 +195,15 @@ def main(argv=None) -> dict:
     if args.disagg:
         llm = DisaggRouter.from_config(
             cfg, backend="paged", prefill_backend=args.engine,
-            params=params, prefill_sched_cfg=sched_cfg,
+            params=params, shards=args.shards,
+            prefill_engine_cfg=engine_cfg if args.engine != "paged"
+            else None, prefill_sched_cfg=sched_cfg,
             decode_sched_cfg=SchedulerCfg(chunk_pages=chunk),
             generator=gen, device=dev, telemetry=tel)
     else:
         llm = LLM.from_config(cfg, backend=args.engine, params=params,
-                              engine_cfg=engine_cfg, sched_cfg=sched_cfg,
+                              shards=args.shards, engine_cfg=engine_cfg,
+                              sched_cfg=sched_cfg,
                               generator=gen, device=dev, telemetry=tel)
 
     rng = np.random.default_rng(0)
@@ -226,9 +240,10 @@ def main(argv=None) -> dict:
         extra += (f", transfers={tr['n_transfers']}"
                   f", transfer_bytes={tr['bytes_total']}")
     dt = time.time() - t0
+    shards = f", {args.shards} shards" if args.engine == "spatial" else ""
     mode = ", disagg" if args.disagg else ""
     print(f"[serve] {args.arch} ({'full' if args.full else 'smoke'}, "
-          f"{args.engine}{mode}, {dev}): "
+          f"{args.engine}{shards}{mode}, {dev}): "
           f"{len(done)} requests, {n_tok} tokens, "
           f"{n_tok / dt:.1f} tok/s, star={'on' if cfg.star else 'off'}"
           f"{extra}")

@@ -4,9 +4,9 @@ PyTorch port of the attention-only subset of ``repro.models.attention``:
 full-sequence prefill (K4 flash, or the STAR pipeline's K2 -> SADS -> K3,
 both through ``kernels.ops``), the page-aligned chunk prefill (per
 sequence and batched varlen), one-token decode against the paged pool,
-and one-token decode against the dense slot cache (the dense engine's).
-Cross-attention and the spatial (sequence-sharded) forms are later
-slices (ROADMAP §1).
+one-token decode against the dense slot cache (the dense engine's), and
+the spatial (sequence-sharded) forms of the chunk prefills and the paged
+decode. Cross-attention is a later slice (ROADMAP §1).
 
 Where the reference updates a donated cache functionally
 (``cache.at[...].set``), the port writes the pool slab or the dense slab
@@ -23,6 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import dlzs
+from repro_torch.core.dr_attention import _merge_stats as _merge_two_stats
+from repro_torch.core.dr_attention import merge_shards
 from repro_torch.core.sads import NEG_INF
 from repro_torch.core.star_attention import STARConfig
 from repro_torch.kernels import ops
@@ -434,4 +436,220 @@ def apply_decode_paged(params, cfg: AttentionCfg, x, cache, lengths,
         page_state["logical"], kv_len, n_kv=cfg.n_kv, scale=scale,
         quant=quant)
     y = _out_proj(params, o.reshape(b, cfg.n_heads, cfg.head_dim))
+    return y[:, None, :], new_cache
+
+
+# ---------------------------------------------------------------------------
+# Spatial (sequence-sharded) attention: a partial (m, l, o) per shard,
+# merged over the shards. The reference runs one shard's view of each
+# function inside shard_map over a mesh axis; here every shard lives on one
+# device, the shard axis leads each pool slab ([S, P, page, nkv, dh]) and
+# page-state leaf, and the reference's pmax/psum (``_psum_merge_stats``)
+# become ``merge_shards``'s max and shard-order sums over that axis.
+# ``_merge_two_stats`` is the pairwise flash-state merge. Q/K/V project
+# once (the reference computes them replicated, with the same numbers).
+# ---------------------------------------------------------------------------
+
+def _softmax_stats(sc, v, eq: str):
+    """(m, l, o) of masked fp32 scores ``sc`` [..., T, S] against ``v``:
+    P = exp(sc - m), 0 where masked, o = einsum(eq, P, fp32 v)."""
+    m = sc.amax(dim=-1)
+    p = torch.exp(sc - m[..., None])
+    p = p.masked_fill(sc <= NEG_INF / 2, 0.0)
+    return m, p.sum(dim=-1), torch.einsum(eq, p, v.float())
+
+
+def _spatial_out(params, cfg: AttentionCfg, m1, l1, o1, qg, k, v, mask_c,
+                 scale, dtype):
+    """Merge the shards' merged past state (m1, l1, o1) [B,g,r,T(,d)] with
+    the chunk's own causal block (replicated compute, merged once), divide
+    and project: y [B, T, H]."""
+    b, t = qg.shape[:2]
+    sc_c = torch.einsum("btgrd,bsgd->bgrts", qg, k).float() * scale
+    sc_c = sc_c.masked_fill(~mask_c, NEG_INF)
+    m2, l2, o2 = _softmax_stats(sc_c, v, "bgrts,bsgd->bgrtd")
+    _, l, o = _merge_two_stats(m1, l1, o1, m2, l2, o2)
+    o = o / torch.clamp(l, min=1e-30)[..., None]     # [B, g, r, T, d]
+    y = o.permute(0, 3, 1, 2, 4).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    return _out_proj(params, y.to(dtype))
+
+
+def _scatter_chunk(cfg: AttentionCfg, cache, chunk_phys, k, v) -> None:
+    """Write a chunk's K/V rows (+ LZ codes) into the pages each shard owns,
+    in place: ``chunk_phys`` [S, B, C // page] (SCRATCH where another shard
+    owns the page, or where the page is shared)."""
+    n_sh, b, n_pg = chunk_phys.shape
+    sh = torch.arange(n_sh, device=chunk_phys.device)[:, None, None]
+    at = (sh, chunk_phys.long())
+    page = cache["k"].shape[2]
+
+    def put(pool, rows):
+        rows = rows.reshape(b, n_pg, page, *rows.shape[2:])
+        pool[at] = rows.to(pool.dtype).expand(n_sh, *rows.shape)
+    put(cache["k"], k)
+    put(cache["v"], v)
+    if cfg.lz_cache and "k_lz" in cache:
+        put(cache["k_lz"], dlzs.lz_pack(k))
+
+
+def apply_prefill_chunk_spatial(params, cfg: AttentionCfg, x, positions,
+                                cache, page_state):
+    """Prefill one page-aligned chunk of a sequence-sharded prompt.
+
+    x [B,C,H]; positions [B,C]; cache k/v [S,P,page,nkv,dh] (this layer's
+    sharded slabs); ``page_state``: past_phys/past_logical [S,B,Wp]
+    (shard-LOCAL ids, GLOBAL logical pages; -1 = pad), chunk_phys
+    [S,B,C//page] and past_len [B]. Each shard's partial (m, l, o) of the
+    chunk queries against its past pages, all shards in one batched
+    product, merges over the shards; the chunk's causal block is added
+    once; the chunk's K/V rows are written in place into the pages their
+    owner shards hold. Returns (y [B,C,H], the cache dict)."""
+    b, c, _ = x.shape
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    page = cache["k"].shape[2]
+    dev = x.device
+    n_rep = cfg.n_heads // cfg.n_kv
+    qg = q.reshape(b, c, cfg.n_kv, n_rep, cfg.head_dim)
+
+    past_phys = page_state["past_phys"]
+    past_logical = page_state["past_logical"]
+    n_sh, _, wp = past_phys.shape
+    sp = wp * page
+    sh = torch.arange(n_sh, device=dev)[:, None, None]
+    safe = torch.clamp(past_phys, min=0).long()
+    kg = cache["k"][sh, safe].reshape(n_sh, b, sp, cfg.n_kv,
+                                      cfg.head_dim).to(q.dtype)
+    vg = cache["v"][sh, safe].reshape(n_sh, b, sp, cfg.n_kv,
+                                      cfg.head_dim).to(q.dtype)
+    past_pos = (past_logical[..., None] * page
+                + torch.arange(page, device=dev)).reshape(n_sh, b, sp)
+    past_ok = (past_logical[..., None] >= 0).expand(n_sh, b, wp, page
+                                                    ).reshape(n_sh, b, sp)
+    past_ok = past_ok & (past_pos < page_state["past_len"][None, :, None])
+    sc_p = torch.einsum("btgrd,kbsgd->kbgrts", qg, kg).float() * scale
+    mask_p = (past_ok[:, :, None, None, None, :]
+              & (past_pos[:, :, None, None, None, :]
+                 <= positions[None, :, None, None, :, None]))
+    sc_p = sc_p.masked_fill(~mask_p, NEG_INF)
+    m1, l1, o1 = merge_shards(*_softmax_stats(sc_p, vg,
+                                              "kbgrts,kbsgd->kbgrtd"))
+
+    mask_c = positions[:, None, None, None, :] \
+        <= positions[:, None, None, :, None]
+    out = _spatial_out(params, cfg, m1, l1, o1, qg, k, v, mask_c, scale,
+                       x.dtype)
+    _scatter_chunk(cfg, cache, page_state["chunk_phys"], k, v)
+    return out, cache
+
+
+def apply_prefill_chunk_batch_spatial(params, cfg: AttentionCfg, x,
+                                      positions, cache, page_state):
+    """Batched varlen chunk prefill over sequence-sharded pools.
+
+    The flat chunk buffer of ``apply_prefill_chunk_batch`` (x [1,B_tok,H];
+    seg_ids [B_tok]; past_len [S_lanes]) against each shard's slice of the
+    past arena, past_phys/past_lane/past_logical [S,Wp]: every shard's
+    partial (m, l, o) of every lane's queries, merged over the shards,
+    then the flat segment-masked causal block added once; fresh rows go
+    to the owner shards' pages through chunk_phys [S,1,B_tok//page].
+    Returns (y [1,B_tok,H], the cache dict)."""
+    b, t, _ = x.shape
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    page = cache["k"].shape[2]
+    dev = x.device
+    n_rep = cfg.n_heads // cfg.n_kv
+    qg = q.reshape(b, t, cfg.n_kv, n_rep, cfg.head_dim)
+    seg_q = page_state["seg_ids"]
+
+    past_phys = page_state["past_phys"]
+    past_logical = page_state["past_logical"]
+    n_sh, wp = past_phys.shape
+    sp = wp * page
+    sh = torch.arange(n_sh, device=dev)[:, None]
+    safe = torch.clamp(past_phys, min=0).long()
+    kg = cache["k"][sh, safe].reshape(n_sh, sp, cfg.n_kv,
+                                      cfg.head_dim).to(q.dtype)
+    vg = cache["v"][sh, safe].reshape(n_sh, sp, cfg.n_kv,
+                                      cfg.head_dim).to(q.dtype)
+    pos_p = (past_logical[..., None] * page
+             + torch.arange(page, device=dev)).reshape(n_sh, sp)
+    seg_p = page_state["past_lane"].repeat_interleave(page, dim=1)
+    ok_p = (past_logical[..., None] >= 0).expand(n_sh, wp, page
+                                                 ).reshape(n_sh, sp)
+    ok_p = ok_p & (pos_p < page_state["past_len"][
+        torch.clamp(seg_p, min=0).long()])
+    sc_p = torch.einsum("btgrd,ksgd->kbgrts", qg, kg).float() * scale
+    mask_p = ((ok_p[:, None, :] & (seg_p[:, None, :] == seg_q[None, :, None]))
+              [:, None, None, None]
+              & (pos_p[:, None, None, None, None, :]
+                 <= positions[None, :, None, None, :, None]))
+    sc_p = sc_p.masked_fill(~mask_p, NEG_INF)
+    m1, l1, o1 = merge_shards(*_softmax_stats(sc_p, vg,
+                                              "kbgrts,ksgd->kbgrtd"))
+
+    mask_c = ((seg_q >= 0) & (seg_q[None, :] == seg_q[:, None])
+              )[None, None, None] \
+        & (positions[:, None, None, None, :]
+           <= positions[:, None, None, :, None])
+    out = _spatial_out(params, cfg, m1, l1, o1, qg, k, v, mask_c, scale,
+                       x.dtype)
+    _scatter_chunk(cfg, cache, page_state["chunk_phys"], k, v)
+    return out, cache
+
+
+def apply_decode_spatial(params, cfg: AttentionCfg, x, cache, lengths,
+                         page_state):
+    """One-token decode against a sequence-sharded paged pool.
+
+    x [B,1,H]; cache k/v [S,P,page,nkv,dh] (this layer's sharded slabs,
+    written IN PLACE); lengths [B]. ``page_state``: phys/logical [S,B,W]
+    (shard-LOCAL ids; ``logical`` holds GLOBAL page indices so positions
+    stay exact), write_page/write_off [S,B] (SCRATCH on every shard but
+    the new token's owner), optional qmask [S,B,W] (int8-tier slots) and
+    ``audit``. The new K/V row lands in its owner shard's page; one call
+    of K1's stats form gives every shard's partial (m, l, o) over its hot
+    pages; the states merge over the shards (exact: DRAttention's
+    combination), so the result equals one-pool paged decode whenever the
+    hot sets cover every page.
+
+    There is no host branch for a shard whose hot set is empty for every
+    sequence (the reference's ``lax.cond``): the kernel's early exit gives
+    it the neutral state (m = NEG_INF, l = 0) at no work, and asking on
+    the host would cost a device sync per layer. With ``audit`` the cache
+    also carries ``audit_mass`` [S,B,W], normalised over all shards.
+    Returns (y [B,1,H], the cache dict)."""
+    from repro_torch.kvcache import paged_attention as kv_paged
+
+    b = x.shape[0]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    q, k_new, v_new = _project_qkv(params, cfg, x, lengths[:, None])
+
+    wp = page_state["write_page"].long()
+    sh = torch.arange(wp.shape[0], device=x.device)[:, None].expand_as(wp)
+    idx = (sh, wp, page_state["write_off"].long())
+    cache["k"].index_put_(idx, k_new[:, 0].to(cache["k"].dtype))
+    cache["v"].index_put_(idx, v_new[:, 0].to(cache["v"].dtype))
+    if cfg.lz_cache and "k_lz" in cache:
+        cache["k_lz"].index_put_(idx, dlzs.lz_pack(k_new)[:, 0])
+
+    new_cache = dict(cache)
+    kv_len = (lengths + 1).to(torch.int32)
+    if "audit" in page_state:
+        new_cache["audit_mass"] = kv_paged.page_attention_mass(
+            q[:, 0], cache["k"], page_state["phys"], page_state["logical"],
+            kv_len, n_kv=cfg.n_kv, scale=scale, sharded=True)
+    quant = None
+    if "kq" in cache and "qmask" in page_state:
+        quant = {"kq": cache["kq"], "vq": cache["vq"],
+                 "k_scale": cache["k_scale"], "v_scale": cache["v_scale"],
+                 "qmask": page_state["qmask"]}
+    m, l, o = kv_paged.paged_decode_stats(
+        q[:, 0], cache["k"], cache["v"], page_state["phys"],
+        page_state["logical"], kv_len, n_kv=cfg.n_kv, scale=scale,
+        quant=quant)
+    _, l, o = merge_shards(m, l, o)
+    o = o / torch.clamp(l, min=1e-30)[..., None]       # [B, G, R, d]
+    y = _out_proj(params, o.reshape(b, cfg.n_heads, cfg.head_dim).to(x.dtype))
     return y[:, None, :], new_cache

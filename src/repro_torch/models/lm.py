@@ -1,6 +1,7 @@
 """Attention-only causal decoder LM: prefill, chunked paged prefill, paged
-decode and dense-cache decode. PyTorch port of the attention-only subset
-of ``repro.models.lm``.
+decode, dense-cache decode and the spatial (sequence-sharded) chunk
+prefills, decode and audit probe. PyTorch port of the attention-only
+subset of ``repro.models.lm``.
 
 Parameters are nested dicts with the reference's keys; each super-block
 leaf is stacked on a leading layer axis exactly like the reference's
@@ -146,12 +147,21 @@ def _layer(tree, i: int):
 
 def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
                  mode: str, cache=None, lengths=None, cache_len=None,
-                 page_state=None):
+                 page_state=None, spatial: bool = False):
     """One block. Returns (y, new_cache)."""
     h = common.norm_apply(cfg.norm, params["norm1"], x)
     acfg = cfg.attn_cfg()
     new_cache = {}
-    if mode == "prefill_chunk_batch":
+    if spatial and mode == "prefill_chunk_batch":
+        y, new_cache["attn"] = attention.apply_prefill_chunk_batch_spatial(
+            params["core"], acfg, h, positions, cache["attn"], page_state)
+    elif spatial and mode == "prefill_chunk":
+        y, new_cache["attn"] = attention.apply_prefill_chunk_spatial(
+            params["core"], acfg, h, positions, cache["attn"], page_state)
+    elif spatial and mode == "decode":
+        y, new_cache["attn"] = attention.apply_decode_spatial(
+            params["core"], acfg, h, cache["attn"], lengths, page_state)
+    elif mode == "prefill_chunk_batch":
         y, new_cache["attn"] = attention.apply_prefill_chunk_batch(
             params["core"], acfg, h, positions, cache["attn"], page_state)
     elif mode == "prefill_chunk":
@@ -179,12 +189,13 @@ def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
 
 
 def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
-               lengths=None, cache_len=None, page_state=None):
+               lengths=None, cache_len=None, page_state=None,
+               spatial: bool = False):
     """Loop the super-block over the layer axis. Returns (x, caches):
     prefill modes stack each layer's fresh cache on axis 0 ([L, ...]);
-    decode writes the pool (or dense) slabs in place and returns a shallow
-    copy of the cache tree (plus ``audit_mass`` [L, B, W] when
-    auditing)."""
+    decode, and every ``spatial`` mode, write the pool (or dense) slabs in
+    place and return a shallow copy of the cache tree (plus
+    ``audit_mass`` [L, ...] when auditing)."""
     check_supported(cfg)
     per_layer = []
     for i in range(cfg.n_repeat):
@@ -194,9 +205,10 @@ def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
             x, out[key] = _block_apply(
                 _layer(blocks[key], i), cfg, blk, x, positions, mode=mode,
                 cache=_layer(caches[key], i) if caches else None,
-                lengths=lengths, cache_len=cache_len, page_state=page_state)
+                lengths=lengths, cache_len=cache_len, page_state=page_state,
+                spatial=spatial)
         per_layer.append(out)
-    if mode == "decode":
+    if mode == "decode" or spatial:
         new = {}
         for key in caches:
             attn = dict(caches[key]["attn"])
@@ -321,3 +333,89 @@ def decode_step_paged(params, cfg: ModelCfg, tokens, cache, page_state):
                                lengths=lengths, page_state=page_state)
     return logits(params, cfg, x)[:, 0], {"layers": new_caches,
                                           "lengths": lengths + 1}
+
+
+# ---------------------------------------------------------------------------
+# Spatial (sequence-sharded) paths. The reference dispatches each as one
+# shard_map over a mesh axis with per-shard slabs [S, L, P_local, ...]; the
+# port keeps every shard on one device with slabs [L, S, P_local, page,
+# n_kv, dh] (the layer axis first, as ``_layer`` slices every slab of the
+# port), so each layer reads its [S, P_local, ...] slab as one block. Each
+# layer handles all shards at once: there is no loop over shards.
+# ---------------------------------------------------------------------------
+
+def prefill_chunk_spatial(params, cfg: ModelCfg, batch, cache, chunk_state):
+    """Prefill one chunk of a sequence-sharded prompt; the chunk's K/V rows
+    are written into the owner shards' pages in place. ``chunk_state``:
+    past_phys/past_logical [S,B,Wp] (shard-LOCAL ids / GLOBAL logical
+    pages of pages earlier chunks wrote), chunk_phys [S,B,C//page]
+    (SCRATCH where another shard owns the page), past_len/last_index [B].
+    Returns (logits [B, vocab_padded], {"layers"})."""
+    x = _embed_inputs(params, cfg, batch)
+    b, c, _ = x.shape
+    positions = chunk_state["past_len"][:, None] + torch.arange(
+        c, device=x.device)[None, :]
+    x, layers = _run_stack(params["blocks"], cfg, x, positions,
+                           mode="prefill_chunk", caches=cache["layers"],
+                           page_state=chunk_state, spatial=True)
+    li = chunk_state["last_index"].long()
+    x_last = x[torch.arange(b, device=x.device), li][:, None, :]
+    return logits(params, cfg, x_last)[:, 0], {"layers": layers}
+
+
+def prefill_chunk_batch_spatial(params, cfg: ModelCfg, batch, cache,
+                                pack_state):
+    """Batched varlen chunk prefill over sequence-sharded pools: the flat
+    layout of ``prefill_chunk_batch_paged`` with per-shard arena leaves
+    past_phys/past_lane/past_logical [S,Wp] and scatter targets chunk_phys
+    [S,1,B_tok//page]; seg_ids/positions/past_len/last_index as there.
+    Returns (logits [S_lanes, vocab_padded], {"layers"})."""
+    x = _embed_inputs(params, cfg, batch)
+    positions = pack_state["positions"][None, :]
+    x, layers = _run_stack(params["blocks"], cfg, x, positions,
+                           mode="prefill_chunk_batch",
+                           caches=cache["layers"], page_state=pack_state,
+                           spatial=True)
+    x_last = x[0][pack_state["last_index"].long()][None]
+    return logits(params, cfg, x_last)[0], {"layers": layers}
+
+
+def decode_step_spatial(params, cfg: ModelCfg, tokens, cache, page_state):
+    """One decode step against sequence-sharded paged pools (written in
+    place): every shard attends over its hot pages through one launch of
+    K1's stats form per layer, and the partial states merge over the
+    shards. ``page_state``: phys/logical [S,B,W], write_page/write_off
+    [S,B], optional qmask [S,B,W]. Shapes depend only on (max_batch, hot
+    width, pool size). Returns (logits [B, vocab_padded], {"layers",
+    "lengths": lengths + 1})."""
+    x = params["embed"][tokens.long()]
+    lengths = cache["lengths"]
+    x, new_caches = _run_stack(params["blocks"], cfg, x, lengths[:, None],
+                               mode="decode", caches=cache["layers"],
+                               lengths=lengths, page_state=page_state,
+                               spatial=True)
+    return logits(params, cfg, x)[:, 0], {"layers": new_caches,
+                                          "lengths": lengths + 1}
+
+
+def audit_decode_spatial(params, cfg: ModelCfg, tokens, cache, page_state):
+    """Exact-attention audit probe over sequence-sharded pools (obs.audit):
+    ``decode_step_spatial``'s dispatch with the ``audit`` flag, returning
+    only the per-page masses, normalised over all shards:
+    [S, n_blocks, n_repeat, B, W] f32. Read-only: the K/V rows the probe's
+    decode writes are saved first and restored after, as the reference's
+    functional probe leaves its (never donated) cache untouched."""
+    ps = dict(page_state, audit=True)
+    wp = ps["write_page"].long()
+    at = (torch.arange(wp.shape[0], device=wp.device)[:, None].expand_as(wp),
+          wp, ps["write_off"].long())
+    written = [leaf for key in cache["layers"]
+               for name, leaf in cache["layers"][key]["attn"].items()
+               if name in ("k", "v", "k_lz")]
+    saved = [leaf[(slice(None),) + at].clone() for leaf in written]
+    _, out = decode_step_spatial(params, cfg, tokens, cache, ps)
+    for leaf, rows in zip(written, saved):
+        leaf[(slice(None),) + at] = rows
+    masses = torch.stack([out["layers"][key]["attn"]["audit_mass"]
+                          for key in out["layers"]])   # [blk, R, S, B, W]
+    return masses.permute(2, 0, 1, 3, 4)

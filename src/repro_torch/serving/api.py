@@ -1,7 +1,9 @@
-"""The serving front door of the port: ``LLM`` over the paged engine or
-the dense slot oracle. PyTorch port of ``repro.serving.api``.
+"""The serving front door of the port: ``LLM`` over the paged engine, the
+sequence-sharded spatial engine or the dense slot oracle. PyTorch port of
+``repro.serving.api``.
 
-    llm = LLM.from_config(cfg, backend="paged")     # cuda by default
+    llm = LLM.from_config(cfg, backend="paged")     # or "spatial"/"dense";
+                                                    # cuda by default
     h = llm.submit(prompt, max_tokens=64, sla="interactive")
     for tok in h:                   # streams tokens, ticking the engine
         ...
@@ -9,10 +11,10 @@ the dense slot oracle. PyTorch port of ``repro.serving.api``.
     print(llm.metrics())            # TTFT / tok/s / occupancy / preempts
 
 ``LLM`` owns request ids, submit-time records and the serve loop;
-``EngineCore`` owns slots, tables and the swap area; the ``PagedBackend``
-owns device state. ``backend="dense"`` serves the dense slot engine
-(``serving.engine.ServingEngine``), the parity oracle. The spatial runtime
-is not ported yet (ROADMAP §1 item 3): ``from_config`` raises for it.
+``EngineCore`` owns slots, tables and the swap area; the backend
+(``PagedBackend`` or ``spatial.SpatialBackend``) owns device state.
+``backend="dense"`` serves the dense slot engine
+(``serving.engine.ServingEngine``), the parity oracle.
 """
 
 from __future__ import annotations
@@ -27,9 +29,6 @@ from repro_torch.obs import NULL_TELEMETRY
 from repro_torch.serving.engine import Request
 
 BACKENDS = ("dense", "paged", "spatial")
-UNPORTED_BACKENDS = {
-    "spatial": "ROADMAP §1 item 3 (spatial, sequence-sharded serving)",
-}
 
 
 class RequestRecord(obs.RequestTimeline):
@@ -120,7 +119,8 @@ class LLM:
 
     Use ``LLM.from_config`` to build engine + backend in one call, or
     pass any engine exposing ``submit / step / queue / active``
-    (``PagedServingEngine``, the dense ``ServingEngine``)."""
+    (``PagedServingEngine``, ``SpatialServingEngine``, the dense
+    ``ServingEngine``)."""
 
     def __init__(self, engine, telemetry=None):
         self.engine = engine
@@ -142,16 +142,19 @@ class LLM:
 
     @classmethod
     def from_config(cls, model_cfg, *, backend: str = "paged",
-                    params=None, engine_cfg=None, sched_cfg=None,
+                    params=None, shards: int = 2, engine_cfg=None,
+                    sched_cfg=None,
                     generator: Optional["torch.Generator"] = None,
                     device=None, telemetry=None,
                     audit_cfg=None) -> "LLM":
         """Build params (if not given), the backend engine, and the LLM.
 
         ``backend="paged"`` is the single page pool (``PagedEngineCfg``),
-        ``"dense"`` the dense slot oracle (``EngineCfg``; ``sched_cfg`` and
-        ``audit_cfg`` do not apply to it); ``"spatial"`` is not ported yet
-        and raises.
+        ``"spatial"`` the sequence-sharded engine (``SpatialEngineCfg``,
+        default ``n_shards=shards``; every shard on ``device``; the model
+        must have ``star=None``), ``"dense"`` the dense slot oracle
+        (``EngineCfg``; ``sched_cfg`` and ``audit_cfg`` do not apply to
+        it).
         ``device`` defaults to ``cuda`` and raises without a GPU; the
         tests pass ``device="cpu"``. ``generator`` (default: one seeded
         with 0 on the device) draws the random weights when
@@ -173,10 +176,6 @@ class LLM:
         if backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {backend!r}: choose from {BACKENDS}")
-        if backend in UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend={backend!r} is not ported yet: "
-                f"{UNPORTED_BACKENDS[backend]}")
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev)
@@ -188,9 +187,17 @@ class LLM:
                                 generator=generator)
             return cls(eng, telemetry=telemetry)
         scfg = sched_cfg or SchedulerCfg(prefill_tokens="auto")
-        eng = PagedServingEngine(model_cfg, params,
-                                 engine_cfg or PagedEngineCfg(), scfg,
-                                 generator=generator)
+        if backend == "paged":
+            eng = PagedServingEngine(model_cfg, params,
+                                     engine_cfg or PagedEngineCfg(), scfg,
+                                     generator=generator)
+        else:
+            from repro_torch.spatial.engine import (SpatialEngineCfg,
+                                                    SpatialServingEngine)
+            eng = SpatialServingEngine(
+                model_cfg, params,
+                engine_cfg or SpatialEngineCfg(n_shards=shards), scfg,
+                generator=generator)
         if audit_cfg is not None:
             eng.auditor = obs.DlzsAuditor(audit_cfg)
         return cls(eng, telemetry=telemetry)

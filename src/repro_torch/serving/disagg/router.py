@@ -50,15 +50,13 @@ from repro_torch.serving.disagg.transfer import KVTransfer
 from repro_torch.serving.engine import Request
 from repro_torch.serving.swap_policy import RetryGovernor
 
-UNPORTED_BACKENDS = {
-    "spatial": "ROADMAP §1 item 3 (spatial, sequence-sharded serving)",
-}
-
 
 class DisaggRouter(LLM):
     """Front door over a (prefill, decode) instance pair.
 
-    ``prefill_engine``/``decode_engine`` are ``EngineCore`` instances.
+    ``prefill_engine``/``decode_engine`` are ``EngineCore`` instances of
+    any swap-format backend; they need not match (spatial prefill into
+    paged decode works).
     ``fault_plan`` injects at the ``transfer`` seam; ``staging`` picks
     the fabric mode (``KVTransfer``). The decode instance is
     ``self.engine``: the base class serves records, metrics and bundles
@@ -83,7 +81,7 @@ class DisaggRouter(LLM):
     @classmethod
     def from_config(cls, model_cfg, *, backend: str = "paged",
                     prefill_backend: Optional[str] = None,
-                    params=None, prefill_engine_cfg=None,
+                    params=None, shards: int = 2, prefill_engine_cfg=None,
                     decode_engine_cfg=None, prefill_sched_cfg=None,
                     decode_sched_cfg=None,
                     generator: Optional["torch.Generator"] = None,
@@ -91,8 +89,10 @@ class DisaggRouter(LLM):
                     staging: str = "device") -> "DisaggRouter":
         """Build the instance pair around ONE set of params.
 
-        ``backend`` picks the decode instance, ``prefill_backend`` the
-        prefill side (default: the same); only ``"paged"`` is ported.
+        ``backend`` picks the decode instance (``"paged"`` or
+        ``"spatial"``, the latter over ``shards`` shards unless its engine
+        config says otherwise), ``prefill_backend`` the prefill side
+        (default: the same).
         ``device`` defaults to ``cuda`` and raises without a GPU.
         ``generator`` (default: one seeded with 0 on the device) draws
         the random weights when ``params`` is None and drives sampled
@@ -109,11 +109,7 @@ class DisaggRouter(LLM):
         from repro_torch.serving.scheduler import SchedulerCfg
 
         for kind in (backend, prefill_backend or backend):
-            if kind in UNPORTED_BACKENDS:
-                raise NotImplementedError(
-                    f"disagg backend {kind!r} is not ported yet: "
-                    f"{UNPORTED_BACKENDS[kind]}")
-            if kind != "paged":
+            if kind not in ("paged", "spatial"):
                 raise ValueError(f"unknown disagg backend {kind!r}: "
                                  "choose from ('paged', 'spatial')")
         dev = resolve_device(device)
@@ -123,14 +119,22 @@ class DisaggRouter(LLM):
         if params is None:
             params = lm.init(model_cfg, generator, dev)
 
-        def build(engine_cfg, sched_cfg):
-            return PagedServingEngine(model_cfg, params,
-                                      engine_cfg or PagedEngineCfg(),
-                                      sched_cfg, generator=generator)
+        def build(kind, engine_cfg, sched_cfg):
+            if kind == "paged":
+                return PagedServingEngine(model_cfg, params,
+                                          engine_cfg or PagedEngineCfg(),
+                                          sched_cfg, generator=generator)
+            from repro_torch.spatial.engine import (SpatialEngineCfg,
+                                                    SpatialServingEngine)
+            return SpatialServingEngine(
+                model_cfg, params,
+                engine_cfg or SpatialEngineCfg(n_shards=shards), sched_cfg,
+                generator=generator)
 
-        pre = build(prefill_engine_cfg,
+        pre = build(prefill_backend or backend, prefill_engine_cfg,
                     prefill_sched_cfg or SchedulerCfg(prefill_tokens="auto"))
-        dec = build(decode_engine_cfg, decode_sched_cfg or SchedulerCfg())
+        dec = build(backend, decode_engine_cfg,
+                    decode_sched_cfg or SchedulerCfg())
         return cls(pre, dec, telemetry=telemetry, fault_plan=fault_plan,
                    staging=staging)
 

@@ -231,6 +231,116 @@ def test_paged_decode_quant_never_takes_the_gather(cuda_device,
     assert kernels.FORM_LAUNCHES["paged_decode/int8"] == 1
 
 
+def _k1_sharded_inputs(n_sh, b, g, r, d, kv_len, seed, device, page=16,
+                       n_local=72, empty_shard=None):
+    """A sequence-sharded pool as the spatial engine builds it: global page
+    j of each sequence on shard j % n_sh at a random local id, its table
+    entry carrying the GLOBAL logical index. ``empty_shard`` holds no
+    page of any sequence (its hot sets come back empty)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((b, g, r, d), generator=gen)
+    k = torch.randn((n_sh, n_local, page, g, d), generator=gen)
+    v = torch.randn((n_sh, n_local, page, g, d), generator=gen)
+    n_pages = [-(-n // page) for n in kv_len]
+    w = max(1, max(-(-n // n_sh) for n in n_pages))
+    phys = torch.full((n_sh, b, w), -1, dtype=torch.int32)
+    logical = torch.full((n_sh, b, w), -1, dtype=torch.int32)
+    for i, n in enumerate(n_pages):
+        for s in range(n_sh):
+            js = list(range(s, n, n_sh))
+            if s == empty_shard or not js:
+                continue
+            phys[s, i, :len(js)] = (torch.randperm(
+                n_local - 1, generator=gen)[:len(js)] + 1).int()
+            logical[s, i, :len(js)] = torch.tensor(js, dtype=torch.int32)
+    bf = [t.to(device, torch.bfloat16) for t in (q, k, v)]
+    kvl = torch.tensor(kv_len, dtype=torch.int32)
+    return bf + [t.to(device) for t in (phys, logical, kvl)]
+
+
+def _k1_sharded_tier(k, phys, seed):
+    """The int8 tier of every page of every shard, about half the slots
+    marked. Its codes quantize K and V rows drawn apart from the fp
+    slabs', each page at a magnitude of its own (K within 2^±1, V within
+    2^±4), so that a lane reading a marked slot's fp rows, or another
+    page's scale, lands far from the plain version."""
+    from repro_torch.kvcache import quant
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    tier = {}
+    for name, span in (("k", 1.0), ("v", 4.0)):
+        mag = 2.0 ** ((2 * torch.rand(k.shape[:2], generator=gen) - 1)
+                      * span)
+        rows = (torch.randn(k.shape, generator=gen)
+                * mag[..., None, None, None]).to(k.device, k.dtype)
+        tier[f"{name}q"], tier[f"{name}_scale"] = quant.quantize_rows(rows)
+    tier["qmask"] = (torch.rand(phys.shape, generator=gen) < 0.5).to(
+        phys.device)
+    return tier
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("n_sh,b,g,r,kv_len,empty", [
+    (4, 4, 16, 1, [1040, 1552, 2064, 2064], None),  # chip_smoke phase 13
+    (4, 4, 16, 1, [1040, 1552, 2064, 33], 2),       # a shard with no row
+    (2, 3, 2, 16, [1040, 2064, 17], None),          # ChatGLM3-6B's group
+    (4, 2, 2, 16, [300, 5], 3)])
+def test_paged_decode_stats_matches_plain(cuda_device, quant, n_sh, b, g, r,
+                                          kv_len, empty):
+    """K1's unnormalised (m, l, o) form over every shard in one launch
+    sequence, against its plain version (``paged_gather_decode_stats`` on
+    each shard), fp and int8 lanes: m, l and o/l at the bf16 bound 2e-2;
+    a shard with no valid row gives (NEG_INF, 0, 0); two calls bit-equal;
+    counted under its own name, never as the normalised form."""
+    args = _k1_sharded_inputs(n_sh, b, g, r, 128, kv_len, seed=b + r,
+                              device=cuda_device, empty_shard=empty)
+    tier = _k1_sharded_tier(args[1], args[3], seed=r) if quant else None
+    kernels.reset_launches()
+    got = kpaged.paged_decode_stats_attention(*args, scale=128 ** -0.5,
+                                              quant=tier)
+    again = kpaged.paged_decode_stats_attention(*args, scale=128 ** -0.5,
+                                                quant=tier)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode_stats"] == 2
+    assert kernels.LAUNCHES["paged_decode"] == 0
+    assert kernels.FORM_LAUNCHES["paged_decode_stats/int8" if quant
+                                 else "paged_decode_stats/fp"] == 2
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    want = kpaged.paged_decode_stats_reference(*args, scale=128 ** -0.5,
+                                               quant=tier)
+    (m, l, o), (wm, wl, wo) = got, want
+    live = wl > 0
+    assert torch.equal(live, l > 0)
+    np.testing.assert_allclose(m[live].cpu().numpy(), wm[live].cpu().numpy(),
+                               **BF16_TOL)
+    np.testing.assert_allclose(l[live].cpu().numpy(), wl[live].cpu().numpy(),
+                               **BF16_TOL)
+    on = (o / torch.clamp(l, min=1e-30)[..., None])[live]
+    won = (wo / torch.clamp(wl, min=1e-30)[..., None])[live]
+    np.testing.assert_allclose(on.cpu().numpy(), won.cpu().numpy(),
+                               **BF16_TOL)
+    assert bool((m[~live] == -1e30).all()) and bool((o[~live] == 0).all())
+    if empty is not None:
+        assert not bool(live[empty].any())
+    if quant:
+        # the check's reach: the fp lane (a lane that ignored qmask) and
+        # the plain version fed the next page's scales break the bound;
+        # an all-False qmask gives the fp lane's bits
+        fp = kpaged.paged_decode_stats_attention(*args, scale=128 ** -0.5)
+        none = dict(tier, qmask=torch.zeros_like(tier["qmask"]))
+        for a, a2 in zip(kpaged.paged_decode_stats_attention(
+                *args, scale=128 ** -0.5, quant=none), fp):
+            assert torch.equal(a, a2)
+        rolled = dict(tier, k_scale=tier["k_scale"].roll(1),
+                      v_scale=tier["v_scale"].roll(1))
+        for _, bl, bo in (fp, kpaged.paged_decode_stats_reference(
+                *args, scale=128 ** -0.5, quant=rolled)):
+            bad = (bo / torch.clamp(bl, min=1e-30)[..., None])[live]
+            assert not np.allclose(bad.cpu().numpy(), won.cpu().numpy(),
+                                   **BF16_TOL)
+
+
 # -- the prefill tile kernels: K2 (DLZS block maxima), K3 (SU-FA), K4 --------
 
 # K2's maxima are fp32 sums of exact bf16 x pow2 products: only the order

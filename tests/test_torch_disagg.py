@@ -15,8 +15,8 @@ unedited.
 Across the packages: a payload exported mid-decode by one package's paged
 engine is adopted by the other's, in both directions and both tiers, and
 the adopting package serves the rest token for token as an undisturbed
-run of its own. The spatial prefill instance waits for the spatial slice
-(ROADMAP §1).
+run of its own. The spatial prefill instance is held in
+test_torch_spatial_engine.py.
 """
 
 import dataclasses
@@ -558,7 +558,7 @@ def test_disagg_cancel_and_deadline(smoke_lm):
 
 def test_disagg_from_config(smoke_lm):
     """The one-call constructor builds a working pair around shared params
-    on the device asked for; an unported backend raises."""
+    on the device asked for, and a spatial-prefill pair that serves."""
     _, _, tcfg, tparams = smoke_lm
     router = DisaggRouter.from_config(tcfg, params=tparams, device="cpu")
     assert router.prefill.backend.params is router.engine.backend.params
@@ -568,9 +568,20 @@ def test_disagg_from_config(smoke_lm):
     assert h.outcome == "done" and len(h.tokens) == 6
     assert router.transfer.n_transfers == 1
     dscen.assert_drained(router)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from repro_torch.spatial import SpatialServingEngine
+    router = DisaggRouter.from_config(tcfg, params=tparams, device="cpu",
+                                      prefill_backend="spatial", shards=2)
+    assert isinstance(router.prefill, SpatialServingEngine)
+    assert router.prefill.topo.n_shards == 2
+    assert isinstance(router.engine, PagedServingEngine)
+    h = router.submit(np.arange(40, dtype=np.int32), max_tokens=6)
+    dscen.drive_checked_disagg(router)
+    assert h.outcome == "done" and len(h.tokens) == 6
+    assert router.transfer.n_transfers == 1
+    dscen.assert_drained(router)
+    with pytest.raises(ValueError, match="unknown disagg backend"):
         DisaggRouter.from_config(tcfg, params=tparams, device="cpu",
-                                 prefill_backend="spatial")
+                                 prefill_backend="dense")
 
 
 def test_disagg_int8_tier_read_matches_reference():

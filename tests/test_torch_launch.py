@@ -1,9 +1,8 @@
 """The port's serving launcher (``python -m repro_torch.launch.serve``),
 the twin of ``repro.launch.serve``, served at smoke size on the CPU: the
-dense and paged engines and the disaggregated pair, the SLA and shedding
-flags, the trace and the metrics exposition. Without ``--device cpu`` it
-runs on ``cuda`` and raises without one; ``--engine spatial`` names its
-ROADMAP item."""
+dense, paged and spatial engines and the disaggregated pairs, the SLA
+and shedding flags, the trace and the metrics exposition. Without
+``--device cpu`` it runs on ``cuda`` and raises without one."""
 
 import dataclasses
 import json
@@ -63,8 +62,6 @@ def test_launcher_without_telemetry_ignores_trace(capsys, tmp_path):
 
 
 def test_launcher_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--engine", "spatial", "--device", "cpu"])
     with pytest.raises(SystemExit, match="pool-backed"):
         serve.main(["--engine", "dense", "--disagg", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown or unported"):
@@ -72,6 +69,24 @@ def test_launcher_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "olmo_1b"])
+
+
+@pytest.mark.parametrize("mode", [[], ["--disagg"]],
+                         ids=["spatial", "spatial-disagg"])
+def test_launcher_serves_spatial(capsys, mode):
+    """``--engine spatial --shards 2`` serves on the CPU (STAR switched
+    off, as the reference launcher does), alone and as the prefill side
+    of a disaggregated pair."""
+    rep = serve.main(["--arch", "olmo_1b", *SMALL, "--engine", "spatial",
+                      "--shards", "2", *mode])
+    toks = rep["tokens_by_request"]
+    assert rep["requests"] == 3 and rep["tokens"] == sum(map(len, toks))
+    assert all(len(t) == 5 or ("--disagg" in mode and t[-1] == 1)
+               for t in toks)
+    line = capsys.readouterr().out.splitlines()[0]
+    assert "spatial, 2 shards" in line and "star=off" in line
+    if "--disagg" in mode:
+        assert "transfers=" in line
 
 
 def test_launcher_chunks_whole_star_tiles():

@@ -11,8 +11,9 @@ the ``LLM`` front door, held against the reference.
   factory and the port's ``FaultPlan``/``FaultyBackend``.
 * Bounded DLZS sparse decode (``decode_hot_width``) against the JAX paged
   engine on the same weights, token for token.
-* The entry points: unported backends and options raise, naming their
-  ROADMAP item; without a GPU nothing falls back to the CPU.
+* The entry points: ``backend="spatial"`` serves; unported model families
+  raise, naming their ROADMAP item; without a GPU nothing falls back to
+  the CPU.
 * Import purity: neither ``repro_torch`` nor ``chip_smoke.py`` pulls in
   ``jax`` or ``repro``, and ``chip_smoke.py`` fails without a card.
 """
@@ -42,6 +43,7 @@ from repro.serving import SchedulerCfg as JSchedulerCfg  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs import get_smoke_config as tsmoke  # noqa: E402
+from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serving import (LLM, PagedEngineCfg,  # noqa: E402
                                  PagedServingEngine, SchedulerCfg)
 
@@ -248,11 +250,35 @@ def test_from_config_serves_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(backend="spatial"), "ROADMAP"),
+    (dict(pattern=(tlm.BlockCfg("attn", "moe"),)), "ROADMAP"),
 ])
 def test_unported_options_raise(kw, match):
+    """What is still unported raises, naming its ROADMAP item: here a
+    model family (an MoE block); the spatial backend, this test's case
+    before, now serves (``test_from_config_serves_the_spatial_backend``)."""
     with pytest.raises(NotImplementedError, match=match):
-        LLM.from_config(tsmoke("olmo_1b"), device="cpu", **kw)
+        LLM.from_config(dataclasses.replace(tsmoke("olmo_1b"), **kw),
+                        device="cpu")
+
+
+def test_from_config_serves_the_spatial_backend():
+    """``backend="spatial"`` builds the sequence-sharded engine over
+    ``shards`` shards on the device asked for and serves; a config with
+    STAR on is refused, as the reference refuses it."""
+    from repro_torch.spatial import SpatialServingEngine
+    cfg = dataclasses.replace(tsmoke("olmo_1b"), star=None)
+    llm = LLM.from_config(cfg, backend="spatial", shards=2, device="cpu",
+                          generator=torch.Generator().manual_seed(3))
+    assert isinstance(llm.engine, SpatialServingEngine)
+    assert llm.engine.topo.n_shards == 2
+    assert llm.engine.backend.device.type == "cpu"
+    hs = [llm.submit(np.arange(n, dtype=np.int32), max_tokens=4)
+          for n in (20, 70)]
+    llm.run_until_done()
+    assert [len(h.tokens) for h in hs] == [4, 4]
+    assert llm.stats()["pools"]["live"] == 0
+    with pytest.raises(ValueError, match="dense-attention"):
+        LLM.from_config(tsmoke("olmo_1b"), backend="spatial", device="cpu")
 
 
 def test_from_config_serves_the_dense_backend():
@@ -315,7 +341,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     __import__(m.name)
 new = ("repro_torch.kvcache.quant", "repro_torch.kvcache.wire",
        "repro_torch.serving.faults", "repro_torch.serving.disagg.transfer",
-       "repro_torch.serving.disagg.router")
+       "repro_torch.serving.disagg.router", "repro_torch.spatial.engine",
+       "repro_torch.core.dr_attention", "repro_torch.core.mrca")
 assert all(n in sys.modules for n in new), new
 import chip_smoke
 sys.path.insert(0, {tools!r})
