@@ -25,8 +25,9 @@ Phases, each printing its numbers on a line of its own:
    scales must each break the tolerance and lie 4x the kernel's error
    off: the check can tell an ignored qmask or a wrong scale. Both forms
    again, timed, at the decode shapes of the wide GQA groups: ChatGLM3-6B
-   (G 2, R 16, W covering phase 10's longest sequence) and StarCoder2-15B
-   (G 4, R 12). Then K1's unnormalised (m, l, o) form over sequence-sharded
+   (G 2, R 16, W covering phase 10's longest sequence), StarCoder2-15B
+   (G 4, R 12) and Grok-1 (B 1, G 8, R 6, W covering phase 15's
+   sequence). Then K1's unnormalised (m, l, o) form over sequence-sharded
    pools (every shard in one launch sequence), fp and int8 lanes, at phase
    13's decode shape (4 shards, B 4, G 16, R 1, d 128) and at ChatGLM3-6B's
    group (R 16), each timed beside its bound (the K/V rows read across all
@@ -127,6 +128,40 @@ Phases, each printing its numbers on a line of its own:
    shards empty: the per-shard skip counts, read from the host after the
    run, must be populated. TTFT, tokens/s and decode ms per tick are
    printed.
+14. OLMoE-1B-7B at full width and depth (16 layers, 64 experts of d_ff
+   1024, top-8; random weights from a seed), the Mixture-of-Experts FFN
+   in every layer: (a) STAR on at the reference's capacity factor
+   (1.25), prompts of 1024, 2048 and 4096 tokens served whole through the
+   paged engine, 16 tokens each, launch counts and first tokens as in
+   phase 10 (the forward over the same bucketed prompt routes the same
+   tokens), the share of expert choices dropped per prefill printed;
+   (b) ``star=None`` at dropless capacity (capacity_factor = experts /
+   top_k, so no choice drops and no token's output depends on the
+   others routed with it): every token held against dense forwards, K4's
+   and the plain form's (each padded to whole pages, harmless when
+   nothing drops, so that a prime length does not run one-token chunks),
+   that route every row as the served path did: a served expert a
+   forward's own gate leaves out (a flip: the two paths' rounding parts
+   near-tied experts, and a random-weight MoE amplifies the difference
+   into many logit steps) must lie no further below its k-th choice than
+   rounding alone moves the gate between the two forwards at that layer,
+   and each token is held by phase 4's rule with a third forward in K4's
+   place, one that rounds as the served path does (K4 over the prompt,
+   the plain form for each decoded row; ``check_exact``,
+   ``moe_token_rule``); (c) the same through the dense slot engine; (d) the
+   chunked-prefill main path at the reference's capacity (phase 3's
+   scheduler and prompts): TTFT, tokens/s, decode ms per tick, K1
+   launches = ticks x 16 and the dropped share (with drops a token's
+   route depends on its batch, so this path's token parity is held on
+   the CPU against the reference); then the MoE's share of the device
+   time of one decode tick and of a 4096-token prefill
+   (``torch.profiler``, ranges around ``moe.apply`` and its expert FFN).
+15. Grok-1 at its published width (48 heads over 8 KV heads, 8 experts
+   as 16 virtual ones, tanh GELU), depth cut to 2 of 64 layers: one
+   2048-token prompt through the paged engine with STAR on at the
+   reference's capacity (K1 at R = 6 launches ticks x 2 times, K2/K3
+   prefill calls x 2, the first token as in phase 10), then dropless with
+   ``star=None``, every token held as in 14b.
 Phase 4 also counts K4: oracle forwards x layers launches.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
@@ -153,8 +188,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
-from repro_torch.configs import (chatglm3_6b, olmo_1b,  # noqa: E402
-                                 star_paper, starcoder2_15b)
+from repro_torch.configs import (chatglm3_6b, grok_1_314b,  # noqa: E402
+                                 olmo_1b, olmoe_1b_7b, star_paper,
+                                 starcoder2_15b)
 from repro_torch.core import sads  # noqa: E402
 from repro_torch.core import star_attention as core_star  # noqa: E402
 from repro_torch.kernels import build, launch, ops  # noqa: E402
@@ -164,8 +200,9 @@ from repro_torch.kernels import paged as kpaged  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sufa as ksufa  # noqa: E402
 from repro_torch.kvcache import bucketing, quant  # noqa: E402
-from repro_torch.models import attention, lm  # noqa: E402
+from repro_torch.models import attention, lm, moe  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
+from repro_torch import profiling  # noqa: E402
 from repro_torch.serving import (LLM, DisaggRouter, EngineCfg,  # noqa: E402
                                  FaultPlan, PagedEngineCfg, SchedulerCfg)
 from repro_torch.spatial import SpatialEngineCfg  # noqa: E402
@@ -204,6 +241,14 @@ SPATIAL_MAX_TOKENS = 16
 SPATIAL_SHARDS = 4
 SPATIAL_PAGES_LOCAL = 64
 SPATIAL_HOT_WIDTH = 8
+# phase 14: OLMoE-1B-7B at full width and depth; its published context is
+# 4096
+OLMOE_PROMPTS = (1024, 2048, 4096)
+OLMOE_MAX_TOKENS = 16
+# phase 15: Grok-1 at its published width, depth cut to GROK_LAYERS of 64
+GROK_LAYERS = 2
+GROK_PROMPT = 2048
+GROK_MAX_TOKENS = 16
 # K2: fp32 sums of exact bf16 x pow2 products, only their order differs
 # from the plain version's; K3: tests/test_kernels.py's SU-FA bf16 bound
 PREFILL_TOL = {"dlzs_block": 1e-4, "sufa": 3e-2, "flash": TOL}
@@ -759,8 +804,54 @@ def token_gaps(logits, served) -> tuple:
     return logits.argmax(dim=-1) == served, gap / bf16_step(top)
 
 
+def hybrid_flash(prompt_len: int):
+    """``ops.flash`` as the served path rounds it: K4 for the first
+    ``prompt_len`` query rows (the prefill's kernel: fp32 scores), the
+    plain dense form for the rows after them (each a decoded token, whose
+    attention K1 or the dense slot decode computes with bf16 scores and
+    P, as the plain form does)."""
+    real = ops.flash
+
+    def call(q, k, v, *, causal, scale):
+        head = real(q, k, v, causal=causal, scale=scale)[:, :prompt_len]
+        tail = plain_flash(q, k, v, causal=causal,
+                           scale=scale)[:, prompt_len:]
+        return torch.cat([head, tail], dim=1)
+    return call
+
+
+def moe_token_rule(hybrid, k4, plain, served) -> dict:
+    """Phase 4's rule for an MoE model, whose random weights amplify
+    rounding into gaps of many steps, so that either pure form alone is
+    no oracle: the forward that rounds as the served path does
+    (``hybrid_flash``) takes K4's place. Logits [N, V] (fp32, every
+    forward routed as served) and the served tokens [N]: exact where the
+    served token is the hybrid forward's argmax; a tie within TIE_STEPS of
+    its top, or within PLAIN_TIE_STEPS where a pure form (K4's or the
+    plain one's) puts it within TIE_STEPS of its own top; anything further
+    fails. Also the pure forms' own disagreement, reported: on the rows
+    where both forms' argmax is the served token, the largest difference
+    between them in the served token's margin over the plain runner-up,
+    in bf16 steps of the top."""
+    exact, steps = token_gaps(hybrid, served)
+    k4_exact, k4_steps = token_gaps(k4, served)
+    plain_exact, plain_steps = token_gaps(plain, served)
+    tie = ~exact & ((steps <= TIE_STEPS) | (
+        (steps <= PLAIN_TIE_STEPS)
+        & (torch.minimum(k4_steps, plain_steps) <= TIE_STEPS)))
+    at = torch.arange(len(served), device=served.device)
+    runner = plain.topk(2, dim=-1).indices[:, 1]
+    margin = [(x[at, served] - x[at, runner]) / bf16_step(x[at, served])
+              for x in (k4, plain)]
+    agree = (margin[0] - margin[1]).abs()[k4_exact & plain_exact]
+    return {"exact": exact, "tie": tie, "steps": steps,
+            "k4_steps": k4_steps, "plain_steps": plain_steps,
+            "pure_forms_disagree_steps":
+                float(agree.max()) if len(agree) else 0.0}
+
+
 @torch.inference_mode()
-def check_exact(params, cfg, prompts, done) -> dict:
+def check_exact(params, cfg, prompts, done, routes=None) -> dict:
     """Each served token against the argmax of a dense, cache-free forward
     (``star=None``, K4) over the served prefix. The served path (batched
     chunk prefill with bf16 scores, K1 decode) and the forward (K4: fp32
@@ -770,31 +861,69 @@ def check_exact(params, cfg, prompts, done) -> dict:
     For a request with any other token, the same forward runs again with
     the plain dense form in K4's place: a token within PLAIN_TIE_STEPS of
     K4's top and TIE_STEPS of the plain form's is a tie too; anything
-    further fails. Each inexact token is reported with both gaps."""
+    further fails. Each inexact token is reported with both gaps.
+
+    With ``routes`` (a dropless MoE model's served choices per request,
+    ``served_routes``) each forward's sequence is padded to whole pages
+    (otherwise a prime length runs one-token chunks; padding leaves the
+    rows read unchanged when no choice drops), and three forwards run for
+    every request, each routing as the served path did
+    (``forced_routing``): K4's, the plain form's, and one that rounds as
+    the served path does (``hybrid_flash``). A flip (a served choice the
+    K4 forward's own top-k leaves out) must be a near-tie: at each layer,
+    its gap no larger than the largest gate-logit difference rounding
+    alone makes between the K4 and plain forwards at that layer. The
+    tokens are held by ``moe_token_rule``: a random-weight MoE (expert
+    weights at std sqrt(1/V), as the reference draws them) amplifies
+    rounding into gaps of several steps, so K4's top alone is no oracle
+    there."""
     dense = dataclasses.replace(cfg, star=None)
     dev = params["embed"].device
     n_exact = n_tie = 0
     inexact = []
+    layers = cfg.n_layers
+    flips = {"rows": 0, "flips": 0, "flips_per_layer": [0] * layers,
+             "max_gap": [0.0] * layers, "rounding": [0.0] * layers}
+    gate_logits = []
+    rows_all = []
+
+    def forward(rid, seq, tally=True):
+        if routes is None:
+            return lm.forward(params, dense, {"tokens": seq})
+        with forced_routing(routes[rid], layers, flips if tally else None,
+                            gate_logits):
+            return lm.forward(params, dense, {"tokens": seq})
     kernels.reset_launches()
     for rid, prompt in enumerate(prompts):
         toks = np.asarray(done[rid], np.int64)
-        seq = torch.as_tensor(
-            np.concatenate([prompt.astype(np.int64), toks[:-1]])[None],
-            device=dev)
+        seq = np.concatenate([prompt.astype(np.int64), toks[:-1]])
+        if routes is not None:
+            seq = bucketing.pad_tokens(seq, -(-len(seq) // 16) * 16)
+        seq = torch.as_tensor(seq[None], device=dev)
         served = torch.as_tensor(toks, device=dev)
-        rows = slice(len(prompt) - 1, None)
-        logits = lm.forward(params, dense, {"tokens": seq})[0, rows]
-        exact, steps = token_gaps(logits[:, :cfg.vocab].float(), served)
-        if bool(exact.all()):
+        rows = slice(len(prompt) - 1, len(prompt) - 1 + len(toks))
+        gate_logits.clear()
+        logits = forward(rid, seq)[0, rows][:, :cfg.vocab].float()
+        exact, steps = token_gaps(logits, served)
+        if bool(exact.all()) and routes is None:
             n_exact += len(toks)
             continue
         real = ops.flash
         ops.flash = plain_flash
         try:
-            plain = lm.forward(params, dense, {"tokens": seq})[0, rows]
+            plain = forward(rid, seq)[0, rows][:, :cfg.vocab].float()
         finally:
             ops.flash = real
-        _, plain_steps = token_gaps(plain[:, :cfg.vocab].float(), served)
+        if routes is not None:
+            ops.flash = hybrid_flash(len(prompt))
+            try:
+                hybrid = forward(rid, seq, tally=False)[0, rows]
+            finally:
+                ops.flash = real
+            rows_all.append((rid, hybrid[:, :cfg.vocab].float(), logits,
+                             plain, served))
+            continue
+        _, plain_steps = token_gaps(plain, served)
         tie = ~exact & ((steps <= TIE_STEPS) | (
             (steps <= PLAIN_TIE_STEPS) & (plain_steps <= TIE_STEPS)))
         for i in (~exact).nonzero().flatten().tolist():
@@ -807,12 +936,41 @@ def check_exact(params, cfg, prompts, done) -> dict:
                              f"tie of the dense forward: {inexact}")
         n_exact += int(exact.sum())
         n_tie += int(tie.sum())
+    disagree = None
+    if routes is not None:
+        rule = moe_token_rule(*(torch.cat([r[j] for r in rows_all])
+                                for j in (1, 2, 3, 4)))
+        disagree = rule["pure_forms_disagree_steps"]
+        owner = [(r[0], i) for r in rows_all for i in range(len(r[4]))]
+        for j in (~rule["exact"]).nonzero().flatten().tolist():
+            inexact.append({"request": owner[j][0], "token": owner[j][1],
+                            "steps": float(rule["steps"][j]),
+                            "k4_steps": float(rule["k4_steps"][j]),
+                            "plain_steps": float(rule["plain_steps"][j]),
+                            "tie": bool(rule["tie"][j])})
+        n_exact, n_tie = int(rule["exact"].sum()), int(rule["tie"].sum())
+        if bool((~rule["exact"] & ~rule["tie"]).any()):
+            raise SystemExit(f"served tokens beyond a bf16 tie of the "
+                             f"forward that rounds as served: {inexact}")
+        over = [layer for layer in range(layers)
+                if flips["max_gap"][layer] > flips["rounding"][layer]]
+        if over:
+            raise SystemExit(f"served routing beyond a gate tie of the "
+                             f"dense forward's at layers {over} (gap above "
+                             f"the gate-logit difference rounding makes "
+                             f"there): {flips}")
     return {"tokens_checked": n_exact + n_tie, "exact": n_exact,
-            "bf16_ties": n_tie, "tie_steps": TIE_STEPS,
+            "bf16_ties": n_tie,
+            "rule": "phase 4" if routes is None else "moe",
+            "tie_steps": TIE_STEPS,
             "plain_tie_steps": PLAIN_TIE_STEPS, "inexact": inexact,
             "forwards": len(prompts),
             "k4_launches": kernels.LAUNCHES["flash"],
-            "expected_k4_launches": len(prompts) * cfg.n_layers}
+            "expected_k4_launches": len(prompts) * cfg.n_layers
+            * (1 if routes is None else 2),
+            **({"routing_forced": flips,
+                "pure_forms_disagree_steps": disagree}
+               if routes is not None else {})}
 
 
 def main_path_llm(cfg, params, *, n_pages, hot_pages, past_pages,
@@ -1850,7 +2008,8 @@ def require_k4(summary: dict, tag: str) -> None:
     if summary["k4_launches"] != summary["expected_k4_launches"]:
         raise SystemExit(f"{tag}: K4 launched {summary['k4_launches']} "
                          f"times over {summary['forwards']} oracle "
-                         f"forwards; expected forwards x layers = "
+                         f"forwards; expected forwards x layers (x 2 for "
+                         f"an MoE's, K4's and the hybrid one) = "
                          f"{summary['expected_k4_launches']}")
 
 
@@ -2026,6 +2185,385 @@ def check_spatial(cfg, dev, gen, *, lengths=SPATIAL_PROMPTS,
     return {"served": served, "bounded": b_sum}
 
 
+# -- phases 14-15: the Mixture-of-Experts family ------------------------------
+
+def drop_summary(log: dict, n_layers: int, decode_rows: int) -> dict:
+    """Split ``record_routes``'s route calls: those over ``decode_rows``
+    tokens (a decode tick's batch) are decode's, the rest come in runs of
+    ``n_layers``, one run per prefill call. Returns each prefill's token
+    count and share of choices dropped, and decode's dropped choices."""
+    prefill = [c for c in log["routes"] if c[0] != decode_rows]
+    decode = [c for c in log["routes"] if c[0] == decode_rows]
+    runs = [prefill[i:i + n_layers] for i in range(0, len(prefill),
+                                                   n_layers)]
+    return {"prefill_tokens": [run[0][0] for run in runs],
+            "dropped_share_per_prefill": [
+                sum(int(c[2]) for c in run) / sum(c[3] for c in run)
+                for run in runs],
+            "decode_choices_dropped": sum(int(c[2]) for c in decode),
+            "decode_choices": sum(c[3] for c in decode)}
+
+
+def dropless(cfg):
+    """The config at dropless capacity (capacity_factor = experts / top_k:
+    cap > tokens a chunk, so no choice drops) and ``star=None``, the
+    exact-parity setting of an MoE model."""
+    return dataclasses.replace(cfg, star=None, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Within the block, wrap ``moe.route`` (the routing plan every MoE
+    layer serves from) and the model's entry points (``lm.prefill``,
+    ``lm.decode_step_paged``, ``lm.decode_step``), and yield their log:
+    per route call, the tokens routed (chunks x tokens a chunk), the
+    choices (eidx, one row per token) and the choices dropped, kept on
+    the device until read after the run (``drop_summary``,
+    ``served_routes``); per entry call, its token rows and their
+    positions."""
+    real = {"route": moe.route, "prefill": lm.prefill,
+            "decode_step_paged": lm.decode_step_paged,
+            "decode_step": lm.decode_step}
+    log = {"calls": [], "routes": []}
+
+    def route(x, *args, **kw):
+        plan = real["route"](x, *args, **kw)
+        log["routes"].append((
+            x.shape[0] * x.shape[1],
+            plan["eidx"].reshape(-1, plan["eidx"].shape[-1]),
+            (~plan["keep"]).sum(), plan["keep"].numel()))
+        return plan
+
+    def prefill(params, cfg, batch, **kw):
+        toks = batch["tokens"].cpu().numpy()
+        pos = np.broadcast_to(np.arange(toks.shape[1]), toks.shape)
+        log["calls"].append((toks, pos, len(log["routes"])))
+        return real["prefill"](params, cfg, batch, **kw)
+
+    def decode(name):
+        def call(params, cfg, tokens, cache, *args, **kw):
+            log["calls"].append((tokens.cpu().numpy(),
+                                 cache["lengths"].cpu().numpy()[:, None],
+                                 len(log["routes"])))
+            return real[name](params, cfg, tokens, cache, *args, **kw)
+        return call
+
+    moe.route, lm.prefill = route, prefill
+    lm.decode_step_paged = decode("decode_step_paged")
+    lm.decode_step = decode("decode_step")
+    try:
+        yield log
+    finally:
+        moe.route, lm.prefill = real["route"], real["prefill"]
+        lm.decode_step_paged = real["decode_step_paged"]
+        lm.decode_step = real["decode_step"]
+
+
+def served_routes(log: dict, prompts, done, cfg) -> list:
+    """Assemble from ``record_routes``'s log, per request, the served
+    path's choices at every position the oracle forward reads
+    (the prompt, then each decoded token fed back): int [P, layers, k].
+    A prefill row belongs to the request whose prompt it carries; a
+    decode row (position p, token x) to the request that decoded x at p.
+    Rows of the pool probe, of padding and of idle slots match none."""
+    n_layers, k = cfg.n_layers, cfg.moe.top_k
+    routes = [np.full((len(p) + len(d) - 1, n_layers, k), -1, np.int64)
+              for p, d in zip(prompts, done)]
+    filled = [np.zeros((len(p) + len(d) - 1,), bool)
+              for p, d in zip(prompts, done)]
+    for toks, pos, first in log["calls"]:
+        layers = [r[1].cpu().numpy() for r in
+                  log["routes"][first:first + n_layers]]
+        for b in range(toks.shape[0]):
+            for rid, (prompt, out) in enumerate(zip(prompts, done)):
+                n = len(prompt)
+                if toks.shape[1] > 1:      # a prefill row: the whole prompt
+                    if toks.shape[1] < n or \
+                            not np.array_equal(toks[b, :n], prompt):
+                        continue
+                    at = np.arange(n)
+                    rows = b * toks.shape[1] + at
+                else:                      # a decode row: one fed token
+                    p = int(pos[b, 0])
+                    if not (n <= p < n + len(out) - 1) or \
+                            toks[b, 0] != out[p - n]:
+                        continue
+                    at, rows = np.array([p]), np.array([b])
+                routes[rid][at] = np.stack([e[rows] for e in layers],
+                                           axis=-2)
+                filled[rid][at] = True
+    for rid, ok in enumerate(filled):
+        if not ok.all():
+            raise SystemExit(f"request {rid}: served routes missing at "
+                             f"positions {np.flatnonzero(~ok)[:8]}")
+    return routes
+
+
+@contextlib.contextmanager
+def forced_routing(routes, n_layers: int, tally: dict | None, store: list):
+    """Within the block, ``lm.forward`` routes its first P rows as
+    ``routes`` [P, layers, k] says (the served path's choices), weighted
+    by its own gate's probabilities of those experts, renormalised; later
+    rows (padding) route as its own gate does. A served choice the
+    forward's own top-k leaves out is a flip. A first forward (``store``
+    empty) keeps its gate logits in ``store``, and ``tally`` counts the
+    rows routed and the flips (also per layer) and keeps each layer's
+    largest gap: how far, in fp32 gate logits, the forward ranks a served
+    expert below its own k-th choice. A second forward over the same rows
+    (``store`` full) keeps in ``tally["rounding"]`` each layer's largest
+    difference of its gate logits from the first's: how far rounding
+    alone moves this model's gate there. With ``tally`` None the rows are
+    routed and nothing is kept."""
+    real = moe._gate
+    calls = [0]
+    compare = len(store) == n_layers
+
+    def gate(x, wg, cfg):
+        _, own, aux = real(x, wg, cfg)
+        layer = calls[0] % n_layers
+        calls[0] += 1
+        n, t, k = own.shape
+        logits = (x.float() @ wg.float()).reshape(n * t, -1)
+        forced = own.reshape(n * t, k).clone()
+        p = min(len(routes), n * t)
+        forced[:p] = torch.as_tensor(routes[:p, layer], device=x.device)
+        top_p = torch.softmax(logits, -1).gather(1, forced)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        if tally is None:
+            pass
+        elif compare:
+            tally["rounding"][layer] = max(tally["rounding"][layer], float(
+                (logits[:p] - store[layer]).abs().max()))
+        else:
+            store.append(logits[:p])
+            kth = logits.gather(1, own.reshape(n * t, k)).min(-1).values
+            gap = (kth[:p, None] - logits[:p].gather(1, forced[:p])
+                   ).clamp_min(0).max(-1).values
+            n_flips = int((gap > 0).sum())
+            tally["rows"] += p
+            tally["flips"] += n_flips
+            tally["flips_per_layer"][layer] += n_flips
+            tally["max_gap"][layer] = max(tally["max_gap"][layer],
+                                          float(gap.max()))
+        return (top_p.reshape(n, t, k), forced.reshape(n, t, k), aux)
+
+    moe._gate = gate
+    try:
+        yield
+    finally:
+        moe._gate = real
+
+
+MOE_RANGE, FFN_RANGE = "moe.apply", "moe.expert_ffn"
+
+
+def moe_device_share(fn, on_card: bool) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` with ranges around
+    ``moe.apply`` (gate, dispatch, expert FFN, combine) and its expert FFN
+    (the batched matmuls over every expert): the kernels' summed device
+    time, the time the device was busy, the kernels that took the most,
+    and each range's kernel time (``repro_torch.profiling``) and its share
+    of the summed time. Off the card there are no device kernels, and the
+    shares are None."""
+    from torch.profiler import ProfilerActivity, profile
+    ranges = {(moe, "apply"): MOE_RANGE, (moe, "expert_ffn"): FFN_RANGE}
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    with profiling.ranged(ranges), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    names = set(ranges.values())
+    device, busy, top = profiling.device_kernels(prof, names)
+    moe_ms, ffn_ms = (profiling.range_device_ms(prof, name, names)
+                      for name in (MOE_RANGE, FFN_RANGE))
+    share = (lambda ms: ms / device) if device > 0 else (lambda ms: None)
+    return {"wall_ms_profiled": wall, "device_ms": device,
+            "busy_ms": busy, "top_kernels_ms": {
+                k["name"]: k["device_ms"] for k in top[:8]},
+            "moe_device_ms": moe_ms, "expert_ffn_device_ms": ffn_ms,
+            "moe_share": share(moe_ms), "expert_ffn_share": share(ffn_ms)}
+
+
+def moe_shares(llm: LLM, params, cfg, prompt_len: int, decode_prompt: int,
+               on_card: bool) -> dict:
+    """The MoE's share of one decode tick (the backend's third decode step
+    while four requests are served) and of one ``prompt_len``-token
+    ``lm.prefill`` (STAR as configured). Bytes of every expert's weights
+    in one layer are what a decode tick's expert FFN must read per layer
+    at a batch this small."""
+    backend = llm.engine.backend
+    step = backend.decode_step
+    out = {}
+
+    def third(*args, **kw):
+        third.n += 1
+        if third.n != 3:
+            return step(*args, **kw)
+        res = {}
+        out["decode"] = moe_device_share(
+            lambda: res.setdefault("v", step(*args, **kw)), on_card)
+        return res["v"]
+    third.n = 0
+    backend.decode_step = third
+    try:
+        serve(llm, make_prompts(cfg, (decode_prompt,) * 4, SEED + 14), 6)
+    finally:
+        backend.decode_step = step
+    llm.clear_finished()
+    toks = torch.as_tensor(
+        make_prompts(cfg, (prompt_len,), SEED + 15)[0][None],
+        device=params["embed"].device)
+    out["prefill"] = moe_device_share(
+        lambda: lm.prefill(params, cfg, {"tokens": toks}), on_card)
+    out["prefill"]["tokens"] = prompt_len
+    ffn = params["blocks"]["b0"]["ffn"]
+    out["decode"]["expert_weight_bytes"] = cfg.n_layers * sum(
+        ffn[k][0].numel() * ffn[k].element_size()
+        for k in ("w1", "w2", "w3") if k in ffn)
+    return out
+
+
+def check_olmoe(cfg, dev, gen, *, lengths=OLMOE_PROMPTS,
+                max_tokens=OLMOE_MAX_TOKENS, main_lengths=MAIN_PROMPTS,
+                main_tokens=MAIN_MAX_TOKENS, n_pages_main=1024,
+                hot_main=64) -> dict:
+    """Phase 14: OLMoE-1B-7B at full width and depth (see the module
+    docstring): (a) STAR, reference capacity, whole-prompt prefill; (b)
+    dropless ``star=None`` against K4 forwards; (c) the dense slot engine,
+    dropless; (d) the chunked-prefill main path at the reference's
+    capacity; the MoE's share of a decode tick and of the longest
+    prefill. Returns each run's summary."""
+    on_card = torch.device(dev).type == "cuda"
+    params, info = init_params(cfg, gen, dev)
+    emit("olmoe_init", dtype=str(cfg.dtype), **info)
+    prompts = make_prompts(cfg, lengths, SEED + 11)
+    exact_cfg = dropless(cfg)
+    warm_prefill(params, cfg, lengths[0])
+    warm_prefill(params, exact_cfg, lengths[0])
+    n_pages = 2 * -(-(sum(lengths) + len(lengths) * max_tokens) // 16)
+    with record_routes() as log:
+        llm, run, star = serve_whole_prompt(cfg, params, prompts,
+                                            max_tokens, device=dev,
+                                            generator=gen, n_pages=n_pages)
+    star.update(drop_summary(log, cfg.n_layers, 4))
+    star.update(check_first_tokens(params, cfg, prompts, run["done"],
+                                   llm.engine.backend.pcfg.bucket_pow2))
+    emit("olmoe_served", attention="star",
+         capacity_factor=cfg.moe.capacity_factor, **star)
+    require_launches(star, "OLMoE-1B-7B served")
+    require_prefill_launches(star, "OLMoE-1B-7B served")
+    del llm
+    free_cache(dev)
+
+    with record_routes() as log:
+        llm, run, exact_run = serve_whole_prompt(
+            exact_cfg, params, prompts, max_tokens, device=dev,
+            generator=gen, n_pages=n_pages)
+    routes = served_routes(log, prompts, run["done"], exact_cfg)
+    exact_run.update(drop_summary(log, cfg.n_layers, 4))
+    del llm
+    free_cache(dev)
+    require_launches(exact_run, "OLMoE-1B-7B served, dropless")
+    require_prefill_launches(exact_run, "OLMoE-1B-7B served, dropless")
+    require_dropless(exact_run, "OLMoE-1B-7B served, dropless")
+    exact_run.update(check_exact(params, exact_cfg, prompts, run["done"],
+                                 routes=routes))
+    emit("olmoe_served", attention="dense",
+         capacity_factor=exact_cfg.moe.capacity_factor, **exact_run)
+    require_k4(exact_run, "OLMoE-1B-7B exactness")
+
+    with record_routes() as log:
+        done, dense_run = serve_dense(exact_cfg, params, prompts,
+                                      max_tokens, device=dev, generator=gen)
+    routes = served_routes(log, prompts, done, exact_cfg)
+    require_dense_launches(dense_run, "OLMoE-1B-7B dense engine")
+    dense_run.update(check_exact(params, exact_cfg, prompts, done,
+                                 routes=routes))
+    dense_run["tokens_equal_paged"] = sum(
+        a == b for x, y in zip(done, run["done"]) for a, b in zip(x, y))
+    emit("olmoe_dense_engine", **dense_run)
+    require_k4(dense_run, "OLMoE-1B-7B dense engine exactness")
+    free_cache(dev)
+
+    main_llm = main_path_llm(cfg, params, n_pages=n_pages_main,
+                             hot_pages=hot_main, past_pages=hot_main,
+                             device=dev, generator=gen)
+    serve(main_llm, make_prompts(cfg, (128,), SEED + 1), 2)
+    main_llm.clear_finished()
+    with record_routes() as log:
+        main_run = serve(main_llm, make_prompts(cfg, main_lengths,
+                                                SEED + 12), main_tokens)
+    main = served_summary(main_run, cfg.n_layers)
+    main.update(drop_summary(log, cfg.n_layers, 4))
+    emit("olmoe_main_path", capacity_factor=cfg.moe.capacity_factor, **main)
+    require_launches(main, "OLMoE-1B-7B main path")
+    shares = moe_shares(main_llm, params, cfg, max(lengths),
+                        main_lengths[0], on_card)
+    emit("olmoe_moe_share", **shares)
+    del main_llm, params
+    free_cache(dev)
+    return {"star": star, "exact": exact_run, "dense": dense_run,
+            "main": main, "shares": shares}
+
+
+def require_dropless(summary: dict, tag: str) -> None:
+    dropped = sum(summary["dropped_share_per_prefill"]) \
+        + summary["decode_choices_dropped"]
+    if dropped:
+        raise SystemExit(f"{tag}: choices dropped at dropless capacity: "
+                         f"{summary['dropped_share_per_prefill']}, decode "
+                         f"{summary['decode_choices_dropped']}")
+
+
+def check_grok(cfg, dev, gen, *, layers=GROK_LAYERS, prompt_len=GROK_PROMPT,
+               max_tokens=GROK_MAX_TOKENS) -> dict:
+    """Phase 15: Grok-1 at its published width with its depth cut to
+    ``layers``: one ``prompt_len``-token prompt served whole through the
+    paged engine with STAR on at the reference's capacity (K1 at R = 6,
+    K2/K3 at BH 48; the first token against a STAR forward), then
+    dropless with ``star=None`` (every token by phase 4's rule)."""
+    published = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    params, info = init_params(cfg, gen, dev)
+    emit("grok_init", dtype=str(cfg.dtype), layers=layers,
+         reduced=f"n_layers {layers} of {published}",
+         group=cfg.n_heads // cfg.n_kv, **info)
+    prompts = make_prompts(cfg, (prompt_len,), SEED + 13)
+    exact_cfg = dropless(cfg)
+    warm_prefill(params, cfg, prompt_len)
+    warm_prefill(params, exact_cfg, prompt_len)
+    out = {}
+    for key, c in (("star", cfg), ("exact", exact_cfg)):
+        with record_routes() as log:
+            llm, run, summary = serve_whole_prompt(c, params, prompts,
+                                                   max_tokens, device=dev,
+                                                   generator=gen)
+        summary.update(drop_summary(log, cfg.n_layers, 4))
+        pow2 = llm.engine.backend.pcfg.bucket_pow2
+        del llm
+        require_launches(summary, f"Grok-1 {key}")
+        require_prefill_launches(summary, f"Grok-1 {key}")
+        if key == "star":
+            summary.update(check_first_tokens(params, c, prompts,
+                                              run["done"], pow2))
+        else:
+            require_dropless(summary, "Grok-1 dropless")
+            summary.update(check_exact(params, c, prompts, run["done"],
+                                       routes=served_routes(
+                                           log, prompts, run["done"], c)))
+            require_k4(summary, "Grok-1 exactness")
+        emit("grok_served", attention=key, layers=layers,
+             capacity_factor=c.moe.capacity_factor, **summary)
+        out[key] = summary
+    del params
+    free_cache(dev)
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 
 def demangle(mangled: str) -> str:
@@ -2118,6 +2656,14 @@ def main() -> int:
                           seed=5, timed=True)
               for form, check in (("fp", check_paged_kernel),
                                   ("int8", check_paged_int8))}
+    # Grok-1's group (G 8, R 6) at phase 15's decode shape
+    grok_w = -(-(GROK_PROMPT + GROK_MAX_TOKENS) // 16) + 1
+    k1_r6 = {form: check(dev, f"grok_decode_{form}", b=1, g=8, r=6, d=128,
+                         page=16, w=grok_w, p=256,
+                         kv_len=(GROK_PROMPT + GROK_MAX_TOKENS,), seed=9,
+                         timed=True)
+             for form, check in (("fp", check_paged_kernel),
+                                 ("int8", check_paged_int8))}
     # K1's (m, l, o) form: phase 13's decode shape (4 shards, the three
     # requests at their last tick and an idle slot; W covers each shard's
     # pages) and ChatGLM3-6B's group, both lanes, timed; a shard with no
@@ -2243,6 +2789,12 @@ def main() -> int:
     # shards on the card; K1's (m, l, o) form on every decode layer
     spatial = check_spatial(olmo_1b.config(), dev, gen)
 
+    # 14. OLMoE-1B-7B at full width and depth: the MoE FFN in every layer
+    olmoe = check_olmoe(olmoe_1b_7b.config(), dev, gen)
+
+    # 15. Grok-1 at its published width, 2 of 64 layers: K1 at R = 6
+    grok = check_grok(grok_1_314b.config(), dev, gen)
+
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
@@ -2270,6 +2822,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         line("paged_decode", "paged_decode.cu",
              "src/repro/kernels/paged.py:67", main["k1_launches"], k1,
+             launches_olmoe_main_path=olmoe["main"]["k1_launches"],
              max_abs_err_gqa=gqa["max_abs_err"], n_split=k1["n_split"],
              ms_w130=k1_w130["ms"], bound_ms_w130=k1_w130["bound_ms"],
              plain_ms_w130=k1_w130["plain_ms"],
@@ -2295,12 +2848,14 @@ def main() -> int:
              + disagg["tier_read"]["int8_slots_read_decode_side"]),
         line("dlzs_block", "dlzs_block.cu", "src/repro/kernels/dlzs.py:65",
              whole["dlzs_block_launches"], tiles["dlzs_block"],
+             launches_olmoe=olmoe["star"]["dlzs_block_launches"],
              form=tiles["dlzs_block"]["form"],
              launches_by_form=forms("dlzs_block"),
              ms_noncausal=tiles["dlzs_block_noncausal"]["ms"],
              bound_ms_noncausal=tiles["dlzs_block_noncausal"]["bound_ms"]),
         line("sufa", "sufa.cu", "src/repro/kernels/sufa.py:72",
              whole["sufa_launches"], tiles["sufa"],
+             launches_olmoe=olmoe["star"]["sufa_launches"],
              form=tiles["sufa"]["form"], launches_by_form=forms("sufa"),
              ms_fast_path=tiles["sufa_fast"]["ms"],
              ms_fast_path_repeat=tiles["sufa_fast"]["ms_repeat"],
@@ -2309,7 +2864,8 @@ def main() -> int:
              gathered_bytes_not_moved=tiles["sufa"][
                  "gathered_bytes_not_moved"]),
         line("flash", "flash.cu", "src/repro/kernels/flash.py:67",
-             exact["k4_launches"], tiles["flash"]),
+             exact["k4_launches"], tiles["flash"],
+             launches_olmoe_oracle=olmoe["exact"]["k4_launches"]),
         # K1 at ChatGLM3-6B's group (R = 16): phase 10a's served path;
         # its int8 form timed beside it (no served path reads the tier
         # at this group)
@@ -2322,6 +2878,12 @@ def main() -> int:
              cut["starcoder2_15b"]["star"]["k1_launches"], k1_r12["fp"],
              launches_from="phase 12, StarCoder2-15B served",
              **int8_keys(k1_r12["int8"])),
+        # K1 at Grok-1's group (R = 6): phase 15's served path
+        line("paged_decode/r6", "paged_decode.cu",
+             "src/repro/kernels/paged.py:67", grok["star"]["k1_launches"],
+             k1_r6["fp"], launches_from="phase 15, Grok-1 served",
+             launches_dropless=grok["exact"]["k1_launches"],
+             n_split=k1_r6["fp"]["n_split"], **int8_keys(k1_r6["int8"])),
         # K3's element mask (its mma.sync form): phase 12's star_paper run
         # with STARConfig(elementwise=True)
         line("sufa/elementwise", "sufa.cu", "src/repro/kernels/sufa.py:72",

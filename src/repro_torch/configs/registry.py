@@ -7,10 +7,10 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ("olmo_1b", "chatglm3_6b", "starcoder2_15b", "star_paper",
-         "nemotron_4_340b")
+         "nemotron_4_340b", "olmoe_1b_7b", "grok_1_314b")
 NOT_YET_PORTED = (
-    "grok_1_314b", "olmoe_1b_7b", "xlstm_125m", "seamless_m4t_large_v2",
-    "jamba_1_5_large_398b", "internvl2_26b",
+    "xlstm_125m", "seamless_m4t_large_v2", "jamba_1_5_large_398b",
+    "internvl2_26b",
 )
 
 

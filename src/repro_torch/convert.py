@@ -17,11 +17,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.star_attention import STARConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 from repro_torch.tree import tree_map
 
 # reference ModelCfg fields whose non-default values need unported code
-_UNPORTED_FIELDS = {"moe": None, "mamba": None, "xlstm_heads": 0,
+_UNPORTED_FIELDS = {"mamba": None, "xlstm_heads": 0,
                     "enc_layers": 0, "embeds_input": False,
                     "star_train": False}
 
@@ -65,6 +65,14 @@ def torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, np.dtype(dtype).name)
 
 
+def moe_cfg_from_reference(cfg) -> moe.MoECfg:
+    """The port's ``MoECfg`` for a reference ``repro.models.moe.MoECfg``,
+    field for field, its dtype as the torch dtype of the same name."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["dtype"] = torch_dtype(fields["dtype"])
+    return moe.MoECfg(**fields)
+
+
 def model_cfg_from_reference(cfg) -> lm.ModelCfg:
     """The port's ``ModelCfg`` for a reference ``repro.models.lm.ModelCfg``
     (any dataclass with its field names). Raises NotImplementedError for
@@ -81,6 +89,8 @@ def model_cfg_from_reference(cfg) -> lm.ModelCfg:
                            for b in fields["pattern"])
     if fields["star"] is not None:
         out["star"] = STARConfig(**dataclasses.asdict(fields["star"]))
+    if fields.get("moe") is not None:
+        out["moe"] = moe_cfg_from_reference(fields["moe"])
     out["dtype"] = torch_dtype(fields["dtype"])
     port = lm.ModelCfg(**out)
     lm.check_supported(port)

@@ -722,17 +722,18 @@ Int8Tier tier_of(const void* codes, const void* scale, const void* qmask,
 
 }  // namespace
 
-// (D, R) pairs with R*D <= 1024, and the GQA groups of ChatGLM3-6B (128,
-// 16) and StarCoder2-15B (128, 12), whose P·V reduction still fits the
-// ring (pass 2's static_assert); the Python wrapper checks the pair, the
-// shapes and the strides before calling, and allocates ws: B·G·R·(n_split·
-// (D + 2) + W·page) floats.
+// (D, R) pairs with R*D <= 1024 (Grok-1's group of 6 among them), and the
+// GQA groups of ChatGLM3-6B (128, 16) and StarCoder2-15B (128, 12), whose
+// P·V reduction still fits the ring (pass 2's static_assert); the Python
+// wrapper checks the pair, the shapes and the strides before calling, and
+// allocates ws: B·G·R·(n_split·(D + 2) + W·page) floats.
 #define PAGED_CASES(Q, ST)                                                    \
   PAGED_CASE(64, 1, Q, ST) PAGED_CASE(64, 2, Q, ST) PAGED_CASE(64, 4, Q, ST)  \
   PAGED_CASE(64, 8, Q, ST) PAGED_CASE(64, 16, Q, ST)                          \
   PAGED_CASE(128, 1, Q, ST) PAGED_CASE(128, 2, Q, ST)                         \
-  PAGED_CASE(128, 4, Q, ST) PAGED_CASE(128, 8, Q, ST)                         \
-  PAGED_CASE(128, 12, Q, ST) PAGED_CASE(128, 16, Q, ST)                       \
+  PAGED_CASE(128, 4, Q, ST) PAGED_CASE(128, 6, Q, ST)                         \
+  PAGED_CASE(128, 8, Q, ST) PAGED_CASE(128, 12, Q, ST)                        \
+  PAGED_CASE(128, 16, Q, ST)                                                  \
   PAGED_CASE(256, 1, Q, ST) PAGED_CASE(256, 2, Q, ST)                         \
   PAGED_CASE(256, 4, Q, ST)
 #define PAGED_CASE(DD, RR, Q, ST)                                             \

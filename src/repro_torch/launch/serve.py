@@ -35,6 +35,11 @@ configs by default; ``--full`` serves the published shapes with random
 weights from seed 0, e.g. on one H100:
 
     python -m repro_torch.launch.serve --arch chatglm3_6b --full
+    python -m repro_torch.launch.serve --arch olmoe_1b_7b --full
+
+An arch whose weights cannot fit one card keeps its widths and takes a
+depth cut under ``--full`` (``FULL_DEPTH_CUT``: Grok-1 serves 2 of its 64
+layers).
 
 The paged engine's prefill chunks are whole STAR q-tiles: the scheduler's
 default of 4 pages is rounded up to a multiple of the config's
@@ -56,6 +61,23 @@ import sys
 import time
 
 SLA_CYCLE = ("interactive", "standard", "batch")
+# published depth cut to this many layers under --full (weights beyond one
+# card): Grok-1's 64 layers are 314 B parameters; 2 of them are 11.5 B
+FULL_DEPTH_CUT = {"grok_1_314b": 2}
+
+
+def model_config(arch: str, full: bool):
+    """The arch's smoke config, or under ``full`` its published one with
+    ``FULL_DEPTH_CUT``'s depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    if not full:
+        return get_smoke_config(arch)
+    cfg = get_config(arch)
+    if arch in FULL_DEPTH_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=FULL_DEPTH_CUT[arch])
+    return cfg
 
 
 def _parse_args(argv=None):
@@ -135,7 +157,7 @@ def main(argv=None) -> dict:
     import torch
 
     from repro_torch import obs
-    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.configs import ARCHS
     from repro_torch.device import resolve_device
     from repro_torch.models import lm
     from repro_torch.serving import (LLM, AdmissionCfg, DisaggRouter,
@@ -149,7 +171,7 @@ def main(argv=None) -> dict:
         raise SystemExit("--disagg needs a pool-backed engine "
                          "(paged/spatial)")
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    cfg = model_config(args.arch, args.full)
     if args.engine == "spatial" and cfg.star is not None:
         cfg = dataclasses.replace(cfg, star=None)
     gen = torch.Generator(device=dev)

@@ -1,7 +1,7 @@
-"""Attention-only causal decoder LM: prefill, chunked paged prefill, paged
-decode, dense-cache decode and the spatial (sequence-sharded) chunk
-prefills, decode and audit probe. PyTorch port of the attention-only
-subset of ``repro.models.lm``.
+"""Causal decoder LM with attention blocks and a dense or MoE FFN:
+prefill, chunked paged prefill, paged decode, dense-cache decode and the
+spatial (sequence-sharded) chunk prefills, decode and audit probe.
+PyTorch port of the attention-block subset of ``repro.models.lm``.
 
 Parameters are nested dicts with the reference's keys; each super-block
 leaf is stacked on a leading layer axis exactly like the reference's
@@ -9,9 +9,11 @@ vmapped init (``blocks.b0.core.wq`` is [L, H, nh, dh]), so the converter
 maps leaves one to one. The layer loop is a Python loop over that axis
 (the reference's ``lax.scan``).
 
-Block kinds other than attention with a dense FFN, encoder-decoder models
-and embedding frontends raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Block kinds other than attention (SSM, xLSTM), cross-attention,
+encoder-decoder models and embedding frontends raise
+``NotImplementedError`` naming the ROADMAP item that ports them. An MoE
+block's load-balance loss is computed by ``moe.apply`` and dropped here:
+nothing on the serving path uses it.
 """
 
 from __future__ import annotations
@@ -23,16 +25,16 @@ import torch
 
 from repro_torch.core.star_attention import STARConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, moe
 
-UNPORTED_FAMILIES = ("ROADMAP §1 item 4 (other model families: MoE, SSM, "
-                     "xLSTM, cross-attention, encoder-decoder)")
+UNPORTED_FAMILIES = ("ROADMAP §1 item 4 (other model families: SSM, "
+                     "xLSTM, cross-attention and encoder-decoder, embeds)")
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
     kind: str              # attn (mamba | mlstm | slstm: not ported yet)
-    ffn: str = "dense"     # dense | none (moe: not ported yet)
+    ffn: str = "dense"     # dense | moe | none
     cross_attn: bool = False
 
 
@@ -53,6 +55,7 @@ class ModelCfg:
     rope_theta: float = 1e4
     qkv_bias: bool = False
     head_dim: Optional[int] = None
+    moe: Optional[moe.MoECfg] = None
     star: Optional[STARConfig] = None   # serving-time sparse attention
     star_chunk_sparse: bool = False     # DLZS page selection inside later
     #                                     prefill chunks (approximate)
@@ -91,10 +94,12 @@ class ModelCfg:
 
 def check_supported(cfg: ModelCfg) -> None:
     for blk in cfg.pattern:
-        if blk.kind != "attn" or blk.ffn not in ("dense", "none") \
+        if blk.kind != "attn" or blk.ffn not in ("dense", "moe", "none") \
                 or blk.cross_attn:
             raise NotImplementedError(
                 f"block {blk} is not ported yet: {UNPORTED_FAMILIES}")
+        if blk.ffn == "moe" and cfg.moe is None:
+            raise ValueError(f"{cfg.name}: an moe block needs ModelCfg.moe")
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +127,9 @@ def init(cfg: ModelCfg, generator: torch.Generator, device=None):
                                     n_layers=L)}
         if blk.ffn != "none":
             b["norm2"] = _stack_norm(cfg, L, dev)
-            b["ffn"] = mlp.init(generator, cfg.mlp_cfg(), dev, n_layers=L)
+            b["ffn"] = moe.init(generator, cfg.moe, dev, n_layers=L) \
+                if blk.ffn == "moe" else \
+                mlp.init(generator, cfg.mlp_cfg(), dev, n_layers=L)
         blocks[f"b{i}"] = b
     p["blocks"] = blocks
     return p
@@ -184,7 +191,11 @@ def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
     x = x + y
     if blk.ffn != "none":
         h2 = common.norm_apply(cfg.norm, params["norm2"], x)
-        x = x + mlp.apply(params["ffn"], cfg.mlp_cfg(), h2)
+        if blk.ffn == "moe":
+            y2, _ = moe.apply(params["ffn"], cfg.moe, h2)
+        else:
+            y2 = mlp.apply(params["ffn"], cfg.mlp_cfg(), h2)
+        x = x + y2
     return x, new_cache
 
 

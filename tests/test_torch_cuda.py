@@ -175,13 +175,16 @@ def test_paged_decode_int8_lane_matches_plain(cuda_device, mode, b, g, r, d,
 @pytest.mark.parametrize("b,g,r,w,kv_len", [
     (3, 2, 16, 258, [1040, 2064, 4112]),   # ChatGLM3-6B's served decode
     (1, 4, 12, 130, [2064]),               # StarCoder2-15B's
+    (1, 8, 6, 130, [2064]),                # Grok-1's
     (4, 2, 16, 9, [140, 17, 0, 1]),
-    (3, 4, 12, 16, [256, 201, 37])])
+    (3, 4, 12, 16, [256, 201, 37]),
+    (3, 8, 6, 16, [256, 0, 37])])
 def test_paged_decode_wide_gqa_groups(cuda_device, quant, b, g, r, w,
                                       kv_len):
-    """K1 at the GQA groups of ChatGLM3-6B (R = 16) and StarCoder2-15B
-    (R = 12, not a power of two), fp and int8 forms, against its plain
-    version, bf16 at 2e-2; two calls bit-equal; one counted launch each."""
+    """K1 at the GQA groups of ChatGLM3-6B (R = 16), StarCoder2-15B
+    (R = 12) and Grok-1 (R = 6; neither a power of two), fp and int8
+    forms, against its plain version, bf16 at 2e-2; two calls bit-equal;
+    one counted launch each."""
     args = _k1_inputs(b, g, r, 128, w, kv_len, seed=r + w,
                       device=cuda_device)
     tier = _k1_tier(args[1], args[2], args[3], "mixed", seed=b + r) \
@@ -284,6 +287,7 @@ def _k1_sharded_tier(k, phys, seed):
     (4, 4, 16, 1, [1040, 1552, 2064, 2064], None),  # chip_smoke phase 13
     (4, 4, 16, 1, [1040, 1552, 2064, 33], 2),       # a shard with no row
     (2, 3, 2, 16, [1040, 2064, 17], None),          # ChatGLM3-6B's group
+    (2, 1, 8, 6, [2064], None),                     # Grok-1's group
     (4, 2, 2, 16, [300, 5], 3)])
 def test_paged_decode_stats_matches_plain(cuda_device, quant, n_sh, b, g, r,
                                           kv_len, empty):

@@ -14,13 +14,14 @@ torch = pytest.importorskip("torch")
 # keep the remaining cores.
 torch.set_num_threads(1)
 
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
 SMALL = ["--device", "cpu", "--requests", "3", "--prompt-len", "16",
          "--max-tokens", "5"]
 
 
-@pytest.mark.parametrize("arch", ["olmo_1b", "chatglm3_6b"])
+@pytest.mark.parametrize("arch", ["olmo_1b", "chatglm3_6b", "olmoe_1b_7b"])
 @pytest.mark.parametrize("mode", [["--engine", "dense"],
                                   ["--engine", "paged"], ["--disagg"]],
                          ids=["dense", "paged", "disagg"])
@@ -61,11 +62,31 @@ def test_launcher_without_telemetry_ignores_trace(capsys, tmp_path):
     assert not (tmp_path / "t.json").exists()
 
 
+def test_launcher_cuts_depth(capsys):
+    """Under ``--full`` Grok-1 keeps its published widths and takes its
+    depth cut to 2 layers, its weights being beyond one card; OLMoE keeps
+    its full depth, and smoke configs are served as they are (Grok-1's
+    through the launcher)."""
+    rep = serve.main(["--arch", "grok_1_314b", *SMALL])
+    assert all(len(t) == 5 for t in rep["tokens_by_request"])
+    assert capsys.readouterr().out.startswith(
+        "[serve] grok_1_314b (smoke, paged, cpu): 3 requests")
+    grok = serve.model_config("grok_1_314b", full=True)
+    published = get_config("grok_1_314b")
+    assert serve.FULL_DEPTH_CUT == {"grok_1_314b": 2}
+    assert grok.n_layers == 2 and published.n_layers == 64
+    assert grok == dataclasses.replace(published, n_layers=2)
+    assert serve.model_config("olmoe_1b_7b", full=True) \
+        == get_config("olmoe_1b_7b")
+    assert serve.model_config("grok_1_314b", full=False) \
+        == get_smoke_config("grok_1_314b")
+
+
 def test_launcher_refusals(monkeypatch):
     with pytest.raises(SystemExit, match="pool-backed"):
         serve.main(["--engine", "dense", "--disagg", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown or unported"):
-        serve.main(["--arch", "olmoe_1b_7b", "--device", "cpu"])
+        serve.main(["--arch", "jamba_1_5_large_398b", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "olmo_1b"])

@@ -156,9 +156,9 @@ def test_converter_round_trip(models, dtype):
 
 
 def test_converter_rejects_unported_families():
-    moe = get_smoke_config("olmoe_1b_7b")
+    ssm = get_smoke_config("jamba_1_5_large_398b")
     with pytest.raises(NotImplementedError, match="not ported"):
-        convert.model_cfg_from_reference(moe)
+        convert.model_cfg_from_reference(ssm)
 
 
 def test_port_init_matches_reference_tree():

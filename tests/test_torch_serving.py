@@ -250,12 +250,14 @@ def test_from_config_serves_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pattern=(tlm.BlockCfg("attn", "moe"),)), "ROADMAP"),
+    (dict(pattern=(tlm.BlockCfg("mamba", "dense"),)), "ROADMAP"),
 ])
 def test_unported_options_raise(kw, match):
     """What is still unported raises, naming its ROADMAP item: here a
-    model family (an MoE block); the spatial backend, this test's case
-    before, now serves (``test_from_config_serves_the_spatial_backend``)."""
+    model family (an SSM block); the spatial backend and the MoE block,
+    this test's cases before, now serve
+    (``test_from_config_serves_the_spatial_backend``,
+    ``tests/test_torch_moe.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         LLM.from_config(dataclasses.replace(tsmoke("olmo_1b"), **kw),
                         device="cpu")
@@ -324,7 +326,7 @@ def test_from_config_serves_the_int8_tier():
 def test_registry_names_unported_archs():
     assert get_config("olmo_1b").d_model == 2048
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("olmoe_1b_7b")
+        get_config("jamba_1_5_large_398b")
 
 
 def test_no_gpu_means_no_cpu_fallback(monkeypatch):
@@ -539,6 +541,104 @@ def test_chip_smoke_model_phases_rehearse_on_cpu(monkeypatch):
     k3 = cs.check_sufa("cpu", None, bh=32, t=256, block=128, strict=False,
                        seed=2, timed=False, elementwise=True)
     assert k3["BH"] == 32 and k3["form"] == "mma_sync"
+
+
+def test_chip_smoke_moe_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 14-15 on the CPU at smoke size: OLMoE's smoke config served
+    with STAR at the reference's capacity (first tokens equal a STAR
+    forward's; the dropped share read per prefill), dropless with
+    ``star=None`` through the paged and the dense engines (every token the
+    dense argmax or a bf16 tie; nothing dropped), the chunked main path,
+    and the MoE-share profile's control flow (no device time here); then
+    Grok's smoke config at one layer. The launch checks, which the CPU
+    cannot meet, are recorded instead of run."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    held = []
+    for name in ("require_launches", "require_prefill_launches",
+                 "require_k4", "require_dense_launches"):
+        monkeypatch.setattr(cs, name, lambda summary, tag, name=name:
+                            held.append((name, tag, summary)))
+    gen = torch.Generator().manual_seed(0)
+    cfg = tsmoke("olmoe_1b_7b")
+    olmoe = cs.check_olmoe(cfg, "cpu", gen, lengths=(32, 64, 48),
+                           max_tokens=4, main_lengths=(40, 57, 33, 70),
+                           main_tokens=4, n_pages_main=64, hot_main=8)
+    star, exact = olmoe["star"], olmoe["exact"]
+    assert star["first_tokens_checked"] == 3
+    assert star["exact"] + star["bf16_ties"] == 3
+    # the pool probe (one page) and the three prompts, bucketed
+    assert star["prefill_tokens"] == [16, 32, 64, 64]
+    assert len(star["dropped_share_per_prefill"]) == 4
+    assert exact["dropped_share_per_prefill"] == [0.0] * 4
+    assert exact["decode_choices_dropped"] == 0
+    for run in (exact, olmoe["dense"]):
+        assert run["tokens_checked"] == 12
+        assert run["exact"] + run["bf16_ties"] == 12
+    main = olmoe["main"]
+    assert main["requests"] == 4 and main["tokens"] == 16
+    assert main["decode_choices"] > 0 and main["prefill_tokens"]
+    shares = olmoe["shares"]
+    assert shares["prefill"]["tokens"] == 64
+    assert shares["decode"]["moe_share"] is None
+    # 2 layers x (w1, w2, w3) of 16 virtual experts [64, 16]
+    assert shares["decode"]["expert_weight_bytes"] == 2 * 3 * 16 * 64 * 16 * 2
+    with pytest.raises(SystemExit, match="dropped at dropless"):
+        cs.require_dropless(star, "cpu")
+    grok = cs.check_grok(tsmoke("grok_1_314b"), "cpu", gen, layers=1,
+                         prompt_len=64, max_tokens=3)
+    assert grok["star"]["first_tokens_checked"] == 1
+    assert grok["exact"]["tokens_checked"] == 3
+    assert grok["star"]["expected_launches"] == grok["star"]["decode_ticks"]
+    assert {name for name, _, _ in held} == {
+        "require_launches", "require_prefill_launches", "require_k4",
+        "require_dense_launches"}
+    # phase 2's K1 check at Grok's group (plain against plain here)
+    k1 = cs.check_paged_kernel("cpu", "rehearsal_r6", b=1, g=8, r=6, d=128,
+                               page=16, w=9, p=16, kv_len=(130,), seed=9,
+                               timed=False)
+    assert k1["violations"] == 0 and k1["shape"] == [1, 8, 6, 128]
+
+
+def test_chip_smoke_moe_token_rule(monkeypatch):
+    """``chip_smoke.moe_token_rule`` on crafted logits (top 1.0, so one
+    bf16 step is 1/128): phase 4's rule with the forward that rounds as
+    served in K4's place. A token 40 steps below its top (80 below K4's)
+    fails; 1 step below is a tie; 2 below is a tie only where a pure form
+    puts it within 1 of its own top; 3 below fails although both pure
+    forms' argmax is the token. The pure forms' disagreement is read on
+    the row where both agree with the served token (margins of 3 and 5
+    steps over the plain runner-up: 2)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    assert (cs.TIE_STEPS, cs.PLAIN_TIE_STEPS) == (1, 2)
+    step = 1 / 128
+
+    def logits(gap, runner=None):
+        """Token 2 served ``gap`` steps below token 0 (above it where
+        negative); or, with ``runner``, token 0 served and token 1 the
+        runner-up ``runner`` steps below."""
+        x = torch.full((8,), -4.0)
+        x[0] = 1.0
+        if runner is not None:
+            x[1] = 1.0 - runner * step
+        elif gap < 0:
+            x[0], x[2] = 1.0 + gap * step, 1.0
+        else:
+            x[2] = 1.0 - gap * step
+        return x
+    rows = [  # (hybrid, K4, plain) gaps
+        ((None, 4), (None, 3), (None, 5)), (40, 80, 40), (1, 6, 5),
+        (2, 6, 1), (2, 4, 3), (3, -1, -1)]
+    hybrid, k4, plain = (torch.stack([
+        logits(r[j]) if not isinstance(r[j], tuple) else logits(*r[j])
+        for r in rows]) for j in range(3))
+    served = torch.tensor([0, 2, 2, 2, 2, 2])
+    rule = cs.moe_token_rule(hybrid, k4, plain, served)
+    assert rule["exact"].tolist() == [True] + [False] * 5
+    assert rule["tie"].tolist() == [False, False, True, True, False, False]
+    assert rule["steps"].tolist() == [0.0, 40.0, 1.0, 2.0, 2.0, 3.0]
+    assert rule["pure_forms_disagree_steps"] == 2.0
 
 
 def _run_smoke(cwd):

@@ -5,6 +5,7 @@ a GPU.
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 tools/torch_profile_prefill.py [--arch chatglm3_6b] [--tokens 4096]
+    python3 tools/torch_profile_prefill.py --arch olmoe_1b_7b --tokens 4096
 
 It builds the kernels, draws the config's full-size weights (default
 olmo_1b) from seed 0, and runs one ``--tokens``-token (default 2048)
@@ -15,11 +16,21 @@ last five, and all five), then one more run under ``torch.profiler``
 with its wall, the kernels' summed device time, the busy time (the union
 of the kernels' intervals), the busy share of the unprofiled median wall
 (the profiler slows the host, not the kernels) and of the profiled wall,
-the kernels that take the most device time, and the device time of the
-GQA expansion (``attention._repeat_kv``, which copies K and V to
-n_heads width before K2, K3 and K4) with its share of the device time.
+the kernels that take the most device time (ranges' device-side spans
+left out), and the device time of the kernels inside the GQA expansion
+(``attention._repeat_kv``, which copies K and V to n_heads width before
+K2, K3 and K4) with its share of the device time.
 The expansion is also timed alone with CUDA events (K and V of every
 layer, at the prefill's shape).
+
+For a config with Mixture-of-Experts blocks (``--arch olmoe_1b_7b``) the
+profiled run also splits the device time into the attention blocks
+(``attention.apply_prefill``), of which K2 and K3 (kernels named
+``dlzs``/``sufa``) and K4 (``flash``); the MoE (``moe.apply``), of which
+the expert FFN (``moe.expert_ffn``: the batched matmuls over every
+expert and the activation) and the rest, the gate, dispatch and combine
+glue; everything else (norms, residual adds, embedding, output head);
+and the GEMM kernels by name, wherever they ran.
 """
 
 from __future__ import annotations
@@ -39,50 +50,42 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.models import attention, lm  # noqa: E402
+from repro_torch.models import attention, lm, moe  # noqa: E402
+from repro_torch.profiling import (device_kernels,  # noqa: E402
+                                   range_device_ms, ranged)
 
 SEED = 0
 REPEATS = 6
 REPEAT_KV = "_repeat_kv"   # the profiler range around each GQA expansion
+# profiler ranges of the MoE split: (module, function) -> range name
+MOE_RANGES = {(attention, "apply_prefill"): "attention.apply_prefill",
+              (moe, "apply"): "moe.apply",
+              (moe, "expert_ffn"): "moe.expert_ffn"}
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")   # cuBLAS kernel names
 
 
 def emit(tag: str, **fields) -> None:
     print(json.dumps({"phase": tag, **fields}), flush=True)
 
 
-def device_kernels(prof) -> tuple[float, float, list]:
-    """From a profile: the summed device time of its kernels (ms), the
-    time the device was busy (the union of their intervals, ms) and the
-    kernels by name, most device time first."""
-    from torch.autograd import DeviceType
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        calls, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    total = sum(us for _, us in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
-    return total / 1e3, busy / 1e3, [
-        {"name": name[:90], "calls": calls, "device_ms": us / 1e3}
-        for name, (calls, us) in top]
+def moe_split(prof, device_ms: float, top: list, ranges) -> dict:
+    """The prefill's device time split for a config with MoE blocks (ms
+    and share of the device time)."""
+    attn = range_device_ms(prof, MOE_RANGES[attention, "apply_prefill"],
+                           ranges)
+    total_moe = range_device_ms(prof, MOE_RANGES[moe, "apply"], ranges)
+    ffn = range_device_ms(prof, MOE_RANGES[moe, "expert_ffn"], ranges)
 
-
-def repeat_kv_device_ms(prof) -> float:
-    """Device time (ms) of the kernels launched inside the profiler ranges
-    named REPEAT_KV."""
-    total = 0.0
-    for e in prof.events():
-        if e.name == REPEAT_KV:
-            total += e.device_time_total if hasattr(e, "device_time_total") \
-                else e.cuda_time_total
-    return total / 1e3
+    def by_name(*parts):
+        return sum(k["device_ms"] for k in top
+                   if any(p in k["name"].lower() for p in parts))
+    parts = {"attention_ms": attn, "k2_k3_ms": by_name("dlzs", "sufa"),
+             "k4_ms": by_name("flash"), "moe_ms": total_moe,
+             "expert_ffn_ms": ffn, "moe_glue_ms": total_moe - ffn,
+             "other_ms": device_ms - attn - total_moe,
+             "gemm_kernels_ms": by_name(*GEMM_NAMES)}
+    return {**parts, **{k.replace("_ms", "_share"): v / device_ms
+                        for k, v in parts.items()}}
 
 
 def time_repeat_kv(cfg, t: int, dev) -> dict:
@@ -118,7 +121,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_prefill: no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -134,11 +137,11 @@ def main() -> int:
     batch = {"tokens": torch.as_tensor(
         rng.randint(2, cfg.vocab, size=(1, t)).astype(np.int32), device=dev)}
     last = torch.tensor([t - 1], dtype=torch.int32, device=dev)
-    real_repeat = attention._repeat_kv
 
-    def ranged_repeat(kv, n_rep):
-        with record_function(REPEAT_KV):
-            return real_repeat(kv, n_rep)
+    ranges = {(attention, "_repeat_kv"): REPEAT_KV}
+    has_moe = any(blk.ffn == "moe" for blk in cfg.pattern)
+    if has_moe:
+        ranges.update(MOE_RANGES)
     modes = {"star": cfg, "dense": dataclasses.replace(cfg, star=None)}
 
     def run(c):
@@ -152,17 +155,16 @@ def main() -> int:
             run(c)
             walls[name].append(time.perf_counter() - t0)
     for name, c in modes.items():
-        attention._repeat_kv = ranged_repeat
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                run(c)
-                wall = 1e3 * (time.perf_counter() - t0)
-        finally:
-            attention._repeat_kv = real_repeat
-        device_ms, busy_ms, top = device_kernels(prof)
-        repeat_ms = repeat_kv_device_ms(prof)
+        with ranged(ranges), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(c)
+            wall = 1e3 * (time.perf_counter() - t0)
+        names = set(ranges.values())
+        device_ms, busy_ms, top = device_kernels(prof, names)
+        repeat_ms = range_device_ms(prof, REPEAT_KV, names)
+        split = {"moe_split": moe_split(prof, device_ms, top, names)} \
+            if has_moe else {}
         unprofiled = 1e3 * float(np.median(walls[name][1:]))
         emit("profile_prefill", arch=args.arch, attention=name, T=t,
              wall_ms_unprofiled=unprofiled,
@@ -172,7 +174,7 @@ def main() -> int:
              busy_share_profiled=busy_ms / wall,
              repeat_kv_device_ms=repeat_ms,
              repeat_kv_share_of_device=repeat_ms / device_ms,
-             kernels=top[:14])
+             kernels=top[:20 if has_moe else 14], **split)
     emit("repeat_kv_alone", arch=args.arch, T=t, **time_repeat_kv(cfg, t,
                                                                   dev))
     return 0
