@@ -162,7 +162,35 @@ Phases, each printing its numbers on a line of its own:
    reference's capacity (K1 at R = 6 launches ticks x 2 times, K2/K3
    prefill calls x 2, the first token as in phase 10), then dropless with
    ``star=None``, every token held as in 14b.
-Phase 4 also counts K4: oracle forwards x layers launches.
+16. Jamba-1.5-Large at its published width (d_model 8192; Mamba blocks of
+   256 SSD heads, 64 attention heads over 8 KV heads, 16 experts of d_ff
+   24576, top-2), its depth cut to the first 5 of its 72 layers (4 Mamba,
+   1 attention; 2 MoE FFNs), served through the dense slot engine (the
+   only engine of either package that serves a recurrent block): first K2,
+   K3 (both modes) and K4 against their plain versions at its attention
+   layer's prefill shape (BH 64 after the GQA expansion, T 4096, tiles
+   128), timed as in phase 6; then (a) STAR at the reference's capacity,
+   prompts of 1024, 2048 and 4096 tokens, 16 tokens each: K2 = K3 =
+   prefill calls x 1 (their wgmma forms), no other kernel, each first
+   token against a cache-free STAR forward, the dropped share per
+   prefill; (b) dropless ``star=None``: K4 = prefill calls x 1, every
+   token held as in 14b; (c) ``backend="paged"`` refuses the pattern
+   with the reference's ``ValueError``; then the device time of one
+   4096-token prefill (STAR, and ``star=None``) split by block
+   (``torch.profiler``): the Mamba blocks and their SSD chunk scan, the
+   MoE and its expert FFN, attention and its kernels, the rest.
+17. xLSTM-125M at full width and depth (12 layers of alternating mLSTM and
+   sLSTM blocks, no attention, no FFN) through the dense slot engine,
+   prompts of 1024 and 2048 tokens, 16 tokens each, in bf16 and in fp32:
+   no kernel of the port launches (K1-K4 all 0); the fp32 run's every
+   token held by phase 4's rule against the port's cache-free fp32
+   ``lm.forward`` (its chunk-parallel mLSTM and sLSTM loop, no kernel);
+   the bf16 run's, whose random weights amplify rounding past phase 4's
+   ties, against the fp32 forward within the bf16 forward's own spread
+   (``check_rounding_spread``); then one bf16 2048-token prefill with the
+   share of its host time the sLSTM time loop takes, and a 1024-token
+   prefill's device split.
+Phase 4 also counts K4: oracle forwards x attention layers launches.
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 Without a GPU, or outside a checkout, it exits non-zero and prints no
@@ -173,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -189,8 +218,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import (chatglm3_6b, grok_1_314b,  # noqa: E402
-                                 olmo_1b, olmoe_1b_7b, star_paper,
-                                 starcoder2_15b)
+                                 jamba_1_5_large_398b, olmo_1b, olmoe_1b_7b,
+                                 star_paper, starcoder2_15b, xlstm_125m)
 from repro_torch.core import sads  # noqa: E402
 from repro_torch.core import star_attention as core_star  # noqa: E402
 from repro_torch.kernels import build, launch, ops  # noqa: E402
@@ -200,13 +229,13 @@ from repro_torch.kernels import paged as kpaged  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sufa as ksufa  # noqa: E402
 from repro_torch.kvcache import bucketing, quant  # noqa: E402
-from repro_torch.models import attention, lm, moe  # noqa: E402
+from repro_torch.models import attention, lm, moe, xlstm  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
 from repro_torch import profiling  # noqa: E402
 from repro_torch.serving import (LLM, DisaggRouter, EngineCfg,  # noqa: E402
                                  FaultPlan, PagedEngineCfg, SchedulerCfg)
 from repro_torch.spatial import SpatialEngineCfg  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 SEED = 0
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core peak
@@ -249,6 +278,16 @@ OLMOE_MAX_TOKENS = 16
 GROK_LAYERS = 2
 GROK_PROMPT = 2048
 GROK_MAX_TOKENS = 16
+# phase 16: Jamba-1.5-Large at its published width, the first JAMBA_LAYERS
+# of its 72 layers (the published order: 4 Mamba, 1 attention; MoE FFNs at
+# 1 and 3); its published context is 256K, so prompts up to 4096 stay
+# multiples of the SSD chunk (256)
+JAMBA_LAYERS = 5
+JAMBA_PROMPTS = (1024, 2048, 4096)
+JAMBA_MAX_TOKENS = 16
+# phase 17: xLSTM-125M at full width and depth
+XLSTM_PROMPTS = (1024, 2048)
+XLSTM_MAX_TOKENS = 16
 # K2: fp32 sums of exact bf16 x pow2 products, only their order differs
 # from the plain version's; K3: tests/test_kernels.py's SU-FA bf16 bound
 PREFILL_TOL = {"dlzs_block": 1e-4, "sufa": 3e-2, "flash": TOL}
@@ -265,6 +304,16 @@ PLAIN_Q_CHUNK = 1024        # the reference olmo_1b's dense-prefill q-chunk
 
 def emit(tag: str, **fields) -> None:
     print(json.dumps({"phase": tag, **fields}), flush=True)
+
+
+def attn_layers(cfg) -> int:
+    """Attention layers: one K2/K3 or K4 launch each per prefill."""
+    return cfg.n_repeat * sum(blk.kind == "attn" for blk in cfg.pattern)
+
+
+def moe_layers(cfg) -> int:
+    """MoE layers: one routing plan each per prefill or decode call."""
+    return cfg.n_repeat * sum(blk.ffn == "moe" for blk in cfg.pattern)
 
 
 # -- timing ------------------------------------------------------------------
@@ -876,12 +925,22 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
     tokens are held by ``moe_token_rule``: a random-weight MoE (expert
     weights at std sqrt(1/V), as the reference draws them) amplifies
     rounding into gaps of several steps, so K4's top alone is no oracle
-    there."""
+    there.
+
+    In a model with recurrent blocks (Jamba's Mamba layers come before its
+    attention layer, so at those MoE layers K4 and the plain form give the
+    same gate logits) a fourth forward, K4's over the sequence one page
+    longer, joins the rounding yardstick: the rows read are the same in
+    exact arithmetic, so how far its gate logits lie from the first
+    forward's is rounding alone (other GEMM shapes, another SSD chunk,
+    other MoE chunks), the differences that part the served prefill from
+    the forward."""
     dense = dataclasses.replace(cfg, star=None)
     dev = params["embed"].device
     n_exact = n_tie = 0
     inexact = []
-    layers = cfg.n_layers
+    layers = moe_layers(cfg)
+    recurrent = any(blk.kind != "attn" for blk in cfg.pattern)
     flips = {"rows": 0, "flips": 0, "flips_per_layer": [0] * layers,
              "max_gap": [0.0] * layers, "rounding": [0.0] * layers}
     gate_logits = []
@@ -920,6 +979,8 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
                 hybrid = forward(rid, seq, tally=False)[0, rows]
             finally:
                 ops.flash = real
+            if recurrent:
+                forward(rid, torch.nn.functional.pad(seq, (0, 16)))
             rows_all.append((rid, hybrid[:, :cfg.vocab].float(), logits,
                              plain, served))
             continue
@@ -966,8 +1027,8 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
             "plain_tie_steps": PLAIN_TIE_STEPS, "inexact": inexact,
             "forwards": len(prompts),
             "k4_launches": kernels.LAUNCHES["flash"],
-            "expected_k4_launches": len(prompts) * cfg.n_layers
-            * (1 if routes is None else 2),
+            "expected_k4_launches": len(prompts) * attn_layers(cfg)
+            * (1 if routes is None else 2 + recurrent),
             **({"routing_forced": flips,
                 "pure_forms_disagree_steps": disagree}
                if routes is not None else {})}
@@ -1490,16 +1551,18 @@ def require_prefill_launches(summary: dict, tag: str) -> None:
 
 
 @torch.inference_mode()
-def check_first_tokens(params, cfg, prompts, done, pow2: bool) -> dict:
+def check_first_tokens(params, cfg, prompts, done, pow2) -> dict:
     """Each request's first token against the argmax of a cache-free
-    forward, STAR on, over the same bucketed prompt the engine prefilled.
+    forward, STAR on, over the same bucketed prompt the engine prefilled
+    (``pow2`` None: the prompt as it is, as the dense engine prefills it).
     Both run K2 -> SADS -> K3 on the same rows, so this holds the pool and
     scatter plumbing; the two take the output head at different shapes,
     so a token within one bf16 step of the top is a tie."""
     dev = params["embed"].device
     n_exact = n_tie = 0
     for rid, prompt in enumerate(prompts):
-        width = bucketing.bucket_len(len(prompt), 16, pow2=pow2)
+        width = len(prompt) if pow2 is None else \
+            bucketing.bucket_len(len(prompt), 16, pow2=pow2)
         toks = torch.as_tensor(bucketing.pad_tokens(prompt, width)[None],
                                device=dev)
         logits = lm.forward(params, cfg, {"tokens": toks})[
@@ -1868,8 +1931,9 @@ def serve_dense(cfg, params, prompts, max_tokens, *, device,
                 generator) -> tuple:
     """The dense slot engine (``LLM.from_config(backend="dense")``) over
     the prompts, from a zero launch count: one ``lm.prefill`` per request
-    (K4 per layer with ``star=None``) and a plain-PyTorch decode over the
-    dense cache, which launches no kernel of the port."""
+    (per attention layer K4 with ``star=None``, K2 and K3 with STAR) and
+    a plain-PyTorch decode over the dense cache and the recurrent state
+    slabs, which launches no kernel of the port."""
     max_len = -(-(max(len(p) for p in prompts) + max_tokens + 1) // 16) * 16
     llm = LLM.from_config(cfg, backend="dense", params=params,
                           device=device, generator=generator,
@@ -1890,6 +1954,7 @@ def serve_dense(cfg, params, prompts, max_tokens, *, device,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    form_launches = dict(kernels.FORM_LAUNCHES)
     if not all(h.done and h.outcome == "done" for h in handles):
         raise SystemExit("the dense engine left requests unserved")
     done = [h.tokens for h in handles]
@@ -1905,19 +1970,37 @@ def serve_dense(cfg, params, prompts, max_tokens, *, device,
                / max(ticks["ticks"], 1),
                "prefill_calls": prefills["calls"],
                "prefill_widths": prefills["widths"],
-               "prefill_s": prefills["seconds"], "launches": launches,
-               "expected_flash_launches": prefills["calls"] * cfg.n_layers}
+               "prefill_s": prefills["seconds"], "launches": launches}
+    star, layers = cfg.star, attn_layers(cfg)
+    wgmma_calls = 0 if star is None else sum(
+        launch.tile_form(min(star.block_q, w), min(star.block_kv, w))
+        == "wgmma" for w in prefills["widths"])
+    per_call = 0 if star is None else layers
+    summary.update(
+        dlzs_block_launches=launches["dlzs_block"],
+        sufa_launches=launches["sufa"], flash_launches=launches["flash"],
+        form_launches=form_launches,
+        expected_prefill_launches=prefills["calls"] * per_call,
+        expected_flash_launches=prefills["calls"] * (layers - per_call),
+        expected_wgmma_launches=wgmma_calls * layers,
+        expected_sufa_wgmma_launches=wgmma_calls * per_call)
     return done, summary
 
 
 def require_dense_launches(summary: dict, tag: str) -> None:
-    """The dense engine: K4 once per layer of each prefill, nothing else."""
+    """The dense engine: per attention layer of each prefill, K4 with
+    ``star=None`` or K2 and K3 (in their wgmma forms at tiles of 128) with
+    STAR; K1 never."""
     launches = summary["launches"]
-    if launches["flash"] != summary["expected_flash_launches"] or \
-            launches["paged_decode"] or launches["dlzs_block"] \
-            or launches["sufa"]:
+    if launches["paged_decode"] or launches["paged_decode_stats"]:
+        raise SystemExit(f"{tag}: K1 launched on the dense engine: "
+                         f"{launches}")
+    if summary["expected_prefill_launches"]:
+        require_prefill_launches(summary, tag)
+    elif launches["flash"] != summary["expected_flash_launches"] or \
+            launches["dlzs_block"] or launches["sufa"]:
         raise SystemExit(f"{tag}: launches {launches}; expected K4 "
-                         f"prefill calls x layers = "
+                         f"prefill calls x attention layers = "
                          f"{summary['expected_flash_launches']} and no "
                          f"other kernel")
 
@@ -2014,6 +2097,10 @@ def require_k4(summary: dict, tag: str) -> None:
 
 
 def free_cache(device) -> None:
+    """Collect unreachable objects (an engine and its backend refer to
+    each other, so a dropped engine and the params it holds wait for the
+    cycle collector), then return the freed blocks to the card."""
+    gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
 
@@ -2267,7 +2354,7 @@ def served_routes(log: dict, prompts, done, cfg) -> list:
     A prefill row belongs to the request whose prompt it carries; a
     decode row (position p, token x) to the request that decoded x at p.
     Rows of the pool probe, of padding and of idle slots match none."""
-    n_layers, k = cfg.n_layers, cfg.moe.top_k
+    n_layers, k = moe_layers(cfg), cfg.moe.top_k
     routes = [np.full((len(p) + len(d) - 1, n_layers, k), -1, np.int64)
               for p, d in zip(prompts, done)]
     filled = [np.zeros((len(p) + len(d) - 1,), bool)
@@ -2564,6 +2651,256 @@ def check_grok(cfg, dev, gen, *, layers=GROK_LAYERS, prompt_len=GROK_PROMPT,
     return out
 
 
+# -- phases 16-17: the recurrent families --------------------------------------
+
+def check_attention_kernels_at(dev, *, bh: int, t: int, seed: int) -> dict:
+    """K2, K3 (both modes) and K4 against their plain versions at one
+    model's attention prefill shape (tiles 128, STAR's keep at top-k 0.2),
+    timed as in phase 6 (bound, plain version, SDPA) on the card."""
+    timed = torch.device(dev).type == "cuda"
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev) \
+        if timed else None
+    out = {"dlzs_block": check_dlzs(dev, flush, bh=bh, t=t, block=128,
+                                    causal=True, seed=seed, timed=timed),
+           "sufa": check_sufa(dev, flush, bh=bh, t=t, block=128,
+                              strict=True, seed=seed + 1, timed=timed),
+           "sufa_fast": check_sufa(dev, flush, bh=bh, t=t, block=128,
+                                   strict=False, seed=seed + 2,
+                                   timed=False),
+           "flash": check_flash(dev, flush, bh=bh, t=t, causal=True,
+                                seed=seed + 3, timed=timed)}
+    del flush
+    free_cache(dev)
+    return out
+
+
+def warm_dense(params, cfg, dev, gen, t: int = 256) -> None:
+    """A short request through the dense engine, not counted, so that the
+    served numbers do not carry the first decode tick's set-up (on an
+    H100 the first Jamba decode tick took 3.5 s, the next ones 20-25
+    ms)."""
+    serve_dense(cfg, params, make_prompts(cfg, (t,), SEED + 20), 3,
+                device=dev, generator=gen)
+    free_cache(dev)
+
+
+def profiled_prefill(params, cfg, t: int, on_card: bool) -> dict:
+    """One ``t``-token ``lm.prefill`` under ``torch.profiler``, its device
+    time split by block (``profiling.model_ranges``/``prefill_split``):
+    wall, kernels' summed device time, busy time and the split."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.as_tensor(make_prompts(cfg, (t,), SEED + 18)[0][None],
+                           device=params["embed"].device)
+    ranges = profiling.model_ranges(cfg)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    with torch.inference_mode(), profiling.ranged(ranges), \
+            profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        lm.prefill(params, cfg, {"tokens": toks})
+        if on_card:
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device, busy, top = profiling.device_kernels(prof, set(ranges.values()))
+    return {"tokens": t, "star": cfg.star is not None,
+            "wall_ms_profiled": wall, "device_ms": device, "busy_ms": busy,
+            "top_kernels_ms": {k["name"]: k["device_ms"] for k in top[:8]},
+            "split": profiling.prefill_split(prof, ranges, device, top)
+            if device > 0 else None}
+
+
+def check_jamba(cfg, dev, gen, *, layers=JAMBA_LAYERS, lengths=JAMBA_PROMPTS,
+                max_tokens=JAMBA_MAX_TOKENS) -> dict:
+    """Phase 16 (see the module docstring): K2/K3/K4 at the attention
+    layer's shape (T the longest prompt, in whole tiles of 128), then
+    Jamba-1.5-Large's first ``layers`` layers at published width through
+    the dense slot engine: (a) STAR at the reference's capacity, (b)
+    dropless ``star=None``, (c) the paged engine's refusal; the longest
+    prompt's prefill split by block."""
+    on_card = torch.device(dev).type == "cuda"
+    published = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=layers,
+                              pattern=cfg.pattern[:layers])
+    tiles = check_attention_kernels_at(dev, bh=cfg.n_heads,
+                                       t=-(-max(lengths) // 128) * 128,
+                                       seed=61)
+    held_before = torch.cuda.memory_allocated() if on_card else 0
+    params, info = init_params(cfg, gen, dev)
+    emit("jamba_init", dtype=str(cfg.dtype), layers=layers,
+         reduced=f"n_layers {layers} of {published}: layers 0-"
+                 f"{layers - 1} of the published order",
+         blocks=[f"{b.kind}+{b.ffn}" for b in cfg.pattern],
+         param_gb=sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params)) / 1e9,
+         allocated_gb_before_init=held_before / 1e9, **info)
+    prompts = make_prompts(cfg, lengths, SEED + 16)
+    exact_cfg = dropless(cfg)
+    warm_prefill(params, cfg, lengths[0])
+    warm_prefill(params, exact_cfg, lengths[0])
+    warm_dense(params, cfg, dev, gen)
+    warm_dense(params, exact_cfg, dev, gen)
+
+    with record_routes() as log:
+        done, star = serve_dense(cfg, params, prompts, max_tokens,
+                                 device=dev, generator=gen)
+    star.update(drop_summary(log, moe_layers(cfg), 4))
+    star.update(check_first_tokens(params, cfg, prompts, done, None))
+    emit("jamba_served", attention="star",
+         capacity_factor=cfg.moe.capacity_factor, **star)
+    require_dense_launches(star, "Jamba-1.5-Large served")
+    free_cache(dev)
+
+    with record_routes() as log:
+        done, exact_run = serve_dense(exact_cfg, params, prompts, max_tokens,
+                                      device=dev, generator=gen)
+    routes = served_routes(log, prompts, done, exact_cfg)
+    exact_run.update(drop_summary(log, moe_layers(cfg), 4))
+    require_dense_launches(exact_run, "Jamba-1.5-Large served, dropless")
+    require_dropless(exact_run, "Jamba-1.5-Large served, dropless")
+    exact_run.update(check_exact(params, exact_cfg, prompts, done,
+                                 routes=routes))
+    emit("jamba_served", attention="dense",
+         capacity_factor=exact_cfg.moe.capacity_factor, **exact_run)
+    require_k4(exact_run, "Jamba-1.5-Large exactness")
+    free_cache(dev)
+
+    try:
+        LLM.from_config(cfg, backend="paged", params=params, device=dev,
+                        generator=gen)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    emit("jamba_paged_refused", error=refused)
+    if refused is None or "attention-only" not in refused:
+        raise SystemExit(f"the paged engine did not refuse Jamba's "
+                         f"pattern: {refused}")
+
+    split = {key: profiled_prefill(params, c, max(lengths), on_card)
+             for key, c in (("star", cfg),
+                            ("dense", dataclasses.replace(cfg, star=None)))}
+    emit("jamba_prefill_split", **split)
+    del params
+    free_cache(dev)
+    return {"tiles": tiles, "star": star, "exact": exact_run,
+            "split": split}
+
+
+def timed_slstm_prefill(params, cfg, t: int, on_card: bool) -> dict:
+    """One ``t``-token ``lm.prefill`` on the host clock, and the host time
+    its sLSTM time loops (``xlstm._slstm_scan``) take, each measured
+    through the device's end."""
+    real = xlstm._slstm_scan
+    spent = [0.0]
+
+    def timed(*args, **kw):
+        sync(params["embed"].device)
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        sync(params["embed"].device)
+        spent[0] += time.perf_counter() - t0
+        return out
+    toks = torch.as_tensor(make_prompts(cfg, (t,), SEED + 19)[0][None],
+                           device=params["embed"].device)
+    xlstm._slstm_scan = timed
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            lm.prefill(params, cfg, {"tokens": toks})
+            sync(params["embed"].device)
+            wall = time.perf_counter() - t0
+    finally:
+        xlstm._slstm_scan = real
+    return {"tokens": t, "prefill_s": wall, "slstm_scan_s": spent[0],
+            "slstm_scan_share": spent[0] / wall}
+
+
+@torch.inference_mode()
+def check_rounding_spread(params, cfg, params32, cfg32, prompts, done) -> dict:
+    """bf16 served tokens of a model that amplifies rounding past phase 4's
+    ties, held against the fp32 forward (the most exact evaluation of the
+    same weights): each served token must lie below the fp32 forward's top
+    by no more than twice the request's spread, the largest difference
+    between the bf16 and the fp32 forwards' logits over its rows (a bf16
+    evaluation as far from fp32 as the bf16 forward may move both the top
+    and the served token that far), in bf16 steps of the fp32 top. Also
+    counted: the tokens that are the bf16 forward's and the fp32
+    forward's argmax."""
+    dev = params["embed"].device
+    out = {"tokens_checked": 0, "exact_bf16_forward": 0,
+           "exact_fp32_forward": 0, "spread_steps": [],
+           "served_gap_fp32_steps_max": []}
+    for rid, prompt in enumerate(prompts):
+        toks = np.asarray(done[rid], np.int64)
+        seq = torch.as_tensor(np.concatenate([prompt.astype(np.int64),
+                                              toks[:-1]])[None], device=dev)
+        rows = slice(len(prompt) - 1, len(prompt) - 1 + len(toks))
+        served = torch.as_tensor(toks, device=dev)
+        lo, hi = (lm.forward(p, c, {"tokens": seq})[0, rows][
+            :, :cfg.vocab].float() for p, c in ((params, cfg),
+                                                (params32, cfg32)))
+        exact_lo, _ = token_gaps(lo, served)
+        exact_hi, gap = token_gaps(hi, served)
+        spread = float(((lo - hi).abs().max(-1).values
+                        / bf16_step(hi.max(-1).values)).max())
+        out["tokens_checked"] += len(toks)
+        out["exact_bf16_forward"] += int(exact_lo.sum())
+        out["exact_fp32_forward"] += int(exact_hi.sum())
+        out["spread_steps"].append(spread)
+        out["served_gap_fp32_steps_max"].append(float(gap.max()))
+        if float(gap.max()) > 2 * spread:
+            raise SystemExit(f"request {rid}: a bf16 served token lies "
+                             f"{float(gap.max())} steps below the fp32 "
+                             f"forward's top, past twice the bf16 forward's "
+                             f"spread ({spread})")
+    return out
+
+
+def check_xlstm(cfg, dev, gen, *, lengths=XLSTM_PROMPTS,
+                max_tokens=XLSTM_MAX_TOKENS) -> dict:
+    """Phase 17: xLSTM-125M at full width and depth through the dense slot
+    engine, no kernel of the port launching. In bf16, the config's dtype:
+    the served numbers, the sLSTM loop's share of a prefill and each
+    token against the fp32 forward within the bf16 forward's own spread
+    (``check_rounding_spread``). With random weights this model amplifies
+    rounding: on an H100 the bf16 and fp32 forwards' logits differ by up
+    to 52 bf16 steps on a row, and two bf16 forwards whose SSD chunks
+    differ by up to 47, so phase 4's 1-2 step ties are out of reach of
+    any bf16 order of sums. Phase 4's rule holds the same requests served
+    in fp32 against the fp32 forward (the plain cache-free form: chunked
+    mLSTM, sLSTM loop, no kernel)."""
+    on_card = torch.device(dev).type == "cuda"
+    params, info = init_params(cfg, gen, dev)
+    emit("xlstm_init", dtype=str(cfg.dtype), layers=cfg.n_layers,
+         blocks=[b.kind for b in cfg.pattern], **info)
+    prompts = make_prompts(cfg, lengths, SEED + 17)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = tree_map(lambda t: t.float(), params)
+    out = {}
+    for key, c, p in (("bf16", cfg, params), ("fp32", cfg32, params32)):
+        warm_prefill(p, c, lengths[0])
+        warm_dense(p, c, dev, gen)
+        done, run = serve_dense(c, p, prompts, max_tokens, device=dev,
+                                generator=gen)
+        require_dense_launches(run, f"xLSTM-125M served, {key}")
+        if any(run["launches"].values()):
+            raise SystemExit(f"xLSTM-125M launched a kernel: "
+                             f"{run['launches']}")
+        if key == "bf16":
+            run.update(check_rounding_spread(params, cfg, params32, cfg32,
+                                             prompts, done))
+        else:
+            run.update(check_exact(p, c, prompts, done))
+            require_k4(run, "xLSTM-125M exactness")
+        emit("xlstm_served", dtype=key, **run)
+        out[key] = run
+    timing = timed_slstm_prefill(params, cfg, max(lengths), on_card)
+    split = profiled_prefill(params, cfg, min(lengths), on_card)
+    emit("xlstm_prefill", **timing, profiled=split)
+    del params, params32
+    free_cache(dev)
+    return {"served": out, "prefill": timing, "split": split}
+
+
 # -- main ---------------------------------------------------------------------
 
 def demangle(mangled: str) -> str:
@@ -2725,7 +3062,7 @@ def main() -> int:
 
     # 5. bounded sparse decode: hot width 8 pages under 32+ live pages
     del llm, backend
-    torch.cuda.empty_cache()
+    free_cache(dev)
     sparse_llm = main_path_llm(cfg, params, n_pages=256, hot_pages=64,
                                past_pages=64, device=dev, generator=gen,
                                hot_width=8)
@@ -2739,7 +3076,7 @@ def main() -> int:
             sparse["pages_resident_per_tick"]:
         raise SystemExit("sparse decode gathered every resident page")
     del sparse_llm
-    torch.cuda.empty_cache()
+    free_cache(dev)
 
     # 6. K2, K3, K4 against their plain versions at the served shapes
     tiles = check_prefill_kernels(dev)
@@ -2759,7 +3096,7 @@ def main() -> int:
     require_launches(whole, "whole-prompt prefill")
     require_prefill_launches(whole, "whole-prompt prefill")
     del whole_llm
-    torch.cuda.empty_cache()
+    free_cache(dev)
 
     # 9. disaggregated serving: prefill and decode instances over one
     # params tree, the int8 cold tier, a hop lost to an injected fault
@@ -2771,7 +3108,7 @@ def main() -> int:
     require_disagg_launches(pair, "disaggregated serving")
     require_disagg_launches(disagg["tier_read"], "int8 tier read")
     del params
-    torch.cuda.empty_cache()
+    free_cache(dev)
 
     # 10-11. ChatGLM3-6B at full width: the paged engine (STAR, then the
     # exact-parity setting) and the dense slot engine
@@ -2794,6 +3131,13 @@ def main() -> int:
 
     # 15. Grok-1 at its published width, 2 of 64 layers: K1 at R = 6
     grok = check_grok(grok_1_314b.config(), dev, gen)
+
+    # 16. Jamba-1.5-Large at its published width, 5 of 72 layers: Mamba,
+    # MoE and one attention layer (K2/K3/K4 at BH 64) on the dense engine
+    jamba = check_jamba(jamba_1_5_large_398b.config(), dev, gen)
+
+    # 17. xLSTM-125M at full width and depth: no kernel of the port
+    check_xlstm(xlstm_125m.config(), dev, gen)
 
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
@@ -2818,6 +3162,13 @@ def main() -> int:
     def forms(name):
         return {f: whole["form_launches"][f"{name}/{f}"]
                 for f in ("wgmma", "mma_sync")}
+
+    def bh64(name):
+        """Phase 16's BH-64 (Jamba's attention layer, T 4096) numbers."""
+        case = jamba["tiles"][name]
+        return {f"{key}_bh64": case[key] for key in (
+            "max_abs_err", "ms", "ms_repeat", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
 
     print(json.dumps({"kernels": [
         line("paged_decode", "paged_decode.cu",
@@ -2852,7 +3203,9 @@ def main() -> int:
              form=tiles["dlzs_block"]["form"],
              launches_by_form=forms("dlzs_block"),
              ms_noncausal=tiles["dlzs_block_noncausal"]["ms"],
-             bound_ms_noncausal=tiles["dlzs_block_noncausal"]["bound_ms"]),
+             bound_ms_noncausal=tiles["dlzs_block_noncausal"]["bound_ms"],
+             launches_jamba=jamba["star"]["dlzs_block_launches"],
+             **bh64("dlzs_block")),
         line("sufa", "sufa.cu", "src/repro/kernels/sufa.py:72",
              whole["sufa_launches"], tiles["sufa"],
              launches_olmoe=olmoe["star"]["sufa_launches"],
@@ -2862,10 +3215,16 @@ def main() -> int:
              plain_ms_fast_path=tiles["sufa_fast"]["plain_ms"],
              library_ms_fast_path=tiles["sufa_fast"]["library_ms"],
              gathered_bytes_not_moved=tiles["sufa"][
-                 "gathered_bytes_not_moved"]),
+                 "gathered_bytes_not_moved"],
+             launches_jamba=jamba["star"]["sufa_launches"],
+             max_abs_err_fast_path_bh64=jamba["tiles"]["sufa_fast"][
+                 "max_abs_err"], **bh64("sufa")),
         line("flash", "flash.cu", "src/repro/kernels/flash.py:67",
              exact["k4_launches"], tiles["flash"],
-             launches_olmoe_oracle=olmoe["exact"]["k4_launches"]),
+             launches_olmoe_oracle=olmoe["exact"]["k4_launches"],
+             launches_jamba=jamba["exact"]["flash_launches"],
+             launches_jamba_oracle=jamba["exact"]["k4_launches"],
+             **bh64("flash")),
         # K1 at ChatGLM3-6B's group (R = 16): phase 10a's served path;
         # its int8 form timed beside it (no served path reads the tier
         # at this group)

@@ -7,11 +7,9 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ("olmo_1b", "chatglm3_6b", "starcoder2_15b", "star_paper",
-         "nemotron_4_340b", "olmoe_1b_7b", "grok_1_314b")
-NOT_YET_PORTED = (
-    "xlstm_125m", "seamless_m4t_large_v2", "jamba_1_5_large_398b",
-    "internvl2_26b",
-)
+         "nemotron_4_340b", "olmoe_1b_7b", "grok_1_314b",
+         "jamba_1_5_large_398b", "xlstm_125m")
+NOT_YET_PORTED = ("seamless_m4t_large_v2", "internvl2_26b")
 
 
 def _module(name: str):

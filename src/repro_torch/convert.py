@@ -17,12 +17,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.star_attention import STARConfig
-from repro_torch.models import lm, moe
+from repro_torch.models import lm, moe, ssm
 from repro_torch.tree import tree_map
 
 # reference ModelCfg fields whose non-default values need unported code
-_UNPORTED_FIELDS = {"mamba": None, "xlstm_heads": 0,
-                    "enc_layers": 0, "embeds_input": False,
+_UNPORTED_FIELDS = {"enc_layers": 0, "embeds_input": False,
                     "star_train": False}
 
 
@@ -65,12 +64,22 @@ def torch_dtype(dtype) -> torch.dtype:
     return getattr(torch, np.dtype(dtype).name)
 
 
-def moe_cfg_from_reference(cfg) -> moe.MoECfg:
-    """The port's ``MoECfg`` for a reference ``repro.models.moe.MoECfg``,
-    field for field, its dtype as the torch dtype of the same name."""
+def _sub_cfg(port_cls, cfg):
+    """The port's twin of a reference layer config: the same fields, its
+    dtype as the torch dtype of the same name."""
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     fields["dtype"] = torch_dtype(fields["dtype"])
-    return moe.MoECfg(**fields)
+    return port_cls(**fields)
+
+
+def moe_cfg_from_reference(cfg) -> moe.MoECfg:
+    """The port's ``MoECfg`` for a reference ``repro.models.moe.MoECfg``."""
+    return _sub_cfg(moe.MoECfg, cfg)
+
+
+def mamba_cfg_from_reference(cfg) -> ssm.MambaCfg:
+    """The port's ``MambaCfg`` for a reference ``repro.models.ssm.MambaCfg``."""
+    return _sub_cfg(ssm.MambaCfg, cfg)
 
 
 def model_cfg_from_reference(cfg) -> lm.ModelCfg:
@@ -91,6 +100,8 @@ def model_cfg_from_reference(cfg) -> lm.ModelCfg:
         out["star"] = STARConfig(**dataclasses.asdict(fields["star"]))
     if fields.get("moe") is not None:
         out["moe"] = moe_cfg_from_reference(fields["moe"])
+    if fields.get("mamba") is not None:
+        out["mamba"] = mamba_cfg_from_reference(fields["mamba"])
     out["dtype"] = torch_dtype(fields["dtype"])
     port = lm.ModelCfg(**out)
     lm.check_supported(port)

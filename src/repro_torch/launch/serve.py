@@ -36,10 +36,17 @@ weights from seed 0, e.g. on one H100:
 
     python -m repro_torch.launch.serve --arch chatglm3_6b --full
     python -m repro_torch.launch.serve --arch olmoe_1b_7b --full
+    python -m repro_torch.launch.serve --arch xlstm_125m --full \
+        --engine dense
 
 An arch whose weights cannot fit one card keeps its widths and takes a
 depth cut under ``--full`` (``FULL_DEPTH_CUT``: Grok-1 serves 2 of its 64
-layers).
+layers; Jamba-1.5-Large the first 5 of its 72, layers 0-4 of the
+published order: every kind of block and FFN).
+
+The recurrent families (Jamba's Mamba blocks, xLSTM) serve only through
+``--engine dense``, as in the reference: the paged and spatial engines
+refuse patterns that are not attention-only.
 
 The paged engine's prefill chunks are whole STAR q-tiles: the scheduler's
 default of 4 pages is rounded up to a multiple of the config's
@@ -62,13 +69,16 @@ import time
 
 SLA_CYCLE = ("interactive", "standard", "batch")
 # published depth cut to this many layers under --full (weights beyond one
-# card): Grok-1's 64 layers are 314 B parameters; 2 of them are 11.5 B
-FULL_DEPTH_CUT = {"grok_1_314b": 2}
+# card): Grok-1's 64 layers are 314 B parameters, 2 of them 11.5 B;
+# Jamba-1.5-Large's first 5 layers (4 Mamba, 1 attention; 2 MoE FFNs) are
+# 24 B of its 398 B
+FULL_DEPTH_CUT = {"grok_1_314b": 2, "jamba_1_5_large_398b": 5}
 
 
 def model_config(arch: str, full: bool):
     """The arch's smoke config, or under ``full`` its published one with
-    ``FULL_DEPTH_CUT``'s depth."""
+    ``FULL_DEPTH_CUT``'s depth: a cut shorter than the published
+    super-block keeps that many of its blocks, in order."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -76,7 +86,9 @@ def model_config(arch: str, full: bool):
         return get_smoke_config(arch)
     cfg = get_config(arch)
     if arch in FULL_DEPTH_CUT:
-        cfg = dataclasses.replace(cfg, n_layers=FULL_DEPTH_CUT[arch])
+        n = FULL_DEPTH_CUT[arch]
+        cfg = dataclasses.replace(cfg, n_layers=n,
+                                  pattern=cfg.pattern[:n])
     return cfg
 
 

@@ -21,7 +21,7 @@ def truncated_normal_init(generator: torch.Generator, shape, scale,
     std = (scale / max(1, fan_in)) ** 0.5
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)    # in place: one fp32 draw at a time
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Causal decoder LM with attention blocks and a dense or MoE FFN:
-prefill, chunked paged prefill, paged decode, dense-cache decode and the
-spatial (sequence-sharded) chunk prefills, decode and audit probe.
-PyTorch port of the attention-block subset of ``repro.models.lm``.
+"""Causal decoder LM of attention, Mamba (SSD), mLSTM and sLSTM blocks
+with a dense or MoE FFN: prefill, chunked paged prefill, paged decode,
+dense-cache decode and the spatial (sequence-sharded) chunk prefills,
+decode and audit probe. PyTorch port of the decoder-only subset of
+``repro.models.lm``.
 
 Parameters are nested dicts with the reference's keys; each super-block
 leaf is stacked on a leading layer axis exactly like the reference's
@@ -9,7 +10,12 @@ vmapped init (``blocks.b0.core.wq`` is [L, H, nh, dh]), so the converter
 maps leaves one to one. The layer loop is a Python loop over that axis
 (the reference's ``lax.scan``).
 
-Block kinds other than attention (SSM, xLSTM), cross-attention,
+A recurrent block (``mamba``, ``mlstm``, ``slstm``) runs in the forward,
+the prefill and the dense-cache decode, the modes the dense slot engine
+serves; its state is the block's cache entry under its kind. The
+pool-backed modes (chunked and paged prefill, paged and spatial decode)
+serve attention-only patterns: the paged and spatial engines refuse
+the others first, as the reference's do. Cross-attention,
 encoder-decoder models and embedding frontends raise
 ``NotImplementedError`` naming the ROADMAP item that ports them. An MoE
 block's load-balance loss is computed by ``moe.apply`` and dropped here:
@@ -25,15 +31,16 @@ import torch
 
 from repro_torch.core.star_attention import STARConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, common, mlp, moe
+from repro_torch.models import attention, common, mlp, moe, ssm, xlstm
 
-UNPORTED_FAMILIES = ("ROADMAP §1 item 4 (other model families: SSM, "
-                     "xLSTM, cross-attention and encoder-decoder, embeds)")
+UNPORTED_FAMILIES = ("ROADMAP §1 item 4 (other model families: "
+                     "cross-attention and encoder-decoder, embeds)")
+RECURRENT = ("mamba", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
-    kind: str              # attn (mamba | mlstm | slstm: not ported yet)
+    kind: str              # attn | mamba | mlstm | slstm
     ffn: str = "dense"     # dense | moe | none
     cross_attn: bool = False
 
@@ -56,6 +63,8 @@ class ModelCfg:
     qkv_bias: bool = False
     head_dim: Optional[int] = None
     moe: Optional[moe.MoECfg] = None
+    mamba: Optional[ssm.MambaCfg] = None
+    xlstm_heads: int = 0
     star: Optional[STARConfig] = None   # serving-time sparse attention
     star_chunk_sparse: bool = False     # DLZS page selection inside later
     #                                     prefill chunks (approximate)
@@ -91,15 +100,35 @@ class ModelCfg:
         return mlp.MLPCfg(self.d_model, self.d_ff, self.mlp_act,
                           self.mlp_gated, self.dtype)
 
+    def xlstm_cfg(self) -> xlstm.XLSTMCfg:
+        return xlstm.XLSTMCfg(self.d_model, self.xlstm_heads,
+                              dtype=self.dtype)
+
 
 def check_supported(cfg: ModelCfg) -> None:
     for blk in cfg.pattern:
-        if blk.kind != "attn" or blk.ffn not in ("dense", "moe", "none") \
-                or blk.cross_attn:
+        if blk.kind not in ("attn",) + RECURRENT \
+                or blk.ffn not in ("dense", "moe", "none") or blk.cross_attn:
             raise NotImplementedError(
                 f"block {blk} is not ported yet: {UNPORTED_FAMILIES}")
         if blk.ffn == "moe" and cfg.moe is None:
             raise ValueError(f"{cfg.name}: an moe block needs ModelCfg.moe")
+        if blk.kind == "mamba" and cfg.mamba is None:
+            raise ValueError(f"{cfg.name}: a mamba block needs "
+                             f"ModelCfg.mamba")
+        if blk.kind in ("mlstm", "slstm") and cfg.xlstm_heads <= 0:
+            raise ValueError(f"{cfg.name}: an {blk.kind} block needs "
+                             f"ModelCfg.xlstm_heads")
+
+
+def _core_init(generator, cfg: ModelCfg, kind: str, device, n_layers):
+    if kind == "attn":
+        return attention.init(generator, cfg.attn_cfg(), device,
+                              n_layers=n_layers)
+    if kind == "mamba":
+        return ssm.init(generator, cfg.mamba, device, n_layers=n_layers)
+    init = xlstm.mlstm_init if kind == "mlstm" else xlstm.slstm_init
+    return init(generator, cfg.xlstm_cfg(), device, n_layers=n_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +152,7 @@ def init(cfg: ModelCfg, generator: torch.Generator, device=None):
     blocks = {}
     for i, blk in enumerate(cfg.pattern):
         b = {"norm1": _stack_norm(cfg, L, dev),
-             "core": attention.init(generator, cfg.attn_cfg(), dev,
-                                    n_layers=L)}
+             "core": _core_init(generator, cfg, blk.kind, dev, L)}
         if blk.ffn != "none":
             b["norm2"] = _stack_norm(cfg, L, dev)
             b["ffn"] = moe.init(generator, cfg.moe, dev, n_layers=L) \
@@ -152,6 +180,33 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _recurrent_apply(params, cfg: ModelCfg, kind: str, h, *, mode: str,
+                     cache=None, page_state=None, spatial: bool = False):
+    """A Mamba, mLSTM or sLSTM core. Returns (y, its new cache entry or
+    None). Decode writes the new state into the cache entry in place (the
+    dense slot engine's slabs) and returns that entry."""
+    if spatial or page_state is not None or mode not in (
+            "forward", "prefill", "decode"):
+        raise ValueError(
+            f"a {kind} block runs only in the forward, the prefill and the "
+            f"dense-cache decode; the paged and spatial engines serve "
+            f"attention-only patterns")
+    if kind == "mamba":
+        full, step, kcfg = ssm.apply, ssm.apply_decode, cfg.mamba
+    elif kind == "mlstm":
+        full, step, kcfg = (xlstm.mlstm_apply, xlstm.mlstm_decode,
+                            cfg.xlstm_cfg())
+    else:
+        full, step, kcfg = (xlstm.slstm_apply, xlstm.slstm_decode,
+                            cfg.xlstm_cfg())
+    if mode != "decode":
+        return full(params, kcfg, h, make_cache=(mode == "prefill"))
+    y, new = step(params, kcfg, h, cache[kind])
+    for name, leaf in new.items():
+        cache[kind][name].copy_(leaf)
+    return y, cache[kind]
+
+
 def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
                  mode: str, cache=None, lengths=None, cache_len=None,
                  page_state=None, spatial: bool = False):
@@ -159,7 +214,13 @@ def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
     h = common.norm_apply(cfg.norm, params["norm1"], x)
     acfg = cfg.attn_cfg()
     new_cache = {}
-    if spatial and mode == "prefill_chunk_batch":
+    if blk.kind in RECURRENT:
+        y, c = _recurrent_apply(params["core"], cfg, blk.kind, h, mode=mode,
+                                cache=cache, page_state=page_state,
+                                spatial=spatial)
+        if c is not None:
+            new_cache[blk.kind] = c
+    elif spatial and mode == "prefill_chunk_batch":
         y, new_cache["attn"] = attention.apply_prefill_chunk_batch_spatial(
             params["core"], acfg, h, positions, cache["attn"], page_state)
     elif spatial and mode == "prefill_chunk":
@@ -205,8 +266,8 @@ def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
     """Loop the super-block over the layer axis. Returns (x, caches):
     prefill modes stack each layer's fresh cache on axis 0 ([L, ...]);
     decode, and every ``spatial`` mode, write the pool (or dense) slabs in
-    place and return a shallow copy of the cache tree (plus
-    ``audit_mass`` [L, ...] when auditing)."""
+    place, a recurrent block's state too, and return a shallow copy of
+    the cache tree (plus ``audit_mass`` [L, ...] when auditing)."""
     check_supported(cfg)
     per_layer = []
     for i in range(cfg.n_repeat):
@@ -222,11 +283,11 @@ def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
     if mode == "decode" or spatial:
         new = {}
         for key in caches:
-            attn = dict(caches[key]["attn"])
-            if "audit_mass" in per_layer[0][key]["attn"]:
-                attn["audit_mass"] = torch.stack(
+            new[key] = {kind: dict(leaves)
+                        for kind, leaves in caches[key].items()}
+            if "audit_mass" in per_layer[0][key].get("attn", {}):
+                new[key]["attn"]["audit_mass"] = torch.stack(
                     [pl[key]["attn"]["audit_mass"] for pl in per_layer])
-            new[key] = {"attn": attn}
         return x, new
     if not per_layer[0] or not any(per_layer[0].values()):
         return x, None

@@ -75,3 +75,61 @@ def range_device_ms(prof, name: str, ranges) -> float:
     spans = [(a, b) for a, b, n in events if n == name]
     return sum(b - a for a, b, n in events if n not in ranges and any(
         lo <= a and b <= hi for lo, hi in spans)) / 1e3
+
+
+# The prefill split: each block kind's range, the ranges nested in them,
+# and the kernels counted by name wherever they ran.
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")   # cuBLAS kernel names
+_TOP_RANGES = ("attention.apply_prefill", "moe.apply", "mlp.apply",
+               "ssm.apply", "xlstm.mlstm_apply", "xlstm.slstm_apply")
+
+
+def model_ranges(cfg) -> dict:
+    """Profiler ranges that split a prefill of ``cfg`` by its blocks:
+    ``(module, attribute) -> range name`` for ``ranged``. Attention
+    (``attention.apply_prefill``, of which the GQA expansion
+    ``attention._repeat_kv``), the MoE (``moe.apply``, of which the expert
+    FFN ``moe.expert_ffn``), the dense FFN (``mlp.apply``), Mamba
+    (``ssm.apply``, of which the chunk scan
+    ``ssm.chunked_linear_attention``), mLSTM and sLSTM (of which the time
+    loop ``xlstm._slstm_scan``): those of the blocks ``cfg`` has."""
+    from repro_torch.models import attention, mlp, moe, ssm, xlstm
+    kinds = {blk.kind for blk in cfg.pattern} | {blk.ffn
+                                                 for blk in cfg.pattern}
+    wanted = {
+        "attn": ((attention, "apply_prefill"), (attention, "_repeat_kv")),
+        "moe": ((moe, "apply"), (moe, "expert_ffn")),
+        "dense": ((mlp, "apply"),),
+        "mamba": ((ssm, "apply"), (ssm, "chunked_linear_attention")),
+        "mlstm": ((xlstm, "mlstm_apply"),),
+        "slstm": ((xlstm, "slstm_apply"), (xlstm, "_slstm_scan")),
+    }
+    return {(mod, attr): f"{mod.__name__.rsplit('.', 1)[1]}.{attr}"
+            for kind in sorted(kinds) for mod, attr in wanted.get(kind, ())}
+
+
+def prefill_split(prof, ranges: dict, device_ms: float, top: list) -> dict:
+    """A profiled prefill's device time (ms, and share of ``device_ms``)
+    split by ``model_ranges``'s ranges: each range's kernels (``<name>_ms``,
+    nested ranges counted inside their parents too), the MoE glue (its
+    kernels outside the expert FFN), ``other_ms`` (kernels outside every
+    block and FFN: norms, residual adds, embedding, output head), and by
+    kernel name wherever they ran: K2 and K3 (``dlzs``/``sufa``), K4
+    (``flash``) and the GEMMs."""
+    names = set(ranges.values())
+    parts = {f"{name}_ms": range_device_ms(prof, name, names)
+             for name in sorted(names)}
+
+    def by_name(*keys):
+        return sum(k["device_ms"] for k in top
+                   if any(p in k["name"].lower() for p in keys))
+    if "moe.apply" in names:
+        parts["moe_glue_ms"] = parts["moe.apply_ms"] \
+            - parts["moe.expert_ffn_ms"]
+    parts.update(
+        other_ms=device_ms - sum(parts.get(f"{n}_ms", 0.0)
+                                 for n in _TOP_RANGES),
+        k2_k3_ms=by_name("dlzs", "sufa"), k4_ms=by_name("flash"),
+        gemm_kernels_ms=by_name(*GEMM_NAMES))
+    return {**parts, **{k[:-3] + "_share": v / device_ms
+                        for k, v in parts.items()}}

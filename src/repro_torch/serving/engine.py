@@ -4,7 +4,8 @@ live request type shared by every engine of the port. PyTorch port of
 
 The engine is the original slot-based continuous batcher: ``max_batch``
 sequence slots over one dense ``[L, max_batch, max_len, nkv, dh]`` KV
-slab. It is not a production path (``launch/serve.py`` defaults to the
+slab per attention block, and a state slab per recurrent block (Mamba,
+mLSTM, sLSTM), the only engine of either package that serves those. It is not a production path (``launch/serve.py`` defaults to the
 paged engine). It stays for two jobs: the parity oracle (its prefill plus
 greedy decode over a contiguous dense cache is the simplest correct
 serving semantics, ``LLM(backend="dense")`` through the same front door)
@@ -102,26 +103,41 @@ class ServingEngine:
         #                                  before a fault quarantines it
         self._fault_counts: dict[int, int] = {}
         lm.check_supported(model_cfg)
-        b, length = ecfg.max_batch, ecfg.max_len
-        shape = (model_cfg.n_repeat, b, length, model_cfg.n_kv,
-                 model_cfg.dh)
-        acfg = model_cfg.attn_cfg()
-        layers = {}
-        for i in range(len(model_cfg.pattern)):
-            attn = {"k": torch.zeros(shape, dtype=model_cfg.dtype,
-                                     device=self.device),
-                    "v": torch.zeros(shape, dtype=model_cfg.dtype,
-                                     device=self.device)}
-            if acfg.lz_cache:
-                attn["k_lz"] = torch.zeros(shape, dtype=torch.int8,
-                                           device=self.device)
-            layers[f"b{i}"] = {"attn": attn}
+        b = ecfg.max_batch
+        layers = {f"b{i}": {blk.kind: self._slabs(blk.kind)}
+                  for i, blk in enumerate(model_cfg.pattern)}
         self.cache = {"layers": layers,
                       "lengths": torch.zeros((b,), dtype=torch.int32,
                                              device=self.device)}
         self.last_token = torch.zeros((b, 1), dtype=torch.int32,
                                       device=self.device)
         self.free = list(range(b))
+
+    def _slabs(self, kind: str) -> dict:
+        """One block's slot slabs [L, max_batch, ...], zeroed: attention's
+        K/V rows (and LZ codes with STAR); a recurrent block's state in
+        the shapes and dtypes its prefill returns (a Mamba block's conv
+        window in the activations' dtype, every other state in fp32)."""
+        cfg, f32 = self.cfg, torch.float32
+        lead = (cfg.n_repeat, self.ecfg.max_batch)
+        if kind == "attn":
+            rows = lead + (self.ecfg.max_len, cfg.n_kv, cfg.dh)
+            shapes = {"k": (rows, cfg.dtype), "v": (rows, cfg.dtype)}
+            if cfg.attn_cfg().lz_cache:
+                shapes["k_lz"] = (rows, torch.int8)
+        elif kind == "mamba":
+            m = cfg.mamba
+            shapes = {"conv": (lead + (m.d_conv - 1, m.d_inner), cfg.dtype),
+                      "state": (lead + (m.n_heads, m.d_state, m.head_dim),
+                                f32)}
+        elif kind == "mlstm":
+            nh, dh = cfg.xlstm_heads, cfg.xlstm_cfg().head_dim
+            shapes = {"state": (lead + (nh, dh, dh + 1), f32)}
+        else:
+            nh, dh = cfg.xlstm_heads, cfg.xlstm_cfg().head_dim
+            shapes = {name: (lead + (nh, dh), f32) for name in "cnh"}
+        return {name: torch.zeros(shape, dtype=dtype, device=self.device)
+                for name, (shape, dtype) in shapes.items()}
 
     # -- queueing -----------------------------------------------------------
 
@@ -170,10 +186,13 @@ class ServingEngine:
         return out
 
     def _splice_slot(self, slot: int, cache_one, length: int, token: int):
-        """Write a single prefilled sequence into the slab at ``slot``."""
+        """Write a single prefilled sequence into the slabs at ``slot``:
+        every leaf of every block, attention rows and recurrent state."""
         for key, blk in cache_one["layers"].items():
-            for name, one in blk["attn"].items():
-                self.cache["layers"][key]["attn"][name][:, slot] = one[:, 0]
+            for kind, leaves in blk.items():
+                for name, one in leaves.items():
+                    self.cache["layers"][key][kind][name][:, slot] = \
+                        one[:, 0]
         self.cache["lengths"][slot] = length
         self.last_token[slot, 0] = token
 

@@ -73,7 +73,7 @@ def test_launcher_cuts_depth(capsys):
         "[serve] grok_1_314b (smoke, paged, cpu): 3 requests")
     grok = serve.model_config("grok_1_314b", full=True)
     published = get_config("grok_1_314b")
-    assert serve.FULL_DEPTH_CUT == {"grok_1_314b": 2}
+    assert serve.FULL_DEPTH_CUT["grok_1_314b"] == 2
     assert grok.n_layers == 2 and published.n_layers == 64
     assert grok == dataclasses.replace(published, n_layers=2)
     assert serve.model_config("olmoe_1b_7b", full=True) \
@@ -82,11 +82,37 @@ def test_launcher_cuts_depth(capsys):
         == get_smoke_config("grok_1_314b")
 
 
+@pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "xlstm_125m"])
+def test_launcher_serves_recurrent_families(capsys, arch):
+    """``--engine dense`` serves Jamba (Mamba, attention, MoE) and xLSTM
+    at smoke size; the default paged engine refuses them, as the
+    reference's launcher does. Under ``--full`` Jamba takes the first 5
+    blocks of its published order, widths kept."""
+    rep = serve.main(["--arch", arch, *SMALL, "--engine", "dense"])
+    assert all(len(t) == 5 for t in rep["tokens_by_request"])
+    assert capsys.readouterr().out.startswith(
+        f"[serve] {arch} (smoke, dense, cpu): 3 requests")
+    with pytest.raises(ValueError, match="attention-only"):
+        serve.main(["--arch", arch, *SMALL])
+    published = get_config(arch)
+    cut = serve.model_config(arch, full=True)
+    if arch == "xlstm_125m":
+        assert cut == published
+        return
+    assert serve.FULL_DEPTH_CUT[arch] == 5
+    assert cut.n_layers == len(cut.pattern) == 5
+    assert cut.pattern == published.pattern[:5]
+    assert [b.kind for b in cut.pattern] == ["mamba"] * 4 + ["attn"]
+    assert [b.ffn for b in cut.pattern] == ["dense", "moe"] * 2 + ["dense"]
+    assert cut == dataclasses.replace(published, n_layers=5,
+                                      pattern=published.pattern[:5])
+
+
 def test_launcher_refusals(monkeypatch):
     with pytest.raises(SystemExit, match="pool-backed"):
         serve.main(["--engine", "dense", "--disagg", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown or unported"):
-        serve.main(["--arch", "jamba_1_5_large_398b", "--device", "cpu"])
+        serve.main(["--arch", "seamless_m4t_large_v2", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "olmo_1b"])

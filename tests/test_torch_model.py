@@ -156,9 +156,9 @@ def test_converter_round_trip(models, dtype):
 
 
 def test_converter_rejects_unported_families():
-    ssm = get_smoke_config("jamba_1_5_large_398b")
+    enc_dec = get_smoke_config("seamless_m4t_large_v2")
     with pytest.raises(NotImplementedError, match="not ported"):
-        convert.model_cfg_from_reference(ssm)
+        convert.model_cfg_from_reference(enc_dec)
 
 
 def test_port_init_matches_reference_tree():

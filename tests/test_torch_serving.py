@@ -250,14 +250,16 @@ def test_from_config_serves_on_cpu_when_asked():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(pattern=(tlm.BlockCfg("mamba", "dense"),)), "ROADMAP"),
+    (dict(pattern=(tlm.BlockCfg("attn", "dense", cross_attn=True),)),
+     "ROADMAP"),
 ])
 def test_unported_options_raise(kw, match):
     """What is still unported raises, naming its ROADMAP item: here a
-    model family (an SSM block); the spatial backend and the MoE block,
-    this test's cases before, now serve
+    model family (a cross-attention block, of the encoder-decoder
+    family); the spatial backend, the MoE block and the SSM block, this
+    test's cases before, now serve
     (``test_from_config_serves_the_spatial_backend``,
-    ``tests/test_torch_moe.py``)."""
+    ``tests/test_torch_moe.py``, ``tests/test_torch_ssm.py``)."""
     with pytest.raises(NotImplementedError, match=match):
         LLM.from_config(dataclasses.replace(tsmoke("olmo_1b"), **kw),
                         device="cpu")
@@ -326,7 +328,7 @@ def test_from_config_serves_the_int8_tier():
 def test_registry_names_unported_archs():
     assert get_config("olmo_1b").d_model == 2048
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("jamba_1_5_large_398b")
+        get_config("internvl2_26b")
 
 
 def test_no_gpu_means_no_cpu_fallback(monkeypatch):
@@ -598,6 +600,64 @@ def test_chip_smoke_moe_phases_rehearse_on_cpu(monkeypatch):
                                page=16, w=9, p=16, kv_len=(130,), seed=9,
                                timed=False)
     assert k1["violations"] == 0 and k1["shape"] == [1, 8, 6, 128]
+
+
+def test_chip_smoke_recurrent_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 16-17 on the CPU at smoke size: Jamba's smoke config cut to
+    its first 5 blocks, as the card cuts the published one, through the
+    dense engine with STAR (first tokens equal a STAR forward's) and
+    dropless (every token by the MoE rule, nothing dropped), the paged
+    engine's refusal and the prefill split's control flow; xLSTM's smoke
+    config with every token the plain forward's argmax or a bf16 tie and
+    the sLSTM loop's share of a prefill. The launch checks, which the CPU
+    cannot meet, are recorded instead of run; their expectations are
+    held; xLSTM's, no kernel at all, runs on the CPU too."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    real_dense_check = cs.require_dense_launches
+    held = []
+    for name in ("require_k4", "require_dense_launches"):
+        monkeypatch.setattr(cs, name, lambda summary, tag, name=name:
+                            held.append((name, tag, summary)))
+    gen = torch.Generator().manual_seed(0)
+    jamba = cs.check_jamba(tsmoke("jamba_1_5_large_398b"), "cpu", gen,
+                           lengths=(32, 64, 48), max_tokens=4)
+    star, exact = jamba["star"], jamba["exact"]
+    assert jamba["tiles"]["sufa"]["BH"] == 4
+    assert star["first_tokens_checked"] == 3 and star["exact"] == 3
+    # one attention layer of five: K2 = K3 = prefill calls, no K4
+    assert star["prefill_calls"] == 3
+    assert star["expected_prefill_launches"] == 3
+    assert star["expected_flash_launches"] == 0
+    assert exact["expected_flash_launches"] == 3
+    assert exact["expected_prefill_launches"] == 0
+    assert star["prefill_tokens"] == [32, 64, 48]
+    assert exact["dropped_share_per_prefill"] == [0.0] * 3
+    assert exact["tokens_checked"] == 12 and exact["rule"] == "moe"
+    assert exact["exact"] + exact["bf16_ties"] == 12
+    # three forwards a request run K4 at the attention layer: K4's, the
+    # hybrid one and K4's one page longer (the recurrent blocks' rounding)
+    assert exact["expected_k4_launches"] == 3 * 3
+    assert all(r >= 0 for r in exact["routing_forced"]["rounding"])
+    assert len(exact["routing_forced"]["max_gap"]) == 2
+    assert jamba["split"]["star"]["split"] is None
+    with pytest.raises(SystemExit, match="expected prefill calls x layers"):
+        real_dense_check(star, "cpu")
+    xl = cs.check_xlstm(tsmoke("xlstm_125m"), "cpu", gen, lengths=(17, 40),
+                        max_tokens=4)
+    run, low = xl["served"]["fp32"], xl["served"]["bf16"]
+    assert run["tokens_checked"] == 8 and run["exact"] + run["bf16_ties"] \
+        == 8
+    assert run["expected_k4_launches"] == 0
+    assert low["tokens_checked"] == 8 and low["exact_fp32_forward"] >= 6
+    assert len(low["spread_steps"]) == 2
+    for r in (run, low):
+        assert r["expected_flash_launches"] == 0 and not any(
+            r["launches"].values())
+        real_dense_check(r, "cpu")
+    assert 0 < xl["prefill"]["slstm_scan_share"] < 1
+    assert {name for name, _, _ in held} == {"require_k4",
+                                             "require_dense_launches"}
 
 
 def test_chip_smoke_moe_token_rule(monkeypatch):
