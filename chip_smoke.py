@@ -55,10 +55,11 @@ Phases, each printing its numbers on a line of its own:
    T of 991, at T = S = 1 and 129, and at d = 64), each timed beside its
    bound, its plain version and one PyTorch call (SDPA, for K3 over the
    gathered rows that its old contract read; none computes K2's block
-   maxima); and K3 with STAR's element-level sphere mask (its mma.sync
-   form, T = 2048, tiles 128, both modes), with the share of keys the
-   sphere drops and the share of mask elements a default cuBLAS product
-   would set otherwise; then, untimed, phases 10-12's shapes: K2, K3
+   maxima); and K3 with STAR's element-level sphere mask (T = 2048, both
+   modes: its wgmma form at tiles 128, timed, and at d = 64; its mma.sync
+   form at tiles of 64, timed), with the share of keys the sphere drops
+   and the share of mask elements a default cuBLAS product would set
+   otherwise; then, untimed, phases 10-12's shapes: K2, K3
    (both modes, with and without the element mask) and K4 at ChatGLM3-6B's
    longest prompt (BH 32, T 4096), and K3's element mask at star_paper's
    (BH 32, T 2048);
@@ -229,6 +230,8 @@ from repro_torch.kernels import paged as kpaged  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import sufa as ksufa  # noqa: E402
 from repro_torch.kvcache import bucketing, quant  # noqa: E402
+from repro_torch.kvcache.paged_attention import (  # noqa: E402
+    dequantized_slabs, fold_shards)
 from repro_torch.models import attention, lm, moe, xlstm  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
 from repro_torch import profiling  # noqa: E402
@@ -462,13 +465,17 @@ def check_paged_kernel(device, name, b, g, r, d, page, w, p, kv_len, seed,
 
 def int8_tier(k, phys, seed, share=0.5):
     """An int8 tier for every page and a qmask marking about ``share`` of
-    the slots. The codes quantize (``kvcache.quant``, as the served path
-    quantizes a page) K and V rows drawn apart from the fp slabs', each
-    page at a magnitude of its own, so that a form reading a marked slot's
-    fp rows, or another page's scale, lands far from the plain version. V
-    spans 2^±4; K spans 2^±1, because wider scores would make the bf16
-    rounding of scores, which the kernel shares with its plain version
-    only up to the order of fp32 sums, the larger difference."""
+    the pages, and so of the slots: every slot naming a page reads it the
+    same way, as the served tier reads a page that is cold, so the int8
+    read is the fp read of ``dequantized_slabs`` (``phys`` of a sharded
+    pool: its ids folded, ``fold_shards``). The codes quantize
+    (``kvcache.quant``, as the served path quantizes a page) K and V rows
+    drawn apart from the fp slabs', each page at a magnitude of its own,
+    so that a form reading a marked slot's fp rows, or another page's
+    scale, lands far from the plain version. V spans 2^±4; K spans 2^±1,
+    because wider scores would make the bf16 rounding of scores, which
+    the kernel shares with its plain version only up to the order of fp32
+    sums, the larger difference."""
     gen = torch.Generator(device="cpu").manual_seed(seed + 1)
     shape = k.shape
     span = {"k": 1.0, "v": 4.0}
@@ -480,7 +487,8 @@ def int8_tier(k, phys, seed, share=0.5):
                       * mag[:, None, None, None]).to(k.device, k.dtype)
     kq, ks = quant.quantize_rows(rows["k"])
     vq, vs = quant.quantize_rows(rows["v"])
-    qmask = (torch.rand(phys.shape, generator=gen) < share).to(phys.device)
+    marked = torch.rand(shape[0], generator=gen) < share
+    qmask = marked[phys.clamp(min=0).long().cpu()].to(phys.device)
     return {"kq": kq, "vq": vq, "k_scale": ks, "v_scale": vs,
             "qmask": qmask}
 
@@ -519,11 +527,13 @@ def check_paged_int8(device, name, b, g, r, d, page, w, p, kv_len, seed,
                      timed: bool) -> dict:
     """K1's int8 form against its plain version with about half the slots
     marked; two calls bit-equal; with an all-False qmask, bit-equal to the
-    fp form's launch. The check's reach is shown on the same inputs: the
-    fp form (a form that ignored qmask) and the plain version fed the
-    next page's scales (a form that took another page's scale) must each
-    break the tolerance and lie at least REACH times the kernel's error
-    from the plain version."""
+    fp form's launch; bit-equal to the fp form's launch over
+    ``dequantized_slabs`` (the marked pages' rows replaced by
+    bf16(float(code) · scale)). The check's reach is shown on the same
+    inputs: the fp form (a form that ignored qmask) and the plain version
+    fed the next page's scales (a form that took another page's scale)
+    must each break the tolerance and lie at least REACH times the
+    kernel's error from the plain version."""
     q, k, v, phys, logical, kvl = paged_inputs(b, g, r, d, page, w, p,
                                                kv_len, seed, device)
     tier = int8_tier(k, phys, seed)
@@ -550,6 +560,12 @@ def check_paged_int8(device, name, b, g, r, d, page, w, p, kv_len, seed,
         raise SystemExit(f"k1_int8_parity {name}: an all-False qmask did "
                          f"not give the fp form's bits")
     out["all_false_bit_equal_fp"] = True
+    kd, vd = dequantized_slabs(k, v, phys, tier)
+    if not torch.equal(got, kpaged.paged_decode_attention(
+            q, kd, vd, phys, logical, kvl, scale=scale)):
+        raise SystemExit(f"k1_int8_parity {name}: the int8 form is not the "
+                         f"fp form over the dequantized slabs, bit for bit")
+    out["bit_equal_fp_over_dequantized"] = True
     other_page = dict(tier, k_scale=tier["k_scale"].roll(1),
                       v_scale=tier["v_scale"].roll(1))
     for key, wrong in (("fp_form", fp), ("other_page_scale",
@@ -626,8 +642,7 @@ def stats_library(q, k, v, phys, logical, kv_len, scale, quant=None):
     log-sum-exp; (m, l, o) = (lse, 1, o) is the state the merge takes.
     Returns the call and its state's o/l error against the plain version
     (its P·V is bf16, so the error is in bf16 steps of o)."""
-    from repro_torch.kvcache.paged_attention import (
-        _gather_hot, fold_shards, fold_tier)
+    from repro_torch.kvcache.paged_attention import _gather_hot, fold_tier
     b, g, r, d = q.shape
     n_sh, _, w = phys.shape
     kf, pf = fold_shards(k, phys)
@@ -664,7 +679,8 @@ def stats_library(q, k, v, phys, logical, kv_len, scale, quant=None):
 def stats_reach(out, tag, name, q, k, v, phys, logical, kv_len, scale,
                 tier, want) -> None:
     """The int8 lane check's reach, on the inputs it held: an all-False
-    qmask must give the fp lane's bits; the fp lane (a form that ignored
+    qmask must give the fp lane's bits, and the int8 lane the fp lane's
+    over ``dequantized_slabs``; the fp lane (a form that ignored
     qmask) and the plain version fed the next page's scales (a form that
     took another page's scale) must each break the tolerance on o/l and
     lie at least REACH times the kernel's error from ``want``."""
@@ -677,6 +693,14 @@ def stats_reach(out, tag, name, q, k, v, phys, logical, kv_len, scale,
         raise SystemExit(f"{tag} {name}: an all-False qmask did not give "
                          f"the fp lane's bits")
     out["all_false_bit_equal_fp"] = True
+    kd, vd = dequantized_slabs(k, v, phys, tier)
+    if not all(torch.equal(x, y) for x, y in zip(
+            stats(kpaged.paged_decode_stats_attention, tier),
+            kpaged.paged_decode_stats_attention(q, kd, vd, phys, logical,
+                                                kv_len, scale=scale))):
+        raise SystemExit(f"{tag} {name}: the int8 lane is not the fp lane "
+                         f"over the dequantized slabs, bit for bit")
+    out["bit_equal_fp_over_dequantized"] = True
     other_page = dict(tier, k_scale=tier["k_scale"].roll(1),
                       v_scale=tier["v_scale"].roll(1))
     for key, (_, wl, wo) in (("fp_form", fp), ("other_page_scale", stats(
@@ -709,7 +733,8 @@ def check_paged_stats(device, name, n_sh, b, g, r, d, page, w, p, kv_len,
         n_sh, b, g, r, d, page, w, p, kv_len, seed, device, empty_shard)
     tier = None
     if quant:
-        tier = int8_tier(k.view(n_sh * p, *k.shape[2:]), phys, seed)
+        tier = int8_tier(k.view(n_sh * p, *k.shape[2:]),
+                         fold_shards(k, phys)[1].view(phys.shape), seed)
         for key in ("kq", "vq", "k_scale", "v_scale"):
             tier[key] = tier[key].view(n_sh, p, *tier[key].shape[1:])
     scale = 1.0 / math.sqrt(d)
@@ -1182,8 +1207,7 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
     n_tiles = int((reads > 0).sum())
     tile_bytes = 2 * n_tiles * block * d * k.element_size()
     out = held("prefill_kernel", got, plain(), PREFILL_TOL["sufa"],
-               kernel="sufa", form=launch.tile_form(block, block,
-                                                    elementwise),
+               kernel="sufa", form=launch.tile_form(block, block),
                BH=bh, T=t, d=d, block=block, keep=keep, strict=strict,
                elementwise=elementwise, valid_tiles=int(valid.sum()),
                distinct_tiles=n_tiles, gathered_bytes_not_moved={
@@ -1254,12 +1278,19 @@ def check_prefill_kernels(dev) -> dict:
                    timed=False)
         check_sufa(dev, flush, bh=16, t=1024, block=64, strict=strict,
                    seed=7, timed=False)
-        # the element-level sphere (the mma.sync form at the served tiles)
+        # the element-level sphere: the wgmma form at the served tiles
+        # and d = 64, the mma.sync form at tiles of 64
         out = check_sufa(dev, flush, bh=16, t=2048, block=128,
-                         strict=strict, seed=2053, timed=strict,
+                         strict=strict, seed=2053, timed=True,
                          elementwise=True)
+        timed["sufa_elementwise" if strict else "sufa_elementwise_fast"] \
+            = out
+        check_sufa(dev, flush, bh=16, t=1024, block=128, strict=strict,
+                   seed=2054, timed=False, d=64, elementwise=True)
+        out = check_sufa(dev, flush, bh=16, t=2048, block=64, strict=strict,
+                         seed=2055, timed=strict, elementwise=True)
         if strict:
-            timed["sufa_elementwise"] = out
+            timed["sufa_elementwise_mma_sync"] = out
     for t in (1024, 2048, 991, 1, 129):
         out = check_flash(dev, flush, bh=16, t=t, causal=True, seed=t + 7,
                           timed=t == 2048)
@@ -1497,7 +1528,6 @@ def serve_whole_prompt(cfg, params, prompts, max_tokens, *, device,
     summary = served_summary(run, cfg.n_layers)
     star = cfg.star
     # K2 and K3 take their wgmma form where a prefill's tiles are 128 x 128
-    # (K3 not with the element mask, which lives in its mma.sync form)
     wgmma_calls = 0 if star is None else sum(
         launch.tile_form(min(star.block_q, w), min(star.block_kv, w))
         == "wgmma" for w in tally["widths"])
@@ -1513,8 +1543,7 @@ def serve_whole_prompt(cfg, params, prompts, max_tokens, *, device,
         expected_prefill_launches=tally["calls"] * per_call,
         expected_flash_launches=tally["calls"] * (cfg.n_layers - per_call),
         expected_wgmma_launches=wgmma_calls * cfg.n_layers,
-        expected_sufa_wgmma_launches=0 if elem
-        else wgmma_calls * per_call,
+        expected_sufa_wgmma_launches=wgmma_calls * per_call,
         expected_sufa_elementwise_launches=tally["calls"] * per_call
         if elem else 0)
     return llm, run, summary
@@ -1523,8 +1552,8 @@ def serve_whole_prompt(cfg, params, prompts, max_tokens, *, device,
 def require_prefill_launches(summary: dict, tag: str) -> None:
     """K2 and K3 once per layer of every prefill call, in the wgmma form
     wherever the call's tiles are 128 x 128 (all but the pool probe; K3's
-    element-mask calls all in its mma.sync form); K4 once per layer of a
-    dense prefill call."""
+    element-mask calls too, counted also under ``sufa/elementwise``); K4
+    once per layer of a dense prefill call."""
     want = summary["expected_prefill_launches"]
     got = (summary["dlzs_block_launches"], summary["sufa_launches"])
     if summary["prefill_calls"] == 0 or got != (want, want):
@@ -3243,13 +3272,23 @@ def main() -> int:
              k1_r6["fp"], launches_from="phase 15, Grok-1 served",
              launches_dropless=grok["exact"]["k1_launches"],
              n_split=k1_r6["fp"]["n_split"], **int8_keys(k1_r6["int8"])),
-        # K3's element mask (its mma.sync form): phase 12's star_paper run
-        # with STARConfig(elementwise=True)
+        # K3's element mask: phase 12's star_paper run with
+        # STARConfig(elementwise=True); its wgmma form at the served tiles,
+        # its mma.sync form (tiles of 64) timed beside it
         line("sufa/elementwise", "sufa.cu", "src/repro/kernels/sufa.py:72",
              cut["star_paper"]["star_elementwise"]["form_launches"][
                  "sufa/elementwise"], tiles["sufa_elementwise"],
              launches_from="phase 12, star_paper served with "
                            "elementwise=True",
+             form=tiles["sufa_elementwise"]["form"],
+             launches_wgmma=cut["star_paper"]["star_elementwise"][
+                 "form_launches"]["sufa/wgmma"],
+             ms_fast_path=tiles["sufa_elementwise_fast"]["ms"],
+             library_ms_fast_path=tiles["sufa_elementwise_fast"][
+                 "library_ms"],
+             mma_sync={key: tiles["sufa_elementwise_mma_sync"][key]
+                       for key in ("block", "max_abs_err", "ms",
+                                   "plain_ms", "bound_ms", "library_ms")},
              sphere_dropped_share=tiles["sufa_elementwise"][
                  "sphere_dropped_share"],
              mask_elements_differ_default_gemm_share=tiles[

@@ -58,20 +58,36 @@
 //     once, measured slower: each block's first stage then lands last.
 //   * The int8 cold tier (kv_quant="int8"). A second form of the three
 //     kernels (template flag Q; launches without the tier run the fp form,
-//     whose arithmetic is unchanged) reads, for each slot its qmask marks,
-//     the slot's rows from the int8 mirror slabs kq/vq ([P, page, G, d],
+//     whose code is unchanged) reads, for each slot its qmask marks, the
+//     slot's rows from the int8 mirror slabs kq/vq ([P, page, G, d],
 //     through their own strides) instead of the bf16 slabs: half the
 //     bytes, through the same cp.async ring (an int8 row lands in the
 //     first half of its row's place), and the consumer turns each code
 //     into bf16(float(code) · scale[page]), one fp32 product rounded to
 //     nearest, exactly as the plain gather
-//     (kvcache.paged_attention._gather_hot) dequantizes. The
-//     producer reads a row's mask beside its block-table entry and copies
-//     its page scale with cp.async into the stage's scale row, so no
-//     thread waits on a scale before the stage is consumed. The mask is
-//     per slot, so with page 16 a stage is one slot and its branch is
-//     uniform. Unmarked slots read their fp rows, so an all-False qmask
-//     gives the fp form's bits.
+//     (kvcache.paged_attention._gather_hot) dequantizes, then runs the fp
+//     form's arithmetic on it. So every value and every fp32 sum, in its
+//     order, is the fp form's over slabs whose marked pages hold the
+//     dequantized rows (kvcache.paged_attention.dequantized_slabs): the
+//     two are equal bit for bit, and an all-False qmask gives the fp
+//     form's bits. What it costs beyond the fp form is latency, not
+//     bytes, so the design keeps device-memory reads and divisions off
+//     each row's path: one pass at block start (in place of the fp form's
+//     row count) stages the range's slots in shared memory (page, mark,
+//     valid rows, and the page's scale, which arrives by cp.async with the
+//     first stage); the producer branches on that table; pass 2 reads
+//     each row's scale from an array it fills once (a division on each
+//     stage's path instead cost 1 us); each pass branches once a row
+//     (pass 1) or once a stage (pass 2, where pages hold whole stages),
+//     not in its inner loop, so its loads batch as the fp form's; and a
+//     code becomes a float by a byte permute into 2^23's bits and one
+//     subtraction, exact, not by the conversion unit (16 a clock on an
+//     SM). An earlier lane read a qmask byte behind a block-table read
+//     from device memory for every 16-byte copy and copied each row's
+//     scale with its own cp.async: 6 us over the fp form with no slot
+//     marked (PERF.md). Widening each landed int8 stage to bf16 in place,
+//     by the thread that copied it before the stage's barrier, measured
+//     slower than converting in registers where each code is read.
 //   * Arithmetic. A row's score comes from 8 threads (a 3-step shuffle);
 //     the first of them writes it and keeps its rows' max, and the 16 row
 //     owners merge their (m, l) at the end, so a stage needs one barrier.
@@ -102,8 +118,7 @@
 // Later work: the kernel takes about 4x its bound, in two passes that each
 // wait on DRAM and then on a few hundred cycles of work per stage; the
 // tick is bound by the host, so CUDA-graph capture of the decode step
-// comes first (PERF.md). The int8 form converts each code where it is
-// used, once per pass, a simple lane before a fast one.
+// comes first (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -178,9 +193,27 @@ struct Int8Tier {
   int64_t sp, sr, sg;
 };
 
-// bf16(float(code) · scale): the plain gather's dequantization
-__device__ __forceinline__ float dequant(int8_t code, float scale) {
-  return round_bf16(static_cast<float>(code) * scale);
+// bf16(float(code) · scale), the plain gather's dequantization, of the
+// codes in bytes 0..N-1 of w, widened back to fp32: the values a convert,
+// a product and a rounding per code give, with the two conversions (16 a
+// clock on an SM) replaced by integer byte permutes and one packed
+// rounding per pair. code + 128 in the low byte of 2^23's bits reads as
+// 2^23 + code + 128, exactly.
+template <int N>
+__device__ __forceinline__ void dequant(uint32_t w, float scale,
+                                        float* out) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    const float a =
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.f;
+    const float b =
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651 + i)) - 8388736.f;
+    const float2 ab =
+        __bfloat1622float2(__floats2bfloat162_rn(a * scale, b * scale));
+    out[i] = ab.x;
+    out[i + 1] = ab.y;
+  }
 }
 
 // The workspace, fp32: m and l [B·G, n_split, R], o [B·G, n_split, R, D],
@@ -257,6 +290,65 @@ struct Range {
   }
 };
 
+// The int8 form's view of its range's slots, staged in shared memory once
+// at block start, so that neither the producer nor the consumers read
+// the qmask, the block table or a scale from device memory per row: each
+// slot's page (clamped, shard base added), whether it reads the tier,
+// its valid rows and its page's scale (-1: a bf16 slot).
+template <int N>
+struct SlotTable {
+  int ph[N];
+  int lim[N];
+  float scale[N];
+  uint8_t q8[N];
+};
+
+// The int8 form's block start, in place of Range::visit_rows: one pass
+// over the range's slots fills the table and finds the rows to visit (up
+// to the last valid row; 0: none). The scales of marked pages arrive by
+// cp.async in the first stage's group, so no thread waits on one: the
+// first stage's wait and barrier publish them. Every thread calls it, and
+// it syncs the block.
+template <bool FOLD>
+__device__ int stage_slots(SlotTable<kMaxRows>& t, const Range<FOLD>& range,
+                           const float* __restrict__ scale, int* scratch) {
+  int mine = 0;
+  for (int wi = threadIdx.x; wi < range.w1 - range.w0; wi += kThreads) {
+    const int w = range.w0 + wi;
+    const int lg = range.logical[w];
+    const int64_t left = (int64_t)range.len - (int64_t)lg * range.page;
+    const int lim =
+        lg < 0 || left <= 0 ? 0 : (int)min((int64_t)range.page, left);
+    int ph = min(max(range.phys[w], 0), range.n_pages - 1);
+    if constexpr (FOLD) ph += range.base;
+    const bool q8 = lim > 0 && range.qmask[w];
+    t.ph[wi] = ph;
+    t.lim[wi] = lim;
+    t.q8[wi] = q8;
+    if (q8)
+      cp_async4(&t.scale[wi], scale + ph);
+    else
+      t.scale[wi] = -1.f;
+    if (lim > 0) mine = max(mine, wi * range.page + lim);
+  }
+  mine = __reduce_max_sync(0xffffffffu, mine);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = mine;
+  __syncthreads();
+  int rows = 0;
+#pragma unroll
+  for (int i = 0; i < kWarps; ++i) rows = max(rows, scratch[i]);
+  return rows;
+}
+
+// The int8 form's reading of row idx < rows of the range: its page scale
+// if it is a valid row of a marked slot (its codes are in the stage),
+// else -1 (its bf16 row, or zeros where it is masked).
+__device__ __forceinline__ float row_scale(const SlotTable<kMaxRows>& t,
+                                           int idx, int page) {
+  const int wi = idx / page;
+  return idx - wi * page < t.lim[wi] ? t.scale[wi] : -1.f;
+}
+
 // A row's int8 codes in the int8 form: the first D bytes of its place in
 // the stage's bf16 tile.
 __device__ __forceinline__ int8_t* codes_of(__nv_bfloat16* tile, int r,
@@ -270,16 +362,16 @@ __device__ __forceinline__ const int8_t* codes_of(const __nv_bfloat16* tile,
 
 // Issue the copies of stage st (rows [st·kRows, st·kRows + kRows) of the
 // range) into ring slot st % NS: bf16 rows into tile, 16 bytes a copy,
-// masked rows zero-filled without a read. In the int8 form a row of a
-// marked slot copies its D codes into its place instead (16 codes a copy)
-// and its page scale into scales[r], and q8s[r] says which rows did.
-// Commits one group.
-template <int D, bool Q, bool FOLD>
+// masked rows zero-filled without a read. In the int8 form, which reads
+// its range's slots from the staged table, a valid row of a marked slot
+// copies its D codes into the first D bytes of its place instead, 16
+// codes a copy. Commits one group.
+template <int D, bool Q, bool FOLD, typename Slots>
 __device__ __forceinline__ void fetch_stage(
     int st, int n_st, int rows, const Range<FOLD>& range, int g,
     const __nv_bfloat16* __restrict__ src, int64_t sp, int64_t sr,
-    int64_t sg, const Int8Tier& tier, __nv_bfloat16* tile, float* scales,
-    uint8_t* q8s) {
+    int64_t sg, const Int8Tier& tier, const Slots& slots,
+    __nv_bfloat16* tile) {
   constexpr int CH = D / 8;  // 16-byte bf16 chunks per row
   if (st < n_st) {
     for (int c = threadIdx.x; c < kRows * CH; c += kThreads) {
@@ -287,23 +379,28 @@ __device__ __forceinline__ void fetch_stage(
       const int e = (c - r * CH) * 8;
       const int idx = st * kRows + r;
       int ph = 0, rp = 0, wi = 0;
-      const bool ok = idx < rows && range.locate(idx, ph, rp, wi);
-      bool q8 = false;
       if constexpr (Q) {
-        q8 = ok && range.qmask[range.w0 + wi];
-        if (e == 0) {
-          q8s[r] = q8;
-          if (q8) cp_async4(&scales[r], tier.scale + ph);
+        bool ok = false, q8 = false;
+        if (idx < rows) {
+          wi = idx / range.page;
+          rp = idx - wi * range.page;
+          ph = slots.ph[wi];
+          ok = rp < slots.lim[wi];
+          q8 = ok && slots.q8[wi];
         }
-        if (q8 && (e & 15) == 0)
+        if (!q8)
+          cp_async16(&tile[r * D + e], src + ph * sp + rp * sr + g * sg + e,
+                     ok);
+        else if ((e & 15) == 0)
           cp_async16(codes_of(tile, r, D) + e,
                      tier.codes + ph * tier.sp + rp * tier.sr + g * tier.sg +
                          e,
                      true);
-      }
-      if (!q8)
+      } else {
+        const bool ok = idx < rows && range.locate(idx, ph, rp, wi);
         cp_async16(&tile[r * D + e], src + ph * sp + rp * sr + g * sg + e,
                    ok);
+      }
     }
   }
   cp_async_commit();  // empty groups keep the count uniform
@@ -327,8 +424,7 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
   constexpr int TPR = kThreads / kRows;  // threads per row
   static_assert(CH % TPR == 0, "tile shape");
   __shared__ __align__(16) __nv_bfloat16 sk[NS][kRows * D];
-  __shared__ float s_sc[Q ? NS : 1][kRows];     // int8 rows' page scales
-  __shared__ uint8_t s_q8[Q ? NS : 1][kRows];   // rows read as int8
+  __shared__ SlotTable<Q ? kMaxRows : 1> s_slots;
   __shared__ __align__(16) float sq[R][D];
   __shared__ float s_m[R][kRows], s_l[R][kRows];
   __shared__ int scratch[kWarps];
@@ -345,7 +441,11 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
       q + (ST ? ((int64_t)(b % Bq) * G + g) * R * D : (int64_t)bg * R * D);
   for (int i = threadIdx.x; i < R * D; i += kThreads)
     sq[i / D][i % D] = __bfloat162float(qb[i]);
-  const int rows = range.visit_rows(scratch);
+  int rows;
+  if constexpr (Q)
+    rows = stage_slots(s_slots, range, tier.scale, scratch);
+  else
+    rows = range.visit_rows(scratch);
   if (rows == 0) {  // (NEG_INF, 0): weight 0 in the later passes
     if (threadIdx.x < R) {
       out.m[threadIdx.x] = kNegInf;
@@ -355,10 +455,8 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
   }
   const int n_st = (rows + kRows - 1) / kRows;
   auto fetch = [&](int st) {
-    const int slot = st % NS;
     fetch_stage<D, Q, ST>(st, n_st, rows, range, g, k, k_sp, k_sr, k_sg,
-                          tier, sk[slot], s_sc[Q ? slot : 0],
-                          s_q8[Q ? slot : 0]);
+                          tier, s_slots, sk[st % NS]);
   };
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) fetch(st);
@@ -379,22 +477,20 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
     const int idx = st * kRows + srow;
     int ph, rp, wi;
     const bool ok = idx < rows && range.locate(idx, ph, rp, wi);
-    // >= 0: this row reads its int8 codes at this page scale
-    const int ring = Q ? st % NS : 0;
-    const float qs = Q && s_q8[ring][srow] ? s_sc[ring][srow] : -1.f;
+    // >= 0: this row reads its int8 codes at this page scale (the table
+    // holds -1 for a bf16 slot)
+    const float qs = Q && ok ? s_slots.scale[Q ? wi : 0] : -1.f;
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[r] = 0.f;
-#pragma unroll
-    for (int u = 0; u < CH / TPR; ++u) {
-      const int c = part + u * TPR;  // a row's 8 threads read 128 bytes
+    // acc += q · k over chunk c (8 values); with qs >= 0 the row's codes
+    auto add_chunk = [&](int c, float qs) {
       float kx[8];
       if (Q && qs >= 0.f) {
         const uint2 raw = *reinterpret_cast<const uint2*>(
             codes_of(tile, srow, D) + c * 8);
-        const int8_t* codes = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kx[e] = dequant(codes[e], qs);
+        dequant<4>(raw.x, qs, kx);
+        dequant<4>(raw.y, qs, kx + 4);
       } else {
         const uint4 raw =
             *reinterpret_cast<const uint4*>(&tile[srow * D + c * 8]);
@@ -415,6 +511,15 @@ paged_scores_kernel(const __nv_bfloat16* __restrict__ q,   // [B, G, R, D]
                         fmaf(sq[r][c * 8 + 2 * e + 1], kx[2 * e + 1],
                              acc[r]));
       }
+    };
+    // a row's 8 threads read 128 bytes a step; the branch stays outside
+    // the steps so that their loads batch as the fp form's do
+    if (Q && qs >= 0.f) {
+#pragma unroll
+      for (int u = 0; u < CH / TPR; ++u) add_chunk(part + u * TPR, qs);
+    } else {
+#pragma unroll
+      for (int u = 0; u < CH / TPR; ++u) add_chunk(part + u * TPR, -1.f);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -478,8 +583,8 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   static_assert(kThreads % EP == 0 && NH * R * D * 4 <= NS * kRows * D * 2,
                 "tile shape");
   __shared__ __align__(16) __nv_bfloat16 sv[NS][kRows * D];
-  __shared__ float s_sc[Q ? NS : 1][kRows];     // int8 rows' page scales
-  __shared__ uint8_t s_q8[Q ? NS : 1][kRows];   // rows read as int8
+  __shared__ SlotTable<Q ? kMaxRows : 1> s_slots;
+  __shared__ float s_qs[Q ? kMaxRows : 1];  // each row's row_scale
   __shared__ float s_p[R][kMaxRows];     // the range's P
   __shared__ float s_M[R], s_L[R];
   __shared__ float s_ml[2][kMergeChunk * R];  // staged (m, l) of splits
@@ -494,7 +599,11 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
                         P);
   const Workspace out(ws, bg, gridDim.x, blockIdx.y, n_split, R, D,
                       W * page);
-  const int rows = range.visit_rows(scratch);
+  int rows;
+  if constexpr (Q)
+    rows = stage_slots(s_slots, range, tier.scale, scratch);
+  else
+    rows = range.visit_rows(scratch);
   if (rows == 0) {  // l = 0 for this range: pass 3 skips it
     griddep_wait();  // pass 3 relies on pass 1 having finished too
     return;
@@ -502,10 +611,8 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
 
   const int n_st = (rows + kRows - 1) / kRows;
   auto fetch = [&](int st) {
-    const int slot = st % NS;
     fetch_stage<D, Q, ST>(st, n_st, rows, range, g, v, v_sp, v_sr, v_sg,
-                          tier, sv[slot], s_sc[Q ? slot : 0],
-                          s_q8[Q ? slot : 0]);
+                          tier, s_slots, sv[st % NS]);
   };
 #pragma unroll
   for (int st = 0; st < NS - 1; ++st) fetch(st);
@@ -549,7 +656,13 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   // masked and past the last row); exp(s - M) in the stats form
   const float* scores = out.s + range.w0 * page;
   const int padded = n_st * kRows;
+  // the int8 form: the table's scales came with the first stage's group;
+  // each row's, once here, spares every stage a division on its path
+  if constexpr (Q) cp_async_wait<NS - 2>();
   __syncthreads();
+  if constexpr (Q)
+    for (int idx = threadIdx.x; idx < padded; idx += kThreads)
+      s_qs[idx] = idx < rows ? row_scale(s_slots, idx, page) : -1.f;
   for (int i = threadIdx.x; i < R * padded; i += kThreads) {
     const int r = i / padded;
     const int idx = i - r * padded;
@@ -572,16 +685,15 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
     __syncthreads();
     fetch(st + NS - 1);
     const __nv_bfloat16* tile = sv[st % NS];
-#pragma unroll
-    for (int j = 0; j < RT; ++j) {
-      const int row = sub + j * NH;
+    // o += p · v of one row; qs >= 0: the row holds codes at that scale
+    auto add_row = [&](int row, float qs) {
       float2 vf;
-      const int ring = Q ? st % NS : 0;
-      const float qs = Q && s_q8[ring][row] ? s_sc[ring][row] : -1.f;
       if (Q && qs >= 0.f) {
-        const char2 codes = *reinterpret_cast<const char2*>(
-            codes_of(tile, row, D) + 2 * pair);
-        vf = make_float2(dequant(codes.x, qs), dequant(codes.y, qs));
+        float two[2];
+        dequant<2>(*reinterpret_cast<const uint16_t*>(
+                       codes_of(tile, row, D) + 2 * pair),
+                   qs, two);
+        vf = make_float2(two[0], two[1]);
       } else {
         vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
             &tile[row * D + 2 * pair]));
@@ -591,6 +703,25 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
         const float p = s_p[r][st * kRows + row];
         o[r][0] = fmaf(p, vf.x, o[r][0]);
         o[r][1] = fmaf(p, vf.y, o[r][1]);
+      }
+    };
+    if (Q && page % kRows == 0) {
+      // the stage is rows of one slot, read one way (its masked rows
+      // were zero-filled: p = 0 times a finite value either way), so the
+      // branch leaves the row loop and its loads batch as the fp form's
+      const float qs = Q ? s_qs[Q ? st * kRows : 0] : -1.f;
+      if (qs >= 0.f) {
+#pragma unroll
+        for (int j = 0; j < RT; ++j) add_row(sub + j * NH, qs);
+      } else {
+#pragma unroll
+        for (int j = 0; j < RT; ++j) add_row(sub + j * NH, -1.f);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const int row = sub + j * NH;
+        add_row(row, Q ? s_qs[Q ? st * kRows + row : 0] : -1.f);
       }
     }
   }

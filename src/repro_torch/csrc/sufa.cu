@@ -48,15 +48,32 @@
 //
 // The element-level sphere mask (STARConfig(elementwise=True); the
 // reference applies it in repro/core/star_attention.py::star_attention)
-// runs in the mma.sync form at every tile size (ELEM): a first sweep over
-// the same tile ids stages pow2(K) and takes, per query row, the largest
-// DLZS estimate A = bf16(bf16(q . pow2(k)) * scale) over the visible keys
-// of the valid tiles, rounded as the plain form (dlzs.dlzs_scores in the
-// model dtype) rounds it; the second sweep is the usual recurrence, which
-// stages pow2(K) once more after each tile's S and drops every key whose
-// estimate lies below bf16(row max - radius), on top of the causal mask.
-// The estimate is an fp32 sum of exact bf16 x power-of-two products, so
-// it matches the plain form up to the order of that sum.
+// drops every key whose DLZS estimate A = bf16(bf16(q . pow2(k)) * scale)
+// lies below bf16(row max - radius), the row max taken over the visible
+// keys of the valid tiles, on top of the causal mask; the estimates are
+// rounded as the plain form (dlzs.dlzs_scores in the model dtype) rounds
+// them. Each estimate is an fp32 sum of exact bf16 x power-of-two
+// products, so it matches the plain form up to the order of that sum.
+// Both forms carry it (ELEM):
+//   * wgmma (128 x 128 tiles): a first sweep over the same tile ids has
+//     the producer TMA-load only the K tiles; the consumers copy each
+//     landed K stage into a pow2(K) stage (sign and exponent bits, an
+//     elementwise mask, so the 128-byte swizzle stays valid), fence the
+//     writes against wgmma's async proxy and meet at a named barrier;
+//     E = Q . pow2(K)^T runs on wgmma and each row keeps its largest
+//     visible estimate in registers. The ids repeat in the second sweep,
+//     so its K loads are L2 hits. There each K stage is copied to pow2
+//     the same way and E runs before S = Q . K^T, so the estimates become
+//     a 64-bit keep mask per thread (causal mask folded in) before S's
+//     accumulators go live: register pressure stays that of the
+//     tile-level form (166 registers, no spill; a variant that tested the
+//     sphere on the fp32 sums against a per-row bound found by bisection,
+//     with no per-key rounding, spilled 892 bytes at D = 128 and ran 30%
+//     slower). The copy goes to its own 2-stage ring (a consumer may
+//     still read stage n's pow2(K) while another writes stage n + 1's),
+//     224 KB of shared memory in all at D = 128.
+//   * mma.sync (other tiles): the first sweep stages pow2(K) with the
+//     copy; the second stages pow2(K) once more after each tile's S.
 // D is 64 or 128. The kernels allocate nothing and launch on the caller's
 // stream; the C entry points return cudaGetLastError() (the wgmma form
 // encodes its tensor maps with libcuda's cuTensorMapEncodeTiled: -lcuda).
@@ -76,17 +93,20 @@ constexpr int kBQ = 128;         // query rows per block
 constexpr int kBC = 128;         // keys per K/V tile
 constexpr int kStages = 2;       // K/V ring depth
 constexpr int kConsumers = 2;    // warpgroups of 64 query rows
-constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
+constexpr int kConsumerThreads = kConsumers * 128;
+constexpr int kThreads = kConsumerThreads + 32;  // + one producer warp
 constexpr int kBoxBytes = 128 * 128;  // one 128-row x 64-col bf16 box
+constexpr int kPow2Barrier = 1;  // named barrier of the consumer threads
 
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   return (D / 64) * kBoxBytes;
 }
 
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {  // Q, K/V ring, alignment
-  return tile_bytes<D>() * (1 + 2 * kStages) + 1024;
+// Q, the K/V ring, with ELEM the pow2(K) ring, and alignment
+template <int D, bool ELEM>
+__host__ __device__ constexpr int smem_bytes() {
+  return tile_bytes<D>() * (1 + (ELEM ? 3 : 2) * kStages) + 1024;
 }
 
 // Tile j of a q-tile's list, or -1 where it is invalid or out of range.
@@ -96,7 +116,57 @@ __device__ __forceinline__ int selected(const int64_t* ids,
   return ok[j] && kt >= 0 && kt < n_kt ? static_cast<int>(kt) : -1;
 }
 
-template <int D, bool STRICT>
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// The plain form's DLZS estimate of one score from its fp32 sum q . pow2(k):
+// rounded to bf16, scaled, rounded again (bf16 tensor times a float).
+__device__ __forceinline__ float dlzs_estimate(float dot, float scale) {
+  return round_bf16(round_bf16(dot) * scale);
+}
+
+// ELEM: copy a landed K stage into its pow2(K) stage (sign and exponent
+// bits of every bf16; byte offsets, and so the swizzle, unchanged), fence
+// the writes against wgmma's async-proxy reads, and meet the other
+// consumer threads, whose copies E reads too.
+template <int D>
+__device__ __forceinline__ void stage_pow2(const uint8_t* ks, uint8_t* ps) {
+  const uint4* src = reinterpret_cast<const uint4*>(ks);
+  uint4* dst = reinterpret_cast<uint4*>(ps);
+#pragma unroll
+  for (int i = 0; i < tile_bytes<D>() / 16 / kConsumerThreads; ++i) {
+    const int c = threadIdx.x + i * kConsumerThreads;
+    uint4 x = src[c];
+    x.x &= 0xFF80FF80u;
+    x.y &= 0xFF80FF80u;
+    x.z &= 0xFF80FF80u;
+    x.w &= 0xFF80FF80u;
+    dst[c] = x;
+  }
+  fence_proxy_async();
+  named_barrier_sync(kPow2Barrier, kConsumerThreads);
+}
+
+// acc = (the warpgroup's 64 rows of the Q tile) . (a K-major 128-key
+// tile)^T over D in k16 steps; step kk sits in box kk / 4.
+template <int D>
+__device__ __forceinline__ void qk_wgmma(float (&acc)[kBC / 2],
+                                         const uint8_t* sq_wg,
+                                         const uint8_t* ks) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
+    wgmma_ss_m64n128(acc, sw128_desc(sq_wg + off, 16, 1024),
+                     sw128_desc(ks + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+template <int D, bool STRICT, bool ELEM>
 __global__ void __launch_bounds__(kThreads, 1)
 sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
                   const __grid_constant__ CUtensorMap kmap,  // [BH, S, D]
@@ -105,7 +175,7 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
                   const uint8_t* __restrict__ valid,  // [BH, n_qt, keep]
                   uint16_t* __restrict__ out,         // [BH, T, D]
                   int S, int keep, int q_offset, int causal,
-                  float scale_log2) {
+                  float scale_log2, float scale, float radius) {
   constexpr int kTile = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
@@ -117,6 +187,7 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
   uint8_t* const sq =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* const skv = sq + kTile;  // stage s: K at skv + 2s·kTile, V after
+  uint8_t* const sp2 = skv + 2 * kStages * kTile;  // ELEM: pow2(K) stage s
 
   const int bh = blockIdx.x;
   const int n_qt = gridDim.y;
@@ -133,7 +204,7 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
-      mbar_init(&kv_empty[s], kConsumers * 128);
+      mbar_init(&kv_empty[s], kConsumerThreads);
     }
     fence_barrier_init();
   }
@@ -144,22 +215,28 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
       mbar_expect_tx(&q_full, kTile);
       for (int c = 0; c < D / 64; ++c)
         tma_load_3d(sq + c * kBoxBytes, &qmap, &q_full, c * 64, q0, bh);
-      int n = 0;  // tiles loaded so far
-      for (int j = 0; j < keep; ++j) {
-        const int kt = selected(ids, ok, j, n_kt);
-        if (kt < 0) continue;
-        const int s = n % kStages;
-        if (n >= kStages) mbar_wait(&kv_empty[s], (n / kStages - 1) & 1);
-        uint8_t* ks = skv + 2 * s * kTile;
-        mbar_expect_tx(&k_full[s], kTile);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_3d(ks + c * kBoxBytes, &kmap, &k_full[s], c * 64,
-                      kt * kBC, bh);
-        mbar_expect_tx(&v_full[s], kTile);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_3d(ks + kTile + c * kBoxBytes, &vmap, &v_full[s], c * 64,
-                      kt * kBC, bh);
-        ++n;
+      int n = 0;  // tiles loaded so far, over both sweeps
+      // ELEM's first sweep loads K tiles only (v_full's phases count the
+      // second sweep's tiles alone)
+      for (int sweep = ELEM ? 0 : 1; sweep < 2; ++sweep) {
+        for (int j = 0; j < keep; ++j) {
+          const int kt = selected(ids, ok, j, n_kt);
+          if (kt < 0) continue;
+          const int s = n % kStages;
+          if (n >= kStages) mbar_wait(&kv_empty[s], (n / kStages - 1) & 1);
+          uint8_t* ks = skv + 2 * s * kTile;
+          mbar_expect_tx(&k_full[s], kTile);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load_3d(ks + c * kBoxBytes, &kmap, &k_full[s], c * 64,
+                        kt * kBC, bh);
+          if (sweep == 1) {
+            mbar_expect_tx(&v_full[s], kTile);
+            for (int c = 0; c < D / 64; ++c)
+              tma_load_3d(ks + kTile + c * kBoxBytes, &vmap, &v_full[s],
+                          c * 64, kt * kBC, bh);
+          }
+          ++n;
+        }
       }
     }
     return;
@@ -181,39 +258,88 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
   mbar_wait(&q_full, 0);
 
   int n = 0;  // tiles consumed so far: the ring position
+  // ELEM: each row's sphere edge, bf16(max of its visible estimates -
+  // radius), from a first sweep over the valid tiles
+  float edge[2] = {kNegInf, kNegInf};
+  if constexpr (ELEM) {
+    float top[2] = {kNegInf, kNegInf};
+    for (int j = 0; j < keep; ++j) {
+      const int kt = selected(ids, ok, j, n_kt);
+      if (kt < 0) continue;
+      const int s = n % kStages;
+      mbar_wait(&k_full[s], (n / kStages) & 1);
+      ++n;
+      stage_pow2<D>(skv + 2 * s * kTile, sp2 + s * kTile);
+      mbar_arrive(&kv_empty[s]);  // the K stage is copied: reload it
+      float e[kBC / 2];
+      qk_wgmma<D>(e, sq_wg, sp2 + s * kTile);
+      const int kv0 = kt * kBC;
+      const bool diag = causal && kv0 + kBC - 1 > q_offset + wg_row0;
+#pragma unroll
+      for (int i = 0; i < kBC / 2; ++i) {
+        const int col = kv0 + (i >> 2) * 8 + t2 + (i & 1);
+        const int qpos = q_offset + row + ((i & 2) ? 8 : 0);
+        if (!(diag && col > qpos))
+          top[(i >> 1) & 1] =
+              fmaxf(top[(i >> 1) & 1], dlzs_estimate(e[i], scale));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      edge[h] = round_bf16(quad_max(top[h]) - radius);
+  }
+
+  const int n1 = n;  // the first sweep's tiles
   for (int j = 0; j < keep; ++j) {
     const int kt = selected(ids, ok, j, n_kt);
     if (kt < 0) continue;
     const int s = n % kStages;
     const uint32_t parity = (n / kStages) & 1;
+    // v_full[s] completes once per second-sweep tile of stage s
+    const uint32_t v_parity = ((n - n1) / kStages) & 1;
     ++n;
     const uint8_t* ks = skv + 2 * s * kTile;
     const uint8_t* vs = ks + kTile;
-
-    // S = Q . K^T over D in k16 steps; step kk sits in box kk / 4
-    float sc[kBC / 2];
-    mbar_wait(&k_full[s], parity);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
-      wgmma_ss_m64n128(sc, sw128_desc(sq_wg + off, 16, 1024),
-                       sw128_desc(ks + off, 16, 1024), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-
-#pragma unroll
-    for (int i = 0; i < kBC / 2; ++i) sc[i] *= scale_log2;
     const int kv0 = kt * kBC;
     // warpgroup-uniform: does this tile cross the diagonal of its rows?
-    if (causal && kv0 + kBC - 1 > q_offset + wg_row0) {
+    const bool diag = causal && kv0 + kBC - 1 > q_offset + wg_row0;
+
+    float sc[kBC / 2];
+    mbar_wait(&k_full[s], parity);
+    if constexpr (ELEM) {
+      // the keys that survive the causal and the element mask, bit i for
+      // sc[i]: the estimates are done before S's accumulators go live
+      uint32_t keep_bits[2] = {0u, 0u};
+      {
+        stage_pow2<D>(ks, sp2 + s * kTile);
+        float e[kBC / 2];
+        qk_wgmma<D>(e, sq_wg, sp2 + s * kTile);
 #pragma unroll
-      for (int i = 0; i < kBC / 2; ++i) {
-        const int col = kv0 + (i >> 2) * 8 + t2 + (i & 1);
-        const int qpos = q_offset + row + ((i & 2) ? 8 : 0);
-        if (col > qpos) sc[i] = kNegInf;
+        for (int i = 0; i < kBC / 2; ++i) {
+          const int col = kv0 + (i >> 2) * 8 + t2 + (i & 1);
+          const int qpos = q_offset + row + ((i & 2) ? 8 : 0);
+          if (!(diag && col > qpos) &&
+              dlzs_estimate(e[i], scale) >= edge[(i >> 1) & 1])
+            keep_bits[i >> 5] |= 1u << (i & 31);
+        }
+      }
+      qk_wgmma<D>(sc, sq_wg, ks);
+#pragma unroll
+      for (int i = 0; i < kBC / 2; ++i)
+        sc[i] = (keep_bits[i >> 5] >> (i & 31)) & 1u ? sc[i] * scale_log2
+                                                      : kNegInf;
+    } else {
+      // S = Q . K^T
+      qk_wgmma<D>(sc, sq_wg, ks);
+#pragma unroll
+      for (int i = 0; i < kBC / 2; ++i) sc[i] *= scale_log2;
+      if (diag) {
+#pragma unroll
+        for (int i = 0; i < kBC / 2; ++i) {
+          const int col = kv0 + (i >> 2) * 8 + t2 + (i & 1);
+          const int qpos = q_offset + row + ((i & 2) ? 8 : 0);
+          if (col > qpos) sc[i] = kNegInf;
+        }
       }
     }
     float mx[2] = {kNegInf, kNegInf};
@@ -264,7 +390,7 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
     }
 
     // O += P . V; V's k16 step kk starts 16 rows (2048 bytes) in
-    mbar_wait(&v_full[s], parity);
+    mbar_wait(&v_full[s], v_parity);
     fence_regs(o);
     fence_regs(pa);
     wgmma_fence();
@@ -294,16 +420,16 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
   }
 }
 
-template <int D, bool STRICT>
+template <int D, bool STRICT, bool ELEM>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int64_t* idx, const uint8_t* valid, void* out,
                          int BH, int T, int S, int keep, int causal,
-                         float scale, cudaStream_t stream) {
+                         float scale, float radius, cudaStream_t stream) {
   static bool configured = false;  // the >48 KB opt-in, once per instance
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sufa_wgmma_kernel<D, STRICT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+        sufa_wgmma_kernel<D, STRICT, ELEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D, ELEM>());
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -313,25 +439,16 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       !encode_rows_map(&vmap, v, BH, S, D, kBC))
     return cudaErrorInvalidValue;
   const dim3 grid(BH, T / kBQ);
-  sufa_wgmma_kernel<D, STRICT><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      qmap, kmap, vmap, idx, valid, static_cast<uint16_t*>(out), S, keep,
-      S - T, causal, scale * 1.4426950408889634f);
+  sufa_wgmma_kernel<D, STRICT, ELEM>
+      <<<grid, kThreads, smem_bytes<D, ELEM>(), stream>>>(
+          qmap, kmap, vmap, idx, valid, static_cast<uint16_t*>(out), S,
+          keep, S - T, causal, scale * 1.4426950408889634f, scale, radius);
   return cudaGetLastError();
 }
 
 // -- the mma.sync form: any tile that is a multiple of 16 up to 128 -----------
 
 constexpr int kMaxTile = 128;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// The plain form's DLZS estimate of one score from its fp32 sum q . pow2(k):
-// rounded to bf16, scaled, rounded again (bf16 tensor times a float).
-__device__ __forceinline__ float dlzs_estimate(float dot, float scale) {
-  return round_bf16(round_bf16(dot) * scale);
-}
 
 template <int D, int BC, bool STRICT, bool ELEM>
 __global__ void __launch_bounds__(256)
@@ -534,24 +651,29 @@ bool bad_shape(int BH, int T, int S, int keep, int block_q, int block_kv) {
 
 }  // namespace
 
+// elementwise != 0 runs the element-level sphere mask at radius (ELEM).
 extern "C" int sufa_wgmma_bf16(const void* q, const void* k, const void* v,
                                const void* idx, const void* valid, void* out,
                                int BH, int T, int S, int keep, int D,
-                               int causal, int strict, float scale,
-                               void* stream) {
+                               int causal, int strict, int elementwise,
+                               float scale, float radius, void* stream) {
   if (bad_shape(BH, T, S, keep, kBQ, kBC))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* ip = static_cast<const int64_t*>(idx);
   const uint8_t* vp = static_cast<const uint8_t*>(valid);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SUFA_WGMMA(DD, SS)                                                  \
-  if (D == DD && (strict != 0) == SS)                                       \
-    return static_cast<int>(launch_wgmma<DD, SS>(                           \
-        q, k, v, ip, vp, out, BH, T, S, keep, causal, scale, st));
-  SUFA_WGMMA(64, true)
-  SUFA_WGMMA(64, false)
-  SUFA_WGMMA(128, true)
-  SUFA_WGMMA(128, false)
+#define SUFA_WGMMA(DD, SS, EE)                                              \
+  if (D == DD && (strict != 0) == SS && (elementwise != 0) == EE)           \
+    return static_cast<int>(launch_wgmma<DD, SS, EE>(                       \
+        q, k, v, ip, vp, out, BH, T, S, keep, causal, scale, radius, st));
+  SUFA_WGMMA(64, true, false)
+  SUFA_WGMMA(64, false, false)
+  SUFA_WGMMA(128, true, false)
+  SUFA_WGMMA(128, false, false)
+  SUFA_WGMMA(64, true, true)
+  SUFA_WGMMA(64, false, true)
+  SUFA_WGMMA(128, true, true)
+  SUFA_WGMMA(128, false, true)
 #undef SUFA_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }

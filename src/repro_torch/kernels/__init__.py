@@ -4,8 +4,9 @@ Every wrapper counts its launches in ``LAUNCHES`` (a plain integer per
 kernel name, bumped only where the kernel is launched) so a run can show
 that its main path went through the kernel and not the plain version.
 K2 and K3 have two forms each (``wgmma`` for 128 x 128 tiles, ``mma_sync``
-for the others), K3's ``mma_sync`` form also carries the element-level
-sphere mask (``sufa/elementwise`` counts those launches too), and K1 has
+for the others), both of K3's carry the element-level sphere mask
+(``sufa/elementwise`` counts those launches too, on top of their form),
+and K1 has
 an fp and an int8 form (the cold KV tier); ``FORM_LAUNCHES`` counts
 launches by form. K1's unnormalised (m, l, o) form for the spatial merge
 (``kernels.paged.paged_decode_stats_attention``) counts under its own

@@ -54,12 +54,11 @@ def check_tile(kernel: str, name: str, size: int) -> None:
                          f"16 up to {MAX_TILE}")
 
 
-def tile_form(block_q: int, block_kv: int, elementwise: bool = False) -> str:
+def tile_form(block_q: int, block_kv: int) -> str:
     """K2's and K3's form for a tiling, by shape alone: ``wgmma`` (TMA and
     warpgroup products) for 128 x 128 tiles, ``mma_sync`` for the rest.
-    K3's element-level sphere mask lives in the ``mma_sync`` form only, so
-    ``elementwise`` calls take it at every tile size."""
-    if block_q == block_kv == WGMMA_TILE and not elementwise:
+    Both of K3's forms carry its element-level sphere mask."""
+    if block_q == block_kv == WGMMA_TILE:
         return "wgmma"
     return "mma_sync"
 

@@ -18,8 +18,8 @@ see the source's header. Two forms, picked by shape alone
 STAR's element-level sphere mask (``STARConfig(elementwise=True)``): a
 key is dropped where its DLZS estimate, rounded as
 ``core.dlzs.dlzs_scores`` rounds it, lies more than ``radius`` below the
-row's largest estimate over its visible selected keys; that flag runs in
-the ``mma_sync`` form at every tile size.
+row's largest estimate over its visible selected keys; both forms carry
+it (the ``wgmma`` form runs the estimates on ``wgmma`` as well).
 
 The plain version (``sufa_reference``) gathers the selected tiles and
 their mask (``gather_selected``, what the TPU contract's caller builds)
@@ -166,15 +166,15 @@ def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     idx, valid = idx.contiguous(), valid.contiguous()
     keep = idx.shape[2]
     out = torch.empty_like(q)
-    form = launch.tile_form(block_q, block_kv, elementwise)
+    form = launch.tile_form(block_q, block_kv)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
             valid.data_ptr(), out.data_ptr())
     if form == "wgmma":
         fn = launch.bind(name, "sufa_wgmma_bf16",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                         + [ctypes.c_float, ctypes.c_void_p])
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         args = (*ptrs, bh, t, s, keep, d, int(causal), int(strict),
-                float(scale))
+                int(elementwise), float(scale), float(radius))
     else:
         fn = launch.bind(name, "sufa_mma_bf16",
                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10

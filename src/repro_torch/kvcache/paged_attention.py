@@ -73,6 +73,33 @@ def _gather_hot(k_pages, v_pages, phys, logical, kv_len, quant=None):
     return kg, vg, _row_valid(logical, kv_len, page)
 
 
+def dequantized_slabs(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                      phys: torch.Tensor, quant) -> tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """Copies of the fp slabs in which every page that a slot ``quant``'s
+    qmask marks names holds its tier rows as ``_gather_hot`` reads them,
+    ``(float(code) * scale)`` rounded once to the slab's dtype. Where every
+    slot naming a page reads it the same way (distinct pages, or a qmask
+    set per page), the fp read of these slabs is the int8 read of the
+    originals: K1's int8 lane must equal its fp form over them, bit for
+    bit. A sharded pool (slabs [S, P, ...], tables [S, B, W], the tier as
+    ``fold_tier`` takes it) is read folded, as the stats form reads it."""
+    shape = k_pages.shape
+    if phys.dim() == 3:
+        k_pages, phys = fold_shards(k_pages, phys)
+        v_pages = v_pages.reshape(k_pages.shape)
+        quant = fold_tier(quant)
+    pages = phys[quant["qmask"] & (phys >= 0)].long().unique()
+    out = []
+    for slab, codes, scale in ((k_pages, quant["kq"], quant["k_scale"]),
+                               (v_pages, quant["vq"], quant["v_scale"])):
+        slab = slab.clone()
+        slab[pages] = (codes[pages].float()
+                       * scale[pages][:, None, None, None]).to(slab.dtype)
+        out.append(slab.view(shape))
+    return out[0], out[1]
+
+
 def _scores(q, kg, valid, n_kv, scale):
     qg = _group(q, n_kv)                               # [B, G, R, d]
     kc = kg.transpose(1, 2)                            # [B, G, S_hot, d]

@@ -170,6 +170,83 @@ def test_paged_decode_int8_lane_matches_plain(cuda_device, mode, b, g, r, d,
             assert float(got[i].float().abs().max()) == 0.0
 
 
+def _own_pages(phys, n_pages):
+    """Block tables ``phys`` re-drawn so that no two slots name one page
+    of the pool's ``n_pages`` (page 0, where padding points, never)."""
+    used = phys >= 0
+    fresh = torch.randperm(n_pages - 1, generator=torch.Generator()
+                           .manual_seed(n_pages))[:int(used.sum())] + 1
+    out = phys.clone()
+    out[used] = fresh.to(phys.device, phys.dtype)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,r,d,w,kv_len,page", [
+    (4, 16, 1, 128, 64, [1024, 1000, 777, 500], 16),  # the main path
+    (3, 4, 4, 128, 16, [256, 201, 37], 16),
+    (3, 4, 4, 64, 16, [256, 0, 93], 16),
+    (2, 8, 2, 64, 9, [140, 17], 16),
+    (2, 16, 1, 128, 8, [1000, 700], 128),             # phase 9's tier read
+    (3, 2, 16, 128, 258, [1040, 2064, 4112], 16),     # ChatGLM3-6B's group
+    (1, 4, 12, 128, 130, [2064], 16),                 # StarCoder2-15B's
+    (1, 8, 6, 128, 130, [2064], 16),                  # Grok-1's
+    (2, 4, 8, 64, 16, [256, 100], 16),
+    (2, 2, 4, 256, 16, [256, 100], 16)])
+def test_paged_decode_int8_lane_is_fp_over_dequantized(cuda_device, b, g, r,
+                                                       d, w, kv_len, page):
+    """K1's int8 lane equals, bit for bit, its fp form run over slabs whose
+    marked pages hold bf16(float(code) · scale)
+    (``kvcache.paged_attention.dequantized_slabs``), on block tables whose
+    slots name distinct pages, about half of them marked."""
+    from repro_torch.kvcache.paged_attention import dequantized_slabs
+    n_pages = sum(-(-n // page) for n in kv_len) + 8
+    args = _k1_inputs(b, g, r, d, w, kv_len, seed=w + d, device=cuda_device,
+                      page=page, n_pages=n_pages)
+    args[3] = _own_pages(args[3], n_pages)
+    q, k, v, phys = args[:4]
+    tier = _k1_tier(k, v, phys, "mixed", seed=b + w)
+    kernels.reset_launches()
+    got = kpaged.paged_decode_attention(*args, scale=d ** -0.5, quant=tier)
+    kd, vd = dequantized_slabs(k, v, phys, tier)
+    fp = kpaged.paged_decode_attention(q, kd, vd, *args[3:],
+                                       scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES["paged_decode/int8"] == 1
+    assert kernels.FORM_LAUNCHES["paged_decode/fp"] == 1
+    assert torch.equal(got, fp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sh,b,g,r,kv_len", [
+    (4, 4, 16, 1, [1056, 1568, 2080, 1]),   # chip_smoke phase 13's shape
+    (2, 3, 2, 16, [1040, 2064, 17]),        # ChatGLM3-6B's group
+    (2, 1, 8, 6, [2064])])                  # Grok-1's group
+def test_paged_decode_stats_int8_lane_is_fp_over_dequantized(
+        cuda_device, n_sh, b, g, r, kv_len):
+    """K1's stats form: its int8 lane equals, bit for bit in m, l and o,
+    its fp lane over ``dequantized_slabs`` of the sharded slabs, on
+    tables in which each shard's sequences name pages of their own."""
+    from repro_torch.kvcache.paged_attention import dequantized_slabs
+    n_local = sum(-(-n // 16) for n in kv_len) + 8
+    args = _k1_sharded_inputs(n_sh, b, g, r, 128, kv_len, seed=b + r,
+                              device=cuda_device, n_local=n_local)
+    args[3] = torch.stack([_own_pages(t, n_local) for t in args[3]])
+    q, k, v, phys = args[:4]
+    tier = _k1_sharded_tier(k, phys, seed=r)
+    kernels.reset_launches()
+    got = kpaged.paged_decode_stats_attention(*args, scale=128 ** -0.5,
+                                              quant=tier)
+    kd, vd = dequantized_slabs(k, v, phys, tier)
+    fp = kpaged.paged_decode_stats_attention(q, kd, vd, *args[3:],
+                                             scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES["paged_decode_stats/int8"] == 1
+    assert kernels.FORM_LAUNCHES["paged_decode_stats/fp"] == 1
+    for a, b_ in zip(got, fp):
+        assert torch.equal(a, b_)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("b,g,r,w,kv_len", [
@@ -481,30 +558,32 @@ def test_sufa_kernel_forms(cuda_device, strict, d, block, t, s, keep,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("strict", [True, False])
-@pytest.mark.parametrize("d,block,t,s,keep,causal", [
-    (128, 128, 1024, 1024, 3, True), (64, 16, 64, 96, 3, True),
-    (128, 64, 128, 256, 4, False), (128, 48, 96, 192, 2, True)])
+@pytest.mark.parametrize("d,block,t,s,keep,causal,bh", [
+    (128, 128, 1024, 1024, 3, True, 2), (64, 128, 1024, 1024, 3, True, 2),
+    (128, 128, 4096, 4096, 7, True, 32), (64, 16, 64, 96, 3, True, 2),
+    (128, 64, 128, 256, 4, False, 2), (128, 48, 96, 192, 2, True, 2)])
 def test_sufa_kernel_elementwise(cuda_device, strict, d, block, t, s, keep,
-                                 causal):
-    """K3's element-level sphere mask (the mma.sync form at every tile
-    size, 128 included) against ``sufa_reference(elementwise=True)``, bf16
-    at 3e-2, both modes; two calls bit-equal; at radius 2 the mask drops
-    keys (the output differs from the tile-level call's). The plain
-    version's estimates come from an fp32-summed bf16 product, as the
-    kernel's."""
+                                 causal, bh):
+    """K3's element-level sphere mask (the wgmma form at 128 tiles, d 64
+    and 128, up to BH 32 and T 4096; the mma.sync form at 16, 48 and 64)
+    against ``sufa_reference(elementwise=True)``, bf16 at 3e-2, both
+    modes; two calls bit-equal; at radius 2 the mask drops keys (the
+    output differs from the tile-level call's). The plain version's
+    estimates come from an fp32-summed bf16 product, as the kernel's."""
     from repro_torch.kernels import sufa as ksufa
     gen = torch.Generator(device="cpu").manual_seed(d + block + t + s)
-    q = _bf16((2, t, d), gen, cuda_device)
-    k, v = (_bf16((2, s, d), gen, cuda_device) for _ in range(2))
-    idx, valid = _selection(2, t, s, keep, block, block, gen, cuda_device)
+    q = _bf16((bh, t, d), gen, cuda_device)
+    k, v = (_bf16((bh, s, d), gen, cuda_device) for _ in range(2))
+    idx, valid = _selection(bh, t, s, keep, block, block, gen, cuda_device)
     kw = dict(block_q=block, block_kv=block, causal=causal, strict=strict,
               radius=2.0)
+    form = "wgmma" if block == 128 else "mma_sync"
     kernels.reset_launches()
     got = ksufa.sufa_attention(q, k, v, idx, valid, elementwise=True, **kw)
     again = ksufa.sufa_attention(q, k, v, idx, valid, elementwise=True,
                                  **kw)
     torch.cuda.synchronize()
-    assert kernels.FORM_LAUNCHES["sufa/mma_sync"] == 2
+    assert kernels.FORM_LAUNCHES[f"sufa/{form}"] == 2
     assert kernels.FORM_LAUNCHES["sufa/elementwise"] == 2
     assert torch.equal(got, again)
     matmul = torch.backends.cuda.matmul

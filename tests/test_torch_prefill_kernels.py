@@ -491,3 +491,16 @@ def test_star_cfg_follows_scanq_chunk_rule():
                               chunk_tiles=4)
     with pytest.raises(ValueError, match="q-chunk"):
         tops.star_attention_cfg(q, q, q, cfg, causal=True)
+
+
+@pytest.mark.parametrize("block,form", [(128, "wgmma"), (16, "mma_sync"),
+                                        (48, "mma_sync"), (64, "mma_sync")])
+def test_tile_form_by_shape(block, form):
+    """K2's and K3's form, element mask or not, by tile shape alone:
+    ``wgmma`` at 128 x 128 (the served tiles; K3's element-level sphere
+    mask included), ``mma_sync`` at the pool probe's 16 and at 48 and
+    64."""
+    from repro_torch.kernels import launch
+    assert launch.tile_form(block, block) == form
+    assert launch.tile_form(block, 128) == launch.tile_form(128, block) \
+        == ("wgmma" if block == 128 else "mma_sync")

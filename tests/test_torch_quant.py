@@ -259,3 +259,113 @@ def test_kernel_wrapper_quant_on_cpu_is_plain(dtype):
     assert kernels.FORM_LAUNCHES["paged_decode/int8"] == 0
     want = jpa.paged_gather_decode(*aj, n_kv=nkv, quant=qj)
     _assert_close(got.reshape(b, nh, d), want, dtype)
+
+
+# the shapes of tests/test_torch_cuda.py::test_paged_decode_int8_lane_
+# matches_plain: (b, g, r, d, w, kv_len, page)
+INT8_LANE_SHAPES = [
+    (4, 16, 1, 128, 64, [1024, 1000, 777, 500], 16),   # the main path
+    (3, 4, 4, 128, 16, [256, 201, 37], 16),
+    (3, 4, 4, 64, 16, [256, 0, 93], 16),
+    (2, 8, 2, 64, 9, [140, 17], 16),
+    (2, 16, 1, 128, 8, [1000, 700], 128)]               # phase 9's tier read
+
+
+def _own_pages(rng, b, w, kv_len, page, n_pages):
+    """Block tables in which every sequence owns pages no other names
+    (never page 0, where padded slots point): [B, W] phys and logical."""
+    need = [-(-n // page) for n in kv_len]
+    perm = rng.permutation(np.arange(1, n_pages))[:sum(need)]
+    phys = np.full((b, w), -1, np.int32)
+    logical = np.full((b, w), -1, np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        phys[i, :n] = perm[at:at + n]
+        logical[i, :n] = np.arange(n)
+        at += n
+    return phys, logical
+
+
+def _bf16_tier(rng, shape, table_shape):
+    """An int8 tier quantized from rows drawn apart from the fp slabs'
+    (V at 3x K's magnitude), in bf16 as the served path quantizes, and a
+    qmask marking about half the slots."""
+    tier = {}
+    for name, mag in (("k", 1.0), ("v", 3.0)):
+        rows = torch.from_numpy((rng.randn(*shape) * mag).astype(
+            np.float32)).to(torch.bfloat16)
+        tier[f"{name}q"], tier[f"{name}_scale"] = tquant.quantize_rows(rows)
+    tier["qmask"] = torch.from_numpy(rng.rand(*table_shape) < 0.5)
+    return tier
+
+
+@pytest.mark.parametrize("b,g,r,d,w,kv_len,page", INT8_LANE_SHAPES)
+def test_int8_read_is_fp_read_over_dequantized_slabs(b, g, r, d, w, kv_len,
+                                                     page):
+    """The plain int8 read (``paged_gather_decode(quant=...)``) equals,
+    bit for bit, the plain fp read over ``dequantized_slabs`` (the marked
+    slots' pages replaced by their tier rows), on block tables whose
+    slots name distinct pages: the invariant K1's int8 lane is held to on
+    the card. Both lie within the bf16 bound of the reference's int8
+    read."""
+    rng = np.random.RandomState(b * w + d)
+    n_pages = sum(-(-n // page) for n in kv_len) + 8
+    phys, logical = _own_pages(rng, b, w, kv_len, page, n_pages)
+    q = rng.randn(b, g * r, d).astype(np.float32)
+    kp, vp = (rng.randn(n_pages, page, g, d).astype(np.float32)
+              for _ in range(2))
+    kv = np.array(kv_len, np.int32)
+    at = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, kp, vp)] \
+        + [torch.from_numpy(a) for a in (phys, logical, kv)]
+    tier = _bf16_tier(rng, kp.shape, phys.shape)
+    got = tpa.paged_gather_decode(*at, n_kv=g, quant=tier)
+    kd, vd = tpa.dequantized_slabs(at[1], at[2], at[3], tier)
+    assert torch.equal(got, tpa.paged_gather_decode(
+        at[0], kd, vd, *at[3:], n_kv=g))
+    assert not torch.equal(got, tpa.paged_gather_decode(*at, n_kv=g))
+    aj = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, kp, vp)] \
+        + [jnp.asarray(a) for a in (phys, logical, kv)]
+    want = jpa.paged_gather_decode(*aj, n_kv=g, quant={
+        name: jnp.asarray(_np(t)) for name, t in tier.items()})
+    _assert_close(got, want, "bfloat16")
+
+
+def test_int8_stats_read_is_fp_read_over_dequantized_slabs():
+    """The stats form's plain int8 read over a sharded pool (chip_smoke
+    phase 13's decode shape: 4 shards, its three sequences at their last
+    tick and an idle slot; each shard's sequences on pages of their own)
+    equals, bit for bit in m, l and o, its fp read over
+    ``dequantized_slabs`` of the sharded slabs."""
+    n_sh, b, g, r, d, page = 4, 4, 16, 1, 128, 16
+    kv_len = [1056, 1568, 2080, 1]
+    rng = np.random.RandomState(13)
+    n_pages = [-(-n // page) for n in kv_len]
+    w = max(-(-n // n_sh) for n in n_pages)
+    p_local = b * w + 4
+    phys = np.full((n_sh, b, w), -1, np.int32)
+    logical = np.full((n_sh, b, w), -1, np.int32)
+    for s in range(n_sh):
+        perm = rng.permutation(np.arange(1, p_local))
+        at = 0
+        for i, n in enumerate(n_pages):
+            js = np.arange(s, n, n_sh)
+            phys[s, i, :len(js)] = perm[at:at + len(js)]
+            logical[s, i, :len(js)] = js
+            at += len(js)
+    q = rng.randn(b, g, r, d).astype(np.float32)
+    kp, vp = (rng.randn(n_sh, p_local, page, g, d).astype(np.float32)
+              for _ in range(2))
+    q, kp, vp = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kp, vp))
+    phys, logical = torch.from_numpy(phys), torch.from_numpy(logical)
+    kv = torch.tensor(kv_len, dtype=torch.int32)
+    tier = _bf16_tier(rng, kp.shape, phys.shape)
+    got = kpaged.paged_decode_stats_reference(
+        q, kp, vp, phys, logical, kv, scale=d ** -0.5, quant=tier)
+    kd, vd = tpa.dequantized_slabs(kp, vp, phys, tier)
+    want = kpaged.paged_decode_stats_reference(
+        q, kd, vd, phys, logical, kv, scale=d ** -0.5)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+    fp = kpaged.paged_decode_stats_reference(q, kp, vp, phys, logical, kv,
+                                             scale=d ** -0.5)
+    assert not torch.equal(got[2], fp[2])

@@ -537,12 +537,12 @@ def test_chip_smoke_model_phases_rehearse_on_cpu(monkeypatch):
     # phase 6's element-mask case (plain against plain here)
     k3 = cs.check_sufa("cpu", None, bh=2, t=256, block=128, strict=True,
                        seed=1, timed=False, elementwise=True)
-    assert k3["form"] == "mma_sync" and 0 <= k3["sphere_dropped_share"] < 1
+    assert k3["form"] == "wgmma" and 0 <= k3["sphere_dropped_share"] < 1
     assert k3["mask_elements_differ_default_gemm_share"] == 0.0
     # phase 6's cases at phases 10-12's 32 heads
     k3 = cs.check_sufa("cpu", None, bh=32, t=256, block=128, strict=False,
                        seed=2, timed=False, elementwise=True)
-    assert k3["BH"] == 32 and k3["form"] == "mma_sync"
+    assert k3["BH"] == 32 and k3["form"] == "wgmma"
 
 
 def test_chip_smoke_moe_phases_rehearse_on_cpu(monkeypatch):
