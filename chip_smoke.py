@@ -27,10 +27,11 @@ Phases, each printing its numbers on a line of its own:
    again, timed, at the decode shapes of the wide GQA groups: ChatGLM3-6B
    (G 2, R 16, W covering phase 10's longest sequence), StarCoder2-15B
    (G 4, R 12) and Grok-1 (B 1, G 8, R 6, W covering phase 15's
-   sequence). Then K1's unnormalised (m, l, o) form over sequence-sharded
-   pools (every shard in one launch sequence), fp and int8 lanes, at phase
-   13's decode shape (4 shards, B 4, G 16, R 1, d 128) and at ChatGLM3-6B's
-   group (R 16), each timed beside its bound (the K/V rows read across all
+   sequence); the fp form at InternVL2-26B's (B 3, G 8, R 6, W 258:
+   phase 18's three requests). Then K1's unnormalised (m, l, o) form
+   over sequence-sharded pools (every shard in one launch sequence), fp
+   and int8 lanes, at phase 13's decode shape (4 shards, B 4, G 16, R 1,
+   d 128) and at ChatGLM3-6B's group (R 16), each timed beside its bound (the K/V rows read across all
    shards), its plain version and one PyTorch call that yields the same
    merge state (memory-efficient SDPA over every shard's gathered rows with
    its log-sum-exp), and untimed with a shard that holds no row: m, l and
@@ -41,7 +42,8 @@ Phases, each printing its numbers on a line of its own:
 4. exactness: every served token is the greedy argmax of a dense forward
    (``star=None``, K4) over the served prefix, up to a tie of one bf16
    step of the top logit, or of two steps where the plain dense form
-   (``attention._dense_chunked``) puts the token within one step;
+   (``attention._dense_chunked``) puts the token within one step
+   (``check_exact``);
 5. bounded DLZS sparse decode (``decode_hot_width`` below the live page
    count), which runs the page scores and the sphere selection every tick;
 6. the prefill tile kernels against their plain versions on the card,
@@ -62,7 +64,11 @@ Phases, each printing its numbers on a line of its own:
    otherwise; then, untimed, phases 10-12's shapes: K2, K3
    (both modes, with and without the element mask) and K4 at ChatGLM3-6B's
    longest prompt (BH 32, T 4096), and K3's element mask at star_paper's
-   (BH 32, T 2048);
+   (BH 32, T 2048); then, timed, phase 19's forms at SeamlessM4T's head
+   size (BH 16, d 64): K2 and K3 (both modes, on the glue's selection)
+   non-causal at 2048 frames, K4 non-causal with T != S (256 decoder rows
+   over 2048 encoder rows, and over a ragged 1000), and phase 18's: K2,
+   K3 and K4 at InternVL2-26B's BH 48, T 4096, d 128;
 7. the fused STAR prefill (``kernels.ops``: K2 -> SADS -> K3) against the
    plain ``core.star_attention_scanq`` at every layer of a 2048-token
    STAR forward, each fed the same q/k/v: the share of (head, q-tile)
@@ -191,7 +197,38 @@ Phases, each printing its numbers on a line of its own:
    (``check_rounding_spread``); then one bf16 2048-token prefill with the
    share of its host time the sLSTM time loop takes, and a 1024-token
    prefill's device split.
-Phase 4 also counts K4: oracle forwards x attention layers launches.
+18. InternVL2-26B at full width and depth (48 layers, 48 heads over 8 KV
+   heads, d_ff 16384; random weights from a seed) served through the
+   paged engine with whole-prompt prefill, prompts of 1024, 2048 and 4096
+   tokens, 16 tokens each: (a) STAR on, K1 launches = ticks x 48 (R = 6)
+   and K2/K3 = prefill calls x 48 (BH 48), each first token the argmax of
+   a cache-free STAR forward or a 1-step tie; (b) ``star=None``, every
+   token held by phase 4's rule against a K4 forward, with the served
+   logits (recorded each tick) as a second witness beside the plain
+   form: a token 2 bf16 steps below K4's top is a tie where the served
+   logits put K4's top within one step of their own (its 48 random
+   layers put one token 2 steps below both forwards' tops at a tie of
+   the served logits); again with K1 swapped for its plain version,
+   held the same way, its tokens beside K1's; and through the dense
+   slot engine, by phase 4's rule alone, with the count of its tokens
+   equal to the paged engine's; (c) the ViT stub's
+   input: one ``lm.prefill`` over [1, 2048, 6144] patch embeddings from a
+   seeded generator (K2 = K3 = 48), its first token against the STAR
+   forward over the same embeddings, then 4 ``decode_step``s.
+19. SeamlessM4T-large-v2 at full width and depth (24 encoder and 24
+   decoder layers, 16 heads of 64, d_ff 8192, vocab 256206) through
+   ``lm.prefill`` and ``lm.decode_step`` (no engine of either package
+   serves it): two utterances of 1024, then of 2048 speech-frame
+   embeddings from a seeded generator, with 256-token decoder prompts,
+   then 16 greedy decode steps each. (a) STAR on: K2 = K3 = prefills x 48
+   (24 of them the encoder's, non-causal), K4 = prefills x 24 (the
+   cross-attention, non-causal, T != S), no K1; each first token against
+   a cache-free STAR forward as in phase 8; (b) ``star=None``: K4 =
+   prefills x 72, every token held by phase 4's rule against a K4
+   forward over the same frames.
+Phase 4 also counts K4: oracle forwards x attention layers launches (an
+encoder-decoder forward's: its encoder, self- and cross-attention
+layers).
 
 Then one JSON line with every kernel's numbers and, last, the device line.
 Without a GPU, or outside a checkout, it exits non-zero and prints no
@@ -219,7 +256,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import (chatglm3_6b, grok_1_314b,  # noqa: E402
-                                 jamba_1_5_large_398b, olmo_1b, olmoe_1b_7b,
+                                 internvl2_26b, jamba_1_5_large_398b,
+                                 olmo_1b, olmoe_1b_7b, seamless_m4t_large_v2,
                                  star_paper, starcoder2_15b, xlstm_125m)
 from repro_torch.core import sads  # noqa: E402
 from repro_torch.core import star_attention as core_star  # noqa: E402
@@ -291,6 +329,20 @@ JAMBA_MAX_TOKENS = 16
 # phase 17: xLSTM-125M at full width and depth
 XLSTM_PROMPTS = (1024, 2048)
 XLSTM_MAX_TOKENS = 16
+# phase 18: InternVL2-26B at full width and depth; its published context
+# is 8192; then one prefill over INTERNVL_EMBEDS patch embeddings and
+# INTERNVL_DECODE_STEPS decode steps
+INTERNVL_PROMPTS = (1024, 2048, 4096)
+INTERNVL_MAX_TOKENS = 16
+INTERNVL_EMBEDS = 2048
+INTERNVL_DECODE_STEPS = 4
+# phase 19: SeamlessM4T-large-v2 at full width and depth: batches of 2
+# utterances of SEAMLESS_FRAMES encoder frames and SEAMLESS_PROMPT decoder
+# tokens, SEAMLESS_DECODE_STEPS decode steps each
+SEAMLESS_FRAMES = (1024, 2048)
+SEAMLESS_PROMPT = 256
+SEAMLESS_BATCH = 2
+SEAMLESS_DECODE_STEPS = 16
 # K2: fp32 sums of exact bf16 x pow2 products, only their order differs
 # from the plain version's; K3: tests/test_kernels.py's SU-FA bf16 bound
 PREFILL_TOL = {"dlzs_block": 1e-4, "sufa": 3e-2, "flash": TOL}
@@ -312,6 +364,19 @@ def emit(tag: str, **fields) -> None:
 def attn_layers(cfg) -> int:
     """Attention layers: one K2/K3 or K4 launch each per prefill."""
     return cfg.n_repeat * sum(blk.kind == "attn" for blk in cfg.pattern)
+
+
+def cross_layers(cfg) -> int:
+    """Cross-attention layers: one K4 launch each per prefill or forward
+    of an encoder-decoder model."""
+    return cfg.n_repeat * sum(blk.cross_attn for blk in cfg.pattern)
+
+
+def dense_k4_layers(cfg) -> int:
+    """K4 launches of one dense (``star=None``) forward or prefill: every
+    self-attention layer, the encoder's included, and every
+    cross-attention layer."""
+    return attn_layers(cfg) + cfg.enc_layers + cross_layers(cfg)
 
 
 def moe_layers(cfg) -> int:
@@ -924,8 +989,51 @@ def moe_token_rule(hybrid, k4, plain, served) -> dict:
                 float(agree.max()) if len(agree) else 0.0}
 
 
+def record_decode_logits() -> dict:
+    """Wrap ``lm.decode_step_paged``: each tick's cache lengths before
+    the step and its logits [B, V] (fp32, on the device)."""
+    real = lm.decode_step_paged
+    log = {"ticks": []}
+
+    def recording(params, cfg, tokens, cache, *args, **kw):
+        lengths = cache["lengths"].clone()
+        logits, cache = real(params, cfg, tokens, cache, *args, **kw)
+        log["ticks"].append((lengths, logits[:, :cfg.vocab].float()))
+        return logits, cache
+
+    lm.decode_step_paged = recording
+    log["restore"] = lambda: setattr(lm, "decode_step_paged", real)
+    return log
+
+
+def served_rows(log: dict, prompts, done) -> list:
+    """Each request's recorded decode logits [n, V] in token order: the
+    tick whose row holds ``len(prompt) + i - 1`` cached tokens gave token
+    i (i >= 1); row 0 (the prefill's token) stays NaN. The prompts'
+    lengths must be more than a request's tokens apart, so a length names
+    its request; each recorded row must have its served token at its
+    top."""
+    out = []
+    for prompt, toks in zip(prompts, done):
+        rows = torch.full((len(toks), log["ticks"][0][1].shape[1]),
+                          float("nan"), device=log["ticks"][0][1].device)
+        for lengths, logits in log["ticks"]:
+            for b, n in enumerate(lengths.tolist()):
+                i = n - len(prompt) + 1
+                if 1 <= i < len(toks):
+                    rows[i] = logits[b]
+        got = rows[1:].gather(1, torch.as_tensor(
+            toks[1:], device=rows.device)[:, None])[:, 0]
+        if not bool((got == rows[1:].max(dim=-1).values).all()):
+            raise SystemExit("recorded decode logits do not give the "
+                             "served tokens")
+        out.append(rows)
+    return out
+
+
 @torch.inference_mode()
-def check_exact(params, cfg, prompts, done, routes=None) -> dict:
+def check_exact(params, cfg, prompts, done, routes=None, extra=None,
+                served_logits=None) -> dict:
     """Each served token against the argmax of a dense, cache-free forward
     (``star=None``, K4) over the served prefix. The served path (batched
     chunk prefill with bf16 scores, K1 decode) and the forward (K4: fp32
@@ -936,6 +1044,14 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
     the plain dense form in K4's place: a token within PLAIN_TIE_STEPS of
     K4's top and TIE_STEPS of the plain form's is a tie too; anything
     further fails. Each inexact token is reported with both gaps.
+
+    ``served_logits`` (phase 18's paged runs alone; ``served_rows``):
+    each request's served logits [n, V], one row per decoded token (NaN
+    where none was recorded: the first token, the prefill's). The served
+    logits then witness as the plain form does, with phase 4's steps: a
+    token within PLAIN_TIE_STEPS of K4's top is a tie too where the
+    served logits put K4's top within TIE_STEPS of their own (the served
+    path saw the two tied). Counted apart (``served_ties``).
 
     With ``routes`` (a dropless MoE model's served choices per request,
     ``served_routes``) each forward's sequence is padded to whole pages
@@ -952,6 +1068,9 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
     rounding into gaps of several steps, so K4's top alone is no oracle
     there.
 
+    ``extra`` (one dict per request) adds inputs to each forward's batch:
+    an encoder-decoder model's ``enc_embeds``.
+
     In a model with recurrent blocks (Jamba's Mamba layers come before its
     attention layer, so at those MoE layers K4 and the plain form give the
     same gate logits) a fourth forward, K4's over the sequence one page
@@ -962,7 +1081,7 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
     the forward."""
     dense = dataclasses.replace(cfg, star=None)
     dev = params["embed"].device
-    n_exact = n_tie = 0
+    n_exact = n_tie = n_served_tie = 0
     inexact = []
     layers = moe_layers(cfg)
     recurrent = any(blk.kind != "attn" for blk in cfg.pattern)
@@ -971,12 +1090,16 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
     gate_logits = []
     rows_all = []
 
+    def batch_of(rid, seq):
+        return {"tokens": seq, **(extra[rid] if extra else {})}
+
     def forward(rid, seq, tally=True):
+        batch = batch_of(rid, seq)
         if routes is None:
-            return lm.forward(params, dense, {"tokens": seq})
+            return lm.forward(params, dense, batch)
         with forced_routing(routes[rid], layers, flips if tally else None,
                             gate_logits):
-            return lm.forward(params, dense, {"tokens": seq})
+            return lm.forward(params, dense, batch)
     kernels.reset_launches()
     for rid, prompt in enumerate(prompts):
         toks = np.asarray(done[rid], np.int64)
@@ -1012,16 +1135,28 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
         _, plain_steps = token_gaps(plain, served)
         tie = ~exact & ((steps <= TIE_STEPS) | (
             (steps <= PLAIN_TIE_STEPS) & (plain_steps <= TIE_STEPS)))
+        served_steps = None
+        served_tie = torch.zeros_like(tie)
+        if served_logits is not None:
+            # K4's top in bf16 steps below the served logits' top (NaN,
+            # so no tie, where no row was recorded)
+            _, served_steps = token_gaps(served_logits[rid],
+                                         logits.argmax(dim=-1))
+            served_tie = ~exact & ~tie & (steps <= PLAIN_TIE_STEPS) & (
+                served_steps <= TIE_STEPS)
         for i in (~exact).nonzero().flatten().tolist():
             inexact.append({"request": rid, "token": i,
                             "k4_steps": float(steps[i]),
                             "plain_steps": float(plain_steps[i]),
-                            "tie": bool(tie[i])})
-        if bool((~exact & ~tie).any()):
+                            **({} if served_steps is None else
+                               {"served_steps": float(served_steps[i])}),
+                            "tie": bool(tie[i] | served_tie[i])})
+        if bool((~exact & ~tie & ~served_tie).any()):
             raise SystemExit(f"request {rid}: served tokens beyond a bf16 "
                              f"tie of the dense forward: {inexact}")
         n_exact += int(exact.sum())
         n_tie += int(tie.sum())
+        n_served_tie += int(served_tie.sum())
     disagree = None
     if routes is not None:
         rule = moe_token_rule(*(torch.cat([r[j] for r in rows_all])
@@ -1045,14 +1180,16 @@ def check_exact(params, cfg, prompts, done, routes=None) -> dict:
                              f"dense forward's at layers {over} (gap above "
                              f"the gate-logit difference rounding makes "
                              f"there): {flips}")
-    return {"tokens_checked": n_exact + n_tie, "exact": n_exact,
-            "bf16_ties": n_tie,
+    return {"tokens_checked": n_exact + n_tie + n_served_tie,
+            "exact": n_exact, "bf16_ties": n_tie,
+            **({"served_ties": n_served_tie}
+               if served_logits is not None else {}),
             "rule": "phase 4" if routes is None else "moe",
             "tie_steps": TIE_STEPS,
             "plain_tie_steps": PLAIN_TIE_STEPS, "inexact": inexact,
             "forwards": len(prompts),
             "k4_launches": kernels.LAUNCHES["flash"],
-            "expected_k4_launches": len(prompts) * attn_layers(cfg)
+            "expected_k4_launches": len(prompts) * dense_k4_layers(cfg)
             * (1 if routes is None else 2 + recurrent),
             **({"routing_forced": flips,
                 "pure_forms_disagree_steps": disagree}
@@ -1117,8 +1254,9 @@ def visible_pairs(t: int, s: int, causal: bool) -> int:
     return int(np.clip(np.arange(t) + (s - t) + 1, 0, s).sum())
 
 
-def check_dlzs(dev, flush, *, bh, t, block, causal, seed, timed) -> dict:
-    q, k, _ = prefill_inputs(bh, t, 128, seed, dev)
+def check_dlzs(dev, flush, *, bh, t, block, causal, seed, timed,
+               d=128) -> dict:
+    q, k, _ = prefill_inputs(bh, t, d, seed, dev)
     kw = dict(causal=causal, block_q=block, block_kv=block)
     kernel = lambda: kdlzs.dlzs_block_scores(q, k, **kw)  # noqa: E731
     plain = lambda: kref.dlzs_block_ref(q, k, **kw)  # noqa: E731
@@ -1128,19 +1266,23 @@ def check_dlzs(dev, flush, *, bh, t, block, causal, seed, timed) -> dict:
                          f"same inputs gave different bits")
     out = held("prefill_kernel", got, plain(), PREFILL_TOL["dlzs_block"],
                kernel="dlzs_block", form=launch.tile_form(block, block),
-               BH=bh, T=t, S=t, d=128, block=block, causal=causal)
+               BH=bh, T=t, S=t, d=d, block=block, causal=causal)
     if timed:
         n_out = bh * (t // block) ** 2 * 4
         add_times(out, kernel, plain, None, flush,
                   bytes_=nbytes(q, k) + n_out,
-                  flops=2 * 128 * bh * visible_pairs(t, t, causal))
+                  flops=2 * d * bh * visible_pairs(t, t, causal))
     emit("prefill_kernel", ok=True, **out)
     return out
 
 
-def selected_pairs(idx, valid, *, t: int, s: int, block: int) -> int:
-    """(query, key) pairs K3 computes: the causal keys of each valid
-    selected tile, for each query row of its q-tile."""
+def selected_pairs(idx, valid, *, t: int, s: int, block: int,
+                   causal: bool = True) -> int:
+    """(query, key) pairs K3 computes: the causal keys (every key, when
+    not ``causal``) of each valid selected tile, for each query row of
+    its q-tile."""
+    if not causal:
+        return int(valid.sum()) * block * block
     n_qt = t // block
     q_pos = torch.arange(t, device=idx.device).reshape(n_qt, block) + (s - t)
     first = idx[..., None] * block                   # [BH, n_qt, keep, 1]
@@ -1149,7 +1291,7 @@ def selected_pairs(idx, valid, *, t: int, s: int, block: int) -> int:
 
 
 def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
-               d=128, elementwise=False) -> dict:
+               d=128, elementwise=False, causal=True) -> dict:
     """K3 on the tiles the glue selects for these inputs, keeping as many
     as olmo_1b's STAR config keeps (ChatGLM3-6B's and star_paper's are the
     same: top-k 0.2, tiles 128, radius 5), read in place from the tile
@@ -1159,17 +1301,19 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
     bf16 product (the kernel's arithmetic up to the order of that sum),
     and the share of mask elements that a default cuBLAS product
     (reduced-precision reductions allowed) would set otherwise is
-    printed beside the share of visible keys the sphere drops."""
+    printed beside the share of visible keys the sphere drops. Without
+    ``causal`` (an encoder's self-attention) every key of a selected tile
+    is visible."""
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
     scale = d ** -0.5
     star = olmo_1b.config().star
     keep = dataclasses.replace(star, block_q=block,
                                block_kv=block).keep_blocks(t)
-    raw = kdlzs.dlzs_block_scores(q, k, causal=True, scale=1.0,
+    raw = kdlzs.dlzs_block_scores(q, k, causal=causal, scale=1.0,
                                   block_q=block, block_kv=block)
     idx, valid = ops.select_tiles(raw, keep, scale=scale, radius=star.radius,
                                   dtype=q.dtype)
-    kw = dict(block_q=block, block_kv=block, causal=True, scale=scale,
+    kw = dict(block_q=block, block_kv=block, causal=causal, scale=scale,
               strict=strict)
     if elementwise:
         kw.update(elementwise=True, radius=star.radius)
@@ -1187,7 +1331,7 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
     # the TPU contract's operands, which the served path no longer writes
     kg, vg, mask = ksufa.gather_selected(k, v, idx, valid, t=t,
                                          block_q=block, block_kv=block,
-                                         causal=True)
+                                         causal=causal)
     extra = {}
     if elementwise:
         visible = mask
@@ -1209,7 +1353,8 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
     out = held("prefill_kernel", got, plain(), PREFILL_TOL["sufa"],
                kernel="sufa", form=launch.tile_form(block, block),
                BH=bh, T=t, d=d, block=block, keep=keep, strict=strict,
-               elementwise=elementwise, valid_tiles=int(valid.sum()),
+               causal=causal, elementwise=elementwise,
+               valid_tiles=int(valid.sum()),
                distinct_tiles=n_tiles, gathered_bytes_not_moved={
                    "kg": nbytes(kg), "vg": nbytes(vg), "mask": nbytes(mask),
                    "k": nbytes(k)}, **extra)
@@ -1220,7 +1365,8 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
         qs = q.reshape(n, 1, block, d)
         ks, vs = (x.reshape(n, 1, keep * block, d) for x in (kg, vg))
         ms = mask.transpose(2, 3).reshape(n, 1, block, keep * block)
-        pairs = selected_pairs(idx, valid, t=t, s=t, block=block)
+        pairs = selected_pairs(idx, valid, t=t, s=t, block=block,
+                               causal=causal)
         # the element mask: one estimate (2·d) per visible pair, then the
         # exact score and P·V (4·d) for the pairs it keeps
         flops = 2 * d * pairs + 4 * d * int(mask.sum()) if elementwise \
@@ -1232,17 +1378,24 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
     return out
 
 
-def check_flash(dev, flush, *, bh, t, causal, seed, timed, d=128) -> dict:
+def check_flash(dev, flush, *, bh, t, causal, seed, timed, d=128,
+                s=None) -> dict:
+    """K4 over T queries and S keys (S = T unless given: a decoder's
+    cross-attention has T != S, unmasked, and S need not be a whole
+    tile)."""
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
+    s = s or t
+    if s != t:
+        _, k, v = prefill_inputs(bh, s, d, seed + 1, dev)
     kernel = lambda: kflash.flash_attention(q, k, v, causal=causal)  # noqa
     plain = lambda: kref.flash_ref(q, k, v, causal=causal)  # noqa: E731
     out = held("prefill_kernel", kernel(), plain(), PREFILL_TOL["flash"],
-               kernel="flash", BH=bh, T=t, S=t, d=d, causal=causal)
+               kernel="flash", BH=bh, T=t, S=s, d=d, causal=causal)
     if timed:
         add_times(out, kernel, plain,
                   lambda: SDPA(q[None], k[None], v[None], is_causal=causal),
                   flush, bytes_=nbytes(q, k, v, q),
-                  flops=4 * d * bh * visible_pairs(t, t, causal))
+                  flops=4 * d * bh * visible_pairs(t, s, causal))
     emit("prefill_kernel", ok=True, **out)
     return out
 
@@ -1311,7 +1464,25 @@ def check_prefill_kernels(dev) -> dict:
         check_sufa(dev, flush, bh=32, t=2048, block=128, strict=strict,
                    seed=44, timed=False, elementwise=True)
     check_flash(dev, flush, bh=32, t=4096, causal=True, seed=45, timed=False)
+    # phase 19's forms (SeamlessM4T, d 64): the encoder's non-causal K2
+    # and K3 at 2048 frames; the cross-attention's K4, non-causal with
+    # T != S: 256 decoder rows over 2048 encoder rows, and over a ragged
+    # 1000
+    timed["dlzs_block_encoder"] = check_dlzs(
+        dev, flush, bh=16, t=2048, block=128, causal=False, seed=51,
+        timed=True, d=64)
+    for strict in (True, False):
+        timed["sufa_encoder" if strict else "sufa_encoder_fast"] = \
+            check_sufa(dev, flush, bh=16, t=2048, block=128, strict=strict,
+                       seed=52, timed=True, d=64, causal=False)
+    for s in (2048, 1000):
+        timed[f"flash_cross_s{s}"] = check_flash(
+            dev, flush, bh=16, t=256, s=s, causal=False, seed=53 + s,
+            timed=True, d=64)
     del flush
+    # phase 18's forms: InternVL2-26B's 48 heads (K/V expanded from 8) at
+    # its longest whole prompt
+    timed["bh48"] = check_attention_kernels_at(dev, bh=48, t=4096, seed=48)
     return timed
 
 
@@ -1484,17 +1655,18 @@ def check_fused_star(params, cfg, seed: int, t: int = 2048,
 def count_prefills(on_card: bool) -> dict:
     """Wrap ``lm.prefill`` (the pool probe and every whole-prompt
     prefill call it): ``calls``, the padded ``widths`` and ``seconds``
-    of host time through the device's end (the engine reads the logits
+    (each call's, and their sum) of host time through the device's end (the engine reads the logits
     back right after, so the added synchronise moves no work)."""
     real = lm.prefill
-    tally = {"calls": 0, "widths": [], "seconds": 0.0}
+    tally = {"calls": 0, "widths": [], "seconds": 0.0, "per_call": []}
 
     def counted(params, cfg, batch, **kw):
         t0 = time.perf_counter()
         out = real(params, cfg, batch, **kw)
         if on_card:
             torch.cuda.synchronize()
-        tally["seconds"] += time.perf_counter() - t0
+        tally["per_call"].append(time.perf_counter() - t0)
+        tally["seconds"] += tally["per_call"][-1]
         tally["calls"] += 1
         tally["widths"].append(int(batch["tokens"].shape[1]))
         return out
@@ -1535,7 +1707,7 @@ def serve_whole_prompt(cfg, params, prompts, max_tokens, *, device,
     elem = star is not None and star.elementwise
     summary.update(
         prefill_calls=tally["calls"], prefill_widths=tally["widths"],
-        prefill_s=tally["seconds"],
+        prefill_s=tally["seconds"], prefill_s_per_call=tally["per_call"],
         dlzs_block_launches=run["launches"]["dlzs_block"],
         sufa_launches=run["launches"]["sufa"],
         flash_launches=run["launches"]["flash"],
@@ -1579,6 +1751,17 @@ def require_prefill_launches(summary: dict, tag: str) -> None:
                          f"{flash}")
 
 
+def first_token_rule(logits, served, tag: str) -> tuple:
+    """Phase 8's rule for one token: the argmax of ``logits`` (the
+    forward's, [V] fp32) or within one bf16 step of its top."""
+    top = logits.max()
+    exact = int(logits.argmax()) == served
+    if not (exact or bool(top - logits[served] <= bf16_step(top))):
+        raise SystemExit(f"{tag}: first token {served}, forward argmax "
+                         f"{int(logits.argmax())}")
+    return int(exact), int(not exact)
+
+
 @torch.inference_mode()
 def check_first_tokens(params, cfg, prompts, done, pow2) -> dict:
     """Each request's first token against the argmax of a cache-free
@@ -1596,13 +1779,8 @@ def check_first_tokens(params, cfg, prompts, done, pow2) -> dict:
                                device=dev)
         logits = lm.forward(params, cfg, {"tokens": toks})[
             0, len(prompt) - 1, :cfg.vocab].float()
-        served = int(done[rid][0])
-        top = logits.max()
-        exact = int(logits.argmax()) == served
-        tie = not exact and bool(top - logits[served] <= bf16_step(top))
-        if not (exact or tie):
-            raise SystemExit(f"request {rid}: first token {served}, STAR "
-                             f"forward argmax {int(logits.argmax())}")
+        exact, tie = first_token_rule(logits, int(done[rid][0]),
+                                      f"request {rid}")
         n_exact += exact
         n_tie += tie
     return {"first_tokens_checked": len(prompts), "exact": n_exact,
@@ -2059,6 +2237,66 @@ def init_params(cfg, gen, dev) -> tuple:
                     "params": sum(t.numel() for t in tree_leaves(params))}
 
 
+def pool_pages(prompts, max_tokens: int) -> int:
+    """A page pool twice the size of every request's whole sequence."""
+    return 2 * -(-(sum(map(len, prompts)) + len(prompts) * max_tokens)
+                 // 16)
+
+
+def serve_exact(cfg, params, prompts, max_tokens, dev, gen,
+                record: bool) -> tuple:
+    """``star=None`` through the paged engine with whole-prompt prefill;
+    with ``record``, each request's decode logits (``served_rows``), else
+    None. Returns (the run, its summary, the logits)."""
+    log = record_decode_logits() if record else None
+    try:
+        llm, run, summary = serve_whole_prompt(
+            dataclasses.replace(cfg, star=None), params, prompts,
+            max_tokens, device=dev, generator=gen,
+            n_pages=pool_pages(prompts, max_tokens))
+    finally:
+        if log is not None:
+            log["restore"]()
+    del llm
+    free_cache(dev)
+    return run, summary, log and served_rows(log, prompts, run["done"])
+
+
+def serve_star_and_exact(cfg, params, prompts, max_tokens, dev, gen,
+                         tag: str, witness: bool = False) -> tuple:
+    """A full-depth model through the paged engine with whole-prompt
+    prefill: STAR on (launch counts; each first token against a
+    cache-free STAR forward), then ``star=None`` (a STAR prefill keeps
+    other K/V than a dense one, so only that setting has a dense oracle;
+    every token held by phase 4's rule against a K4 forward; with
+    ``witness``, the served logits witness as ``check_exact`` says).
+    Returns (STAR summary, exact summary, the exact run's tokens)."""
+    warm_prefill(params, cfg, len(prompts[0]))
+    warm_prefill(params, dataclasses.replace(cfg, star=None),
+                 len(prompts[0]))
+    llm, run, star = serve_whole_prompt(
+        cfg, params, prompts, max_tokens, device=dev, generator=gen,
+        n_pages=pool_pages(prompts, max_tokens))
+    star.update(check_first_tokens(params, cfg, prompts, run["done"],
+                                   llm.engine.backend.pcfg.bucket_pow2))
+    star.update(slab_bytes=llm.engine.backend.stats()["slab_bytes"],
+                bytes_per_page=llm.engine.backend.page_bytes_full)
+    del llm
+    free_cache(dev)
+    emit(f"{tag}_served", attention="star", **star)
+    require_launches(star, f"{tag} served")
+    require_prefill_launches(star, f"{tag} served")
+    run, exact_run, logits = serve_exact(cfg, params, prompts, max_tokens,
+                                         dev, gen, witness)
+    require_launches(exact_run, f"{tag} served, star=None")
+    require_prefill_launches(exact_run, f"{tag} served, star=None")
+    exact_run.update(check_exact(params, cfg, prompts, run["done"],
+                                 served_logits=logits))
+    emit(f"{tag}_served", attention="dense", **exact_run)
+    require_k4(exact_run, f"{tag} exactness")
+    return star, exact_run, run["done"]
+
+
 def check_chatglm(cfg, dev, gen, lengths=GLM_PROMPTS,
                   max_tokens=GLM_MAX_TOKENS) -> dict:
     """Phases 10-11: ChatGLM3-6B at full width and depth (K1 at R = 16,
@@ -2075,40 +2313,17 @@ def check_chatglm(cfg, dev, gen, lengths=GLM_PROMPTS,
     params, info = init_params(cfg, gen, dev)
     emit("chatglm3_init", dtype=str(cfg.dtype), **info)
     prompts = make_prompts(cfg, lengths, SEED + 5)
-    dense = dataclasses.replace(cfg, star=None)
-    warm_prefill(params, cfg, lengths[0])
-    warm_prefill(params, dense, lengths[0])
-    n_pages = 2 * -(-(sum(lengths) + len(lengths) * max_tokens) // 16)
-    llm, run, star = serve_whole_prompt(cfg, params, prompts, max_tokens,
-                                        device=dev, generator=gen,
-                                        n_pages=n_pages)
-    star.update(check_first_tokens(params, cfg, prompts, run["done"],
-                                   llm.engine.backend.pcfg.bucket_pow2))
-    star.update(slab_bytes=llm.engine.backend.stats()["slab_bytes"],
-                bytes_per_page=llm.engine.backend.page_bytes_full)
-    emit("chatglm3_served", attention="star", **star)
-    require_launches(star, "ChatGLM3-6B served")
-    require_prefill_launches(star, "ChatGLM3-6B served")
-    del llm
-    free_cache(dev)
+    star, exact_run, paged_done = serve_star_and_exact(
+        cfg, params, prompts, max_tokens, dev, gen, "chatglm3")
     fused = check_fused_star(params, cfg, SEED + 7, t=max(lengths),
                              timed=False, every=7, tag="chatglm3_fused_star")
-    llm, run, exact_run = serve_whole_prompt(
-        dense, params, prompts, max_tokens, device=dev, generator=gen,
-        n_pages=n_pages)
-    del llm
-    free_cache(dev)
-    require_launches(exact_run, "ChatGLM3-6B served, star=None")
-    require_prefill_launches(exact_run, "ChatGLM3-6B served, star=None")
-    exact_run.update(check_exact(params, cfg, prompts, run["done"]))
-    emit("chatglm3_served", attention="dense", **exact_run)
-    require_k4(exact_run, "ChatGLM3-6B exactness")
-    done, dense_run = serve_dense(dense, params, prompts, max_tokens,
-                                  device=dev, generator=gen)
+    done, dense_run = serve_dense(dataclasses.replace(cfg, star=None),
+                                  params, prompts, max_tokens, device=dev,
+                                  generator=gen)
     require_dense_launches(dense_run, "dense engine")
     dense_run.update(check_exact(params, cfg, prompts, done))
     dense_run["tokens_equal_paged"] = sum(
-        a == b for x, y in zip(done, run["done"]) for a, b in zip(x, y))
+        a == b for x, y in zip(done, paged_done) for a, b in zip(x, y))
     emit("dense_engine", **dense_run)
     require_k4(dense_run, "dense engine exactness")
     del params
@@ -2560,7 +2775,7 @@ def check_olmoe(cfg, dev, gen, *, lengths=OLMOE_PROMPTS,
     exact_cfg = dropless(cfg)
     warm_prefill(params, cfg, lengths[0])
     warm_prefill(params, exact_cfg, lengths[0])
-    n_pages = 2 * -(-(sum(lengths) + len(lengths) * max_tokens) // 16)
+    n_pages = pool_pages(prompts, max_tokens)
     with record_routes() as log:
         llm, run, star = serve_whole_prompt(cfg, params, prompts,
                                             max_tokens, device=dev,
@@ -2932,6 +3147,264 @@ def check_xlstm(cfg, dev, gen, *, lengths=XLSTM_PROMPTS,
 
 # -- main ---------------------------------------------------------------------
 
+# -- phases 18-19: the frontend-stub families ---------------------------------
+
+def seeded_normal(shape, seed: int, dev, dtype) -> torch.Tensor:
+    """Stand-in frontend output (patch or frame embeddings): normal draws
+    from a seeded CPU generator, on the device in the model's dtype."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dev, dtype)
+
+
+def require_counts(summary: dict, tag: str) -> None:
+    """Every kernel's (and form's) launches equal their expectation."""
+    got = {name: summary["launches"][name]
+           for name in summary["expected_launches"]}
+    if got != summary["expected_launches"]:
+        raise SystemExit(f"{tag}: launches {got}; expected "
+                         f"{summary['expected_launches']}")
+
+
+def cache_rows(t: int, steps: int) -> int:
+    """Dense-cache rows for a t-token prefill and ``steps`` decode steps,
+    in whole pages of 16 (STAR's decode splits the rows into segments)."""
+    return -(-(t + steps) // 16) * 16
+
+
+def launched() -> dict:
+    return {**kernels.LAUNCHES, **kernels.FORM_LAUNCHES}
+
+
+def greedy_steps(params, cfg, logits, cache, steps: int, dev,
+                 tag: str) -> tuple:
+    """``steps`` greedy ``lm.decode_step``s on a dense cache from a
+    prefill's last logits [B, V]: (the tokens [B, steps + 1], the
+    prefill's first among them; each step's seconds). Every logit must be
+    finite."""
+    tok = logits[:, :cfg.vocab].argmax(dim=-1, keepdim=True).int()
+    out, secs = [tok], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = lm.decode_step(params, cfg, tok, cache)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(logits).all()):
+            raise SystemExit(f"{tag}: non-finite decode logits")
+        tok = logits[:, :cfg.vocab].argmax(dim=-1, keepdim=True).int()
+        out.append(tok)
+    return torch.cat(out, dim=1), secs
+
+
+@torch.inference_mode()
+def check_embeds_prefill(params, cfg, dev, t: int, steps: int) -> dict:
+    """Phase 18's frontend input: one ``lm.prefill`` over [1, t, H] patch
+    embeddings (STAR on: K2 and K3 once per layer), its first token held
+    against the STAR forward over the same embeddings by phase 8's rule,
+    then ``steps`` ``decode_step``s on the dense cache, every logit
+    finite."""
+    batch = {"embeds": seeded_normal((1, t, cfg.d_model), SEED + 30, dev,
+                                     cfg.dtype)}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, cfg, batch,
+                               cache_len=cache_rows(t, steps))
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    counts = launched()
+    layers = attn_layers(cfg)
+    out = {"tokens": t, "prefill_s": prefill_s, "launches": counts,
+           "expected_launches": {"dlzs_block": layers, "sufa": layers,
+                                 "flash": 0, "paged_decode": 0}}
+    tokens, decode_s = greedy_steps(params, cfg, logits, cache, steps, dev,
+                                    "InternVL2 embeds decode")
+    fwd = lm.forward(params, cfg, batch)[0, -1, :cfg.vocab].float()
+    exact, tie = first_token_rule(fwd, int(tokens[0, 0]),
+                                  "InternVL2 embeds prefill")
+    out.update(first_token_exact=exact, first_token_bf16_tie=tie,
+               tokens_out=tokens[0].tolist(), decode_steps=steps,
+               decode_ms=[1e3 * s for s in decode_s])
+    return out
+
+
+def serve_plain_k1(cfg, params, prompts, max_tokens, dev, gen,
+                   k1_done) -> dict:
+    """Phase 18b's ``star=None`` paged run again with K1's wrapper
+    swapped for its plain version (``paged_decode_reference`` on the
+    card; K1 launches 0), every token held by the same rule as K1's run:
+    the tokens of the two runs side by side, and the first index where
+    each request's part, tell a K1 fault from rounding."""
+    real = kpaged.paged_decode_attention
+    kpaged.paged_decode_attention = kpaged.paged_decode_reference
+    try:
+        run, out, logits = serve_exact(cfg, params, prompts, max_tokens,
+                                       dev, gen, True)
+    finally:
+        kpaged.paged_decode_attention = real
+    if out["k1_launches"] != 0:
+        raise SystemExit(f"InternVL2 plain K1: K1 launched "
+                         f"{out['k1_launches']} times")
+    out["expected_launches"] = 0
+    out.update(check_exact(params, cfg, prompts, run["done"],
+                           served_logits=logits))
+    require_k4(out, "InternVL2 plain K1 exactness")
+    out["tokens_equal_k1"] = sum(a == b for x, y in zip(run["done"], k1_done)
+                                 for a, b in zip(x, y))
+    out["first_difference"] = [
+        next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+        for x, y in zip(run["done"], k1_done)]
+    return out
+
+
+def check_internvl2(cfg, dev, gen, *, lengths=INTERNVL_PROMPTS,
+                    max_tokens=INTERNVL_MAX_TOKENS,
+                    embeds_len=INTERNVL_EMBEDS,
+                    steps=INTERNVL_DECODE_STEPS) -> dict:
+    """Phase 18: InternVL2-26B at full width and depth (48 layers, 48
+    heads over 8 KV heads: K1 at R = 6, K2/K3/K4 at BH 48). (a) STAR on,
+    whole-prompt prefill through the paged engine, each first token
+    against a cache-free STAR forward; (b) ``star=None``, every token by
+    phase 4's rule against a K4 forward, through the paged engine (the
+    served logits a second witness), again with K1's plain version
+    (``serve_plain_k1``), and through the dense slot engine (phase 4's
+    rule alone); (c) one prefill from patch embeddings and a few decode
+    steps (``check_embeds_prefill``)."""
+    params, info = init_params(cfg, gen, dev)
+    emit("internvl2_init", dtype=str(cfg.dtype), **info)
+    prompts = make_prompts(cfg, lengths, SEED + 31)
+    star, exact_run, paged_done = serve_star_and_exact(
+        cfg, params, prompts, max_tokens, dev, gen, "internvl2",
+        witness=True)
+    plain_k1 = serve_plain_k1(cfg, params, prompts, max_tokens, dev, gen,
+                              paged_done)
+    emit("internvl2_plain_k1", **plain_k1)
+    done, dense_run = serve_dense(dataclasses.replace(cfg, star=None),
+                                  params, prompts, max_tokens, device=dev,
+                                  generator=gen)
+    free_cache(dev)
+    require_dense_launches(dense_run, "InternVL2-26B dense engine")
+    dense_run.update(check_exact(params, cfg, prompts, done))
+    dense_run["tokens_equal_paged"] = sum(
+        a == b for x, y in zip(done, paged_done) for a, b in zip(x, y))
+    emit("internvl2_dense_engine", **dense_run)
+    require_k4(dense_run, "InternVL2-26B dense engine exactness")
+    frontend = check_embeds_prefill(params, cfg, dev, embeds_len, steps)
+    emit("internvl2_embeds", **frontend)
+    require_counts(frontend, "InternVL2-26B embeds prefill")
+    del params
+    free_cache(dev)
+    return {"star": star, "exact": exact_run, "plain_k1": plain_k1,
+            "dense": dense_run, "embeds": frontend}
+
+
+def seamless_batch(cfg, dev, frames: int, prompt_len: int, seed: int):
+    """SEAMLESS_BATCH utterances: stand-in speech-frame embeddings [B,
+    frames, H] for the encoder and decoder prompts [B, prompt_len]."""
+    toks = np.stack(make_prompts(cfg, (prompt_len,) * SEAMLESS_BATCH, seed))
+    return {"enc_embeds": seeded_normal(
+                (SEAMLESS_BATCH, frames, cfg.d_model), seed, dev, cfg.dtype),
+            "tokens": torch.as_tensor(toks, device=dev)}
+
+
+@torch.inference_mode()
+def run_encdec(params, cfg, batches, steps: int, dev) -> dict:
+    """Each batch through ``lm.prefill`` (the encoder, then the decoder
+    with its per-layer cross K/V cached), then ``steps`` greedy
+    ``decode_step``s on the dense cache; launches counted from 0. With
+    STAR on, K2 and K3 run once per self-attention layer of the prefill
+    (non-causal in the encoder) and K4 once per cross-attention layer
+    (non-causal); with ``star=None`` K4 runs at every layer of both. No
+    kernel runs in decode (the dense cache's plain softmax)."""
+    kernels.reset_launches()
+    prefill_s, decode_s, done = [], [], []
+    for batch in batches:
+        t = batch["tokens"].shape[1]
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(params, cfg, batch,
+                                   cache_len=cache_rows(t, steps))
+        sync(dev)
+        prefill_s.append(time.perf_counter() - t0)
+        tokens, secs = greedy_steps(params, cfg, logits, cache, steps, dev,
+                                    cfg.name)
+        decode_s.extend(secs)
+        done.extend(tokens.tolist())
+    n, enc, dec, cross = (len(batches), cfg.enc_layers, attn_layers(cfg),
+                          cross_layers(cfg))
+    if cfg.star is not None:
+        want = {"dlzs_block": n * (enc + dec), "sufa": n * (enc + dec),
+                "flash": n * cross, "dlzs_block/noncausal": n * enc,
+                "sufa/noncausal": n * enc, "flash/noncausal": n * cross}
+    else:
+        want = {"dlzs_block": 0, "sufa": 0, "flash": n * (enc + dec + cross),
+                "flash/noncausal": n * (enc + cross)}
+    want["paged_decode"] = 0
+    return {"done": done, "prefill_calls": n,
+            "frames": [int(b["enc_embeds"].shape[1]) for b in batches],
+            "prompt_tokens": [int(b["tokens"].shape[1]) for b in batches],
+            "batch": SEAMLESS_BATCH, "prefill_s": prefill_s,
+            "decode_steps": len(decode_s),
+            "decode_ms_per_step": 1e3 * float(np.mean(decode_s)),
+            "decode_ms_first_step": 1e3 * decode_s[0],
+            "tokens": sum(len(d) for d in done), "launches": launched(),
+            "expected_launches": want}
+
+
+@torch.inference_mode()
+def check_encdec_first_tokens(params, cfg, batches, done) -> dict:
+    """Each utterance's first token against the STAR forward over the
+    same frames and prompt (phase 8's rule). The forwards' launches are
+    reported beside the served run's."""
+    kernels.reset_launches()
+    n_exact = n_tie = 0
+    for i, batch in enumerate(batches):
+        logits = lm.forward(params, cfg, batch)[:, -1, :cfg.vocab].float()
+        for row in range(SEAMLESS_BATCH):
+            e, t = first_token_rule(logits[row],
+                                    done[i * SEAMLESS_BATCH + row][0],
+                                    f"{cfg.name} batch {i} row {row}")
+            n_exact, n_tie = n_exact + e, n_tie + t
+    return {"first_tokens_checked": n_exact + n_tie, "exact": n_exact,
+            "bf16_ties": n_tie, "forward_launches": launched()}
+
+
+def check_seamless(cfg, dev, gen, *, frames=SEAMLESS_FRAMES,
+                   prompt_len=SEAMLESS_PROMPT,
+                   steps=SEAMLESS_DECODE_STEPS) -> dict:
+    """Phase 19: SeamlessM4T-large-v2 at full width and depth (24 encoder
+    and 24 decoder layers, 16 heads of 64) through ``lm.prefill`` and
+    ``lm.decode_step``, the paths the reference runs it on (no engine of
+    either package serves it). (a) STAR on: launch counts (the encoder's
+    K2/K3 non-causal, the cross-attention's K4 non-causal with T != S)
+    and each first token against a STAR forward; (b) ``star=None``: every
+    token held by phase 4's rule against a K4 forward over the same
+    frames."""
+    params, info = init_params(cfg, gen, dev)
+    emit("seamless_init", dtype=str(cfg.dtype), **info)
+    batches = [seamless_batch(cfg, dev, f, prompt_len, SEED + 40 + i)
+               for i, f in enumerate(frames)]
+    dense = dataclasses.replace(cfg, star=None)
+    for c in (cfg, dense):     # each shape's first-call library set-up
+        run_encdec(params, c, batches, 1, dev)
+    star = run_encdec(params, cfg, batches, steps, dev)
+    require_counts(star, "SeamlessM4T STAR")
+    star.update(check_encdec_first_tokens(params, cfg, batches,
+                                          star["done"]))
+    emit("seamless_served", attention="star", **info,
+         **{k: v for k, v in star.items() if k != "done"})
+    exact = run_encdec(params, dense, batches, steps, dev)
+    require_counts(exact, "SeamlessM4T star=None")
+    prompts = [row.cpu().numpy() for b in batches for row in b["tokens"]]
+    extra = [{"enc_embeds": b["enc_embeds"][row:row + 1]} for b in batches
+             for row in range(SEAMLESS_BATCH)]
+    exact.update(check_exact(params, cfg, prompts, exact["done"],
+                             extra=extra))
+    emit("seamless_served", attention="dense",
+         **{k: v for k, v in exact.items() if k != "done"})
+    require_k4(exact, "SeamlessM4T exactness")
+    del params
+    free_cache(dev)
+    return {"star": star, "exact": exact}
+
+
 def demangle(mangled: str) -> str:
     """``name<args>`` of a kernel template instantiation whose arguments
     are ints and bools (``...19paged_scores_kernelILi64ELi1ELb1EEEv...`` ->
@@ -3030,6 +3503,13 @@ def main() -> int:
                          timed=True)
              for form, check in (("fp", check_paged_kernel),
                                  ("int8", check_paged_int8))}
+    # InternVL2-26B's group (G 8, R 6) at phase 18's decode shape: its
+    # three requests batched, W covering the longest sequence
+    ivl_w = -(-(max(INTERNVL_PROMPTS) + INTERNVL_MAX_TOKENS) // 16) + 1
+    k1_ivl = check_paged_kernel(
+        dev, "internvl2_decode", b=3, g=8, r=6, d=128, page=16, w=ivl_w,
+        p=512, kv_len=tuple(n + INTERNVL_MAX_TOKENS for n in INTERNVL_PROMPTS),
+        seed=10, timed=True)
     # K1's (m, l, o) form: phase 13's decode shape (4 shards, the three
     # requests at their last tick and an idle slot; W covers each shard's
     # pages) and ChatGLM3-6B's group, both lanes, timed; a shard with no
@@ -3168,6 +3648,14 @@ def main() -> int:
     # 17. xLSTM-125M at full width and depth: no kernel of the port
     check_xlstm(xlstm_125m.config(), dev, gen)
 
+    # 18. InternVL2-26B at full width and depth through the paged engine
+    # (K1 at R = 6, K2/K3/K4 at BH 48), and its patch-embeddings input
+    ivl = check_internvl2(internvl2_26b.config(), dev, gen)
+
+    # 19. SeamlessM4T-large-v2 at full width and depth: the non-causal
+    # encoder (K2/K3) and the cross-attention (K4, T != S)
+    seamless = check_seamless(seamless_m4t_large_v2.config(), dev, gen)
+
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
@@ -3198,6 +3686,9 @@ def main() -> int:
         return {f"{key}_bh64": case[key] for key in (
             "max_abs_err", "ms", "ms_repeat", "plain_ms", "bound_ms",
             "bound_by", "library_ms")}
+
+    def served(run, name):
+        return run["launches"][name]
 
     print(json.dumps({"kernels": [
         line("paged_decode", "paged_decode.cu",
@@ -3311,6 +3802,51 @@ def main() -> int:
              r16={lane: {key: k1_stats_r16[lane][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms",
                  "library_ms")} for lane in ("fp", "int8")}),
+        # phase 18: InternVL2-26B's decode group (R = 6, B 3, W 258) and
+        # its attention prefill at BH 48 (48 heads; K/V expanded from 8)
+        line("paged_decode/r6_internvl2", "paged_decode.cu",
+             "src/repro/kernels/paged.py:67", ivl["star"]["k1_launches"],
+             k1_ivl, launches_from="phase 18a, InternVL2-26B served",
+             launches_dropless=ivl["exact"]["k1_launches"],
+             n_split=k1_ivl["n_split"]),
+        line("dlzs_block/bh48", "dlzs_block.cu",
+             "src/repro/kernels/dlzs.py:65",
+             ivl["star"]["dlzs_block_launches"], tiles["bh48"]["dlzs_block"],
+             launches_from="phase 18a, InternVL2-26B's whole prompts",
+             launches_embeds_prefill=served(ivl["embeds"], "dlzs_block")),
+        line("sufa/bh48", "sufa.cu", "src/repro/kernels/sufa.py:72",
+             ivl["star"]["sufa_launches"], tiles["bh48"]["sufa"],
+             launches_from="phase 18a, InternVL2-26B's whole prompts",
+             launches_embeds_prefill=served(ivl["embeds"], "sufa"),
+             max_abs_err_fast_path=tiles["bh48"]["sufa_fast"][
+                 "max_abs_err"]),
+        line("flash/bh48", "flash.cu", "src/repro/kernels/flash.py:67",
+             ivl["exact"]["flash_launches"], tiles["bh48"]["flash"],
+             launches_from="phase 18b, InternVL2-26B star=None prefills",
+             launches_dense_engine=ivl["dense"]["flash_launches"],
+             launches_oracle=ivl["exact"]["k4_launches"]),
+        # phase 19: SeamlessM4T-large-v2's encoder (K2/K3 non-causal, d 64,
+        # 2048 frames) and cross-attention (K4 non-causal, T 256 != S)
+        line("dlzs_block/noncausal", "dlzs_block.cu",
+             "src/repro/kernels/dlzs.py:65",
+             served(seamless["star"], "dlzs_block/noncausal"),
+             tiles["dlzs_block_encoder"],
+             launches_from="phase 19a, SeamlessM4T's encoder layers"),
+        line("sufa/noncausal", "sufa.cu", "src/repro/kernels/sufa.py:72",
+             served(seamless["star"], "sufa/noncausal"),
+             tiles["sufa_encoder"],
+             launches_from="phase 19a, SeamlessM4T's encoder layers",
+             **{f"{key}_fast_path": tiles["sufa_encoder_fast"][key]
+                for key in ("max_abs_err", "ms", "plain_ms", "library_ms")}),
+        line("flash/noncausal", "flash.cu", "src/repro/kernels/flash.py:67",
+             served(seamless["star"], "flash/noncausal"),
+             tiles["flash_cross_s2048"],
+             launches_from="phase 19a, SeamlessM4T's cross-attention",
+             launches_star_none=served(seamless["exact"], "flash/noncausal"),
+             launches_oracle=seamless["exact"]["k4_launches"],
+             **{f"{key}_s1000": tiles["flash_cross_s1000"][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")}),
     ]}), flush=True)
     print_device_line()
     return 0

@@ -20,9 +20,9 @@ from repro_torch.core.star_attention import STARConfig
 from repro_torch.models import lm, moe, ssm
 from repro_torch.tree import tree_map
 
-# reference ModelCfg fields whose non-default values need unported code
-_UNPORTED_FIELDS = {"enc_layers": 0, "embeds_input": False,
-                    "star_train": False}
+# reference ModelCfg fields whose non-default values need unported code:
+# STAR in training (ROADMAP §1 item 5)
+_UNPORTED_FIELDS = {"star_train": False}
 
 
 def _is_bf16(arr: np.ndarray) -> bool:
@@ -85,13 +85,13 @@ def mamba_cfg_from_reference(cfg) -> ssm.MambaCfg:
 def model_cfg_from_reference(cfg) -> lm.ModelCfg:
     """The port's ``ModelCfg`` for a reference ``repro.models.lm.ModelCfg``
     (any dataclass with its field names). Raises NotImplementedError for
-    configurations that need unported block kinds."""
+    configurations that need unported code (``star_train``)."""
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     for name, default in _UNPORTED_FIELDS.items():
         if fields.get(name, default) != default:
             raise NotImplementedError(
                 f"{cfg.name}: {name}={fields[name]!r} is not ported yet: "
-                f"{lm.UNPORTED_FAMILIES}")
+                "training is ROADMAP §1 item 5")
     kept = {f.name for f in dataclasses.fields(lm.ModelCfg)}
     out = {k: v for k, v in fields.items() if k in kept}
     out["pattern"] = tuple(lm.BlockCfg(b.kind, b.ffn, b.cross_attn)

@@ -8,9 +8,11 @@ for the others), both of K3's carry the element-level sphere mask
 (``sufa/elementwise`` counts those launches too, on top of their form),
 and K1 has
 an fp and an int8 form (the cold KV tier); ``FORM_LAUNCHES`` counts
-launches by form. K1's unnormalised (m, l, o) form for the spatial merge
-(``kernels.paged.paged_decode_stats_attention``) counts under its own
-name, ``paged_decode_stats``, in both lanes.
+launches by form, and ``<kernel>/noncausal`` the prefill kernels' (K2,
+K3, K4) launches without the causal mask (an encoder's self-attention,
+a decoder's cross-attention). K1's unnormalised (m, l, o) form for the
+spatial merge (``kernels.paged.paged_decode_stats_attention``) counts
+under its own name, ``paged_decode_stats``, in both lanes.
 """
 
 LAUNCHES: dict[str, int] = {"paged_decode": 0, "paged_decode_stats": 0,
@@ -19,6 +21,8 @@ FORM_LAUNCHES: dict[str, int] = {"dlzs_block/wgmma": 0,
                                  "dlzs_block/mma_sync": 0,
                                  "sufa/wgmma": 0, "sufa/mma_sync": 0,
                                  "sufa/elementwise": 0,
+                                 "dlzs_block/noncausal": 0,
+                                 "sufa/noncausal": 0, "flash/noncausal": 0,
                                  "paged_decode/fp": 0,
                                  "paged_decode/int8": 0,
                                  "paged_decode_stats/fp": 0,

@@ -76,5 +76,5 @@ def dlzs_block_scores(q: torch.Tensor, k: torch.Tensor, *,
                          + [ctypes.c_float, ctypes.c_void_p])
         args = (*ptrs, bh, t, s, d, block_q, block_kv, int(causal),
                 float(scale))
-    launch.launch(name, fn, q.device, *args, form=form)
+    launch.launch(name, fn, q.device, *args, form=form, causal=causal)
     return out

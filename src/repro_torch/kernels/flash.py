@@ -8,7 +8,8 @@ softmax attention over q [BH, T, d] and k/v [BH, S, d], causal at offset
 S (it masks the ragged edge itself). It is bound by operations at long T;
 see the source's header. Tensors on the CPU take the plain version
 (``ref.flash_ref``); tensors on a GPU launch the kernel (bf16) or raise.
-``kernels.LAUNCHES["flash"]`` counts launches.
+``kernels.LAUNCHES["flash"]`` counts launches,
+``kernels.FORM_LAUNCHES["flash/noncausal"]`` those without the mask.
 """
 
 from __future__ import annotations
@@ -50,5 +51,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      + [ctypes.c_float, ctypes.c_void_p])
     launch.launch(name, fn, q.device, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), bh, t, s, d, s - t,
-                  int(causal), float(scale))
+                  int(causal), float(scale), causal=causal)
     return out

@@ -74,10 +74,11 @@ def bind(kernel: str, symbol: str, argtypes: list) -> Callable:
 
 
 def launch(kernel: str, fn: Callable, device: torch.device, *args,
-           form: str | None = None) -> None:
+           form: str | None = None, causal: bool = True) -> None:
     """Run ``fn(*args, stream)`` on the device's current stream; raise if
     the launch reports a CUDA error, else count it (and its ``form``, for
-    a kernel that has two)."""
+    a kernel that has two, and ``noncausal`` for a prefill kernel run
+    without the causal mask)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -86,3 +87,5 @@ def launch(kernel: str, fn: Callable, device: torch.device, *args,
     kernels.LAUNCHES[kernel] += 1
     if form is not None:
         kernels.FORM_LAUNCHES[f"{kernel}/{form}"] += 1
+    if not causal:
+        kernels.FORM_LAUNCHES[f"{kernel}/noncausal"] += 1

@@ -181,7 +181,7 @@ def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         args = (*ptrs, bh, t, s, keep, block_q, block_kv, d, int(causal),
                 int(strict), int(elementwise), float(scale), float(radius))
-    launch.launch(name, fn, q.device, *args, form=form)
+    launch.launch(name, fn, q.device, *args, form=form, causal=causal)
     if elementwise:
         kernels.FORM_LAUNCHES[f"{name}/elementwise"] += 1
     return out

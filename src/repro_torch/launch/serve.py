@@ -46,7 +46,10 @@ published order: every kind of block and FFN).
 
 The recurrent families (Jamba's Mamba blocks, xLSTM) serve only through
 ``--engine dense``, as in the reference: the paged and spatial engines
-refuse patterns that are not attention-only.
+refuse patterns that are not attention-only. The frontend-stub families
+(SeamlessM4T's encoder-decoder, InternVL2's embeddings input) are
+refused, as the reference launcher refuses them; ``chip_smoke.py`` drives
+them through ``LLM`` and ``lm.prefill``/``lm.decode_step``.
 
 The paged engine's prefill chunks are whole STAR q-tiles: the scheduler's
 default of 4 pages is rounded up to a multiple of the config's
@@ -177,13 +180,16 @@ def main(argv=None) -> dict:
     from repro_torch.spatial import SpatialEngineCfg
 
     if args.arch not in ARCHS:
-        raise SystemExit(f"unknown or unported arch {args.arch}; choose "
-                         f"from {sorted(ARCHS)}")
+        raise SystemExit(f"unknown arch {args.arch}; choose from "
+                         f"{sorted(ARCHS)}")
     if args.disagg and args.engine == "dense":
         raise SystemExit("--disagg needs a pool-backed engine "
                          "(paged/spatial)")
-    dev = resolve_device(args.device)
     cfg = model_config(args.arch, args.full)
+    if cfg.enc_layers or cfg.embeds_input:
+        raise SystemExit(f"{args.arch}: frontend-stub archs serve via "
+                         "examples/ drivers")
+    dev = resolve_device(args.device)
     if args.engine == "spatial" and cfg.star is not None:
         cfg = dataclasses.replace(cfg, star=None)
     gen = torch.Generator(device=dev)

@@ -1,12 +1,12 @@
 """Multi-head attention layer: GQA + RoPE + {dense | STAR-sparse} + paged KV.
 
-PyTorch port of the attention-only subset of ``repro.models.attention``:
-full-sequence prefill (K4 flash, or the STAR pipeline's K2 -> SADS -> K3,
-both through ``kernels.ops``), the page-aligned chunk prefill (per
-sequence and batched varlen), one-token decode against the paged pool,
-one-token decode against the dense slot cache (the dense engine's), and
-the spatial (sequence-sharded) forms of the chunk prefills and the paged
-decode. Cross-attention is a later slice (ROADMAP §1).
+PyTorch port of ``repro.models.attention``: full-sequence prefill (K4
+flash, or the STAR pipeline's K2 -> SADS -> K3, both through
+``kernels.ops``; causal, or not for an encoder), the page-aligned chunk
+prefill (per sequence and batched varlen), one-token decode against the
+paged pool, one-token decode against the dense slot cache (the dense
+engine's), the spatial (sequence-sharded) forms of the chunk prefills
+and the paged decode, and the encoder-decoder cross-attention.
 
 Where the reference updates a donated cache functionally
 (``cache.at[...].set``), the port writes the pool slab or the dense slab
@@ -190,6 +190,22 @@ def _attend(qg, k_all, v_all, mask, scale):
                         v_all)
 
 
+def _page_sphere(s_hat, wp: int, page: int, own: int, radius: float):
+    """The chunk-sparse page sphere: ``s_hat`` [B, g, r, T, Wp·page] holds
+    the DLZS estimates over the gathered past rows (NEG_INF where masked).
+    A row keeps a page when the page's best estimate lies within
+    ``radius`` of that row's best over all its pages, so every key the
+    row drops is estimated more than ``radius`` below its best (e^-radius
+    of its largest softmax term, as far as the estimates are the scores).
+    Returns the keep mask [B, g, r, T, Wp·page + own] (the ``own`` rows
+    of the chunk itself always kept)."""
+    lead = s_hat.shape[:-1]
+    page_max = s_hat.reshape(*lead, wp, page).amax(dim=-1)    # [..., Wp]
+    keep = page_max >= page_max.amax(dim=-1, keepdim=True) - radius
+    keep = keep[..., None].expand(*lead, wp, page).reshape(*lead, wp * page)
+    return torch.cat([keep, keep.new_ones(lead + (own,))], dim=-1)
+
+
 def apply_prefill_chunk(params, cfg: AttentionCfg, x, positions, cache,
                         past_phys, past_logical, past_len):
     """Prefill one page-aligned chunk from a nonzero cache offset.
@@ -232,7 +248,8 @@ def apply_prefill_chunk(params, cfg: AttentionCfg, x, positions, cache,
 
     if cfg.star is not None and cfg.chunk_sparse and wp > 0:
         # DLZS sphere over the gathered PAST pages (the chunk's own causal
-        # block stays dense); see the reference for the derivation.
+        # block stays dense), taken per (sequence, KV head, query head,
+        # query) row over that row's own page maxima
         if "k_lz" in cache:
             khat = dlzs.lz_unpack(cache["k_lz"][safe], q.dtype)
             khat = khat.reshape(b, sp, cfg.n_kv, cfg.head_dim)
@@ -240,14 +257,7 @@ def apply_prefill_chunk(params, cfg: AttentionCfg, x, positions, cache,
             khat = dlzs.pow2_quantize(kg)
         s_hat = torch.einsum("btgrd,bsgd->bgrts", qg, khat).float() * scale
         s_hat = s_hat.masked_fill(~mask[..., :sp], NEG_INF)
-        page_max = s_hat.reshape(b, cfg.n_kv, n_rep, c, wp, page
-                                 ).amax(dim=(1, 2, 3, 5))       # [B, Wp]
-        row_max = page_max.amax(dim=-1, keepdim=True)
-        keep = page_max >= row_max - cfg.star.radius            # sphere
-        keep_rows = keep[:, :, None].expand(b, wp, page).reshape(b, sp)
-        keep_all = torch.cat([keep_rows, torch.ones(
-            (b, c), dtype=torch.bool, device=dev)], dim=1)
-        mask = mask & keep_all[:, None, None, None, :]
+        mask = mask & _page_sphere(s_hat, wp, page, c, cfg.star.radius)
 
     o = _attend(qg, k_all, v_all, mask, scale)
     out = _out_proj(params, o.reshape(b, c, cfg.n_heads, cfg.head_dim))
@@ -293,7 +303,6 @@ def apply_prefill_chunk_batch(params, cfg: AttentionCfg, x, positions,
     wp = past_phys.shape[0]
     page = cache["k"].shape[1]
     sp = wp * page
-    s_lanes = pack_state["past_len"].shape[0]
 
     kg, vg, seg_p, pos_p, ok_p = _batch_past_rows(
         cfg, cache, past_phys, past_lane, pack_state["past_logical"],
@@ -312,8 +321,8 @@ def apply_prefill_chunk_batch(params, cfg: AttentionCfg, x, positions,
            <= positions[:, None, None, :, None])
 
     if cfg.star is not None and cfg.chunk_sparse and wp > 0:
-        # Same DLZS sphere as apply_prefill_chunk, per lane against a
-        # segmented per-lane row max.
+        # Same per-row DLZS sphere as apply_prefill_chunk: the mask has
+        # already restricted each row to its own lane's pages
         if "k_lz" in cache:
             khat = dlzs.lz_unpack(
                 cache["k_lz"][torch.clamp(past_phys, min=0).long()], q.dtype)
@@ -322,19 +331,7 @@ def apply_prefill_chunk_batch(params, cfg: AttentionCfg, x, positions,
             khat = dlzs.pow2_quantize(kg)
         s_hat = torch.einsum("btgrd,bsgd->bgrts", qg, khat).float() * scale
         s_hat = s_hat.masked_fill(~mask[..., :sp], NEG_INF)
-        page_max = s_hat.reshape(b, cfg.n_kv, n_rep, t, wp, page
-                                 ).amax(dim=(0, 1, 2, 3, 5))     # [Wp]
-        lanes = torch.arange(s_lanes, device=x.device)
-        lane_max = torch.where(past_lane[:, None] == lanes[None, :],
-                               page_max[:, None],
-                               torch.full_like(page_max[:, None], NEG_INF)
-                               ).amax(dim=0)                     # [S]
-        keep = page_max >= \
-            lane_max[torch.clamp(past_lane, min=0).long()] - cfg.star.radius
-        keep_rows = keep[:, None].expand(wp, page).reshape(sp)
-        keep_all = torch.cat([keep_rows, torch.ones(
-            (t,), dtype=torch.bool, device=x.device)])
-        mask = mask & keep_all[None, None, None, None, :]
+        mask = mask & _page_sphere(s_hat, wp, page, t, cfg.star.radius)
 
     o = _attend(qg, k_all, v_all, mask, scale)
     out = _out_proj(params, o.reshape(b, t, cfg.n_heads, cfg.head_dim))
@@ -653,3 +650,56 @@ def apply_decode_spatial(params, cfg: AttentionCfg, x, cache, lengths,
     o = o / torch.clamp(l, min=1e-30)[..., None]       # [B, G, R, d]
     y = _out_proj(params, o.reshape(b, cfg.n_heads, cfg.head_dim).to(x.dtype))
     return y[:, None, :], new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder; seamless-m4t)
+# ---------------------------------------------------------------------------
+
+def cross_init(generator: torch.Generator, cfg: AttentionCfg, device=None,
+               n_layers: Optional[int] = None):
+    return init(generator, cfg, device, n_layers=n_layers)
+
+
+def cross_encode(params, cfg: AttentionCfg, enc_out):
+    """The encoder-side K/V, made once per layer (the cross-attention
+    cache): enc_out [B,S,H] -> k/v [B,S,nkv,dh]."""
+    b, s, h = enc_out.shape
+    k = (enc_out @ params["wk"].reshape(h, -1)).reshape(b, s, cfg.n_kv,
+                                                       cfg.head_dim)
+    v = (enc_out @ params["wv"].reshape(h, -1)).reshape(b, s, cfg.n_kv,
+                                                       cfg.head_dim)
+    if cfg.qkv_bias:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return {"k": k, "v": v}
+
+
+def cross_apply(params, cfg: AttentionCfg, x, enc_cache):
+    """Decoder cross-attention, no mask: x [B,T,H] against the cached
+    encoder K/V [B,S,nkv,dh] -> [B,T,H]. A prefill (T > 1) runs K4
+    non-causal over [B·nh, T, d] queries and the K/V expanded to n_heads,
+    as ``apply_prefill`` does; a decode step (T = 1) the grouped plain
+    softmax at n_kv width, as ``apply_decode`` does (the reference hands
+    both to XLA)."""
+    b, t, h = x.shape
+    nh, dh = cfg.n_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(dh)
+    q = (x @ params["wq"].reshape(h, -1)).reshape(b, t, nh, dh)
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+    k, v = (enc_cache[name].to(q.dtype) for name in ("k", "v"))
+    n_rep = nh // cfg.n_kv
+    if t == 1:
+        qg = q[:, 0].reshape(b, cfg.n_kv, n_rep, dh)
+        sc = torch.einsum("bgrd,bsgd->bgrs", qg, k).float() * scale
+        o = torch.einsum("bgrs,bsgd->bgrd", _softmax_rows(sc).to(q.dtype),
+                         v)
+        y = o.reshape(b, 1, nh, dh)
+    else:
+        qh, kh, vh = (u.transpose(1, 2).reshape(b * nh, -1, dh).contiguous()
+                      for u in (q, _repeat_kv(k, n_rep),
+                                _repeat_kv(v, n_rep)))
+        o = ops.flash(qh, kh, vh, causal=False, scale=scale)   # K4
+        y = o.reshape(b, nh, t, dh).transpose(1, 2)
+    return _out_proj(params, y)

@@ -1,8 +1,9 @@
-"""Causal decoder LM of attention, Mamba (SSD), mLSTM and sLSTM blocks
-with a dense or MoE FFN: prefill, chunked paged prefill, paged decode,
-dense-cache decode and the spatial (sequence-sharded) chunk prefills,
-decode and audit probe. PyTorch port of the decoder-only subset of
-``repro.models.lm``.
+"""Decoder LM of attention, Mamba (SSD), mLSTM and sLSTM blocks with a
+dense or MoE FFN, optionally behind an encoder stack with per-layer
+cross-attention, or fed embeddings by a frontend stub: prefill, chunked
+paged prefill, paged decode, dense-cache decode and the spatial
+(sequence-sharded) chunk prefills, decode and audit probe. PyTorch port
+of the serving paths of ``repro.models.lm``.
 
 Parameters are nested dicts with the reference's keys; each super-block
 leaf is stacked on a leading layer axis exactly like the reference's
@@ -15,10 +16,14 @@ the prefill and the dense-cache decode, the modes the dense slot engine
 serves; its state is the block's cache entry under its kind. The
 pool-backed modes (chunked and paged prefill, paged and spatial decode)
 serve attention-only patterns: the paged and spatial engines refuse
-the others first, as the reference's do. Cross-attention,
-encoder-decoder models and embedding frontends raise
-``NotImplementedError`` naming the ROADMAP item that ports them. An MoE
-block's load-balance loss is computed by ``moe.apply`` and dropped here:
+the others first, as the reference's do. An encoder-decoder model
+(``enc_layers`` > 0) runs its non-causal encoder stack over
+``batch["enc_embeds"]`` (or ``enc_tokens``) in the forward and the
+prefill; each cross-attention layer builds its encoder K/V there and
+keeps it in the cache under ``"cross"``, which decode reads. No engine
+serves it, as in the reference. A batch with ``"embeds"`` (a frontend
+stub's embeddings) skips the token embedding. An MoE block's
+load-balance loss is computed by ``moe.apply`` and dropped here:
 nothing on the serving path uses it.
 """
 
@@ -33,8 +38,6 @@ from repro_torch.core.star_attention import STARConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, common, mlp, moe, ssm, xlstm
 
-UNPORTED_FAMILIES = ("ROADMAP §1 item 4 (other model families: "
-                     "cross-attention and encoder-decoder, embeds)")
 RECURRENT = ("mamba", "mlstm", "slstm")
 
 
@@ -65,6 +68,8 @@ class ModelCfg:
     moe: Optional[moe.MoECfg] = None
     mamba: Optional[ssm.MambaCfg] = None
     xlstm_heads: int = 0
+    enc_layers: int = 0            # > 0 => encoder-decoder
+    embeds_input: bool = False     # modality frontend stub feeds embeddings
     star: Optional[STARConfig] = None   # serving-time sparse attention
     star_chunk_sparse: bool = False     # DLZS page selection inside later
     #                                     prefill chunks (approximate)
@@ -88,12 +93,14 @@ class ModelCfg:
         p = self.vocab_pad_to
         return -(-self.vocab // p) * p
 
-    def attn_cfg(self) -> attention.AttentionCfg:
+    def attn_cfg(self, causal: Optional[bool] = None
+                 ) -> attention.AttentionCfg:
         return attention.AttentionCfg(
             d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
             head_dim=self.dh, rope_fraction=self.rope_fraction,
             rope_theta=self.rope_theta, qkv_bias=self.qkv_bias,
-            causal=self.causal, star=self.star,
+            causal=self.causal if causal is None else causal,
+            star=self.star,
             chunk_sparse=self.star_chunk_sparse, dtype=self.dtype)
 
     def mlp_cfg(self) -> mlp.MLPCfg:
@@ -105,12 +112,14 @@ class ModelCfg:
                               dtype=self.dtype)
 
 
+ENC_PATTERN = (BlockCfg("attn", "dense"),)
+
+
 def check_supported(cfg: ModelCfg) -> None:
     for blk in cfg.pattern:
         if blk.kind not in ("attn",) + RECURRENT \
-                or blk.ffn not in ("dense", "moe", "none") or blk.cross_attn:
-            raise NotImplementedError(
-                f"block {blk} is not ported yet: {UNPORTED_FAMILIES}")
+                or blk.ffn not in ("dense", "moe", "none"):
+            raise ValueError(f"{cfg.name}: unknown block {blk}")
         if blk.ffn == "moe" and cfg.moe is None:
             raise ValueError(f"{cfg.name}: an moe block needs ModelCfg.moe")
         if blk.kind == "mamba" and cfg.mamba is None:
@@ -148,19 +157,33 @@ def init(cfg: ModelCfg, generator: torch.Generator, device=None):
         "out_head": common.truncated_normal_init(
             generator, (cfg.d_model, vp), 1.0, cfg.dtype, dev),
     }
-    L = cfg.n_repeat
+    p["blocks"] = _blocks_init(generator, cfg, cfg.pattern, cfg.n_repeat,
+                               dev)
+    if cfg.enc_layers:
+        p["enc_blocks"] = _blocks_init(generator, cfg, ENC_PATTERN,
+                                       cfg.enc_layers, dev)
+        p["enc_norm"] = common.norm_init(cfg.norm, cfg.d_model, device=dev)
+    return p
+
+
+def _blocks_init(generator, cfg: ModelCfg, pattern, L: int, dev):
+    """A stack of ``L`` super-blocks of ``pattern``, each leaf on a
+    leading layer axis."""
     blocks = {}
-    for i, blk in enumerate(cfg.pattern):
+    for i, blk in enumerate(pattern):
         b = {"norm1": _stack_norm(cfg, L, dev),
              "core": _core_init(generator, cfg, blk.kind, dev, L)}
+        if blk.cross_attn:
+            b["norm_cross"] = _stack_norm(cfg, L, dev)
+            b["cross"] = attention.cross_init(
+                generator, cfg.attn_cfg(causal=False), dev, n_layers=L)
         if blk.ffn != "none":
             b["norm2"] = _stack_norm(cfg, L, dev)
             b["ffn"] = moe.init(generator, cfg.moe, dev, n_layers=L) \
                 if blk.ffn == "moe" else \
                 mlp.init(generator, cfg.mlp_cfg(), dev, n_layers=L)
         blocks[f"b{i}"] = b
-    p["blocks"] = blocks
-    return p
+    return blocks
 
 
 def _stack_norm(cfg: ModelCfg, n_layers: int, device):
@@ -208,11 +231,12 @@ def _recurrent_apply(params, cfg: ModelCfg, kind: str, h, *, mode: str,
 
 
 def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
-                 mode: str, cache=None, lengths=None, cache_len=None,
+                 mode: str, causal: Optional[bool] = None, cache=None,
+                 enc_cache=None, lengths=None, cache_len=None,
                  page_state=None, spatial: bool = False):
     """One block. Returns (y, new_cache)."""
     h = common.norm_apply(cfg.norm, params["norm1"], x)
-    acfg = cfg.attn_cfg()
+    acfg = cfg.attn_cfg(causal)
     new_cache = {}
     if blk.kind in RECURRENT:
         y, c = _recurrent_apply(params["core"], cfg, blk.kind, h, mode=mode,
@@ -250,6 +274,22 @@ def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
         if c is not None:
             new_cache["attn"] = c
     x = x + y
+    if blk.cross_attn:
+        if mode == "decode":
+            layer_cross = cache["cross"]        # built at prefill
+            new_cache["cross"] = layer_cross
+        elif enc_cache is not None:
+            # this layer's cross K/V from the encoder output
+            layer_cross = attention.cross_encode(params["cross"], acfg,
+                                                 enc_cache)
+            if mode == "prefill":
+                new_cache["cross"] = layer_cross
+        else:
+            layer_cross = None
+        if layer_cross is not None:
+            hc = common.norm_apply(cfg.norm, params["norm_cross"], x)
+            x = x + attention.cross_apply(params["cross"], acfg, hc,
+                                          layer_cross)
     if blk.ffn != "none":
         h2 = common.norm_apply(cfg.norm, params["norm2"], x)
         if blk.ffn == "moe":
@@ -261,8 +301,8 @@ def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
 
 
 def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
-               lengths=None, cache_len=None, page_state=None,
-               spatial: bool = False):
+               causal: Optional[bool] = None, enc_cache=None, lengths=None,
+               cache_len=None, page_state=None, spatial: bool = False):
     """Loop the super-block over the layer axis. Returns (x, caches):
     prefill modes stack each layer's fresh cache on axis 0 ([L, ...]);
     decode, and every ``spatial`` mode, write the pool (or dense) slabs in
@@ -276,9 +316,10 @@ def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
             key = f"b{j}"
             x, out[key] = _block_apply(
                 _layer(blocks[key], i), cfg, blk, x, positions, mode=mode,
+                causal=causal,
                 cache=_layer(caches[key], i) if caches else None,
-                lengths=lengths, cache_len=cache_len, page_state=page_state,
-                spatial=spatial)
+                enc_cache=enc_cache, lengths=lengths, cache_len=cache_len,
+                page_state=page_state, spatial=spatial)
         per_layer.append(out)
     if mode == "decode" or spatial:
         new = {}
@@ -302,9 +343,23 @@ def _stack_trees(trees: list):
 
 def _embed_inputs(params, cfg: ModelCfg, batch):
     if "embeds" in batch:
-        raise NotImplementedError(
-            f"embedding frontends are not ported yet: {UNPORTED_FAMILIES}")
+        return batch["embeds"].to(cfg.dtype)
     return params["embed"][batch["tokens"].long()]
+
+
+def _encode(params, cfg: ModelCfg, batch):
+    """The encoder stack of an encoder-decoder model, non-causal, over
+    ``batch["enc_embeds"]`` (or the embedded ``enc_tokens``), then
+    ``enc_norm``: the encoder output [B, S, H]. With STAR on its
+    self-attention runs K2 -> SADS -> K3 non-causal."""
+    x = batch["enc_embeds"].to(cfg.dtype) if "enc_embeds" in batch \
+        else params["embed"][batch["enc_tokens"].long()]
+    enc = dataclasses.replace(cfg, n_layers=cfg.enc_layers,
+                              pattern=ENC_PATTERN, enc_layers=0)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _run_stack(params["enc_blocks"], enc, x, positions, mode="encode",
+                      causal=False)
+    return common.norm_apply(cfg.norm, params["enc_norm"], x)
 
 
 def logits(params, cfg: ModelCfg, x):
@@ -318,7 +373,9 @@ def forward(params, cfg: ModelCfg, batch):
     at every position (the exactness oracle of the serving path)."""
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_stack(params["blocks"], cfg, x, positions, mode="forward")
+    enc_cache = _encode(params, cfg, batch) if cfg.enc_layers else None
+    x, _ = _run_stack(params["blocks"], cfg, x, positions, mode="forward",
+                      enc_cache=enc_cache)
     return logits(params, cfg, x)
 
 
@@ -329,8 +386,10 @@ def prefill(params, cfg: ModelCfg, batch, *, cache_len: Optional[int] = None,
     x = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
+    enc_cache = _encode(params, cfg, batch) if cfg.enc_layers else None
     x, caches = _run_stack(params["blocks"], cfg, x, positions,
-                           mode="prefill", cache_len=cache_len)
+                           mode="prefill", enc_cache=enc_cache,
+                           cache_len=cache_len)
     if last_index is None:
         x_last = x[:, -1:, :]
         lengths = torch.full((b,), s, dtype=torch.int32, device=x.device)

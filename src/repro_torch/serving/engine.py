@@ -88,6 +88,12 @@ class ServingEngine:
                  generator: Optional[torch.Generator] = None):
         from repro_torch.models import lm
 
+        if model_cfg.enc_layers:
+            # the reference's engine fails at its dummy prefill (no
+            # ``enc_tokens``): a request carries no encoder input
+            raise ValueError("dense engine needs a decoder-only model: an "
+                             "encoder-decoder model runs through "
+                             "lm.prefill and lm.decode_step")
         self.cfg = model_cfg
         self.ecfg = ecfg
         self.params = params

@@ -81,7 +81,7 @@ class PagedBackend:
                  scfg: SchedulerCfg):
         if any(blk.kind != "attn" for blk in model_cfg.pattern):
             raise ValueError("paged engine supports attention-only patterns")
-        if not model_cfg.causal:
+        if model_cfg.enc_layers or not model_cfg.causal:
             raise ValueError("paged engine needs a causal decoder-only model")
         if scfg.kv_quant not in (None, "int8"):
             raise ValueError(

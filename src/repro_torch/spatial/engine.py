@@ -94,7 +94,7 @@ class SpatialBackend:
         if any(blk.kind != "attn" for blk in model_cfg.pattern):
             raise ValueError("spatial engine supports attention-only "
                              "patterns")
-        if not model_cfg.causal:
+        if model_cfg.enc_layers or not model_cfg.causal:
             raise ValueError("spatial engine needs a causal decoder-only "
                              "model")
         if model_cfg.star is not None:

@@ -717,3 +717,157 @@ def test_sufa_kernel_rejects_bad_ids(cuda_device, case):
     with pytest.raises(err):
         ksufa.sufa_attention(*call, **kw)
     assert kernels.LAUNCHES["sufa"] == 0
+
+
+# -- the forms the frontend-stub families serve (phases 18-19) -----------------
+
+def _glue_selection(q, k, *, causal):
+    """The tiles the STAR glue selects for q, k (olmo_1b's STAR config,
+    tiles 128), as the encoder's prefill would."""
+    from repro_torch.configs import olmo_1b
+    from repro_torch.kernels import dlzs as kdlzs
+    from repro_torch.kernels import ops
+    star = olmo_1b.config().star
+    raw = kdlzs.dlzs_block_scores(q, k, causal=causal, scale=1.0)
+    return ops.select_tiles(raw, star.keep_blocks(k.shape[1]),
+                            scale=q.shape[-1] ** -0.5, radius=star.radius,
+                            dtype=q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dlzs_block", "sufa_strict", "sufa_fast",
+                                  "flash_s2048", "flash_s1000"])
+def test_encoder_and_cross_forms_match_plain(cuda_device, case):
+    """SeamlessM4T's prefill forms at its shapes (BH 16, d 64): the
+    encoder's K2 and K3 non-causal at 2048 frames, K3 on the glue's own
+    selection; the cross-attention's K4 non-causal over 256 decoder rows
+    and 2048 encoder rows, or a ragged 1000 (keys past S stay masked,
+    ``q_offset`` = S - T has no effect). Each launch counted under
+    ``<kernel>/noncausal``; two calls bit-equal."""
+    from repro_torch.kernels import dlzs as kdlzs
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sufa as ksufa
+    gen = torch.Generator(device="cpu").manual_seed(len(case))
+    t = 256 if case.startswith("flash") else 2048
+    s = int(case[len("flash_s"):]) if case.startswith("flash") else t
+    q = _bf16((16, t, 64), gen, cuda_device)
+    k = _bf16((16, s, 64), gen, cuda_device, scale=3.0)
+    v = _bf16((16, s, 64), gen, cuda_device)
+    if case == "dlzs_block":
+        call = lambda: kdlzs.dlzs_block_scores(q, k, causal=False)  # noqa
+        want, tol = ref.dlzs_block_ref(q, k, causal=False), K2_TOL
+    elif case.startswith("sufa"):
+        idx, valid = _glue_selection(q, k, causal=False)
+        kw = dict(block_q=128, block_kv=128, causal=False,
+                  strict=case == "sufa_strict")
+        call = lambda: ksufa.sufa_attention(q, k, v, idx, valid,  # noqa
+                                            **kw)
+        want = ksufa.sufa_reference(q, k, v, idx, valid, scale=0.125, **kw)
+        tol = SUFA_TOL
+    else:
+        call = lambda: kflash.flash_attention(q, k, v, causal=False)  # noqa
+        want, tol = ref.flash_ref(q, k, v, causal=False), BF16_TOL
+    name = case.split("_")[0] if case != "dlzs_block" else case
+    kernels.reset_launches()
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    assert kernels.FORM_LAUNCHES[f"{name}/noncausal"] == 2
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dlzs_block", "sufa", "flash"])
+def test_bh48_forms_match_plain(cuda_device, kernel):
+    """InternVL2-26B's prefill forms: BH 48 (48 heads, K/V expanded from
+    8), T = S = 4096, d 128, causal; no non-causal launch counted."""
+    from repro_torch.kernels import dlzs as kdlzs
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sufa as ksufa
+    gen = torch.Generator(device="cpu").manual_seed(48)
+    q, k, v = (_bf16((48, 4096, 128), gen, cuda_device) for _ in range(3))
+    kernels.reset_launches()
+    if kernel == "dlzs_block":
+        got = kdlzs.dlzs_block_scores(q, k, causal=True)
+        want, tol = ref.dlzs_block_ref(q, k, causal=True), K2_TOL
+        masked = want <= -1e29
+        assert torch.equal(got <= -1e29, masked)
+        got, want = got[~masked], want[~masked]
+    elif kernel == "sufa":
+        idx, valid = _glue_selection(q, k, causal=True)
+        kw = dict(block_q=128, block_kv=128, causal=True, strict=True)
+        got = ksufa.sufa_attention(q, k, v, idx, valid, **kw)
+        want = ksufa.sufa_reference(q, k, v, idx, valid,
+                                    scale=128 ** -0.5, **kw)
+        tol = SUFA_TOL
+    else:
+        got = kflash.flash_attention(q, k, v, causal=True)
+        want, tol = ref.flash_ref(q, k, v, causal=True), BF16_TOL
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kernel] == 1
+    assert kernels.FORM_LAUNCHES[f"{kernel}/noncausal"] == 0
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_paged_decode_internvl2_group(cuda_device):
+    """K1 at InternVL2-26B's served decode shape: B 3, G 8, R 6, d 128,
+    W 258 (its 1024-, 2048- and 4096-token prompts 16 tokens on)."""
+    args = _k1_inputs(3, 8, 6, 128, 258, [1040, 2064, 4112], 21,
+                      cuda_device, n_pages=512)
+    kernels.reset_launches()
+    got = kpaged.paged_decode_attention(*args, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode"] == 1
+    want = kpaged.paged_decode_reference(*args, scale=128 ** -0.5)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_encdec_prefill_and_decode_on_card(cuda_device):
+    """A small encoder-decoder model (Seamless's smoke pattern at head_dim
+    64, tiles 128) through ``lm.prefill`` and two ``decode_step``s on the
+    card, ``star=None``: K4 runs non-causal in the encoder and the
+    cross-attention; the logits agree with the same weights' run on the
+    CPU (the plain versions) at the bf16 bound scaled by magnitude."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config("seamless_m4t_large_v2"),
+                              d_model=256, star=None)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    batch = {"enc_embeds": torch.randn((2, 256, 256), generator=gen)
+             .bfloat16(),
+             "tokens": torch.randint(0, cfg.vocab, (2, 128), generator=gen)}
+    toks = torch.randint(0, cfg.vocab, (2, 2, 1), generator=gen).int()
+
+    def run(device):
+        p = _to(params, device)
+        b = {k: v.to(device) for k, v in batch.items()}
+        logits, cache = lm.prefill(p, cfg, b, cache_len=144)
+        out = [logits]
+        for tok in toks:
+            logits, cache = lm.decode_step(p, cfg, tok.to(device), cache)
+            out.append(logits)
+        return torch.stack(out).float().cpu()
+
+    kernels.reset_launches()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash"] == 2 * 2 + 2
+    assert kernels.FORM_LAUNCHES["flash/noncausal"] == 2 + 2
+    want = run("cpu")
+    tol = dict(BF16_TOL)
+    tol["atol"] *= max(1.0, float(want.abs().max()))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **tol)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

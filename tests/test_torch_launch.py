@@ -111,8 +111,13 @@ def test_launcher_serves_recurrent_families(capsys, arch):
 def test_launcher_refusals(monkeypatch):
     with pytest.raises(SystemExit, match="pool-backed"):
         serve.main(["--engine", "dense", "--disagg", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="unknown or unported"):
-        serve.main(["--arch", "seamless_m4t_large_v2", "--device", "cpu"])
+    # the frontend-stub families, refused with the reference's reason
+    for arch in ("seamless_m4t_large_v2", "internvl2_26b"):
+        with pytest.raises(SystemExit, match="frontend-stub archs serve "
+                                             "via examples/ drivers"):
+            serve.main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown arch"):
+        serve.main(["--arch", "gpt2", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "olmo_1b"])

@@ -11,9 +11,9 @@ the ``LLM`` front door, held against the reference.
   factory and the port's ``FaultPlan``/``FaultyBackend``.
 * Bounded DLZS sparse decode (``decode_hot_width``) against the JAX paged
   engine on the same weights, token for token.
-* The entry points: ``backend="spatial"`` serves; unported model families
-  raise, naming their ROADMAP item; without a GPU nothing falls back to
-  the CPU.
+* The entry points: ``backend="spatial"`` serves; every architecture
+  resolves and the paged engine refuses an encoder-decoder model, as the
+  reference's does; without a GPU nothing falls back to the CPU.
 * Import purity: neither ``repro_torch`` nor ``chip_smoke.py`` pulls in
   ``jax`` or ``repro``, and ``chip_smoke.py`` fails without a card.
 """
@@ -43,7 +43,6 @@ from repro.serving import SchedulerCfg as JSchedulerCfg  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs import get_smoke_config as tsmoke  # noqa: E402
-from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serving import (LLM, PagedEngineCfg,  # noqa: E402
                                  PagedServingEngine, SchedulerCfg)
 
@@ -249,20 +248,17 @@ def test_from_config_serves_on_cpu_when_asked():
     assert llm.engine.backend.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(pattern=(tlm.BlockCfg("attn", "dense", cross_attn=True),)),
-     "ROADMAP"),
+@pytest.mark.parametrize("arch,match", [
+    ("seamless_m4t_large_v2", "causal decoder-only"),
 ])
-def test_unported_options_raise(kw, match):
-    """What is still unported raises, naming its ROADMAP item: here a
-    model family (a cross-attention block, of the encoder-decoder
-    family); the spatial backend, the MoE block and the SSM block, this
-    test's cases before, now serve
-    (``test_from_config_serves_the_spatial_backend``,
-    ``tests/test_torch_moe.py``, ``tests/test_torch_ssm.py``)."""
-    with pytest.raises(NotImplementedError, match=match):
-        LLM.from_config(dataclasses.replace(tsmoke("olmo_1b"), **kw),
-                        device="cpu")
+def test_unported_options_raise(arch, match):
+    """Every model family is ported now (the spatial backend, the MoE and
+    SSM blocks and the cross-attention block were this test's cases
+    before); what the paged engine still refuses is what the reference's
+    refuses: an encoder-decoder model (tests/test_torch_encdec.py holds
+    the other engines' refusals)."""
+    with pytest.raises(ValueError, match=match):
+        LLM.from_config(tsmoke(arch), device="cpu")
 
 
 def test_from_config_serves_the_spatial_backend():
@@ -326,9 +322,11 @@ def test_from_config_serves_the_int8_tier():
 
 
 def test_registry_names_unported_archs():
+    """Every architecture resolves; an unknown name raises."""
     assert get_config("olmo_1b").d_model == 2048
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("internvl2_26b")
+    assert get_config("internvl2_26b").embeds_input
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt2")
 
 
 def test_no_gpu_means_no_cpu_fallback(monkeypatch):
@@ -351,7 +349,7 @@ assert all(n in sys.modules for n in new), new
 import chip_smoke
 sys.path.insert(0, {tools!r})
 import torch_profile_prefill, torch_star_drift, torch_decode_forms
-import torch_k1_int8
+import torch_k1_int8, torch_served_logits
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -658,6 +656,170 @@ def test_chip_smoke_recurrent_phases_rehearse_on_cpu(monkeypatch):
     assert 0 < xl["prefill"]["slstm_scan_share"] < 1
     assert {name for name, _, _ in held} == {"require_k4",
                                              "require_dense_launches"}
+
+
+def test_chip_smoke_family_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 18-19 on the CPU at smoke size: InternVL2's smoke config
+    served through the paged engine with STAR (first tokens equal a STAR
+    forward's) and with ``star=None`` (every token the dense argmax or a
+    bf16 tie), then one prefill from patch embeddings and two decode
+    steps; SeamlessM4T's smoke config through ``lm.prefill`` and
+    ``lm.decode_step`` over two frame counts, with STAR (first tokens) and
+    with ``star=None`` (every token by phase 4's rule, the frames in each
+    oracle forward). The launch checks, which the CPU cannot meet, are
+    recorded instead of run; their expectations are held. Then phase 6's
+    new forms (plain against plain here)."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    real_counts = cs.require_counts
+    held = []
+    for name in ("require_launches", "require_prefill_launches",
+                 "require_k4", "require_counts", "require_dense_launches"):
+        monkeypatch.setattr(cs, name, lambda summary, tag, name=name:
+                            held.append((name, tag, summary)))
+    gen = torch.Generator().manual_seed(0)
+    ivl = cs.check_internvl2(tsmoke("internvl2_26b"), "cpu", gen,
+                             lengths=(32, 64, 48), max_tokens=4,
+                             embeds_len=64, steps=2)
+    assert ivl["star"]["first_tokens_checked"] == 3
+    assert ivl["star"]["expected_prefill_launches"] == \
+        ivl["star"]["prefill_calls"] * 2 > 0
+    assert ivl["star"]["expected_launches"] == \
+        ivl["star"]["decode_ticks"] * 2 > 0
+    exact = ivl["exact"]
+    assert exact["tokens_checked"] == 12
+    assert exact["exact"] + exact["bf16_ties"] == 12
+    assert exact["served_ties"] == 0
+    assert exact["expected_k4_launches"] == 3 * 2
+    # the same run with K1's plain version (on the CPU both are the plain
+    # version, so the tokens agree)
+    plain = ivl["plain_k1"]
+    assert plain["tokens_checked"] == 12 and plain["k1_launches"] == 0
+    assert plain["tokens_equal_k1"] == 12
+    assert plain["first_difference"] == [None] * 3
+    dense = ivl["dense"]
+    assert dense["tokens_checked"] == 12 and dense["decode_ticks"] > 0
+    assert dense["expected_flash_launches"] == 3 * 2
+    assert 0 <= dense["tokens_equal_paged"] <= 12
+    emb = ivl["embeds"]
+    assert emb["tokens"] == 64 and len(emb["tokens_out"]) == 3
+    assert emb["first_token_exact"] + emb["first_token_bf16_tie"] == 1
+    assert emb["expected_launches"] == {"dlzs_block": 2, "sufa": 2,
+                                        "flash": 0, "paged_decode": 0}
+    sm = cs.check_seamless(tsmoke("seamless_m4t_large_v2"), "cpu", gen,
+                           frames=(64, 32), prompt_len=32, steps=3)
+    star, dense = sm["star"], sm["exact"]
+    assert star["frames"] == [64, 32] and star["decode_steps"] == 2 * 3
+    assert star["first_tokens_checked"] == 4 and star["tokens"] == 4 * 4
+    # 2 prefills x (2 encoder + 2 decoder self-attention layers) of K2/K3,
+    # 2 x 2 cross-attention layers of K4, the encoder's and the cross
+    # launches non-causal
+    assert star["expected_launches"] == {
+        "dlzs_block": 8, "sufa": 8, "flash": 4, "dlzs_block/noncausal": 4,
+        "sufa/noncausal": 4, "flash/noncausal": 4, "paged_decode": 0}
+    assert dense["expected_launches"] == {
+        "dlzs_block": 0, "sufa": 0, "flash": 12, "flash/noncausal": 8,
+        "paged_decode": 0}
+    assert dense["tokens_checked"] == 16
+    assert dense["exact"] + dense["bf16_ties"] == 16
+    assert dense["expected_k4_launches"] == 4 * 6
+    assert {name for name, _, _ in held} == {
+        "require_launches", "require_prefill_launches", "require_k4",
+        "require_counts", "require_dense_launches"}
+    with pytest.raises(SystemExit, match="launches"):
+        real_counts(star, "cpu")
+    # phase 6's new forms: non-causal K2 and K3 at d 64, K4 non-causal at
+    # T != S (a ragged S too), K1 at InternVL2's group
+    k2 = cs.check_dlzs("cpu", None, bh=2, t=256, block=128, causal=False,
+                       seed=1, timed=False, d=64)
+    assert k2["d"] == 64 and not k2["causal"]
+    k3 = cs.check_sufa("cpu", None, bh=2, t=256, block=128, strict=False,
+                       seed=2, timed=False, d=64, causal=False)
+    assert not k3["causal"] and k3["violations"] == 0
+    k4 = cs.check_flash("cpu", None, bh=2, t=32, s=100, causal=False,
+                        seed=3, timed=False, d=64)
+    assert (k4["T"], k4["S"]) == (32, 100)
+    k1 = cs.check_paged_kernel("cpu", "rehearsal_internvl2", b=3, g=8, r=6,
+                               d=128, page=16, w=9, p=32,
+                               kv_len=(40, 130, 77), seed=10, timed=False)
+    assert k1["violations"] == 0
+
+
+@pytest.mark.parametrize("gaps,served,held", [
+    ((1, 3), None, "tie"),       # 1 step below K4's top: a tie
+    ((2, 1), None, "tie"),       # 2 below K4's, 1 below the plain top
+    ((2, 2), None, None),        # phase 4's rule alone refuses it
+    ((2, 2), 1, "served"),       # the served logits put K4's top 1 below
+    ((2, 2), 2, None),           # ... 2 below
+    ((3, 3), 0, None),           # 3 below K4's top: no witness helps
+])
+def test_chip_smoke_phase4_rule_and_served_witness(monkeypatch, gaps,
+                                                   served, held):
+    """``chip_smoke.check_exact`` on crafted logits (top 1.0, so one bf16
+    step is 1/128): the second served token ``gaps`` steps below the top
+    of the K4 forward and of the plain form's. Phase 4's rule: a tie
+    within 1 step of K4's top, or 2 where the plain form puts it within
+    1. With ``served_logits`` (phase 18's paged runs) a token 2 below
+    K4's top is a tie also where the served logits put K4's top within 1
+    step of their own; anything further fails, and the first token (the
+    prefill's, no recorded row) is never witnessed."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    cfg = tsmoke("internvl2_26b")
+    real = cs.ops.flash
+
+    def logits(gap):
+        x = torch.full((cfg.vocab,), -4.0)
+        x[0] = 1.0
+        x[2] = 1.0 - gap / 128
+        return x
+
+    def forward(params, c, batch):
+        gap = gaps[0 if cs.ops.flash is real else 1]
+        rows = batch["tokens"].shape[1]
+        return logits(gap).expand(1, rows, cfg.vocab).clone()
+    monkeypatch.setattr(cs.lm, "forward", forward)
+    params = {"embed": torch.zeros(1)}
+    prompt = np.arange(4, dtype=np.int32)
+    rows = None
+    if served is not None:
+        # the served path's own logits: token 2 on top, K4's top (token
+        # 0) ``served`` steps below
+        row = torch.full((cfg.vocab,), -4.0)
+        row[2], row[0] = 1.0, 1.0 - served / 128
+        rows = [torch.stack([torch.full((cfg.vocab,), float("nan")), row])]
+    done = [[0, 2]]
+    if held is None:
+        with pytest.raises(SystemExit, match="beyond a bf16 tie"):
+            cs.check_exact(params, cfg, [prompt], done, served_logits=rows)
+        return
+    out = cs.check_exact(params, cfg, [prompt], done, served_logits=rows)
+    assert out["tokens_checked"] == 2 and out["exact"] == 1
+    assert out["bf16_ties"] == (held == "tie")
+    assert out.get("served_ties", 0) == (held == "served")
+    if held == "served":   # no recorded row (the prefill's token): no tie
+        with pytest.raises(SystemExit, match="beyond a bf16 tie"):
+            cs.check_exact(params, cfg, [prompt], [[2, 2]],
+                           served_logits=rows)
+
+
+def test_served_logits_tool_rehearses_on_cpu(monkeypatch):
+    """``tools/torch_served_logits.py`` at InternVL2's smoke config on the
+    CPU, where K1's wrapper is its plain version: both runs serve the
+    same tokens with the same logits, and the served logits equal the
+    hybrid forward's on every decoded row (the CPU rounds no GEMM by its
+    shape)."""
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import torch_served_logits as tool
+    rows = tool.compare(tsmoke("internvl2_26b"), torch.device("cpu"),
+                        (32, 64, 48), 4)
+    assert rows[0]["tokens_equal"] == 12
+    assert rows[0]["tokens_k1"] == rows[0]["tokens_plain_k1"]
+    for row in rows[1:]:
+        assert len(row["gap_k4"]) == len(row["served_vs_k4"]) == 4
+        assert np.isnan(row["served_vs_k4"][0])   # the prefill's row
+        assert row["k1_vs_plain_k1"][1:] == [0.0] * 3
+        assert row["served_vs_hybrid"][1:] == [0.0] * 3
 
 
 def test_chip_smoke_moe_token_rule(monkeypatch):
