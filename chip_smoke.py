@@ -226,6 +226,28 @@ Phases, each printing its numbers on a line of its own:
    a cache-free STAR forward as in phase 8; (b) ``star=None``: K4 =
    prefills x 72, every token held by phase 4's rule against a K4
    forward over the same frames.
+20. training: (a) K4's backward (``csrc/flash_bwd.cu``) against its plain
+   version at BH 16 and at OLMo-1B's training shape (BH 128; T = S 2048,
+   d 128, causal), a ragged T = S = 1000 and non-causal T 256 over S
+   2048 at d 64: dQ, dK and dV each within twice the bf16 plain
+   gradient's error against the fp32 one (plus 1e-5), two calls
+   bit-equal, K4's lse at 1e-4 and its O bit-equal with and without
+   lse; the training shape and the non-causal one timed beside their
+   bounds, the plain version and SDPA's backward; (b) OLMo-1B at full
+   width and depth trained 20 steps of 8 x 2048 ``SyntheticLM`` tokens
+   through ``launch.steps.make_train_step`` and ``runtime.train_loop``
+   (AdamW with bf16 moments, ``remat="full"``, lr 6e-4, warmup 5), one
+   final save under ``build/`` that the phase removes: the loss falls by
+   more than 0.1, every loss and grad norm finite, K4 = steps x 32 and
+   its backward steps x 16, K1-K3 never; step ms, tokens/s, MFU, peak
+   memory, the save's seconds and bytes, and one more step profiled;
+   (c) in a child process with deterministic algorithms (``--restart-child
+   DIR``), 2 of its 16 layers: a run failed at step 7 and resumed from
+   step 5 ends with the uninterrupted run's params and optimizer state,
+   bit for bit; (d) one 2-layer step's loss and gradients against the
+   same step on the plain path in fp32 (``flash_ref`` under autograd):
+   loss and grad norm within 2e-2, each leaf within twice the bf16 plain
+   path's error.
 Phase 4 also counts K4: oracle forwards x attention layers launches (an
 encoder-decoder forward's: its encoder, self- and cross-attention
 layers).
@@ -239,19 +261,24 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
+BUILD_DIR = ROOT / "build"
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
@@ -276,7 +303,11 @@ from repro_torch import profiling  # noqa: E402
 from repro_torch.serving import (LLM, DisaggRouter, EngineCfg,  # noqa: E402
                                  FaultPlan, PagedEngineCfg, SchedulerCfg)
 from repro_torch.spatial import SpatialEngineCfg  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import sorted_items, tree_leaves, tree_map  # noqa
+from repro_torch.data import PrefetchLoader, SyntheticLM  # noqa: E402
+from repro_torch.launch import steps as launch_steps  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import TrainLoopCfg, train_loop  # noqa: E402
 
 SEED = 0
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core peak
@@ -355,6 +386,16 @@ SDPA = torch.nn.functional.scaled_dot_product_attention
 TIE_STEPS = 1
 PLAIN_TIE_STEPS = 2
 PLAIN_Q_CHUNK = 1024        # the reference olmo_1b's dense-prefill q-chunk
+# phase 20: OLMo-1B trained at full width and depth, TRAIN_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens (its published context); the restart
+# check at RESTART_LAYERS of its 16 layers
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 8
+TRAIN_STEPS = 20
+TRAIN_LR = 6e-4
+TRAIN_WARMUP = 5
+RESTART_LAYERS = 2
+RESTART_BATCH = 4
 
 
 def emit(tag: str, **fields) -> None:
@@ -3405,6 +3446,423 @@ def check_seamless(cfg, dev, gen, *, frames=SEAMLESS_FRAMES,
     return {"star": star, "exact": exact}
 
 
+# -- phase 20: training -------------------------------------------------------
+
+def plain_attention_lowp(q, k, v, *, causal: bool, scale: float):
+    """The FlashAttention repository's yardstick for a low-precision
+    gradient (its tests' reference attention without upcasting): scores,
+    softmax and P·V in the inputs' dtype, so autograd through it rounds
+    every product as a bf16 implementation does. q [BH,T,d], k/v [BH,S,d]
+    with the causal mask at offset S - T."""
+    t, s = q.shape[1], k.shape[1]
+    sc = torch.einsum("btd,bsd->bts", q, k) * scale
+    if causal:
+        sc = sc.masked_fill(~kref._causal_mask(t, s, q.device), kref.NEG_INF)
+    p = torch.softmax(sc, dim=-1).to(v.dtype)
+    return torch.einsum("bts,bsd->btd", p, v)
+
+
+def grads_of(fn, q, k, v, do) -> tuple:
+    """(dq, dk, dv) of ``fn(q, k, v)`` for the output gradient ``do``."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(q, k, v), (q, k, v), do)
+
+
+def gradient_rule(tag: str, got: dict, want: dict, lowp: dict,
+                  **case) -> dict:
+    """The FlashAttention repository's rule for a low-precision gradient:
+    each of ``got``'s tensors lies no further from the fp32 ``want`` than
+    twice the bf16 plain form ``lowp`` does (plus 1e-5)."""
+    out = dict(case)
+    for name in got:
+        w = want[name].float()
+        err = float((got[name].float() - w).abs().max())
+        ref = float((lowp[name].float() - w).abs().max())
+        out[f"max_abs_err_{name}"] = err
+        out[f"bf16_plain_err_{name}"] = ref
+        if not err <= 2 * ref + 1e-5:
+            emit(tag, ok=False, **out)
+            raise SystemExit(f"{tag}: {name} lies {err} from the fp32 "
+                             f"gradient, past 2 x the bf16 plain form's "
+                             f"{ref} + 1e-5: {out}")
+    out["max_abs_err"] = max(out[f"max_abs_err_{n}"] for n in got)
+    out["tolerance"] = "2 x bf16 plain error + 1e-5"
+    return out
+
+
+def check_flash_bwd(dev, flush, *, bh, t, causal, seed, timed, d=128,
+                    s=None) -> dict:
+    """Phase 20a: K4's backward against its plain version. K4's forward
+    with ``return_lse`` must give the O bits it gives without, and its lse
+    the plain log-sum-exp at 1e-4; dQ, dK and dV must meet
+    ``gradient_rule`` against the fp32 plain gradient (``flash_bwd_ref``
+    on fp32 copies of the inputs, the fp32 forward's O and lse). Timed:
+    the kernel, its plain version on the same bf16 inputs, its bound (10·d
+    flops per visible pair, or its bytes) and SDPA's backward alone
+    (``torch.autograd.grad`` on a retained graph)."""
+    s = s or t
+    q, k, v = prefill_inputs(bh, t, d, seed, dev)
+    if s != t:
+        _, k, v = prefill_inputs(bh, s, d, seed + 1, dev)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 2)
+    do = torch.randn((bh, t, d), generator=gen).to(dev, torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    case = dict(kernel="flash_bwd", BH=bh, T=t, S=s, d=d, causal=causal)
+    o, lse = kflash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    if not torch.equal(o.view(torch.int16), kflash.flash_attention(
+            q, k, v, causal=causal).view(torch.int16)):
+        raise SystemExit(f"flash_bwd {case}: K4's O changes when lse is "
+                         f"asked for")
+    f32 = [x.float() for x in (q, k, v)]
+    o32, lse32 = kref.flash_ref(*f32, causal=causal, scale=scale,
+                                return_lse=True)
+    lse_case = held("flash_lse", lse, lse32, 1e-4, **case)
+    names = ("dq", "dk", "dv")
+    got = dict(zip(names, kflash.flash_bwd(q, k, v, o, lse, do,
+                                           causal=causal, scale=scale)))
+    want = dict(zip(names, kref.flash_bwd_ref(*f32, o32, lse32, do.float(),
+                                              causal=causal, scale=scale)))
+    lowp = dict(zip(names, grads_of(functools.partial(
+        plain_attention_lowp, causal=causal, scale=scale), q, k, v, do)))
+    again = kflash.flash_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+    out = gradient_rule("flash_bwd", got, want, lowp, **case)
+    out["two_calls_bit_equal"] = all(
+        torch.equal(a.view(torch.int16), got[n].view(torch.int16))
+        for a, n in zip(again, names))
+    if not out["two_calls_bit_equal"]:
+        raise SystemExit(f"flash_bwd {case}: two calls differ")
+    out["lse_max_abs_err"] = lse_case["max_abs_err"]
+    del want, lowp, again, o32, lse32, f32
+    if timed:
+        def kernel():
+            kflash.flash_bwd(q, k, v, o, lse, do, causal=causal, scale=scale)
+
+        def plain():
+            kref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                               scale=scale)
+        library = None
+        if not causal or s == t:   # SDPA's causal mask is top-left
+            leaves = [x.detach()[None].requires_grad_() for x in (q, k, v)]
+            with torch.enable_grad():
+                sdpa_out = SDPA(*leaves, is_causal=causal)
+
+            def library():
+                torch.autograd.grad(sdpa_out, leaves, do[None],
+                                    retain_graph=True)
+        add_times(out, kernel, plain, library, flush,
+                  bytes_=nbytes(q, k, v, o, do, q, k, v) + nbytes(lse),
+                  flops=10 * d * bh * visible_pairs(t, s, causal))
+    emit("flash_bwd", ok=True, **out)
+    return out
+
+
+def check_flash_bwd_shapes(dev) -> dict:
+    """Phase 20a's shapes: OLMo-1B's attention at BH 16 and at its
+    training shape (seq 2048 x batch 8: BH 128), T = S = 2048, d 128,
+    causal; a ragged T = S = 1000; non-causal T 256 over S 2048 at d 64.
+    Returns {case: numbers}; the training shape is timed."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    out = {"bh16": check_flash_bwd(dev, flush, bh=16, t=2048, causal=True,
+                                   seed=2001, timed=False),
+           "train": check_flash_bwd(dev, flush, bh=TRAIN_BATCH * 16,
+                                    t=TRAIN_SEQ, causal=True, seed=2002,
+                                    timed=True),
+           "ragged": check_flash_bwd(dev, flush, bh=16, t=1000, causal=True,
+                                     seed=2003, timed=False),
+           "noncausal": check_flash_bwd(dev, flush, bh=16, t=256, s=2048,
+                                        causal=False, seed=2004, timed=True,
+                                        d=64)}
+    del flush
+    free_cache(dev)
+    return out
+
+
+def free_disk_gb(path: pathlib.Path) -> float:
+    return shutil.disk_usage(path).free / 1e9
+
+
+def train_run(cfg, params, opt_state, *, steps: int, seq: int, batch: int,
+              ckpt_dir, dev, ckpt_every: int = 10 ** 9,
+              fail_at: int | None = None, lr: float = TRAIN_LR) -> dict:
+    """``train_loop`` over ``launch.steps.make_train_step`` on
+    ``SyntheticLM`` batches (``data.PrefetchLoader`` on ``dev``): every
+    step's loss, grad norm and host seconds (each step ends in a sync),
+    the final save's seconds and the final params and optimizer state."""
+    step = launch_steps.make_train_step(cfg, lr=lr, warmup=TRAIN_WARMUP,
+                                        total_steps=steps)
+    rec = {"loss": [], "grad_norm": [], "step_s": []}
+
+    def step_fn(p, o, b):
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, b)
+        rec["loss"].append(float(m["loss"]))
+        rec["grad_norm"].append(float(m["grad_norm"]))
+        sync(dev)
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["end"] = time.perf_counter()
+        return p, o, m
+    ds = SyntheticLM(vocab=cfg.vocab, seq=seq, global_batch=batch)
+    loop = TrainLoopCfg(total_steps=steps, ckpt_every=ckpt_every,
+                        ckpt_dir=str(ckpt_dir), log_every=steps + 1,
+                        fail_at_step=fail_at)
+    params, opt_state, _ = train_loop(step_fn, params, opt_state,
+                                      PrefetchLoader(ds, dev), loop,
+                                      log_fn=lambda *_: None)
+    rec["save_s"] = time.perf_counter() - rec.pop("end")
+    rec.update(params=params, opt=opt_state)
+    return rec
+
+
+def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
+    """One more training step under ``torch.profiler``: its device time
+    split into K4's forward, K4's backward, the GEMMs, the optimizer
+    update (a profiler range around ``adamw_update``) and the rest
+    (norms, activations, softmax-CE, casts, the embedding), and the
+    device's busy share of the step's wall time."""
+    if not on_card:
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+    step = launch_steps.make_train_step(cfg, lr=TRAIN_LR,
+                                        warmup=TRAIN_WARMUP,
+                                        total_steps=TRAIN_STEPS)
+    ranges = {(adamw, "adamw_update"): "optimizer"}
+    with profiling.ranged(ranges), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    names = set(ranges.values())
+    device_ms, busy_ms, top = profiling.device_kernels(prof, names)
+
+    def by_name(*keys):
+        return sum(k["device_ms"] for k in top
+                   if any(p in k["name"].lower() for p in keys))
+    parts = {"k4_forward_ms": by_name("flash_kernel"),
+             "k4_backward_ms": by_name("bwd_prep", "bwd_dkdv", "bwd_dq"),
+             "gemm_ms": by_name(*profiling.GEMM_NAMES),
+             "optimizer_ms": profiling.range_device_ms(prof, "optimizer",
+                                                       names)}
+    parts["other_ms"] = device_ms - sum(parts.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": busy_ms / wall_ms, **parts,
+            **{k[:-3] + "_share": v / device_ms for k, v in parts.items()},
+            "top_kernels": top[:12]}
+
+
+def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
+                   batch=TRAIN_BATCH, lr=TRAIN_LR) -> dict:
+    """Phase 20b: ``cfg`` trained from ``lm.init`` (seed 0) with the
+    reference's optimizer (``make_optimizer``: AdamW, bf16 moments) and
+    ``remat="full"``, ``steps`` steps of ``batch`` x ``seq`` tokens, one
+    final save into a directory under ``build/`` that the phase removes.
+    The loss must fall by more than 0.1 from the first step to the last
+    (``tests/test_train_serve.py::test_training_reduces_loss``), every
+    loss and grad norm be finite, and the kernels launch exactly: K4
+    twice per attention layer and step (the forward and its recompute
+    under remat), its backward once, K1-K3 never."""
+    on_card = torch.device(dev).type == "cuda"
+    params, info = init_params(cfg, gen, dev)
+    _, opt_init, _ = launch_steps.make_optimizer(cfg, lr)
+    opt_state = opt_init(params)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "seq": seq, "batch": batch, "steps": steps, "lr": lr,
+           "warmup": TRAIN_WARMUP, "remat": cfg.remat, **info,
+           "free_disk_gb_before": free_disk_gb(BUILD_DIR)}
+    emit("training_setup", **out)
+    ckpt_dir = pathlib.Path(tempfile.mkdtemp(prefix="train_ckpt_",
+                                             dir=BUILD_DIR))
+    try:
+        kernels.reset_launches()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        run = train_run(cfg, params, opt_state, steps=steps, seq=seq,
+                        batch=batch, ckpt_dir=ckpt_dir, dev=dev, lr=lr)
+        got = launched()
+        out["save_bytes"] = sum(f.stat().st_size
+                                for f in ckpt_dir.rglob("*") if f.is_file())
+        data = SyntheticLM(vocab=cfg.vocab, seq=seq,
+                           global_batch=batch).batch(steps)
+        out["profiled_step"] = profile_train_step(
+            cfg, run["params"], run["opt"],
+            {k: torch.from_numpy(v).to(dev) for k, v in data.items()},
+            on_card)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    layers = attn_layers(cfg)
+    want = {"flash": steps * layers * 2, "flash_bwd": steps * layers,
+            "paged_decode": 0, "paged_decode_stats": 0, "dlzs_block": 0,
+            "sufa": 0} if on_card else {name: 0 for name in kernels.LAUNCHES}
+    tokens = seq * batch
+    step_s = float(np.median(run["step_s"][1:] or run["step_s"]))
+    out.update(loss=run["loss"], grad_norm=run["grad_norm"],
+               step_ms=[1e3 * x for x in run["step_s"]],
+               step_ms_median=1e3 * step_s, tokens_per_step=tokens,
+               tokens_per_s=tokens / step_s,
+               mfu=6 * info["params"] * tokens / step_s / BF16_FLOP_S,
+               mfu_formula="6 * params * tokens per step / median step s "
+                           "(steps 1..) / 989e12",
+               peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                               if on_card else None),
+               save_s=run["save_s"], launches=got,
+               expected_launches=want)
+    emit("training", **out)
+    bad = [x for x in run["loss"] + run["grad_norm"] if not math.isfinite(x)]
+    if bad:
+        raise SystemExit(f"training: non-finite loss or grad norm {bad}")
+    if not run["loss"][-1] < run["loss"][0] - 0.1:
+        raise SystemExit(f"training: the loss did not fall by 0.1: "
+                         f"{run['loss']}")
+    if {k: got[k] for k in want} != want:
+        raise SystemExit(f"training: launches {got}; expected {want}")
+    del run, params, opt_state
+    free_cache(dev)
+    return out
+
+
+def restart_child(workdir: str, dev="cuda", cfg=None, seq: int = TRAIN_SEQ,
+                  batch: int = RESTART_BATCH) -> dict:
+    """Phase 20c, in a process of its own (``CUBLAS_WORKSPACE_CONFIG`` set
+    before cuBLAS starts, deterministic algorithms on, so an op without a
+    deterministic form raises): OLMo-1B at full width cut to
+    RESTART_LAYERS layers, 10 steps uninterrupted (a checkpoint every 5),
+    then the same run failed at step 7 and resumed from a fresh init. The
+    final params and optimizer state must be the same bits."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev)
+    cfg = dataclasses.replace(cfg or olmo_1b.config(),
+                              n_layers=RESTART_LAYERS)
+    gen = torch.Generator(device=dev)
+    root = pathlib.Path(workdir)
+
+    def fresh():
+        params, _ = init_params(cfg, gen, dev)
+        _, opt_init, _ = launch_steps.make_optimizer(cfg, TRAIN_LR)
+        return params, opt_init(params)
+    kw = dict(steps=10, seq=seq, batch=batch, dev=dev, ckpt_every=5)
+    t0 = time.perf_counter()
+    whole = train_run(cfg, *fresh(), ckpt_dir=root / "a", **kw)
+    try:
+        train_run(cfg, *fresh(), ckpt_dir=root / "b", fail_at=7, **kw)
+        raise SystemExit("restart: the injected failure did not fire")
+    except RuntimeError as err:
+        if "injected failure" not in str(err):
+            raise
+    resumed = train_run(cfg, *fresh(), ckpt_dir=root / "b", **kw)
+    pairs = [(p, a, b) for (p, a), (_, b) in zip(
+        sorted_items({"params": whole["params"], "opt": whole["opt"]}),
+        sorted_items({"params": resumed["params"], "opt": resumed["opt"]}))]
+    differ = [_key_path(p) for p, a, b in pairs
+              if a.shape != b.shape or not torch.equal(_bits(a), _bits(b))]
+    return {"reduced": {"n_layers": f"{RESTART_LAYERS} of 16"},
+            "seq": seq, "batch": batch, "steps": 10,
+            "fail_at": 7, "resumed_from": 5, "leaves": len(pairs),
+            "leaves_differ": differ, "bit_equal": not differ,
+            "loss_uninterrupted": whole["loss"],
+            "loss_resumed": resumed["loss"],
+            "seconds": time.perf_counter() - t0}
+
+
+def _key_path(path: tuple) -> str:
+    return "/".join(path)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes (a 0-d tensor as itself), for bit equality."""
+    return t.view(torch.uint8) if t.dim() else t
+
+
+def check_restart(dev) -> dict:
+    """Phase 20c: ``restart_child`` in a child process; its result line
+    is the last of its output."""
+    workdir = tempfile.mkdtemp(prefix="restart_", dir=BUILD_DIR)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    try:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--restart-child", workdir], env=env,
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"restart child failed ({proc.returncode}):\n"
+                         f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit("training_restart", **out)
+    if not out["bit_equal"]:
+        raise SystemExit(f"restart: resumed run differs from the "
+                         f"uninterrupted one at {out['leaves_differ']}")
+    return out
+
+
+def plain_flash_train(q, k, v, *, causal, scale):
+    """``ops.flash`` as its plain version under autograd (20d's plain
+    path): ``flash_ref``'s fp32 softmax, differentiated by torch."""
+    return kref.flash_ref(q, k, v, causal=causal, scale=scale)
+
+
+def model_grads(params, cfg, batch, plain: bool) -> tuple:
+    """(loss, metrics, grads) of one ``lm.loss_fn`` step, with K4 and its
+    backward, or ``plain`` with ``plain_flash_train`` in K4's place."""
+    real = ops.flash
+    if plain:
+        ops.flash = plain_flash_train
+    try:
+        (loss, metrics), grads = launch_steps.value_and_grad(params, cfg,
+                                                             batch)
+    finally:
+        ops.flash = real
+    return loss, metrics, grads
+
+
+def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
+                     batch=2) -> dict:
+    """Phase 20d: one training step's loss and gradients at ``layers``
+    layers, ``batch`` x ``seq`` tokens, with K4 and its backward, held
+    against the same step on the plain path in fp32 (``flash_ref`` under
+    autograd, fp32 weights and activations): the loss and the global grad
+    norm within 2e-2 relative, and every leaf no further from the fp32
+    gradient than twice the bf16 plain path's (plus 1e-5), phase 20a's
+    rule at model level."""
+    reduced = {"n_layers": f"{layers} of {cfg.n_layers}"}
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    params, _ = init_params(cfg, gen, dev)
+    data = SyntheticLM(vocab=cfg.vocab, seq=seq, global_batch=batch).batch(0)
+    bt = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_map(lambda t: t.float(), params)
+    loss, _, g = model_grads(params, cfg, bt, plain=False)
+    loss32, _, g32 = model_grads(p32, cfg32, bt, plain=True)
+    loss_lp, _, g_lp = model_grads(params, cfg, bt, plain=True)
+    gn, gn32 = float(adamw.global_norm(g)), float(adamw.global_norm(g32))
+    out = {"reduced": reduced, "seq": seq, "batch": batch,
+           "loss": float(loss),
+           "loss_fp32_plain": float(loss32),
+           "loss_bf16_plain": float(loss_lp), "grad_norm": gn,
+           "grad_norm_fp32_plain": gn32}
+    out["loss_rel_err"] = abs(out["loss"] - out["loss_fp32_plain"]) / abs(
+        out["loss_fp32_plain"])
+    out["grad_norm_rel_err"] = abs(gn - gn32) / gn32
+    names = [_key_path(p) for p, _ in sorted_items(g)]
+    leaves = gradient_rule(
+        "training_step",
+        dict(zip(names, (x for _, x in sorted_items(g)))),
+        dict(zip(names, (x for _, x in sorted_items(g32)))),
+        dict(zip(names, (x for _, x in sorted_items(g_lp)))))
+    out["leaves"] = {n: [leaves[f"max_abs_err_{n}"],
+                         leaves[f"bf16_plain_err_{n}"]] for n in names}
+    out["leaves_format"] = "[K4 path max error, bf16 plain path's]"
+    emit("training_step", **out)
+    if out["loss_rel_err"] > 2e-2 or out["grad_norm_rel_err"] > 2e-2:
+        raise SystemExit(f"training step: loss or grad norm off the fp32 "
+                         f"plain step by more than 2e-2: {out}")
+    del params, p32, g, g32, g_lp
+    free_cache(dev)
+    return out
+
+
 def demangle(mangled: str) -> str:
     """``name<args>`` of a kernel template instantiation whose arguments
     are ints and bools (``...19paged_scores_kernelILi64ELi1ELb1EEEv...`` ->
@@ -3441,6 +3899,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--restart-child"]:      # phase 20c's process
+        print(json.dumps(restart_child(sys.argv[2])), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3656,6 +4117,15 @@ def main() -> int:
     # encoder (K2/K3) and the cross-attention (K4, T != S)
     seamless = check_seamless(seamless_m4t_large_v2.config(), dev, gen)
 
+    # 20. training: K4's backward against its plain version (20a),
+    # OLMo-1B trained at full width and depth (20b), restart exactness in
+    # a deterministic child process (20c), one model step against the
+    # plain path (20d)
+    bwd = check_flash_bwd_shapes(dev)
+    train = check_training(olmo_1b.config(), dev, gen)
+    restart = check_restart(dev)
+    check_model_step(olmo_1b.config(), dev, gen)
+
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
@@ -3741,6 +4211,7 @@ def main() -> int:
                  "max_abs_err"], **bh64("sufa")),
         line("flash", "flash.cu", "src/repro/kernels/flash.py:67",
              exact["k4_launches"], tiles["flash"],
+             launches_training=train["launches"]["flash"],
              launches_olmoe_oracle=olmoe["exact"]["k4_launches"],
              launches_jamba=jamba["exact"]["flash_launches"],
              launches_jamba_oracle=jamba["exact"]["k4_launches"],
@@ -3847,6 +4318,21 @@ def main() -> int:
              **{f"{key}_s1000": tiles["flash_cross_s1000"][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")}),
+        # phase 20: K4's backward (training has no TPU kernel: the
+        # reference differentiates XLA's dense softmax; this is the
+        # gradient of K4's function) at OLMo-1B's training shape
+        line("flash_bwd", "flash_bwd.cu", "src/repro/kernels/flash.py:67",
+             train["launches"]["flash_bwd"], bwd["train"],
+             launches_from="phase 20b, OLMo-1B trained",
+             lse_max_abs_err=bwd["train"]["lse_max_abs_err"],
+             max_abs_err_by_grad={n: bwd["train"][f"max_abs_err_{n}"]
+                                  for n in ("dq", "dk", "dv")},
+             bf16_plain_err_by_grad={n: bwd["train"][f"bf16_plain_err_{n}"]
+                                     for n in ("dq", "dk", "dv")},
+             noncausal_d64={key: bwd["noncausal"][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")},
+             restart_bit_equal=restart["bit_equal"]),
     ]}), flush=True)
     print_device_line()
     return 0

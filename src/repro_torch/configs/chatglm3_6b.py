@@ -27,5 +27,5 @@ def smoke_config() -> ModelCfg:
         norm="rmsnorm", mlp_act="silu", mlp_gated=True,
         rope_fraction=0.5, qkv_bias=True,
         star=STARConfig(top_k_ratio=0.5, block_q=16, block_kv=16),
-        vocab_pad_to=64,
+        q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

@@ -24,6 +24,7 @@ def config() -> ModelCfg:
         moe=MoECfg(d_model=6144, d_ff=32768, n_experts=8, top_k=2,
                    act="gelu"),
         star=STARConfig(top_k_ratio=0.2),
+        optimizer="adafactor", train_accum=8,
     )
 
 
@@ -36,5 +37,5 @@ def smoke_config() -> ModelCfg:
         moe=MoECfg(d_model=64, d_ff=128, n_experts=8, top_k=2, act="gelu",
                    token_chunk=64),
         star=STARConfig(top_k_ratio=0.5, block_q=16, block_kv=16),
-        vocab_pad_to=64,
+        q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

@@ -20,6 +20,7 @@ def config() -> ModelCfg:
         norm="rmsnorm", mlp_act="silu", mlp_gated=True,
         embeds_input=True,
         star=STARConfig(top_k_ratio=0.2),
+        train_accum=2,
     )
 
 
@@ -31,5 +32,5 @@ def smoke_config() -> ModelCfg:
         norm="rmsnorm", mlp_act="silu", mlp_gated=True,
         embeds_input=True,
         star=STARConfig(top_k_ratio=0.5, block_q=16, block_kv=16),
-        vocab_pad_to=64,
+        q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

@@ -35,6 +35,7 @@ def config() -> ModelCfg:
         moe=MoECfg(d_model=8192, d_ff=24576, n_experts=16, top_k=2),
         mamba=MambaCfg(d_model=8192, expand=2, head_dim=64, d_state=16),
         star=STARConfig(top_k_ratio=0.2),
+        optimizer="adafactor", train_accum=8,
     )
 
 
@@ -49,5 +50,5 @@ def smoke_config() -> ModelCfg:
         mamba=MambaCfg(d_model=64, expand=2, head_dim=16, d_state=8,
                        chunk=32),
         star=STARConfig(top_k_ratio=0.5, block_q=16, block_kv=16),
-        vocab_pad_to=64,
+        q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

@@ -16,6 +16,7 @@ def config() -> ModelCfg:
         pattern=(BlockCfg("attn", "dense"),),
         norm="layernorm", mlp_act="relu2", mlp_gated=False,
         star=STARConfig(top_k_ratio=0.2),
+        optimizer="adafactor", train_accum=8,
     )
 
 
@@ -26,5 +27,5 @@ def smoke_config() -> ModelCfg:
         pattern=(BlockCfg("attn", "dense"),),
         norm="layernorm", mlp_act="relu2", mlp_gated=False,
         star=STARConfig(top_k_ratio=0.5, block_q=16, block_kv=16),
-        vocab_pad_to=64,
+        q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

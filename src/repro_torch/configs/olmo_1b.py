@@ -24,5 +24,5 @@ def smoke_config() -> ModelCfg:
         pattern=(BlockCfg("attn", "dense"),),
         norm="nonparametric_ln", mlp_act="silu", mlp_gated=True,
         star=STARConfig(top_k_ratio=0.5, block_q=16, block_kv=16),
-        vocab_pad_to=64,
+        q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

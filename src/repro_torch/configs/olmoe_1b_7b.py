@@ -28,5 +28,5 @@ def smoke_config() -> ModelCfg:
         moe=MoECfg(d_model=64, d_ff=32, n_experts=8, top_k=2,
                    token_chunk=64),
         star=STARConfig(top_k_ratio=0.5, block_q=16, block_kv=16),
-        vocab_pad_to=64,
+        q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

@@ -35,5 +35,5 @@ def smoke_config() -> ModelCfg:
         norm="layernorm", mlp_act="relu", mlp_gated=False,
         rope_fraction=0.0,
         star=STARConfig(top_k_ratio=0.5, block_q=16, block_kv=16),
-        vocab_pad_to=64,
+        q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

@@ -28,5 +28,5 @@ def smoke_config() -> ModelCfg:
         pattern=(BlockCfg("attn", "dense"),),
         norm="rmsnorm", mlp_act="silu", mlp_gated=True,
         star=STARConfig(top_k_ratio=0.25, block_q=64, block_kv=64),
-        vocab_pad_to=256,
+        q_chunk=256, seq_loss_chunk=256, vocab_pad_to=256,
     )

@@ -26,5 +26,5 @@ def smoke_config() -> ModelCfg:
         d_model=64, n_layers=2, n_heads=4, n_kv=4, d_ff=0, vocab=512,
         pattern=(BlockCfg("mlstm", "none"), BlockCfg("slstm", "none")),
         norm="layernorm", xlstm_heads=4, rope_fraction=0.0,
-        star=None, vocab_pad_to=64,
+        star=None, q_chunk=64, seq_loss_chunk=64, vocab_pad_to=64,
     )

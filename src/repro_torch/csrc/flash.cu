@@ -93,6 +93,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
              const __grid_constant__ CUtensorMap kmap,   // [BH, S, D]
              const __grid_constant__ CUtensorMap vmap,   // [BH, S, D]
              uint16_t* __restrict__ out,                 // [BH, T, D]
+             float* __restrict__ lse,                    // [BH, T] or null
              int T, int S, int q_offset, int causal, float scale_log2) {
   constexpr int kTile = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -249,8 +250,17 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
     mbar_arrive(&kv_empty[s]);
   }
 
-  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f);
-  const float l1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  const float s0 = quad_sum(l[0]);
+  const float s1 = quad_sum(l[1]);
+  const float l0 = fmaxf(s0, 1e-30f);
+  const float l1 = fmaxf(s1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // m and the sums: quad-wide
+    constexpr float kLn2 = 0.6931471805599453f;
+    const float inf = __int_as_float(0x7f800000);
+    const int64_t at = (int64_t)bh * T + row;
+    if (row < T) lse[at] = s0 > 0.f ? (m[0] + log2f(s0)) * kLn2 : inf;
+    if (row + 8 < T) lse[at + 8] = s1 > 0.f ? (m[1] + log2f(s1)) * kLn2 : inf;
+  }
   uint16_t* ob = out + ((int64_t)bh * T + row) * D + t2;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -265,7 +275,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int BH, int T, int S, int q_offset, int causal,
+                   float* lse, int BH, int T, int S, int q_offset, int causal,
                    float scale, cudaStream_t stream) {
   static bool configured = false;  // the >48 KB opt-in, once per instance
   if (!configured) {
@@ -282,15 +292,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     return cudaErrorInvalidValue;
   const dim3 grid(BH, (T + kBQ - 1) / kBQ);
   flash_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      qmap, kmap, vmap, static_cast<uint16_t*>(out), T, S, q_offset, causal,
+      qmap, kmap, vmap, static_cast<uint16_t*>(out), lse, T, S, q_offset,
+      causal,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// lse: null, or [BH, T] fp32 for the row log-sum-exps.
 extern "C" int flash_bf16(const void* q, const void* k, const void* v,
-                          void* out, int BH, int T, int S, int D,
+                          void* out, void* lse, int BH, int T, int S, int D,
                           int q_offset, int causal, float scale,
                           void* stream) {
   if (BH <= 0 || T <= 0 || S <= 0)
@@ -298,9 +310,11 @@ extern "C" int flash_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return static_cast<int>(
-        launch<64>(q, k, v, out, BH, T, S, q_offset, causal, scale, s));
+        launch<64>(q, k, v, out, static_cast<float*>(lse), BH, T, S,
+                   q_offset, causal, scale, s));
   if (D == 128)
     return static_cast<int>(
-        launch<128>(q, k, v, out, BH, T, S, q_offset, causal, scale, s));
+        launch<128>(q, k, v, out, static_cast<float*>(lse), BH, T, S,
+                    q_offset, causal, scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

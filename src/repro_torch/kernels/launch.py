@@ -29,7 +29,14 @@ def require_cuda(kernel: str, device: torch.device) -> None:
 
 def check_operands(kernel: str, **tensors: torch.Tensor) -> None:
     """bf16 operands on one device, contiguous and 16-byte aligned (the
-    kernels copy rows to shared memory 16 bytes at a time)."""
+    kernels copy rows to shared memory 16 bytes at a time), none of them
+    asking for a gradient: a kernel's output carries none, so an operand
+    that requires one would lose it without a word (K4 runs inside its
+    ``autograd.Function``, where grad mode is off)."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in tensors.values()):
+        raise RuntimeError(f"{kernel}: the kernel has no backward; its "
+                           f"operands must not require grad")
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{kernel}: operands on {sorted(map(str, devices))}")

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the prefill tile kernels, port of
 ``repro.kernels.ref``: dense masked softmax, fp32 statistics, no tiling;
-and K1's split-and-merge in plain form (``paged_decode_split_ref``).
+K4's backward (``flash_bwd_ref``); and K1's split-and-merge in plain form
+(``paged_decode_split_ref``).
 
 The wrappers (``kernels.flash``, ``kernels.sufa``, ``kernels.dlzs``) use
 them for tensors on the CPU, and the on-card checks hold each CUDA kernel
@@ -28,9 +29,11 @@ def _causal_mask(t: int, s: int, device) -> torch.Tensor:
 
 
 def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, scale: Optional[float] = None
-              ) -> torch.Tensor:
-    """Dense softmax attention, fp32 statistics. q [BH,T,d] -> [BH,T,d]."""
+              causal: bool = True, scale: Optional[float] = None,
+              return_lse: bool = False):
+    """Dense softmax attention, fp32 statistics. q [BH,T,d] -> [BH,T,d];
+    with ``return_lse`` also each row's fp32 log-sum-exp of the scaled
+    scores [BH, T] (+inf on a row that sees no key)."""
     t, d = q.shape[1], q.shape[2]
     s = k.shape[1]
     scale = scale or (1.0 / math.sqrt(d))
@@ -40,9 +43,39 @@ def flash_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.exp(sc - m)
     p = p.masked_fill(sc <= NEG_INF / 2, 0.0)
-    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    o = torch.einsum("bts,bsd->btd", p / l, v.float())
-    return o.to(q.dtype)
+    total = p.sum(dim=-1, keepdim=True)
+    l = torch.clamp(total, min=1e-30)
+    o = torch.einsum("bts,bsd->btd", p / l, v.float()).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(total > 0, m + torch.log(l), torch.inf)[..., 0]
+    return o, lse
+
+
+def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool = True, scale: Optional[float] = None
+                  ) -> tuple:
+    """The gradient of ``flash_ref`` in fp32, by K4's backward steps:
+    P = exp(scale·QKᵀ − lse) (0 where masked, and on a row with lse =
+    +inf), D = rowsum(dO∘O), dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P∘(dP − D),
+    dQ = scale·dS·K, dK = scale·dSᵀ·Q. Returns (dq, dk, dv) in the
+    dtypes of q, k, v."""
+    t, d = q.shape[1], q.shape[2]
+    s = k.shape[1]
+    scale = scale or (1.0 / math.sqrt(d))
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    sc = torch.einsum("btd,bsd->bts", qf, kf) * scale
+    p = torch.exp(sc - lse.float()[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_mask(t, s, q.device), 0.0)
+    dv = torch.einsum("bts,btd->bsd", p, dof)
+    dp = torch.einsum("btd,bsd->bts", dof, vf)
+    dvec = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - dvec)
+    dq = torch.einsum("bts,bsd->btd", ds, kf) * scale
+    dk = torch.einsum("bts,btd->bsd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def sufa_ref(q: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,

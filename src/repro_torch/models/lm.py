@@ -22,17 +22,24 @@ the others first, as the reference's do. An encoder-decoder model
 prefill; each cross-attention layer builds its encoder K/V there and
 keeps it in the cache under ``"cross"``, which decode reads. No engine
 serves it, as in the reference. A batch with ``"embeds"`` (a frontend
-stub's embeddings) skips the token embedding. An MoE block's
-load-balance loss is computed by ``moe.apply`` and dropped here:
-nothing on the serving path uses it.
+stub's embeddings) skips the token embedding.
+
+Training (``loss_fn``) runs the stack in ``mode="train"``: each layer's
+super-block under the ``remat`` policy (``torch.utils.checkpoint``), the
+dense attention through K4 and its backward (STAR is off in training,
+as in the reference, unless ``star_train``, which needs K3's backward
+and is refused), and the MoE blocks' load-balance loss summed as
+``aux · aux_loss_weight``; the serving modes drop that loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.star_attention import STARConfig
 from repro_torch.device import resolve_device
@@ -71,10 +78,18 @@ class ModelCfg:
     enc_layers: int = 0            # > 0 => encoder-decoder
     embeds_input: bool = False     # modality frontend stub feeds embeddings
     star: Optional[STARConfig] = None   # serving-time sparse attention
+    star_train: bool = False            # STAR in training (refused: needs
+    #                                     K3's backward)
     star_chunk_sparse: bool = False     # DLZS page selection inside later
     #                                     prefill chunks (approximate)
     causal: bool = True
+    q_chunk: int = 1024            # the reference's dense-attention chunk
+    seq_loss_chunk: int = 1024     # CE chunk (largest divisor of S <= it)
     vocab_pad_to: int = 2048
+    remat: str = "full"            # none | full | dots
+    optimizer: str = "adamw"       # adamw | adafactor (giants: factored v)
+    train_accum: int = 1           # gradient-accumulation microbatches
+    accum_dtype: Any = torch.bfloat16   # grad accumulation buffer dtype
     dtype: Any = torch.bfloat16
 
     @property
@@ -93,14 +108,18 @@ class ModelCfg:
         p = self.vocab_pad_to
         return -(-self.vocab // p) * p
 
-    def attn_cfg(self, causal: Optional[bool] = None
+    def attn_cfg(self, causal: Optional[bool] = None, mode: str = "serve"
                  ) -> attention.AttentionCfg:
+        """The attention layer's config; ``mode="train"`` drops STAR
+        unless ``star_train``, as the reference's does."""
+        use_star = self.star if (mode != "train" or self.star_train) \
+            else None
         return attention.AttentionCfg(
             d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
             head_dim=self.dh, rope_fraction=self.rope_fraction,
             rope_theta=self.rope_theta, qkv_bias=self.qkv_bias,
             causal=self.causal if causal is None else causal,
-            star=self.star,
+            star=use_star,
             chunk_sparse=self.star_chunk_sparse, dtype=self.dtype)
 
     def mlp_cfg(self) -> mlp.MLPCfg:
@@ -209,11 +228,11 @@ def _recurrent_apply(params, cfg: ModelCfg, kind: str, h, *, mode: str,
     None). Decode writes the new state into the cache entry in place (the
     dense slot engine's slabs) and returns that entry."""
     if spatial or page_state is not None or mode not in (
-            "forward", "prefill", "decode"):
+            "forward", "prefill", "decode", "train"):
         raise ValueError(
-            f"a {kind} block runs only in the forward, the prefill and the "
-            f"dense-cache decode; the paged and spatial engines serve "
-            f"attention-only patterns")
+            f"a {kind} block runs only in the forward, the prefill, the "
+            f"dense-cache decode and training; the paged and spatial "
+            f"engines serve attention-only patterns")
     if kind == "mamba":
         full, step, kcfg = ssm.apply, ssm.apply_decode, cfg.mamba
     elif kind == "mlstm":
@@ -234,9 +253,11 @@ def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
                  mode: str, causal: Optional[bool] = None, cache=None,
                  enc_cache=None, lengths=None, cache_len=None,
                  page_state=None, spatial: bool = False):
-    """One block. Returns (y, new_cache)."""
+    """One block. Returns (y, new_cache, aux): ``aux`` is an MoE FFN's
+    load-balance loss times ``aux_loss_weight`` (None without one)."""
+    aux = None
     h = common.norm_apply(cfg.norm, params["norm1"], x)
-    acfg = cfg.attn_cfg(causal)
+    acfg = cfg.attn_cfg(causal, mode)
     new_cache = {}
     if blk.kind in RECURRENT:
         y, c = _recurrent_apply(params["core"], cfg, blk.kind, h, mode=mode,
@@ -293,11 +314,12 @@ def _block_apply(params, cfg: ModelCfg, blk: BlockCfg, x, positions, *,
     if blk.ffn != "none":
         h2 = common.norm_apply(cfg.norm, params["norm2"], x)
         if blk.ffn == "moe":
-            y2, _ = moe.apply(params["ffn"], cfg.moe, h2)
+            y2, a = moe.apply(params["ffn"], cfg.moe, h2)
+            aux = a * cfg.moe.aux_loss_weight
         else:
             y2 = mlp.apply(params["ffn"], cfg.mlp_cfg(), h2)
         x = x + y2
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
@@ -314,7 +336,7 @@ def _run_stack(blocks, cfg: ModelCfg, x, positions, *, mode, caches=None,
         out = {}
         for j, blk in enumerate(cfg.pattern):
             key = f"b{j}"
-            x, out[key] = _block_apply(
+            x, out[key], _ = _block_apply(
                 _layer(blocks[key], i), cfg, blk, x, positions, mode=mode,
                 causal=causal,
                 cache=_layer(caches[key], i) if caches else None,
@@ -377,6 +399,128 @@ def forward(params, cfg: ModelCfg, batch):
     x, _ = _run_stack(params["blocks"], cfg, x, positions, mode="forward",
                       enc_cache=enc_cache)
     return logits(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+# ``remat="dots"`` keeps the outputs of products without batch dimensions
+# (the projections and FFN matmuls), as JAX's
+# ``dots_with_no_batch_dims_saveable`` does, and recomputes the rest
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelCfg):
+    """``fn`` under ``cfg.remat``: ``none`` as is, ``full`` saving only its
+    inputs (``torch.utils.checkpoint``, non-reentrant), ``dots`` also
+    saving its unbatched matmul outputs (a selective-checkpoint policy).
+    Nothing in the stack draws random numbers, so the RNG state is not
+    stashed."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat == "full":
+        context_fn = ckpt.noop_context_fn
+    else:
+        raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False, context_fn=context_fn)
+
+
+def _unbind_layers(tree, n: int) -> list:
+    """A layer-stacked tree as ``n`` trees, one per layer (``unbind``
+    views: the backward stacks the layers' gradients once, where indexing
+    each layer would add a leaf-sized zero tensor per layer)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _train_stack(blocks, cfg: ModelCfg, x, positions, *, enc_cache=None):
+    """The decoder stack in ``mode="train"``, each layer's super-block
+    (the reference's scan body) under ``_remat``. Returns (x, aux)."""
+    check_supported(cfg)
+    layers = {key: _unbind_layers(blocks[key], cfg.n_repeat)
+              for key in blocks}
+
+    def body(xc, i: int):
+        aux = torch.zeros((), dtype=torch.float32, device=xc.device)
+        for j, blk in enumerate(cfg.pattern):
+            key = f"b{j}"
+            xc, _, a = _block_apply(layers[key][i], cfg, blk, xc, positions,
+                                    mode="train", enc_cache=enc_cache)
+            if a is not None:
+                aux = aux + a
+        return xc, aux
+
+    run = _remat(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_repeat):
+        x, a = run(x, i)
+        aux = aux + a
+    return x, aux
+
+
+def _ce_chunk(xc, labels, out_head, vocab_ok):
+    """Summed CE, summed squared lse and the count of valid labels over
+    one chunk: xc [B, c, H], labels [B, c] (< 0: ignored)."""
+    logits = (xc @ out_head).float()
+    logits = logits.masked_fill(~vocab_ok, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return ((lse - gold) * valid).sum(), (lse.square() * valid).sum(), \
+        valid.sum()
+
+
+def loss_fn(params, cfg: ModelCfg, batch):
+    """Next-token CE loss (+ MoE aux + z-loss). batch: tokens|embeds,
+    labels [B, S] (negative labels are ignored); an encoder-decoder model
+    also takes its encoder input. Returns (loss, metrics: ce, aux, zloss,
+    tokens).
+
+    The logits are computed in sequence chunks of the largest divisor of
+    S at most ``seq_loss_chunk``, each under ``torch.utils.checkpoint``,
+    so the [B, chunk, vocab] logits are recomputed in the backward and
+    [B, S, vocab] never materialises (the reference's
+    ``jax.checkpoint(ce_chunk)``)."""
+    if cfg.star_train and cfg.star is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: STAR in training needs K2/K3 in train mode and "
+            f"K3's backward (ROADMAP §1 item 7)")
+    x = _embed_inputs(params, cfg, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    enc_cache = _encode(params, cfg, batch) if cfg.enc_layers else None
+    x, aux = _train_stack(params["blocks"], cfg, x, positions,
+                          enc_cache=enc_cache)
+    x = common.norm_apply(cfg.norm, params["final_norm"], x)
+
+    labels = batch["labels"].long()
+    chunk = min(cfg.seq_loss_chunk, s)
+    while s % chunk:
+        chunk -= 1
+    vocab_ok = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
+    sums = [ckpt.checkpoint(_ce_chunk, x[:, off:off + chunk],
+                            labels[:, off:off + chunk], params["out_head"],
+                            vocab_ok, use_reentrant=False,
+                            preserve_rng_state=False)
+            for off in range(0, s, chunk)]
+    ce_sum, z_sum, count = (torch.stack(v).sum() for v in zip(*sums))
+    n_tok = torch.clamp(count, min=1.0)
+    ce = ce_sum / n_tok
+    zloss = 1e-4 * z_sum / n_tok
+    loss = ce + zloss + aux
+    return loss, {"ce": ce, "aux": aux, "zloss": zloss, "tokens": n_tok}
 
 
 def prefill(params, cfg: ModelCfg, batch, *, cache_len: Optional[int] = None,

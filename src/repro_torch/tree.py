@@ -31,6 +31,18 @@ def tree_leaves(tree: Any) -> list:
     return [leaf for _, leaf in tree_items(tree)]
 
 
+def sorted_items(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
+    """Yield ``(key_path, leaf)`` with each dict's keys sorted: the order
+    of ``jax.tree.leaves`` over the reference's pytree of the same keys
+    (sums over leaves follow it; a checkpoint's manifest lists it)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from sorted_items(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+
 def leaves_by_key(tree: Any, want: str) -> list:
     """Leaves whose path contains key ``want``."""
     return [leaf for path, leaf in tree_items(tree) if want in path]

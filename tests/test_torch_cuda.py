@@ -871,3 +871,120 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# -- K4's backward (training) -------------------------------------------------
+
+def _lowp_attention(q, k, v, *, causal, scale):
+    """Attention computed in the inputs' dtype (scores, softmax, P·V), the
+    FlashAttention repository's yardstick for a bf16 gradient."""
+    from repro_torch.kernels import ref
+    t, s = q.shape[1], k.shape[1]
+    sc = torch.einsum("btd,bsd->bts", q, k) * scale
+    if causal:
+        sc = sc.masked_fill(~ref._causal_mask(t, s, q.device), ref.NEG_INF)
+    return torch.einsum("bts,bsd->btd", torch.softmax(sc, -1).to(v.dtype), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,s,causal", [
+    (256, 256, True), (1000, 1000, True), (256, 2048, False),
+    (300, 100, False), (100, 300, True), (129, 129, True), (1, 1, True),
+    (2048, 2048, True)])
+def test_flash_bwd_kernel_matches_plain(cuda_device, d, t, s, causal):
+    """K4's backward against ``ref.flash_bwd_ref`` in fp32: dQ, dK and dV
+    each no further from it than twice the bf16 plain gradient is (plus
+    1e-5), the FlashAttention repository's rule; one counted launch; two
+    calls bit-equal (no atomics)."""
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cpu").manual_seed(d * 7 + t + s)
+    q = _bf16((4, t, d), gen, cuda_device)
+    k, v = (_bf16((4, s, d), gen, cuda_device) for _ in range(2))
+    do = _bf16((4, t, d), gen, cuda_device)
+    scale = d ** -0.5
+    o, lse = kflash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    kernels.reset_launches()
+    got = kflash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd"] == 1
+    again = kflash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(got, again))
+    f32 = [x.float() for x in (q, k, v)]
+    o32, lse32 = ref.flash_ref(*f32, causal=causal, return_lse=True)
+    want = ref.flash_bwd_ref(*f32, o32, lse32, do.float(), causal=causal)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    lowp = torch.autograd.grad(
+        _lowp_attention(*leaves, causal=causal, scale=scale), leaves, do)
+    for g, w, p in zip(got, want, lowp):
+        err = float((g.float() - w).abs().max())
+        assert err <= 2 * float((p.float() - w).abs().max()) + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s,causal,d", [
+    (2048, 2048, True, 128), (991, 991, True, 64), (256, 2048, False, 64),
+    (300, 100, True, 128)])
+def test_flash_lse_output(cuda_device, t, s, causal, d):
+    """K4's optional lse: the plain log-sum-exp at 1e-4 (+inf on the rows
+    of T > S that see no key), and the same O bits with it as without."""
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cpu").manual_seed(t + s + d)
+    q = _bf16((4, t, d), gen, cuda_device)
+    k, v = (_bf16((4, s, d), gen, cuda_device) for _ in range(2))
+    o, lse = kflash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    plain = kflash.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(o.view(torch.int16), plain.view(torch.int16))
+    _, want = ref.flash_ref(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    fin = torch.isfinite(want)
+    np.testing.assert_allclose(lse[fin].cpu().numpy(),
+                               want[fin].cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_training_step_launches_k4_backward(cuda_device):
+    """A loss's backward through ``lm.loss_fn`` on the card runs K4's
+    backward once per attention layer and K4's forward twice (forward and
+    recompute under ``remat="full"``); the gradients agree with the same
+    step on the CPU's plain path at the bf16 bound."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_smoke_config("olmo_1b"), star=None,
+                              n_heads=2, n_kv=2)        # head_dim 32 -> 64
+    cfg = dataclasses.replace(cfg, d_model=128, d_ff=256)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 128), generator=gen)
+             for k in ("tokens", "labels")}
+    kernels.reset_launches()
+    (loss, _), grads = steps.value_and_grad(
+        _to(params, cuda_device), cfg,
+        {k: v.to(cuda_device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd"] == cfg.n_layers
+    assert kernels.LAUNCHES["flash"] == 2 * cfg.n_layers
+    (loss_cpu, _), grads_cpu = steps.value_and_grad(params, cfg, batch)
+    assert abs(float(loss) - float(loss_cpu)) <= 2e-2 * float(loss_cpu)
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_cpu)):
+        w = w.float()
+        np.testing.assert_allclose(
+            g.float().cpu().numpy(), w.numpy(), rtol=2e-2,
+            atol=2e-2 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_refuse_grad(cuda_device):
+    """K2 and K3 have no backward: operands that require grad raise
+    rather than lose their gradient."""
+    from repro_torch.kernels import dlzs as kdlzs
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    q, k = (_bf16((2, 256, 128), gen, cuda_device).requires_grad_()
+            for _ in range(2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        kdlzs.dlzs_block_scores(q, k, causal=True)

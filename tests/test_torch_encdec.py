@@ -165,9 +165,9 @@ def test_configs_resolve_field_for_field():
 
 
 def test_converter_refuses_star_train():
-    """Only STAR in training stays unported (ROADMAP §1 item 5)."""
+    """Only STAR in training stays unported (ROADMAP §1 item 7)."""
     jcfg = dataclasses.replace(jget_smoke(ARCH), star_train=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         convert.model_cfg_from_reference(jcfg)
 
 

@@ -157,7 +157,7 @@ def test_converter_round_trip(models, dtype):
 
 def test_converter_rejects_unported_families():
     """Every model family converts now; STAR in training (ROADMAP §1 item
-    5) is what the converter still refuses."""
+    7) is what the converter still refuses."""
     train = dataclasses.replace(get_smoke_config("olmo_1b"),
                                 star_train=True)
     with pytest.raises(NotImplementedError, match="not ported"):

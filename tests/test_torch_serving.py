@@ -351,7 +351,7 @@ sys.path.insert(0, {tools!r})
 import torch_profile_prefill, torch_star_drift, torch_decode_forms
 import torch_k1_int8, torch_served_logits
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
 print("PURE", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
