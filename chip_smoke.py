@@ -233,9 +233,13 @@ Phases, each printing its numbers on a line of its own:
    gradient's error against the fp32 one (plus 1e-5), two calls
    bit-equal, K4's lse at 1e-4 and its O bit-equal with and without
    lse; the training shape and the non-causal one timed beside their
-   bounds, the plain version and SDPA's backward; (b) OLMo-1B at full
-   width and depth trained 20 steps of 8 x 2048 ``SyntheticLM`` tokens
-   through ``launch.steps.make_train_step`` and ``runtime.train_loop``
+   bounds, the plain version and SDPA's backward, with each of the
+   backward's two kernels' device time (prep, and the key-tile pass that
+   computes dK, dV and dQ; by ``torch.profiler``), the achieved TFLOP/s
+   and ptxas's register and spill lines of ``flash_bwd.cu``; (b) OLMo-1B
+   at full width and depth trained 20 steps of 8 x 2048 ``SyntheticLM``
+   tokens through ``launch.steps.make_train_step`` and
+   ``runtime.train_loop``
    (AdamW with bf16 moments, ``remat="full"``, lr 6e-4, warmup 5), one
    final save under ``build/`` that the phase removes: the loss falls by
    more than 0.1, every loss and grad norm finite, K4 = steps x 32 and
@@ -396,6 +400,8 @@ TRAIN_LR = 6e-4
 TRAIN_WARMUP = 5
 RESTART_LAYERS = 2
 RESTART_BATCH = 4
+# K4's backward's kernels (csrc/flash_bwd.cu), by name prefix
+BWD_KERNELS = ("bwd_prep", "bwd_kv")
 
 
 def emit(tag: str, **fields) -> None:
@@ -3550,18 +3556,51 @@ def check_flash_bwd(dev, flush, *, bh, t, causal, seed, timed, d=128,
             def library():
                 torch.autograd.grad(sdpa_out, leaves, do[None],
                                     retain_graph=True)
+        pairs = bh * visible_pairs(t, s, causal)
         add_times(out, kernel, plain, library, flush,
                   bytes_=nbytes(q, k, v, o, do, q, k, v) + nbytes(lse),
-                  flops=10 * d * bh * visible_pairs(t, s, causal))
+                  flops=10 * d * pairs)
+        out.update(flash_bwd_split(kernel, flush))
+        # achieved rate by the 10·d flops per visible pair the gradient
+        # needs (and the kernel executes: no product is computed twice)
+        out["tflop_s_10d"] = 10 * d * pairs / out["ms"] / 1e9
     emit("flash_bwd", ok=True, **out)
     return out
 
 
-def check_flash_bwd_shapes(dev) -> dict:
+def flash_bwd_split(fn, flush, iters: int = 10) -> dict:
+    """Device ms per launch of each kernel K4's backward launches (the
+    prep pass, and the key-tile pass that computes dK, dV and dQ), from
+    ``torch.profiler`` over ``iters`` calls of ``fn``, each after an L2
+    flush (averaged over the launches the trace holds); their sum beside
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    _, _, top = profiling.device_kernels(prof, set())
+    out = {}
+    for part in BWD_KERNELS:
+        mine = [k for k in top if f"{part}_kernel" in k["name"]]
+        out[f"{part}_launches_traced"] = sum(k["calls"] for k in mine)
+        out[f"{part}_ms"] = sum(k["device_ms"] for k in mine) / max(
+            1, out[f"{part}_launches_traced"])
+    out["split_sum_ms"] = sum(out[f"{part}_ms"] for part in BWD_KERNELS)
+    return out
+
+
+def check_flash_bwd_shapes(dev, ptxas=()) -> dict:
     """Phase 20a's shapes: OLMo-1B's attention at BH 16 and at its
     training shape (seq 2048 x batch 8: BH 128), T = S = 2048, d 128,
     causal; a ragged T = S = 1000; non-causal T 256 over S 2048 at d 64.
-    Returns {case: numbers}; the training shape is timed."""
+    Returns {case: numbers}; the training shape and the non-causal one
+    are timed. ``ptxas``: the backward's register and spill lines from
+    the build log, emitted beside them."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     out = {"bh16": check_flash_bwd(dev, flush, bh=16, t=2048, causal=True,
                                    seed=2001, timed=False),
@@ -3573,6 +3612,7 @@ def check_flash_bwd_shapes(dev) -> dict:
            "noncausal": check_flash_bwd(dev, flush, bh=16, t=256, s=2048,
                                         causal=False, seed=2004, timed=True,
                                         d=64)}
+    emit("flash_bwd_build", ptxas=[f"{fn} {line}" for fn, line in ptxas])
     del flush
     free_cache(dev)
     return out
@@ -3640,7 +3680,7 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
         return sum(k["device_ms"] for k in top
                    if any(p in k["name"].lower() for p in keys))
     parts = {"k4_forward_ms": by_name("flash_kernel"),
-             "k4_backward_ms": by_name("bwd_prep", "bwd_dkdv", "bwd_dq"),
+             "k4_backward_ms": by_name(*BWD_KERNELS),
              "gemm_ms": by_name(*profiling.GEMM_NAMES),
              "optimizer_ms": profiling.range_device_ms(prof, "optimizer",
                                                        names)}
@@ -4121,7 +4161,8 @@ def main() -> int:
     # OLMo-1B trained at full width and depth (20b), restart exactness in
     # a deterministic child process (20c), one model step against the
     # plain path (20d)
-    bwd = check_flash_bwd_shapes(dev)
+    bwd = check_flash_bwd_shapes(dev,
+                                 ptxas_report(built["flash_bwd"]["log"]))
     train = check_training(olmo_1b.config(), dev, gen)
     restart = check_restart(dev)
     check_model_step(olmo_1b.config(), dev, gen)
@@ -4331,7 +4372,10 @@ def main() -> int:
                                      for n in ("dq", "dk", "dv")},
              noncausal_d64={key: bwd["noncausal"][key] for key in (
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")},
+                 "library_ms", "tflop_s_10d")},
+             split_ms={part: bwd["train"][f"{part}_ms"]
+                       for part in BWD_KERNELS},
+             tflop_s_10d=bwd["train"]["tflop_s_10d"],
              restart_bit_equal=restart["bit_equal"]),
     ]}), flush=True)
     print_device_line()

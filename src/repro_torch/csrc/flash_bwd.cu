@@ -1,58 +1,101 @@
 // FlashAttention backward for Hopper (sm_90a): K4's gradient, for training.
 //
-// The TPU kernel (repro/kernels/flash.py::flash_attention) has no VJP: the
-// reference trains through XLA's dense chunked softmax. The port's dense
-// full-sequence attention runs K4 (flash.cu), so a trainer on the card
-// needs K4's gradient. Given q, k, v [BH, T|S, D], the forward's output o
-// and the output gradient dO [BH, T, D] (bf16), and the forward's fp32
-// log-sum-exp lse [BH, T] (natural base; +inf on a row that sees no key),
-// it returns dQ, dK, dV in bf16 with fp32 sums, for exactly the function
-// K4 computes: causal at offset q_offset = S - T or not, any T and S (keys
-// past S and rows past T masked), D 64 and 128.
-//
-// Three kernels, launched in order on the caller's stream, no atomics, so
-// the gradient is the same bits on every run:
-//   (a) prep: D_i = rowsum(dO_i * O_i) in fp32, and lse in base 2 (the
-//       recompute's base), one warp per row;
-//   (b) dK/dV: one block per (bh, 64-key tile), 4 warps of 16 keys each,
-//       looping over the 32-row (D = 128) or 64-row (D = 64) query tiles
-//       that see the tile. Per tile it recomputes S^T = K . Q^T, then
-//       P^T = 2^(scale * log2(e) * S^T - lse2) (the forward's base-2
-//       folding), dV += P^T . dO, dP^T = V . dO^T, dS^T = P^T * (dP^T - D)
-//       and dK += dS^T . Q; dK is scaled once at the end;
-//   (c) dQ: one block per (bh, 64-row query tile), 4 warps of 16 rows,
-//       looping over its visible 64-key tiles: S, P, dP = dO . V^T, dS and
-//       dQ += dS . K, scaled at the end.
-// P is rounded to bf16 before P^T . dO and dS before dS^T . Q and dS . K
-// (the mma operands); the softmax, D and dS are fp32.
+// Replaces no TPU kernel. The TPU kernel (repro/kernels/flash.py::
+// flash_attention) has no VJP: the reference trains through XLA's dense
+// chunked softmax. The port's dense full-sequence attention runs K4
+// (flash.cu), so a trainer on the card needs K4's gradient. Given q, k, v
+// [BH, T|S, D], the forward's output o and the output gradient dO [BH, T, D]
+// (bf16), and the forward's fp32 log-sum-exp lse [BH, T] (natural base;
+// +inf on a row that sees no key), it returns dQ, dK, dV in bf16 with fp32
+// sums, for exactly the function K4 computes: causal at offset q_offset =
+// S - T or not, any T and S (keys past S and rows past T masked), D 64 and
+// 128.
 //
 // Bound: operations. The gradient needs 10 * D flops per visible (query,
-// key) pair (five products: the recomputed S, dV, dP, dK, dQ); this
-// design does 14 * D (S and dP are computed in both (b) and (c)). At the
-// OLMo-1B training shape (BH 128, T = S = 2048, D 128, causal) that is
-// 344 GFLOP of need against 134 MB of q, k, v, o, dO, dQ, dK, dV, far
-// above the bf16 ridge.
+// key) pair, five products: the recomputed S, dV, dP, dK, dQ. At the
+// OLMo-1B training shape (BH 128, T = S = 2048, D 128, causal) that is 344
+// GFLOP against 134 MB of q, k, v, o, dO, dQ, dK, dV, far above the bf16
+// ridge. Only wgmma reaches Hopper's tensor-core rate, so every product
+// runs on it, fed by TMA, and each is computed once: dQ is summed across
+// key tiles instead of recomputing S and dP in a pass of its own (which
+// costs 14 * D).
 //
-// Design: the FA-2 backward on mma.sync (mma_bf16.cuh). Every product is
-// an m16n8k16: the C fragments of S^T and dS^T are the A operand of the
-// next product as they stand (two n8 tiles make one k16 step), so P and
-// dS never leave registers. Tiles are staged in padded shared rows (D + 8
-// halves) by plain 16-byte loads; B operands that run along the rows of a
-// tile (dO and Q in (b), K in (c)) are read as column pairs. A causal key
-// tile starts its loop at the first query tile that sees it, and a causal
-// query tile stops at its last visible key tile.
+// Two kernels, launched in order on the caller's stream:
+//   (a) prep: D_i = rowsum(dO_i * O_i) in fp32 and lse in base 2 (the
+//       recompute's base), into rows padded to a multiple of 64 (pad rows:
+//       D = 0, lse2 = +inf, so P = 0 there); it zeroes dQ's rows that see
+//       no key and the per-query-tile order counters;
+//   (b) one block per (bh, 128-key tile): two consumer warpgroups of 64
+//       keys each and a producer warpgroup (384 threads). The producer's
+//       lane 0 loads the block's K and V once by TMA, then 64-row Q and dO
+//       tiles with their lse2 and D slices (bulk copies) into a 2-stage
+//       ring on full/empty mbarriers. Per query tile each warpgroup runs:
+//         S^T = K . Q^T        SS m64n64, both operands K-major;
+//         dP^T = V . dO^T      SS m64n64, issued right behind S^T;
+//         P^T = 2^(scale * log2(e) * S^T - lse2), masked, in registers;
+//         dV += P^T . dO       RS m64nD: P^T's accumulator, in bf16, is the
+//                              A operand as it stands; dO is read MN-major
+//                              through the transpose bit;
+//         dS^T = P^T * (dP^T - D)   (while dV's product runs), stored in
+//                              bf16 to shared memory as a swizzled box;
+//         dK += dS^T . Q       SS m64nD, its rows of dS^T K-major, Q
+//                              MN-major;
+//         dQ_tile += dS . K    SS m64n64 over the block's 128 keys (both
+//                              warpgroups' dS^T rows, so the two meet at a
+//                              named barrier), warpgroup w taking D columns
+//                              64w.. (at D = 64 both compute the one
+//                              partial and warpgroup 0 keeps it).
+//       dK is scaled once at the end.
+//
+// dQ, deterministically. Key tiles are summed into each 64-row query tile
+// in a fixed order, descending key tile, so two calls give the same bits
+// (the restart check of training needs that; free-running atomics would
+// not). A block's partial goes to a shared-memory buffer (two, in the
+// accumulators' fragment order: conflict-free stores) and a second
+// producer lane waits on the tile's counter until the tiles before it in
+// the order are in, then stores (the first) or fp32-adds (cp.reduce.
+// async.bulk) the 32 KB partial into global scratch and raises the counter
+// once the write is complete (release/acquire, GPU scope). Block 0, last
+// in every query tile's order, reads that sum back, adds its own partial
+// and writes dQ in bf16 itself: no conversion pass. Blocks launch in the
+// order they add (key tiles descending within each bh, bh by bh), so a
+// block only ever waits for blocks launched before it: no deadlock,
+// whatever the grid's size. A causal key tile reaches each query tile two
+// steps after the key tile above it, so most waits are short; block 0,
+// the heaviest and the end of every chain, fetches the sum while its own
+// products run.
+//
+// Registers: a consumer thread holds two D-wide fp32 sums (dK, dV: 64 + 64
+// at D = 128) plus S^T and dP^T (32 + 32) and P^T in bf16. That passes the
+// 168 a thread of a 384-thread block may have, so the producer warpgroup
+// drops to 24 registers and the consumers rise to 240 (setmaxnreg; the two
+// roles' branches never meet). wgmma descriptors are rebuilt each step
+// from an opaque base (eight hoisted 64-bit descriptors per operand would
+// pin registers), and no wgmma sits in a divergent branch: ptxas would
+// serialize them.
+//
+// Causal: a key tile's loop starts at the first 64-row query tile that
+// sees it; only tiles that cross the diagonal or the key edge S are
+// masked.
 //
 // What was hard: the causal offset S - T and the rows with no visible key
 // (the forward zeroes them): their lse is +inf, so 2^(s - inf) = 0 and
-// they give nothing, and keys past S and rows past T are masked explicitly
-// (their zero-filled rows would otherwise carry P = 2^(-lse)). The
-// forward's base-2 softmax is matched by folding scale * log2(e) into the
-// scores and recomputing P against lse * log2(e).
+// they give nothing, and prep zeroes their dQ (no block may visit their
+// tile); keys past S are masked explicitly (their zero-filled rows would
+// otherwise carry P = 2^(-lse)), rows past T carry the padded lse2 = +inf
+// and zero-filled Q and dO, and are not stored. The forward's base-2
+// softmax is matched by folding scale * log2(e) into the scores and
+// recomputing P against lse * log2(e). Q and dO, K and dS^T are each one
+// swizzled tile read two ways: K-major for one product (+32 bytes per k16
+// step inside a 64-column box) and MN-major for another (+16 rows = 2048
+// bytes per k16 step, LBO = one box between the two 64-column halves of D
+// = 128). In the block the accumulators' rows are keys, so each thread
+// reads lse2 and D for its columns (queries) from the ring's slices.
 //
-// Later work: wgmma + TMA (the forward's shape), one pass with dQ summed
-// across key tiles (needs atomics or a reduction pass; atomics would lose
-// the determinism the resume check relies on), and ldmatrix.trans for
-// the column-pair operands.
+// Later work: ping-pong of the two consumer warpgroups (the dQ product's
+// barrier keeps them in step, so both run their softmax at once), a
+// deeper ring (shared memory is full at D = 128), D computed in the block
+// instead of the prep pass.
 
 #include <cuda.h>
 
@@ -63,30 +106,41 @@ namespace {
 
 using namespace star;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBK = 64;          // keys per dK/dV block, and per dQ step
-constexpr int kBQdq = 64;        // query rows per dQ block
+constexpr int kBK = 128;        // keys per block
+constexpr int kBQ = 64;         // query rows per step (and lse/D padding)
+constexpr int kStages = 2;      // Q/dO ring depth
+constexpr int kConsumers = 2;   // warpgroups of 64 keys
+constexpr int kThreads = (kConsumers + 1) * 128;  // + a producer warpgroup
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kDsBar = 1;       // named barrier: all of dS^T stored
 constexpr float kLog2e = 1.4426950408889634f;
 
+// one swizzled box: `rows` rows of 64 bf16 (128 bytes)
+__host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
+
+// a [rows, D] tile: D / 64 boxes side by side
 template <int D>
-__host__ __device__ constexpr int bq_kv() {  // query rows per dK/dV step
-  return D == 128 ? 32 : 64;
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return (D / 64) * box_bytes(rows);
+}
+
+// a dQ partial: 64 query rows x D fp32
+template <int D>
+__host__ __device__ constexpr int dq_bytes() {
+  return kBQ * D * 4;
 }
 
 template <int D>
-__host__ __device__ constexpr int ld() {
-  return D + 8;
+__host__ __device__ constexpr int smem_bytes() {
+  // K, V, the Q/dO ring, 2 dS^T boxes, 2 dQ partials, lse2/D slices
+  return 2 * tile_bytes<D>(kBK) + kStages * 2 * tile_bytes<D>(kBQ) +
+         2 * box_bytes(kBK) + 2 * dq_bytes<D>() + kStages * 2 * kBQ * 4 +
+         1024;
 }
 
-template <int D>
-__host__ __device__ constexpr int smem_kv_bytes() {  // K, V, Q, dO, lse, D
-  return (2 * kBK + 2 * bq_kv<D>()) * ld<D>() * 2 + 2 * bq_kv<D>() * 4;
-}
-
-template <int D>
-__host__ __device__ constexpr int smem_q_bytes() {  // Q, dO, K, V
-  return (2 * kBQdq + 2 * kBK) * ld<D>() * 2;
+__host__ __device__ constexpr int padded_rows(int T) {
+  return (T + kBQ - 1) / kBQ * kBQ;
 }
 
 __device__ __forceinline__ float bf16_lo(uint32_t x) {
@@ -97,277 +151,413 @@ __device__ __forceinline__ float bf16_hi(uint32_t x) {
   return __uint_as_float(x & 0xFFFF0000u);
 }
 
-// A fragments of 16 rows starting at row0 of a padded shared tile, k16
-// step kk (mma_bf16.cuh's A layout).
-template <int LD>
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const uint16_t* tile,
-                                       int row0, int kk, int lane) {
-  const uint16_t* p = tile + (row0 + (lane >> 2)) * LD + kk * 16 +
-                      (lane & 3) * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
+// A descriptor the compiler cannot hoist out of the step loop (eight 64-bit
+// descriptors per operand would pin 16 registers each).
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
 }
 
-// C fragments of n8 tiles 2j and 2j + 1 as one k16 A fragment, in bf16.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* p) {
+  return opaque(sw128_desc(p, 16, 1024));
 }
 
-// acc[rows x N] = (16 rows of A at row0) . B^T, B the first N rows of a
-// padded tile (both contiguous along D): the score products.
-template <int D, int N>
-__device__ __forceinline__ void rows_dot(float (&acc)[N / 8][4],
-                                         const uint16_t* a_tile, int row0,
-                                         const uint16_t* b_tile, int lane) {
-  constexpr int LD = ld<D>();
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] =
-      acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    a_frag<LD>(a, a_tile, row0, kk, lane);
-    const uint16_t* bp = b_tile + (lane >> 2) * LD + kk * 16 + (lane & 3) * 2;
-#pragma unroll
-    for (int n = 0; n < N / 8; ++n)
-      mma_16816(acc[n], a, ld32(bp + n * 8 * LD), ld32(bp + n * 8 * LD + 8));
-  }
+__device__ __forceinline__ uint64_t mndesc(const uint8_t* p, int box) {
+  return opaque(sw128_desc(p, box, 1024));
 }
 
-// acc[16 x D] += P (16 x K, C fragments) . B, B a padded [K, D] tile read
-// along its rows (column pairs).
-template <int D, int K>
-__device__ __forceinline__ void p_dot(float (&acc)[D / 8][4],
-                                      const float (&p)[K / 8][4],
-                                      const uint16_t* b_tile, int lane) {
-  constexpr int LD = ld<D>();
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    c_to_a(a, p[2 * kk], p[2 * kk + 1]);
-    const uint16_t* bp = b_tile + (kk * 16 + (lane & 3) * 2) * LD + (lane >> 2);
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      mma_16816(acc[n], a, ld_col_pair(bp + n * 8, LD),
-                ld_col_pair(bp + 8 * LD + n * 8, LD));
-  }
+// K-major: k16 step kk sits 32 bytes on inside a box, boxes `box` apart
+__device__ __forceinline__ uint64_t kmajor(uint64_t base, int box, int kk) {
+  return base + (((kk >> 2) * box + (kk & 3) * 32) >> 4);
 }
 
-// (a) D = rowsum(dO * O) and lse2 = lse * log2(e), one warp per row.
+// MN-major: k16 step kk is 16 rows (2048 bytes) on
+__device__ __forceinline__ uint64_t mnmajor(uint64_t base, int kk) {
+  return base + ((kk * 2048) >> 4);
+}
+
+// d += A . B over D output columns: A from registers (one k16 step), B
+// MN-major
+template <int D>
+__device__ __forceinline__ void rs_step(float (&d)[D / 2],
+                                        const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_m64n128(d, a, db);
+  else
+    wgmma_rs_m64n64(d, a, db);
+}
+
+// d += A . B over D output columns: A K-major, B MN-major in shared memory
+template <int D>
+__device__ __forceinline__ void ss_step(float (&d)[D / 2], uint64_t da,
+                                        uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_ss_m64n128_t<0, 1>(d, da, db, 1);
+  else
+    wgmma_ss_m64n64_t<0, 1>(d, da, db, 1);
+}
+
+// Query tile q0's last key tile: the key tiles 0..kt_last see it and add
+// their dQ partials in descending order.
+__device__ __forceinline__ int last_key_tile(int q0, int n_kt, int q_offset,
+                                             int causal) {
+  return causal ? min(n_kt - 1, (q0 + kBQ - 1 + q_offset) / kBK) : n_kt - 1;
+}
+
+// (a) D = rowsum(dO * O) and lse2 = lse * log2(e), D / 8 lanes (16 bytes of
+// O and dO each) per padded row; rows past T get D = 0 and lse2 = +inf.
+// Rows that see no key get dQ = 0, and the first row of each 64-row tile
+// zeroes the tile's order counter.
 template <int D>
 __global__ void __launch_bounds__(256)
 bwd_prep_kernel(const uint16_t* __restrict__ o,
                 const uint16_t* __restrict__ dout,
                 const float* __restrict__ lse, float* __restrict__ dvec,
-                float* __restrict__ lse2, int64_t rows) {
-  const int64_t row = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                       threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const uint16_t* op = o + row * D;
-  const uint16_t* dp = dout + row * D;
+                float* __restrict__ lse2, int* __restrict__ order,
+                uint16_t* __restrict__ dq, int64_t rows, int T, int Tp,
+                int q_offset, int causal) {
+  constexpr int kLanes = D / 8;
+  const int64_t prow = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                        threadIdx.x) / kLanes;
+  const int part = threadIdx.x % kLanes;
+  const int64_t bh = prow / Tp;
+  const int i = static_cast<int>(prow - bh * Tp);
+  const bool real = prow < rows && i < T;
+  const int64_t row = bh * T + i;
   float acc = 0.f;
+  if (real) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
+    const uint4 b =
+        *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int e = lane * 2; e < D; e += 64) {
-    const uint32_t a = ld32(op + e), b = ld32(dp + e);
-    acc += bf16_lo(a) * bf16_lo(b) + bf16_hi(a) * bf16_hi(b);
+    for (int c = 0; c < 4; ++c)
+      acc += bf16_lo(av[c]) * bf16_lo(bv[c]) + bf16_hi(av[c]) * bf16_hi(bv[c]);
+    if (causal && i + q_offset < 0)  // sees no key
+      *reinterpret_cast<uint4*>(dq + row * D + part * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = kLanes / 2; off > 0; off >>= 1)  // every lane takes part
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    dvec[row] = acc;
-    lse2[row] = lse[row] * kLog2e;
+  if (part == 0 && prow < rows) {
+    if (i % kBQ == 0) order[prow / kBQ] = 0;
+    dvec[prow] = real ? acc : 0.f;
+    lse2[prow] = real ? lse[row] * kLog2e : __int_as_float(0x7f800000);
   }
 }
 
-// (b) dK, dV for one (bh, 64-key tile).
+// (b) dK, dV and the dQ partials of one (bh, 128-key tile).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkdv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v,
-                const uint16_t* __restrict__ dout,
-                const float* __restrict__ lse2,
-                const float* __restrict__ dvec, uint16_t* __restrict__ dk,
-                uint16_t* __restrict__ dv, int T, int S, int q_offset,
-                int causal, float scale, float scale_log2) {
-  constexpr int LD = ld<D>();
-  constexpr int BQ = bq_kv<D>();
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint16_t* sk = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sv = sk + kBK * LD;
-  uint16_t* sq = sv + kBK * LD;
-  uint16_t* sdo = sq + BQ * LD;
-  float* sl = reinterpret_cast<float*>(sdo + BQ * LD);
-  float* sd = sl + BQ;
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBK;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int t2 = (lane & 3) * 2;
-  const int key0 = k0 + warp * 16 + (lane >> 2);  // rows of c0/c1; +8: c2/c3
-
-  load_rows<D>(sk, k + (int64_t)bh * S * D, k0, kBK, S, false);
-  load_rows<D>(sv, v + (int64_t)bh * S * D, k0, kBK, S, false);
-
-  float acc_k[D / 8][4], acc_v[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[n][c] = acc_v[n][c] = 0.f;
-
-  // the first query row that sees key k0
-  const int q_first = causal ? max(0, k0 - q_offset) : 0;
-  const int64_t qbase = (int64_t)bh * T;
-  for (int q0 = (q_first / BQ) * BQ; q0 < T; q0 += BQ) {
-    __syncthreads();  // the previous step is done with the Q / dO tiles
-    load_rows<D>(sq, q + qbase * D, q0, BQ, T, false);
-    load_rows<D>(sdo, dout + qbase * D, q0, BQ, T, false);
-    for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-      const bool in = q0 + i < T;
-      sl[i] = in ? lse2[qbase + q0 + i] : __int_as_float(0x7f800000);
-      sd[i] = in ? dvec[qbase + q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // P^T = 2^(scale_log2 * K . Q^T - lse2), masked
-    float st[BQ / 8][4];
-    rows_dot<D, BQ>(st, sk, warp * 16, sq, lane);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qi = n * 8 + t2 + (c & 1);
-        const int key = key0 + ((c & 2) ? 8 : 0);
-        const bool ok = key < S && q0 + qi < T &&
-                        (!causal || key <= q0 + qi + q_offset);
-        st[n][c] = ok ? fast_exp2(st[n][c] * scale_log2 - sl[qi]) : 0.f;
-      }
-    // dV += P^T . dO
-    p_dot<D, BQ>(acc_v, st, sdo, lane);
-    // dS^T = P^T * (V . dO^T - D)
-    float dpt[BQ / 8][4];
-    rows_dot<D, BQ>(dpt, sv, warp * 16, sdo, lane);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        st[n][c] *= dpt[n][c] - sd[n * 8 + t2 + (c & 1)];
-    // dK += dS^T . Q
-    p_dot<D, BQ>(acc_k, st, sq, lane);
-  }
-
-  const int64_t kbase = (int64_t)bh * S;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t2;
-    if (key0 < S) {
-      *reinterpret_cast<uint32_t*>(dk + (kbase + key0) * D + col) =
-          pack_bf16(acc_k[n][0] * scale, acc_k[n][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + (kbase + key0) * D + col) =
-          pack_bf16(acc_v[n][0], acc_v[n][1]);
-    }
-    if (key0 + 8 < S) {
-      *reinterpret_cast<uint32_t*>(dk + (kbase + key0 + 8) * D + col) =
-          pack_bf16(acc_k[n][2] * scale, acc_k[n][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + (kbase + key0 + 8) * D + col) =
-          pack_bf16(acc_v[n][2], acc_v[n][3]);
-    }
-  }
-}
-
-// (c) dQ for one (bh, 64-row query tile).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const uint16_t* __restrict__ v,
-              const uint16_t* __restrict__ dout,
-              const float* __restrict__ lse2, const float* __restrict__ dvec,
-              uint16_t* __restrict__ dq, int T, int S, int q_offset,
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_kv_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D], 64
+              const __grid_constant__ CUtensorMap domap,  // [BH, T, D], 64
+              const __grid_constant__ CUtensorMap kmap,   // [BH, S, D], 128
+              const __grid_constant__ CUtensorMap vmap,   // [BH, S, D], 128
+              const float* __restrict__ lse2,             // [BH, Tp]
+              const float* __restrict__ dvec,             // [BH, Tp]
+              float* __restrict__ dq_acc,  // [BH, Tp / 64, 64 x D] partials
+              int* __restrict__ order,     // [BH, Tp / 64] tiles added
+              uint16_t* __restrict__ dq, uint16_t* __restrict__ dk,
+              uint16_t* __restrict__ dv, int T, int S, int q_offset,
               int causal, float scale, float scale_log2) {
-  constexpr int LD = ld<D>();
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint16_t* sq = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sdo = sq + kBQdq * LD;
-  uint16_t* sk = sdo + kBQdq * LD;
-  uint16_t* sv = sk + kBK * LD;
+  constexpr int kKV = tile_bytes<D>(kBK);
+  constexpr int kQ = tile_bytes<D>(kBQ);
+  constexpr int kDS = box_bytes(kBK);  // dS^T: 128 keys x 64 queries
+  constexpr int kDQ = dq_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full;
+  __shared__ __align__(8) uint64_t q_full[kStages];
+  __shared__ __align__(8) uint64_t q_empty[kStages];
+  __shared__ __align__(8) uint64_t dq_full[2];
+  __shared__ __align__(8) uint64_t dq_empty[2];
 
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQdq;  // heaviest first
+  // swizzled boxes need 1024-byte aligned shared addresses
+  uint8_t* const sk =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const sv = sk + kKV;
+  uint8_t* const sring = sv + kKV;  // stage s: Q at sring + 2s·kQ, dO after
+  uint8_t* const sds = sring + kStages * 2 * kQ;  // dS^T, by step parity
+  uint8_t* const sdq = sds + 2 * kDS;             // dQ partials, likewise
+  float* const sstat = reinterpret_cast<float*>(sdq + 2 * kDQ);
+  // stage s: lse2 at sstat + 2s·kBQ, D after
+
+  const int n_kt = gridDim.x;
+  const int kt = n_kt - 1 - blockIdx.x;  // launched in the order they add
+  const int bh = blockIdx.y;
+  const int k0 = kt * kBK;
+  const int Tp = padded_rows(T);
+  const int n_qt = Tp / kBQ;
+  const int q_start = causal ? max(0, k0 - q_offset) / kBQ * kBQ : 0;
+  const int n_steps = (T - q_start + kBQ - 1) / kBQ;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int t2 = (lane & 3) * 2;
-  const int row0 = q0 + warp * 16 + (lane >> 2);  // c0/c1; +8: c2/c3
-  const int64_t qbase = (int64_t)bh * T;
 
-  load_rows<D>(sq, q + qbase * D, q0, kBQdq, T, false);
-  load_rows<D>(sdo, dout + qbase * D, q0, kBQdq, T, false);
-  const float inf = __int_as_float(0x7f800000);
-  float l2[2], dd[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + 8 * h;
-    l2[h] = r < T ? lse2[qbase + r] : inf;
-    dd[h] = r < T ? dvec[qbase + r] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], kConsumers * 128);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&dq_full[b], kConsumers * 128);
+      mbar_init(&dq_empty[b], 1);
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  int n_tiles = (S + kBK - 1) / kBK;
-  if (causal) {
-    const int last = q_offset + min(q0 + kBQdq, T) - 1;
-    n_tiles = last < 0 ? 0 : min(n_tiles, last / kBK + 1);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int kv0 = j * kBK;
-    __syncthreads();  // the previous step is done with the K / V tiles
-    load_rows<D>(sk, k + (int64_t)bh * S * D, kv0, kBK, S, false);
-    load_rows<D>(sv, v + (int64_t)bh * S * D, kv0, kBK, S, false);
-    __syncthreads();
-
-    float p[kBK / 8][4];
-    rows_dot<D, kBK>(p, sq, warp * 16, sk, lane);
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = kv0 + n * 8 + t2 + (c & 1);
-        const int h = (c >> 1) & 1;
-        const int r = row0 + 8 * h;
-        const bool ok = key < S && r < T && (!causal || key <= r + q_offset);
-        p[n][c] = ok ? fast_exp2(p[n][c] * scale_log2 - l2[h]) : 0.f;
+  if (warp >= kConsumers * 4) {  // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {  // lane 0 of warp 8: TMA loads
+      mbar_expect_tx(&kv_full, 2 * kKV);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_3d(sk + c * box_bytes(kBK), &kmap, &kv_full, c * 64, k0, bh);
+        tma_load_3d(sv + c * box_bytes(kBK), &vmap, &kv_full, c * 64, k0, bh);
       }
-    float dp[kBK / 8][4];
-    rows_dot<D, kBK>(dp, sdo, warp * 16, sv, lane);
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) p[n][c] *= dp[n][c] - dd[(c >> 1) & 1];
-    // dQ += dS . K
-    p_dot<D, kBK>(acc, p, sk, lane);
-  }
+      const int64_t stat0 = (int64_t)bh * Tp;
+      for (int j = 0; j < n_steps; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&q_empty[s], (j / kStages - 1) & 1);
+        const int q0 = q_start + j * kBQ;
+        uint8_t* qs = sring + 2 * s * kQ;
+        float* st = sstat + 2 * s * kBQ;
+        mbar_expect_tx(&q_full[s], 2 * kQ + 2 * kBQ * 4);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_3d(qs + c * box_bytes(kBQ), &qmap, &q_full[s], c * 64, q0,
+                      bh);
+          tma_load_3d(qs + kQ + c * box_bytes(kBQ), &domap, &q_full[s],
+                      c * 64, q0, bh);
+        }
+        bulk_load(st, lse2 + stat0 + q0, kBQ * 4, &q_full[s]);
+        bulk_load(st + kBQ, dvec + stat0 + q0, kBQ * 4, &q_full[s]);
+      }
+    } else if (threadIdx.x == kConsumers * 128 + 32 && kt > 0) {
+      // lane 0 of warp 9: the partials out, in the order (block 0 adds
+      // last and writes dQ itself)
+      for (int j = 0; j < n_steps; ++j) {
+        const int b = j & 1;
+        const int q0 = q_start + j * kBQ;
+        const int rank = last_key_tile(q0, n_kt, q_offset, causal) - kt;
+        const int64_t tile = (int64_t)bh * n_qt + q0 / kBQ;
+        int* cnt = order + tile;
+        if (rank > 0) {  // the key tiles above this one are in
+          while (ld_acquire(cnt) < rank) __nanosleep(32);
+          fence_proxy_async_global();
+        }
+        mbar_wait(&dq_full[b], (j >> 1) & 1);
+        float* dst = dq_acc + tile * (kBQ * D);
+        if (rank == 0)
+          bulk_store(dst, sdq + b * kDQ, kDQ);
+        else
+          bulk_reduce_add_f32(dst, sdq + b * kDQ, kDQ);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(&dq_empty[b]);
+        bulk_wait();
+        fence_proxy_async_global();
+        __threadfence();
+        red_release_add(cnt, 1);
+      }
+    }
+  } else {
+    // a consumer warpgroup: 64 keys; this thread's keys are key, key + 8
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp >> 2;
+    const int lane = threadIdx.x & 31;
+    const int tid = threadIdx.x & 127;
+    const int g = lane >> 2;
+    const int t2 = (lane & 3) * 2;
+    const int kw0 = k0 + wg * 64;
+    const int krow = wg * 64 + (warp & 3) * 16 + g;  // its row in the tile
+    const int key = k0 + krow;
+    const uint8_t* sk_wg = sk + wg * 64 * 128;  // its rows in every box
+    const uint8_t* sv_wg = sv + wg * 64 * 128;
+    // the dQ product's D columns (at D = 64 both warpgroups compute the one
+    // partial, so no wgmma sits in a divergent branch; warpgroup 0 keeps it)
+    const int dq_box = D == 128 ? wg : 0;
+    const bool dq_keep = D == 128 || wg == 0;
 
+    float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t2;
-    if (row0 < T)
-      *reinterpret_cast<uint32_t*>(dq + (qbase + row0) * D + col) =
-          pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
-    if (row0 + 8 < T)
-      *reinterpret_cast<uint32_t*>(dq + (qbase + row0 + 8) * D + col) =
-          pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    mbar_wait(&kv_full, 0);
+
+    for (int j = 0; j < n_steps; ++j) {
+      const int s = j % kStages;
+      const int b = j & 1;
+      const int q0 = q_start + j * kBQ;
+      const uint8_t* qs = sring + 2 * s * kQ;
+      const uint8_t* dos = qs + kQ;
+      const float* sl = sstat + 2 * s * kBQ;
+      const float* sd = sl + kBQ;
+      uint8_t* ds = sds + b * kDS;
+      mbar_wait(&q_full[s], (j / kStages) & 1);
+      const uint64_t d_k = kdesc(sk_wg), d_v = kdesc(sv_wg);
+      const uint64_t d_q = kdesc(qs), d_do = kdesc(dos);
+      const uint64_t d_ds = kdesc(ds + wg * 64 * 128);
+      const uint64_t d_qt = mndesc(qs, box_bytes(kBQ));
+      const uint64_t d_dot = mndesc(dos, box_bytes(kBQ));
+
+      {
+        // S^T = K . Q^T and dP^T = V . dO^T over D, two wgmma groups
+        float st[kBQ / 2], dpt[kBQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_m64n64_t<0, 0>(st, kmajor(d_k, box_bytes(kBK), kk),
+                                  kmajor(d_q, box_bytes(kBQ), kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_m64n64_t<0, 0>(dpt, kmajor(d_v, box_bytes(kBK), kk),
+                                  kmajor(d_do, box_bytes(kBQ), kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st);
+
+        // P^T = 2^(scale_log2 * S^T - lse2[query]); element i of the
+        // accumulator is key row key (+8 if i & 2), query column
+        // q0 + 8(i / 4) + t2 + (i & 1)
+        const bool edge =
+            kw0 + 64 > S || (causal && kw0 + 63 > q0 + q_offset);
+#pragma unroll
+        for (int i = 0; i < kBQ / 2; ++i) {
+          const int qc = (i >> 2) * 8 + t2 + (i & 1);
+          float p = fast_exp2(st[i] * scale_log2 - sl[qc]);
+          if (edge) {
+            const int kr = key + ((i & 2) ? 8 : 0);
+            if (kr >= S || (causal && kr > q0 + qc + q_offset)) p = 0.f;
+          }
+          st[i] = p;
+        }
+        uint32_t pa[kBQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBQ / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+
+        // dV += P^T . dO
+        fence_regs(acc_v);
+        fence_regs(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBQ / 16; ++kk)
+          rs_step<D>(acc_v, pa[kk], mnmajor(d_dot, kk));
+        wgmma_commit();
+
+        // dS^T = P^T * (dP^T - D[query]) while dV's product runs
+        wgmma_wait<1>();
+        fence_regs(dpt);
+#pragma unroll
+        for (int i = 0; i < kBQ / 2; ++i)
+          st[i] *= dpt[i] - sd[(i >> 2) * 8 + t2 + (i & 1)];
+        wgmma_wait<0>();
+        fence_regs(acc_v);
+        // dS^T in bf16 into shared memory, swizzled as a TMA box: rows
+        // krow, krow + 8 (both have row & 7 == g), queries 16kk + 8(r / 2)
+        // + t2, +1: bank-conflict free
+#pragma unroll
+        for (int kk = 0; kk < kBQ / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int chunk = (2 * kk + (r >> 1)) ^ g;
+            *reinterpret_cast<uint32_t*>(ds + (krow + (r & 1) * 8) * 128 +
+                                         chunk * 16 + t2 * 2) =
+                pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          }
+      }
+      fence_proxy_async();
+      named_barrier_sync(kDsBar, kConsumers * 128);  // all of dS^T stored
+
+      // dK += dS^T . Q and the dQ partial = dS . K (dS^T and K MN-major)
+      float dqp[32];
+      const uint64_t d_dst = mndesc(ds, kDS);
+      const uint64_t d_kt =
+          mndesc(sk + dq_box * box_bytes(kBK), box_bytes(kBK));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk)
+        ss_step<D>(acc_k, kmajor(d_ds, kDS, kk), mnmajor(d_qt, kk));
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_ss_m64n64_t<1, 1>(dqp, mnmajor(d_dst, kk), mnmajor(d_kt, kk),
+                                kk > 0);
+      wgmma_commit();
+      // block 0 is last in the order: while the products run, wait for the
+      // other key tiles' sum of this query tile and fetch it
+      const int kt_last = last_key_tile(q0, n_kt, q_offset, causal);
+      const int64_t tile = (int64_t)bh * n_qt + q0 / kBQ;
+      float4 prev[8];
+      if (kt == 0 && dq_keep && kt_last > 0) {
+        while (ld_acquire(order + tile) < kt_last) __nanosleep(32);
+        const float4* sum = reinterpret_cast<const float4*>(
+                                dq_acc + tile * (kBQ * D)) +
+                            wg * 8 * 128 + tid;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) prev[c] = __ldcg(sum + c * 128);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) prev[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc_k);
+      fence_regs(dqp);
+      mbar_arrive(&q_empty[s]);
+
+      if (kt == 0) {
+        // add its own partial and write dQ
+        if (dq_keep) {
+          const int row = q0 + (warp & 3) * 16 + g;
+          uint16_t* out = dq + ((int64_t)bh * T + row) * D + 64 * dq_box + t2;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            if (row < T)
+              *reinterpret_cast<uint32_t*>(out + 8 * c) =
+                  pack_bf16((prev[c].x + dqp[4 * c]) * scale,
+                            (prev[c].y + dqp[4 * c + 1]) * scale);
+            if (row + 8 < T)
+              *reinterpret_cast<uint32_t*>(out + 8 * D + 8 * c) =
+                  pack_bf16((prev[c].z + dqp[4 * c + 2]) * scale,
+                            (prev[c].w + dqp[4 * c + 3]) * scale);
+          }
+        }
+      } else {
+        // hand the partial to the writer: float4 c of thread tid of
+        // warpgroup w at (w·8 + c)·128 + tid, element i of dqp at row
+        // 16(warp & 3) + g (+8 if i & 2), column 64w + 8(i / 4) + t2 + (i & 1)
+        if (dq_keep) {
+          if (j >= 2) mbar_wait(&dq_empty[b], ((j >> 1) - 1) & 1);
+          float4* out = reinterpret_cast<float4*>(sdq + b * kDQ) +
+                        wg * 8 * 128 + tid;
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            out[c * 128] = make_float4(dqp[4 * c], dqp[4 * c + 1],
+                                       dqp[4 * c + 2], dqp[4 * c + 3]);
+          fence_proxy_async();
+        }
+        mbar_arrive(&dq_full[b]);
+      }
+    }
+
+    const int64_t kbase = (int64_t)bh * S;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + t2;
+      if (key < S) {
+        *reinterpret_cast<uint32_t*>(dk + (kbase + key) * D + col) =
+            pack_bf16(acc_k[4 * n] * scale, acc_k[4 * n + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + (kbase + key) * D + col) =
+            pack_bf16(acc_v[4 * n], acc_v[4 * n + 1]);
+      }
+      if (key + 8 < S) {
+        *reinterpret_cast<uint32_t*>(dk + (kbase + key + 8) * D + col) =
+            pack_bf16(acc_k[4 * n + 2] * scale, acc_k[4 * n + 3] * scale);
+        *reinterpret_cast<uint32_t*>(dv + (kbase + key + 8) * D + col) =
+            pack_bf16(acc_v[4 * n + 2], acc_v[4 * n + 3]);
+      }
+    }
   }
 }
 
@@ -379,47 +569,46 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    cudaStream_t stream) {
   static bool configured = false;  // the >48 KB opt-in, once per instance
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_kv_bytes<D>());
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(bwd_dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_q_bytes<D>());
+    const cudaError_t err = cudaFuncSetAttribute(
+        bwd_kv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<D>());
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const int64_t rows = static_cast<int64_t>(BH) * T;
-  float* dvec = static_cast<float*>(scratch);
+  const int Tp = padded_rows(T);
+  const int64_t rows = static_cast<int64_t>(BH) * Tp;
+  float* dq_acc = static_cast<float*>(scratch);
+  float* dvec = dq_acc + rows * D;
   float* lse2 = dvec + rows;
-  const auto* qb = static_cast<const uint16_t*>(q);
-  const auto* kb = static_cast<const uint16_t*>(k);
-  const auto* vb = static_cast<const uint16_t*>(v);
-  const auto* dob = static_cast<const uint16_t*>(dout);
-  const float scale_log2 = scale * kLog2e;
+  int* order = reinterpret_cast<int*>(lse2 + rows);
+  CUtensorMap qmap, domap, kmap, vmap;
+  if (!encode_rows_map(&qmap, q, BH, T, D, kBQ) ||
+      !encode_rows_map(&domap, dout, BH, T, D, kBQ) ||
+      !encode_rows_map(&kmap, k, BH, S, D, kBK) ||
+      !encode_rows_map(&vmap, v, BH, S, D, kBK))
+    return cudaErrorInvalidValue;
 
-  bwd_prep_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
-                       stream>>>(static_cast<const uint16_t*>(o), dob,
-                                 static_cast<const float*>(lse), dvec, lse2,
-                                 rows);
+  bwd_prep_kernel<D><<<static_cast<unsigned>((rows * (D / 8) + 255) / 256),
+                       256, 0, stream>>>(
+      static_cast<const uint16_t*>(o), static_cast<const uint16_t*>(dout),
+      static_cast<const float*>(lse), dvec, lse2, order,
+      static_cast<uint16_t*>(dq), rows, T, Tp, q_offset, causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dkdv_kernel<D><<<dim3(BH, (S + kBK - 1) / kBK), kThreads,
-                       smem_kv_bytes<D>(), stream>>>(
-      qb, kb, vb, dob, lse2, dvec, static_cast<uint16_t*>(dk),
-      static_cast<uint16_t*>(dv), T, S, q_offset, causal, scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_dq_kernel<D><<<dim3(BH, (T + kBQdq - 1) / kBQdq), kThreads,
-                     smem_q_bytes<D>(), stream>>>(
-      qb, kb, vb, dob, lse2, dvec, static_cast<uint16_t*>(dq), T, S,
-      q_offset, causal, scale, scale_log2);
+  bwd_kv_kernel<D><<<dim3((S + kBK - 1) / kBK, BH), kThreads,
+                      smem_bytes<D>(), stream>>>(
+      qmap, domap, kmap, vmap, lse2, dvec, dq_acc, order,
+      static_cast<uint16_t*>(dq), static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), T, S, q_offset, causal, scale,
+      scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: 2 * BH * T floats (D, then lse in base 2).
+// scratch: BH * Tp * (D + 2) + BH * Tp / 64 four-byte words, Tp = T rounded
+// up to a multiple of 64: the dQ partial sums (fp32), D, lse in base 2,
+// then the per-query-tile order counters (int).
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* o, const void* lse,
                               const void* dout, void* dq, void* dk, void* dv,

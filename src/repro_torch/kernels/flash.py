@@ -14,7 +14,11 @@ kernels (bf16) or raise.
 v requires grad it runs as ``_Flash`` (a ``torch.autograd.Function``),
 whose forward keeps the row log-sum-exp and whose backward is
 ``flash_bwd``. The TPU kernel has no VJP (the reference trains through
-XLA's dense softmax); on the card the backward is a kernel too.
+XLA's dense softmax); on the card the backward is a kernel too, two
+launches in one C call: a prep pass (D = rowsum(dO·O), lse in base 2) and
+one ``wgmma`` + TMA pass over 128-key tiles that computes dK, dV and each
+key tile's dQ partial, the partials summed into every query tile in a
+fixed order (descending key tile), so two calls give the same bits.
 ``kernels.LAUNCHES["flash"]`` and ``["flash_bwd"]`` count launches
 (one per call), ``kernels.FORM_LAUNCHES["flash/noncausal"]`` and
 ``["flash_bwd/noncausal"]`` those without the mask.
@@ -90,7 +94,11 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(o.shape)}, do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} {lse.dtype}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty((2, bh, t), dtype=torch.float32, device=q.device)
+    # rows padded to the kernel's 64-row query tile: the dQ partial sums,
+    # D and lse in base 2 per row (fp32), an order counter per query tile
+    tp = -(-t // 64) * 64
+    scratch = torch.empty(bh * tp * (d + 2) + bh * tp // 64,
+                          dtype=torch.float32, device=q.device)
     fn = launch.bind(name, "flash_bwd_bf16",
                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                      + [ctypes.c_float, ctypes.c_void_p])

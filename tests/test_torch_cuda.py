@@ -886,23 +886,45 @@ def _lowp_attention(q, k, v, *, causal, scale):
     return torch.einsum("bts,bsd->btd", torch.softmax(sc, -1).to(v.dtype), v)
 
 
+def _lowp_grads(q, k, v, do, *, causal, scale):
+    """The bf16 plain gradient. Rows that see no key (causal, T > S) are
+    left out of its forward, as K4 leaves them (a plain softmax spreads
+    them evenly over the masked keys): their dQ is 0, and they add
+    nothing to dK and dV."""
+    cut = max(q.shape[1] - k.shape[1], 0) if causal else 0
+    leaves = [x.detach().requires_grad_() for x in (q[:, cut:], k, v)]
+    dq, dk, dv = torch.autograd.grad(
+        _lowp_attention(*leaves, causal=causal, scale=scale), leaves,
+        do[:, cut:])
+    return torch.cat([torch.zeros_like(q[:, :cut]), dq], dim=1), dk, dv
+
+
+# the backward's tile edges: 64-row query tiles, 128-key tiles
+_BWD_EDGES = (63, 64, 65, 127, 128, 129)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("t,s,causal", [
-    (256, 256, True), (1000, 1000, True), (256, 2048, False),
-    (300, 100, False), (100, 300, True), (129, 129, True), (1, 1, True),
-    (2048, 2048, True)])
-def test_flash_bwd_kernel_matches_plain(cuda_device, d, t, s, causal):
+@pytest.mark.parametrize("bh,t,s,causal", [
+    (4, 256, 256, True), (4, 1000, 1000, True), (4, 256, 2048, False),
+    (4, 300, 100, False), (4, 100, 300, True), (4, 129, 129, True),
+    (4, 1, 1, True), (4, 2048, 2048, True)] + [
+    (1, t, s, causal) for causal in (True, False) for t in _BWD_EDGES
+    for s in _BWD_EDGES])
+def test_flash_bwd_kernel_matches_plain(cuda_device, d, bh, t, s, causal):
     """K4's backward against ``ref.flash_bwd_ref`` in fp32: dQ, dK and dV
     each no further from it than twice the bf16 plain gradient is (plus
-    1e-5), the FlashAttention repository's rule; one counted launch; two
-    calls bit-equal (no atomics)."""
+    1e-5), the FlashAttention repository's rule, at the usual shapes and
+    at every pair of T, S around the kernel's tile edges; rows that see
+    no key (causal, T > S) get dQ = 0 exactly; one counted launch; three
+    calls bit-equal, one of them on a side stream (the ordered dQ
+    reduction, no free-running atomics)."""
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import ref
-    gen = torch.Generator(device="cpu").manual_seed(d * 7 + t + s)
-    q = _bf16((4, t, d), gen, cuda_device)
-    k, v = (_bf16((4, s, d), gen, cuda_device) for _ in range(2))
-    do = _bf16((4, t, d), gen, cuda_device)
+    gen = torch.Generator(device="cpu").manual_seed(d * 7 + t + s + bh)
+    q = _bf16((bh, t, d), gen, cuda_device)
+    k, v = (_bf16((bh, s, d), gen, cuda_device) for _ in range(2))
+    do = _bf16((bh, t, d), gen, cuda_device)
     scale = d ** -0.5
     o, lse = kflash.flash_attention(q, k, v, causal=causal, return_lse=True)
     kernels.reset_launches()
@@ -910,14 +932,20 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, d, t, s, causal):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_bwd"] == 1
     again = kflash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        third = kflash.flash_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
     assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
-               for a, b in zip(got, again))
+               for other in (again, third) for a, b in zip(got, other))
+    blind = max(t - s, 0) if causal else 0
+    assert bool((got[0][:, :blind] == 0).all())
     f32 = [x.float() for x in (q, k, v)]
     o32, lse32 = ref.flash_ref(*f32, causal=causal, return_lse=True)
     want = ref.flash_bwd_ref(*f32, o32, lse32, do.float(), causal=causal)
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    lowp = torch.autograd.grad(
-        _lowp_attention(*leaves, causal=causal, scale=scale), leaves, do)
+    lowp = _lowp_grads(q, k, v, do, causal=causal, scale=scale)
     for g, w, p in zip(got, want, lowp):
         err = float((g.float() - w).abs().max())
         assert err <= 2 * float((p.float() - w).abs().max()) + 1e-5
