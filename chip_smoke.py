@@ -252,6 +252,25 @@ Phases, each printing its numbers on a line of its own:
    same step on the plain path in fp32 (``flash_ref`` under autograd):
    loss and grad norm within 2e-2, each leaf within twice the bf16 plain
    path's error.
+21. STAR in training (``ModelCfg.star_train``): (a) K3's optional lse
+   (strict and fast: O bit-equal with and without it, the plain lse at
+   1e-4) and K3's backward (``csrc/sufa_bwd.cu``) on the glue's selection
+   against its plain version (``sufa_bwd_ref``) by phase 20a's rule, for
+   the backward of either forward, two calls bit-equal: OLMo-1B's
+   training shape (BH 128, T = S = 2048, d 128, causal, keep 4 of 16),
+   SeamlessM4T's encoder (BH 16, T = S = 2048, d 64, not causal), T 256
+   over S 2048, and edges (invalid slots, a key tile no q-tile chose
+   with dK = dV = 0, a q-tile with no valid slot with dQ = 0); the first
+   two timed beside their bounds (10·d flops per visible selected pair),
+   the plain version and SDPA's backward under the selection's dense
+   mask, with the split of its three kernels; (b) OLMo-1B with
+   ``star_train`` trained as in 20b: the loss falls by more than 0.1,
+   K2 = K3 = steps x 32, K3's backward steps x 16, K1 and K4 never; step
+   ms, tokens/s, MFU, peak memory and one profiled step's split (K2, K3,
+   K3's backward, the selection glue, GEMMs, AdamW, the rest); (c) 20c's
+   restart check with ``star_train``, in 20c's child process after the
+   dense run; (d) 20d's model step with ``star_train``, the plain runs
+   taking the kernel run's tile ids.
 Phase 4 also counts K4: oracle forwards x attention layers launches (an
 encoder-decoder forward's: its encoder, self- and cross-attention
 layers).
@@ -402,10 +421,16 @@ RESTART_LAYERS = 2
 RESTART_BATCH = 4
 # K4's backward's kernels (csrc/flash_bwd.cu), by name prefix
 BWD_KERNELS = ("bwd_prep", "bwd_kv")
+# phase 21: STAR in training; K3's backward's kernels (csrc/sufa_bwd.cu)
+SUFA_BWD_KERNELS = ("sufa_grad_prep", "sufa_grad_kv", "sufa_grad_q")
+STARTED = time.perf_counter()
 
 
 def emit(tag: str, **fields) -> None:
-    print(json.dumps({"phase": tag, **fields}), flush=True)
+    """One JSON line for a phase's record, with ``t_s``: the seconds since
+    the script started."""
+    print(json.dumps({"phase": tag, **fields,
+                      "t_s": time.perf_counter() - STARTED}), flush=True)
 
 
 def attn_layers(cfg) -> int:
@@ -3568,9 +3593,11 @@ def check_flash_bwd(dev, flush, *, bh, t, causal, seed, timed, d=128,
     return out
 
 
-def flash_bwd_split(fn, flush, iters: int = 10) -> dict:
-    """Device ms per launch of each kernel K4's backward launches (the
-    prep pass, and the key-tile pass that computes dK, dV and dQ), from
+def flash_bwd_split(fn, flush, iters: int = 10,
+                    parts=BWD_KERNELS) -> dict:
+    """Device ms per launch of each kernel a backward launches (K4's:
+    the prep pass, and the key-tile pass that computes dK, dV and dQ;
+    K3's with ``parts=SUFA_BWD_KERNELS``: prep, dK/dV, dQ), from
     ``torch.profiler`` over ``iters`` calls of ``fn``, each after an L2
     flush (averaged over the launches the trace holds); their sum beside
     them."""
@@ -3585,12 +3612,12 @@ def flash_bwd_split(fn, flush, iters: int = 10) -> dict:
         torch.cuda.synchronize()
     _, _, top = profiling.device_kernels(prof, set())
     out = {}
-    for part in BWD_KERNELS:
+    for part in parts:
         mine = [k for k in top if f"{part}_kernel" in k["name"]]
         out[f"{part}_launches_traced"] = sum(k["calls"] for k in mine)
         out[f"{part}_ms"] = sum(k["device_ms"] for k in mine) / max(
             1, out[f"{part}_launches_traced"])
-    out["split_sum_ms"] = sum(out[f"{part}_ms"] for part in BWD_KERNELS)
+    out["split_sum_ms"] = sum(out[f"{part}_ms"] for part in parts)
     return out
 
 
@@ -3628,7 +3655,9 @@ def train_run(cfg, params, opt_state, *, steps: int, seq: int, batch: int,
     """``train_loop`` over ``launch.steps.make_train_step`` on
     ``SyntheticLM`` batches (``data.PrefetchLoader`` on ``dev``): every
     step's loss, grad norm and host seconds (each step ends in a sync),
-    the final save's seconds and the final params and optimizer state."""
+    the final save's seconds and the final params and optimizer state.
+    With ``ckpt_dir`` None the same steps run from the same loader
+    without ``train_loop``: no checkpoint, no final save."""
     step = launch_steps.make_train_step(cfg, lr=lr, warmup=TRAIN_WARMUP,
                                         total_steps=steps)
     rec = {"loss": [], "grad_norm": [], "step_s": []}
@@ -3643,6 +3672,16 @@ def train_run(cfg, params, opt_state, *, steps: int, seq: int, batch: int,
         rec["end"] = time.perf_counter()
         return p, o, m
     ds = SyntheticLM(vocab=cfg.vocab, seq=seq, global_batch=batch)
+    if ckpt_dir is None:
+        loader = PrefetchLoader(ds, dev)
+        for i, b in loader:
+            if i >= steps:
+                break
+            params, opt_state, _ = step_fn(params, opt_state, b)
+        loader.stop()
+        rec.pop("end")
+        rec.update(save_s=None, params=params, opt=opt_state)
+        return rec
     loop = TrainLoopCfg(total_steps=steps, ckpt_every=ckpt_every,
                         ckpt_dir=str(ckpt_dir), log_every=steps + 1,
                         fail_at_step=fail_at)
@@ -3654,12 +3693,18 @@ def train_run(cfg, params, opt_state, *, steps: int, seq: int, batch: int,
     return rec
 
 
+def star_trained(cfg) -> bool:
+    return cfg.star_train and cfg.star is not None
+
+
 def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
     """One more training step under ``torch.profiler``: its device time
-    split into K4's forward, K4's backward, the GEMMs, the optimizer
-    update (a profiler range around ``adamw_update``) and the rest
-    (norms, activations, softmax-CE, casts, the embedding), and the
-    device's busy share of the step's wall time."""
+    split into K4's forward and backward (with ``star_train``: K2, K3's
+    forward, K3's backward and the selection glue, a profiler range
+    around ``ops.select_tiles``), the GEMMs, the optimizer update (a
+    profiler range around ``adamw_update``) and the rest (norms,
+    activations, softmax-CE, casts, the embedding), and the device's busy
+    share of the step's wall time."""
     if not on_card:
         return {}
     from torch.profiler import ProfilerActivity, profile
@@ -3667,6 +3712,8 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
                                         warmup=TRAIN_WARMUP,
                                         total_steps=TRAIN_STEPS)
     ranges = {(adamw, "adamw_update"): "optimizer"}
+    if star_trained(cfg):
+        ranges[ops, "select_tiles"] = "selection"
     with profiling.ranged(ranges), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3679,11 +3726,19 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
     def by_name(*keys):
         return sum(k["device_ms"] for k in top
                    if any(p in k["name"].lower() for p in keys))
-    parts = {"k4_forward_ms": by_name("flash_kernel"),
-             "k4_backward_ms": by_name(*BWD_KERNELS),
-             "gemm_ms": by_name(*profiling.GEMM_NAMES),
-             "optimizer_ms": profiling.range_device_ms(prof, "optimizer",
-                                                       names)}
+    if star_trained(cfg):
+        parts = {"k2_ms": by_name("dlzs_wgmma_kernel", "dlzs_mma_kernel"),
+                 "k3_forward_ms": by_name("sufa_wgmma_kernel",
+                                          "sufa_mma_kernel"),
+                 "k3_backward_ms": by_name(*SUFA_BWD_KERNELS),
+                 "selection_ms": profiling.range_device_ms(
+                     prof, "selection", names)}
+    else:
+        parts = {"k4_forward_ms": by_name("flash_kernel"),
+                 "k4_backward_ms": by_name(*BWD_KERNELS)}
+    parts.update(gemm_ms=by_name(*profiling.GEMM_NAMES),
+                 optimizer_ms=profiling.range_device_ms(prof, "optimizer",
+                                                        names))
     parts["other_ms"] = device_ms - sum(parts.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": busy_ms / wall_ms, **parts,
@@ -3692,28 +3747,34 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
 
 
 def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
-                   batch=TRAIN_BATCH, lr=TRAIN_LR) -> dict:
+                   batch=TRAIN_BATCH, lr=TRAIN_LR, save: bool = True) -> dict:
     """Phase 20b: ``cfg`` trained from ``lm.init`` (seed 0) with the
     reference's optimizer (``make_optimizer``: AdamW, bf16 moments) and
-    ``remat="full"``, ``steps`` steps of ``batch`` x ``seq`` tokens, one
-    final save into a directory under ``build/`` that the phase removes.
+    ``remat="full"``, ``steps`` steps of ``batch`` x ``seq`` tokens
+    through ``train_loop``, one final save into a directory under
+    ``build/`` that the phase removes (with ``save`` False, as phase 21b
+    runs it, the same steps without ``train_loop``: 20b covers the
+    checkpointer).
     The loss must fall by more than 0.1 from the first step to the last
     (``tests/test_train_serve.py::test_training_reduces_loss``), every
     loss and grad norm be finite, and the kernels launch exactly: K4
     twice per attention layer and step (the forward and its recompute
-    under remat), its backward once, K1-K3 never."""
+    under remat), its backward once, K1-K3 never; with ``star_train``
+    (phase 21b) K2 and K3 twice and K3's backward once instead, K1 and K4
+    never."""
     on_card = torch.device(dev).type == "cuda"
     params, info = init_params(cfg, gen, dev)
     _, opt_init, _ = launch_steps.make_optimizer(cfg, lr)
     opt_state = opt_init(params)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "star_train": star_trained(cfg),
            "seq": seq, "batch": batch, "steps": steps, "lr": lr,
            "warmup": TRAIN_WARMUP, "remat": cfg.remat, **info,
            "free_disk_gb_before": free_disk_gb(BUILD_DIR)}
     emit("training_setup", **out)
     ckpt_dir = pathlib.Path(tempfile.mkdtemp(prefix="train_ckpt_",
-                                             dir=BUILD_DIR))
+                                             dir=BUILD_DIR)) if save else None
     try:
         kernels.reset_launches()
         if on_card:
@@ -3721,8 +3782,9 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
         run = train_run(cfg, params, opt_state, steps=steps, seq=seq,
                         batch=batch, ckpt_dir=ckpt_dir, dev=dev, lr=lr)
         got = launched()
-        out["save_bytes"] = sum(f.stat().st_size
-                                for f in ckpt_dir.rglob("*") if f.is_file())
+        out["save_bytes"] = sum(
+            f.stat().st_size for f in ckpt_dir.rglob("*")
+            if f.is_file()) if save else None
         data = SyntheticLM(vocab=cfg.vocab, seq=seq,
                            global_batch=batch).batch(steps)
         out["profiled_step"] = profile_train_step(
@@ -3730,11 +3792,15 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
             {k: torch.from_numpy(v).to(dev) for k, v in data.items()},
             on_card)
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if save:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     layers = attn_layers(cfg)
-    want = {"flash": steps * layers * 2, "flash_bwd": steps * layers,
-            "paged_decode": 0, "paged_decode_stats": 0, "dlzs_block": 0,
-            "sufa": 0} if on_card else {name: 0 for name in kernels.LAUNCHES}
+    want = {name: 0 for name in kernels.LAUNCHES}
+    if on_card and star_trained(cfg):
+        want.update(dlzs_block=steps * layers * 2, sufa=steps * layers * 2,
+                    sufa_bwd=steps * layers)
+    elif on_card:
+        want.update(flash=steps * layers * 2, flash_bwd=steps * layers)
     tokens = seq * batch
     step_s = float(np.median(run["step_s"][1:] or run["step_s"]))
     out.update(loss=run["loss"], grad_norm=run["grad_norm"],
@@ -3769,7 +3835,8 @@ def restart_child(workdir: str, dev="cuda", cfg=None, seq: int = TRAIN_SEQ,
     deterministic form raises): OLMo-1B at full width cut to
     RESTART_LAYERS layers, 10 steps uninterrupted (a checkpoint every 5),
     then the same run failed at step 7 and resumed from a fresh init. The
-    final params and optimizer state must be the same bits."""
+    final params and optimizer state must be the same bits. Phase 21c
+    passes OLMo-1B with ``star_train`` as ``cfg``."""
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev)
@@ -3798,6 +3865,7 @@ def restart_child(workdir: str, dev="cuda", cfg=None, seq: int = TRAIN_SEQ,
     differ = [_key_path(p) for p, a, b in pairs
               if a.shape != b.shape or not torch.equal(_bits(a), _bits(b))]
     return {"reduced": {"n_layers": f"{RESTART_LAYERS} of 16"},
+            "star_train": star_trained(cfg),
             "seq": seq, "batch": batch, "steps": 10,
             "fail_at": 7, "resumed_from": 5, "leaves": len(pairs),
             "leaves_differ": differ, "bit_equal": not differ,
@@ -3815,9 +3883,18 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dim() else t
 
 
-def check_restart(dev) -> dict:
-    """Phase 20c: ``restart_child`` in a child process; its result line
-    is the last of its output."""
+def restart_children(workdir: str) -> list:
+    """Phases 20c and 21c in one deterministic process (one start-up):
+    ``restart_child`` for OLMo-1B, then with ``star_train``."""
+    cfg = olmo_1b.config()
+    return [restart_child(str(pathlib.Path(workdir) / name), cfg=c)
+            for name, c in (("dense", cfg), ("star", dataclasses.replace(
+                cfg, star_train=True)))]
+
+
+def check_restart(dev) -> tuple:
+    """Phases 20c and 21c: ``restart_children`` in a child process; its
+    result line is the last of its output. Returns (dense, star)."""
     workdir = tempfile.mkdtemp(prefix="restart_", dir=BUILD_DIR)
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     try:
@@ -3829,12 +3906,13 @@ def check_restart(dev) -> dict:
     if proc.returncode != 0:
         raise SystemExit(f"restart child failed ({proc.returncode}):\n"
                          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    emit("training_restart", **out)
-    if not out["bit_equal"]:
-        raise SystemExit(f"restart: resumed run differs from the "
-                         f"uninterrupted one at {out['leaves_differ']}")
-    return out
+    runs = json.loads(proc.stdout.strip().splitlines()[-1])
+    for tag, out in zip(("training_restart", "star_training_restart"), runs):
+        emit(tag, **out)
+        if not out["bit_equal"]:
+            raise SystemExit(f"{tag}: resumed run differs from the "
+                             f"uninterrupted one at {out['leaves_differ']}")
+    return tuple(runs)
 
 
 def plain_flash_train(q, k, v, *, causal, scale):
@@ -3843,17 +3921,44 @@ def plain_flash_train(q, k, v, *, causal, scale):
     return kref.flash_ref(q, k, v, causal=causal, scale=scale)
 
 
-def model_grads(params, cfg, batch, plain: bool) -> tuple:
-    """(loss, metrics, grads) of one ``lm.loss_fn`` step, with K4 and its
-    backward, or ``plain`` with ``plain_flash_train`` in K4's place."""
-    real = ops.flash
+def plain_sufa_train(q, k, v, idx, valid, *, scale, **kw):
+    """``ops.sufa_attention`` as its plain version under autograd (21d's
+    plain path): ``sufa_reference``'s fp32 softmax over the gathered
+    tiles, differentiated by torch."""
+    return ksufa.sufa_reference(q, k, v, idx, valid, scale=scale, **kw)
+
+
+def model_grads(params, cfg, batch, plain: bool, tiles=None) -> tuple:
+    """(loss, metrics, grads) of one ``lm.loss_fn`` step, with the kernels
+    and their backwards, or ``plain`` with the plain versions in their
+    place (``plain_flash_train``, K2's ``dlzs_block_ref``,
+    ``plain_sufa_train``). With ``tiles`` (a list; STAR in training) a
+    kernel run appends each STAR call's (tile ids, validity) to it, and a
+    plain run takes them from it in call order, so both compute attention
+    over the tiles the kernels' selection kept."""
+    names = ("flash", "dlzs_block_scores", "select_tiles", "sufa_attention")
+    real = {name: getattr(ops, name) for name in names}
+    replay = iter(tiles or ())
     if plain:
         ops.flash = plain_flash_train
+        ops.dlzs_block_scores = kref.dlzs_block_ref
+        ops.sufa_attention = plain_sufa_train
+        if tiles is not None:
+            ops.select_tiles = lambda raw, keep, **kw: next(replay)
+    elif tiles is not None:
+        def record(raw, keep, **kw):
+            tiles.append(real["select_tiles"](raw, keep, **kw))
+            return tiles[-1]
+        ops.select_tiles = record
     try:
         (loss, metrics), grads = launch_steps.value_and_grad(params, cfg,
                                                              batch)
     finally:
-        ops.flash = real
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    if plain and tiles is not None and next(replay, None) is not None:
+        raise SystemExit("training step: the plain run made fewer STAR "
+                         "calls than the kernel run")
     return loss, metrics, grads
 
 
@@ -3865,7 +3970,14 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
     autograd, fp32 weights and activations): the loss and the global grad
     norm within 2e-2 relative, and every leaf no further from the fp32
     gradient than twice the bf16 plain path's (plus 1e-5), phase 20a's
-    rule at model level."""
+    rule at model level. With ``star_train`` (phase 21d) the plain runs,
+    fp32 and bf16, take the kernel run's tile ids call by call (an fp32
+    selection rounds its estimates apart and may keep other tiles, a
+    different function), and the recompute's selection under remat must
+    be the forward's."""
+    star = star_trained(cfg)
+    tiles = [] if star else None
+    tag = "star_training_step" if star else "training_step"
     reduced = {"n_layers": f"{layers} of {cfg.n_layers}"}
     cfg = dataclasses.replace(cfg, n_layers=layers)
     params, _ = init_params(cfg, gen, dev)
@@ -3873,9 +3985,9 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
     bt = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     p32 = tree_map(lambda t: t.float(), params)
-    loss, _, g = model_grads(params, cfg, bt, plain=False)
-    loss32, _, g32 = model_grads(p32, cfg32, bt, plain=True)
-    loss_lp, _, g_lp = model_grads(params, cfg, bt, plain=True)
+    loss, _, g = model_grads(params, cfg, bt, plain=False, tiles=tiles)
+    loss32, _, g32 = model_grads(p32, cfg32, bt, plain=True, tiles=tiles)
+    loss_lp, _, g_lp = model_grads(params, cfg, bt, plain=True, tiles=tiles)
     gn, gn32 = float(adamw.global_norm(g)), float(adamw.global_norm(g32))
     out = {"reduced": reduced, "seq": seq, "batch": batch,
            "loss": float(loss),
@@ -3885,20 +3997,219 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
     out["loss_rel_err"] = abs(out["loss"] - out["loss_fp32_plain"]) / abs(
         out["loss_fp32_plain"])
     out["grad_norm_rel_err"] = abs(gn - gn32) / gn32
+    if star:
+        # under remat each layer's recompute follows the forward, the
+        # layers in reverse order
+        out["star_calls"] = len(tiles)
+        n = attn_layers(cfg)
+        out["recompute_selection_equal"] = len(tiles) == 2 * n and all(
+            torch.equal(a, b) for i in range(n)
+            for a, b in zip(tiles[i], tiles[2 * n - 1 - i]))
+        if not out["recompute_selection_equal"]:
+            emit(tag, ok=False, **out)
+            raise SystemExit(f"{tag}: the recompute kept other tiles than "
+                             f"the forward")
     names = [_key_path(p) for p, _ in sorted_items(g)]
     leaves = gradient_rule(
-        "training_step",
+        tag,
         dict(zip(names, (x for _, x in sorted_items(g)))),
         dict(zip(names, (x for _, x in sorted_items(g32)))),
         dict(zip(names, (x for _, x in sorted_items(g_lp)))))
     out["leaves"] = {n: [leaves[f"max_abs_err_{n}"],
                          leaves[f"bf16_plain_err_{n}"]] for n in names}
-    out["leaves_format"] = "[K4 path max error, bf16 plain path's]"
-    emit("training_step", **out)
+    out["leaves_format"] = "[kernel path max error, bf16 plain path's]"
+    emit(tag, **out)
     if out["loss_rel_err"] > 2e-2 or out["grad_norm_rel_err"] > 2e-2:
         raise SystemExit(f"training step: loss or grad norm off the fp32 "
                          f"plain step by more than 2e-2: {out}")
     del params, p32, g, g32, g_lp
+    free_cache(dev)
+    return out
+
+
+# -- phase 21: STAR in training -----------------------------------------------
+
+def selection_mask(idx, valid, *, t: int, s: int, block: int,
+                   causal: bool) -> torch.Tensor:
+    """The dense [BH, T, S] boolean mask of the keys K3 sees under a
+    selection: each valid selected tile, causal at offset S - T."""
+    bh, n_qt, keep = idx.shape
+    n_kt = s // block
+    rows = torch.empty((bh, s, 1), device=idx.device)
+    _, _, mask = ksufa.gather_selected(rows, rows, idx, valid, t=t,
+                                       block_q=block, block_kv=block,
+                                       causal=causal)
+    dense = torch.zeros((bh, n_qt, n_kt, block, block), dtype=torch.bool,
+                        device=idx.device)
+    heads = torch.arange(bh, device=idx.device)[:, None]
+    qts = torch.arange(n_qt, device=idx.device)[None, :]
+    for j in range(keep):
+        dense[heads, qts, idx[..., j]] |= mask[:, :, j]
+    return dense.permute(0, 1, 3, 2, 4).reshape(bh, t, s)
+
+
+def plain_masked_lowp(q, k, v, *, dense, scale: float):
+    """``plain_attention_lowp`` under a dense boolean mask: scores,
+    softmax and P·V in the inputs' dtype; a row that sees no key gives 0,
+    as K3 gives it."""
+    sc = torch.einsum("btd,bsd->bts", q, k) * scale
+    p = torch.softmax(sc.masked_fill(~dense, kref.NEG_INF), dim=-1)
+    return torch.einsum("bts,bsd->btd", p.masked_fill(~dense, 0.0).to(
+        v.dtype), v)
+
+
+def lse_held(tag: str, got, want, **case) -> dict:
+    """``held`` at 1e-4 for a log-sum-exp: +inf (a row that sees no key)
+    in the same places, the finite rows within the tolerance."""
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        emit(tag, ok=False, **case)
+        raise SystemExit(f"{tag}: lse is +inf at other rows than the plain "
+                         f"version's: {case}")
+    fin = torch.isfinite(want)
+    return held(tag, got[fin], want[fin], 1e-4,
+                inf_rows=int((~fin).sum()), **case)
+
+
+def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
+                   edges=False, block=128) -> dict:
+    """Phase 21a: K3's lse and backward on the glue's selection (K2, then
+    ``ops.select_tiles`` keeping as many tiles as olmo_1b's STAR config).
+    K3's forward, strict and fast, must give the same O bits with and
+    without lse, and its lse the plain version's at 1e-4; the backward
+    of each forward's o and lse (one function) must meet
+    ``gradient_rule`` against the fp32 plain gradient (``sufa_bwd_ref``
+    on fp32 copies, the fp32 strict forward's o and lse), the bf16
+    yardstick being autograd through the bf16 plain form under the
+    selection's dense mask, and two calls must give the same bits. With
+    ``edges``: invalid slots, a key tile of head 0 that no q-tile chose
+    (dK = dV = 0 exactly) and a q-tile of head 1 with no valid slot
+    (dQ = 0 exactly, its lse +inf). Timed: the kernel, its plain
+    version, its bound (10·d flops per visible selected pair, or its
+    bytes) and SDPA's backward under the dense mask (``autograd.grad`` on
+    a retained graph), with the split of its three kernels."""
+    q, k, v = prefill_inputs(bh, t, d, seed, dev)
+    if s != t:
+        _, k, v = prefill_inputs(bh, s, d, seed + 1, dev)
+    gen = torch.Generator(device="cpu").manual_seed(seed + 2)
+    do = torch.randn((bh, t, d), generator=gen).to(dev, torch.bfloat16)
+    scale = d ** -0.5
+    star = olmo_1b.config().star
+    keep = dataclasses.replace(star, block_q=block,
+                               block_kv=block).keep_blocks(s)
+    raw = kdlzs.dlzs_block_scores(q, k, causal=causal, scale=1.0,
+                                  block_q=block, block_kv=block)
+    idx, valid = ops.select_tiles(raw, keep, scale=scale, radius=star.radius,
+                                  dtype=q.dtype)
+    case = dict(kernel="sufa_bwd", BH=bh, T=t, S=s, d=d, block=block,
+                keep=keep, causal=causal, edges=edges)
+    if edges:
+        unchosen = int(idx[0, -1, 0])
+        valid[0] &= idx[0] != unchosen
+        valid[:, :, -1] = False
+        valid[1, -1] = False
+        case.update(unchosen_key_tile=unchosen, empty_q_tile=t // block - 1)
+    case["valid_slots"] = int(valid.sum())
+    kw = dict(block_q=block, block_kv=block, causal=causal, scale=scale)
+    fwd, lse_err = {}, {}
+    for strict in (True, False):
+        o, lse = ksufa.sufa_attention(q, k, v, idx, valid, strict=strict,
+                                      return_lse=True, **kw)
+        if not torch.equal(o.view(torch.int16), ksufa.sufa_attention(
+                q, k, v, idx, valid, strict=strict, **kw).view(torch.int16)):
+            raise SystemExit(f"sufa {case}: K3's O changes when lse is "
+                             f"asked for (strict={strict})")
+        _, plain_lse = ksufa.sufa_reference(q, k, v, idx, valid,
+                                            strict=strict, return_lse=True,
+                                            **kw)
+        lse_err[strict] = lse_held("sufa_lse", lse, plain_lse, strict=strict,
+                                   **case)["max_abs_err"]
+        fwd[strict] = (o, lse)
+    f32 = [x.float() for x in (q, k, v)]
+    o32, lse32 = ksufa.sufa_reference(*f32, idx, valid, strict=True,
+                                      return_lse=True, **kw)
+    names = ("dq", "dk", "dv")
+    want = dict(zip(names, ksufa.sufa_bwd_ref(*f32, idx, valid, o32, lse32,
+                                             do.float(), **kw)))
+    del f32, o32, lse32
+    dense = selection_mask(idx, valid, t=t, s=s, block=block, causal=causal)
+    lowp = dict(zip(names, grads_of(functools.partial(
+        plain_masked_lowp, dense=dense, scale=scale), q, k, v, do)))
+    modes = {}
+    for strict in (True, False):
+        o, lse = fwd[strict]
+        got = dict(zip(names, ksufa.sufa_bwd(q, k, v, idx, valid, o, lse,
+                                             do, **kw)))
+        again = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+        res = gradient_rule("sufa_bwd", got, want, lowp, strict=strict,
+                            **case)
+        res["two_calls_bit_equal"] = all(
+            torch.equal(a.view(torch.int16), got[n].view(torch.int16))
+            for a, n in zip(again, names))
+        if not res["two_calls_bit_equal"]:
+            raise SystemExit(f"sufa_bwd {case}: two calls differ")
+        if edges:
+            tile = slice(unchosen * block, (unchosen + 1) * block)
+            res["unchosen_dk_dv_zero"] = not (got["dk"][0, tile].any()
+                                              or got["dv"][0, tile].any())
+            res["empty_q_tile_dq_zero"] = not got["dq"][1, t - block:].any()
+            if not (res["unchosen_dk_dv_zero"]
+                    and res["empty_q_tile_dq_zero"]):
+                raise SystemExit(f"sufa_bwd {case}: an unchosen key tile or "
+                                 f"an empty q-tile has a gradient: {res}")
+        res["lse_max_abs_err"] = lse_err[strict]
+        modes[strict] = res
+    out = dict(modes[True])
+    out["fast"] = {key: modes[False][key] for key in (
+        "max_abs_err", "lse_max_abs_err", "two_calls_bit_equal")}
+    del want, lowp
+    if timed:
+        o, lse = fwd[True]
+
+        def kernel():
+            ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+
+        def plain():
+            ksufa.sufa_bwd_ref(q, k, v, idx, valid, o, lse, do, **kw)
+        leaves = [x.detach()[None].requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            sdpa_out = SDPA(*leaves, attn_mask=dense[None], scale=scale)
+
+        def library():
+            torch.autograd.grad(sdpa_out, leaves, do[None],
+                                retain_graph=True)
+        pairs = selected_pairs(idx, valid, t=t, s=s, block=block,
+                               causal=causal)
+        add_times(out, kernel, plain, library, flush,
+                  bytes_=nbytes(q, k, v, o, do, q, k, v, lse, idx, valid),
+                  flops=10 * d * pairs)
+        out.update(flash_bwd_split(kernel, flush, parts=SUFA_BWD_KERNELS))
+        out["selected_pairs"] = pairs
+        out["dense_causal_pairs"] = bh * visible_pairs(t, s, causal)
+        out["tflop_s_10d"] = 10 * d * pairs / out["ms"] / 1e9
+        del sdpa_out, leaves
+    emit("sufa_bwd", ok=True, **out)
+    return out
+
+
+def check_sufa_bwd_shapes(dev, ptxas=()) -> dict:
+    """Phase 21a's shapes: OLMo-1B's training shape (BH 128, T = S =
+    2048, d 128, causal, keep 4 of 16), timed; SeamlessM4T's encoder
+    (BH 16, T = S = 2048, d 64, not causal), timed; T 256 over S 2048,
+    causal; the edges at BH 16, T = S = 1024. ``ptxas``: the backward's
+    register and spill lines from the build log, emitted beside them."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    out = {"train": check_sufa_bwd(dev, flush, bh=TRAIN_BATCH * 16,
+                                   t=TRAIN_SEQ, s=TRAIN_SEQ, d=128,
+                                   causal=True, seed=2101, timed=True),
+           "encoder": check_sufa_bwd(dev, flush, bh=16, t=2048, s=2048, d=64,
+                                     causal=False, seed=2102, timed=True),
+           "t256": check_sufa_bwd(dev, flush, bh=16, t=256, s=2048, d=128,
+                                  causal=True, seed=2103, timed=False),
+           "edges": check_sufa_bwd(dev, flush, bh=16, t=1024, s=1024, d=128,
+                                   causal=True, seed=2104, timed=False,
+                                   edges=True)}
+    emit("sufa_bwd_build", ptxas=[f"{fn} {line}" for fn, line in ptxas])
+    del flush
     free_cache(dev)
     return out
 
@@ -3939,8 +4250,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--restart-child"]:      # phase 20c's process
-        print(json.dumps(restart_child(sys.argv[2])), flush=True)
+    if sys.argv[1:2] == ["--restart-child"]:  # phases 20c and 21c
+        print(json.dumps(restart_children(sys.argv[2])), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4159,13 +4470,22 @@ def main() -> int:
 
     # 20. training: K4's backward against its plain version (20a),
     # OLMo-1B trained at full width and depth (20b), restart exactness in
-    # a deterministic child process (20c), one model step against the
-    # plain path (20d)
+    # a deterministic child process (20c; 21c's in the same child), one
+    # model step against the plain path (20d)
     bwd = check_flash_bwd_shapes(dev,
                                  ptxas_report(built["flash_bwd"]["log"]))
     train = check_training(olmo_1b.config(), dev, gen)
-    restart = check_restart(dev)
+    restart, star_restart = check_restart(dev)
     check_model_step(olmo_1b.config(), dev, gen)
+
+    # 21. STAR in training: K3's lse and backward against their plain
+    # versions (21a), OLMo-1B with star_train trained at full width and
+    # depth (21b), one model step against the plain path on the same
+    # tiles (21d); restart exactness (21c) ran in 20c's child
+    sbwd = check_sufa_bwd_shapes(dev, ptxas_report(built["sufa_bwd"]["log"]))
+    star_cfg = dataclasses.replace(olmo_1b.config(), star_train=True)
+    star_train = check_training(star_cfg, dev, gen, save=False)
+    check_model_step(star_cfg, dev, gen)
 
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
@@ -4249,7 +4569,12 @@ def main() -> int:
                  "gathered_bytes_not_moved"],
              launches_jamba=jamba["star"]["sufa_launches"],
              max_abs_err_fast_path_bh64=jamba["tiles"]["sufa_fast"][
-                 "max_abs_err"], **bh64("sufa")),
+                 "max_abs_err"],
+             launches_star_training=star_train["launches"]["sufa"],
+             lse_max_abs_err={
+                 "strict": sbwd["train"]["lse_max_abs_err"],
+                 "fast": sbwd["train"]["fast"]["lse_max_abs_err"],
+                 "tolerance": 1e-4}, **bh64("sufa")),
         line("flash", "flash.cu", "src/repro/kernels/flash.py:67",
              exact["k4_launches"], tiles["flash"],
              launches_training=train["launches"]["flash"],
@@ -4377,6 +4702,29 @@ def main() -> int:
                        for part in BWD_KERNELS},
              tflop_s_10d=bwd["train"]["tflop_s_10d"],
              restart_bit_equal=restart["bit_equal"]),
+        # phase 21: K3's backward (STAR in training has no TPU kernel: the
+        # reference differentiates core.sufa.sufa_gathered through XLA;
+        # this is the gradient of K3's function) at OLMo-1B's training
+        # shape
+        line("sufa_bwd", "sufa_bwd.cu",
+             "none: the reference differentiates sufa_gathered through XLA "
+             "(src/repro/core/sufa.py:107)",
+             star_train["launches"]["sufa_bwd"], sbwd["train"],
+             launches_from="phase 21b, OLMo-1B trained with star_train",
+             max_abs_err_by_grad={n: sbwd["train"][f"max_abs_err_{n}"]
+                                  for n in ("dq", "dk", "dv")},
+             bf16_plain_err_by_grad={n: sbwd["train"][f"bf16_plain_err_{n}"]
+                                     for n in ("dq", "dk", "dv")},
+             max_abs_err_fast_forward=sbwd["train"]["fast"]["max_abs_err"],
+             noncausal_d64={key: sbwd["encoder"][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "tflop_s_10d")},
+             max_abs_err_t256=sbwd["t256"]["max_abs_err"],
+             max_abs_err_edges=sbwd["edges"]["max_abs_err"],
+             split_ms={part: sbwd["train"][f"{part}_ms"]
+                       for part in SUFA_BWD_KERNELS},
+             tflop_s_10d=sbwd["train"]["tflop_s_10d"],
+             restart_bit_equal=star_restart["bit_equal"]),
     ]}), flush=True)
     print_device_line()
     return 0

@@ -22,10 +22,6 @@ from repro_torch.core.star_attention import STARConfig
 from repro_torch.models import lm, moe, ssm
 from repro_torch.tree import tree_map
 
-# reference ModelCfg fields whose non-default values need unported code:
-# STAR in training (K2/K3 in train mode and K3's backward; ROADMAP §1
-# item 7)
-_UNPORTED_FIELDS = {"star_train": False}
 
 
 def _is_bf16(arr: np.ndarray) -> bool:
@@ -95,15 +91,9 @@ def mamba_cfg_from_reference(cfg) -> ssm.MambaCfg:
 def model_cfg_from_reference(cfg) -> lm.ModelCfg:
     """The port's ``ModelCfg`` for a reference ``repro.models.lm.ModelCfg``
     (any dataclass with its field names; the training fields carry over,
-    ``accum_dtype`` as the torch dtype of its name). Raises
-    NotImplementedError for configurations that need unported code
-    (``star_train``)."""
+    ``star_train`` included, ``accum_dtype`` as the torch dtype of its
+    name)."""
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    for name, default in _UNPORTED_FIELDS.items():
-        if fields.get(name, default) != default:
-            raise NotImplementedError(
-                f"{cfg.name}: {name}={fields[name]!r} is not ported yet: "
-                "STAR in training needs K3's backward (ROADMAP §1 item 7)")
     kept = {f.name for f in dataclasses.fields(lm.ModelCfg)}
     out = {k: v for k, v in fields.items() if k in kept}
     out["pattern"] = tuple(lm.BlockCfg(b.kind, b.ffn, b.cross_attn)

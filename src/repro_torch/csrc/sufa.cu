@@ -18,7 +18,11 @@
 // false freezes each row's running max at the first tile in which that row
 // sees a key and drops the rescale, the paper's descend-updating fast path,
 // as _sufa_kernel does. Statistics are fp32; the output o / l is written
-// in bf16 (rows that see no key are zero).
+// in bf16 (rows that see no key are zero). Given a pointer, both forms also
+// write each row's log-sum-exp (fp32, natural base, +inf on a row that sees
+// no key) for the backward (sufa_bwd.cu): m + log l, the same number in
+// both modes, since the frozen max cancels in o / l as the running one
+// does. The output's arithmetic does not change with it.
 //
 // Bound: bytes at the served shape. Each call must read Q, the distinct
 // selected K and V tiles and the ids once and write the output: at OLMo-1B
@@ -120,6 +124,14 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// A row's natural log-sum-exp from its max m and sum l of exp(s - m), m in
+// base 2 (the wgmma form's scores) or natural units; +inf where l = 0.
+template <bool BASE2>
+__device__ __forceinline__ float row_lse(float m, float l) {
+  if (!(l > 0.f)) return __int_as_float(0x7f800000);
+  return BASE2 ? (m + log2f(l)) * 0.6931471805599453f : m + logf(l);
+}
+
 // The plain form's DLZS estimate of one score from its fp32 sum q . pow2(k):
 // rounded to bf16, scaled, rounded again (bf16 tensor times a float).
 __device__ __forceinline__ float dlzs_estimate(float dot, float scale) {
@@ -174,6 +186,7 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
                   const int64_t* __restrict__ idx,   // [BH, n_qt, keep]
                   const uint8_t* __restrict__ valid,  // [BH, n_qt, keep]
                   uint16_t* __restrict__ out,         // [BH, T, D]
+                  float* __restrict__ lse,            // [BH, T] or null
                   int S, int keep, int q_offset, int causal,
                   float scale_log2, float scale, float radius) {
   constexpr int kTile = tile_bytes<D>();
@@ -408,8 +421,14 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
     mbar_arrive(&kv_empty[s]);
   }
 
-  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f);
-  const float l1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  const float s0 = quad_sum(l[0]);
+  const float s1 = quad_sum(l[1]);
+  const float l0 = fmaxf(s0, 1e-30f);
+  const float l1 = fmaxf(s1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // m and the sums: quad-wide
+    lse[(int64_t)bh * T + row] = row_lse<true>(m[0], s0);
+    lse[(int64_t)bh * T + row + 8] = row_lse<true>(m[1], s1);
+  }
   uint16_t* ob = out + ((int64_t)bh * T + row) * D + t2;
 #pragma unroll
   for (int c = 0; c < D / 8; ++c) {
@@ -423,8 +442,9 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
 template <int D, bool STRICT, bool ELEM>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int64_t* idx, const uint8_t* valid, void* out,
-                         int BH, int T, int S, int keep, int causal,
-                         float scale, float radius, cudaStream_t stream) {
+                         float* lse, int BH, int T, int S, int keep,
+                         int causal, float scale, float radius,
+                         cudaStream_t stream) {
   static bool configured = false;  // the >48 KB opt-in, once per instance
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -441,7 +461,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid(BH, T / kBQ);
   sufa_wgmma_kernel<D, STRICT, ELEM>
       <<<grid, kThreads, smem_bytes<D, ELEM>(), stream>>>(
-          qmap, kmap, vmap, idx, valid, static_cast<uint16_t*>(out), S,
+          qmap, kmap, vmap, idx, valid, static_cast<uint16_t*>(out), lse, S,
           keep, S - T, causal, scale * 1.4426950408889634f, scale, radius);
   return cudaGetLastError();
 }
@@ -458,6 +478,7 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
                 const int64_t* __restrict__ idx,     // [BH, n_qt, keep]
                 const uint8_t* __restrict__ valid,   // [BH, n_qt, keep]
                 uint16_t* __restrict__ out,          // [BH, T, D]
+                float* __restrict__ lse,             // [BH, T] or null
                 int S, int keep, int block_q, int causal, float scale,
                 float radius) {
   constexpr int LD = D + 8;
@@ -606,8 +627,15 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
     }
   }
 
-  const float l0 = fmaxf(quad_sum(l[0]), 1e-30f);
-  const float l1 = fmaxf(quad_sum(l[1]), 1e-30f);
+  const float s0 = quad_sum(l[0]);
+  const float s1 = quad_sum(l[1]);
+  const float l0 = fmaxf(s0, 1e-30f);
+  const float l1 = fmaxf(s1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // m and the sums: quad-wide
+    const int64_t at = (int64_t)bh * T + qt * block_q + row;
+    lse[at] = row_lse<false>(m[0], s0);
+    lse[at + 8] = row_lse<false>(m[1], s1);
+  }
   uint16_t* ob = out + ((int64_t)bh * T + qt * block_q + row) * D + t2;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -621,7 +649,7 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
 template <int D, int BC>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int64_t* idx, const uint8_t* valid, void* out,
-                       int BH, int T, int S, int keep, int block_q,
+                       float* lse, int BH, int T, int S, int keep, int block_q,
                        int causal, bool strict, bool elementwise, float scale,
                        float radius, cudaStream_t stream) {
   const dim3 grid(T / block_q, BH);
@@ -633,7 +661,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 #define SUFA_MMA(SS, EE)                                                     \
   if (strict == SS && elementwise == EE)                                    \
     sufa_mma_kernel<D, BC, SS, EE><<<grid, block, 0, stream>>>(              \
-        qp, kp, vp, idx, valid, op, S, keep, block_q, causal, scale, radius);
+        qp, kp, vp, idx, valid, op, lse, S, keep, block_q, causal, scale,    \
+        radius);
   SUFA_MMA(true, false)
   SUFA_MMA(false, false)
   SUFA_MMA(true, true)
@@ -651,21 +680,25 @@ bool bad_shape(int BH, int T, int S, int keep, int block_q, int block_kv) {
 
 }  // namespace
 
-// elementwise != 0 runs the element-level sphere mask at radius (ELEM).
+// elementwise != 0 runs the element-level sphere mask at radius (ELEM);
+// lse: null, or [BH, T] fp32 for the row log-sum-exps.
 extern "C" int sufa_wgmma_bf16(const void* q, const void* k, const void* v,
                                const void* idx, const void* valid, void* out,
-                               int BH, int T, int S, int keep, int D,
-                               int causal, int strict, int elementwise,
-                               float scale, float radius, void* stream) {
+                               void* lse, int BH, int T, int S, int keep,
+                               int D, int causal, int strict,
+                               int elementwise, float scale, float radius,
+                               void* stream) {
   if (bad_shape(BH, T, S, keep, kBQ, kBC))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* ip = static_cast<const int64_t*>(idx);
   const uint8_t* vp = static_cast<const uint8_t*>(valid);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SUFA_WGMMA(DD, SS, EE)                                              \
   if (D == DD && (strict != 0) == SS && (elementwise != 0) == EE)           \
     return static_cast<int>(launch_wgmma<DD, SS, EE>(                       \
-        q, k, v, ip, vp, out, BH, T, S, keep, causal, scale, radius, st));
+        q, k, v, ip, vp, out, lp, BH, T, S, keep, causal, scale, radius,    \
+        st));
   SUFA_WGMMA(64, true, false)
   SUFA_WGMMA(64, false, false)
   SUFA_WGMMA(128, true, false)
@@ -681,23 +714,25 @@ extern "C" int sufa_wgmma_bf16(const void* q, const void* k, const void* v,
 #define SUFA_CASE(DD, BB)                                                    \
   if (D == DD && block_kv == BB)                                             \
     return static_cast<int>(launch_mma<DD, BB>(                              \
-        q, k, v, ip, vp, out, BH, T, S, keep, block_q, causal, strict != 0,  \
-        elementwise != 0, scale, radius, st));
+        q, k, v, ip, vp, out, lp, BH, T, S, keep, block_q, causal,           \
+        strict != 0, elementwise != 0, scale, radius, st));
 #define SUFA_TILES(DD)                                                      \
   SUFA_CASE(DD, 16) SUFA_CASE(DD, 32) SUFA_CASE(DD, 48) SUFA_CASE(DD, 64)   \
   SUFA_CASE(DD, 80) SUFA_CASE(DD, 96) SUFA_CASE(DD, 112) SUFA_CASE(DD, 128)
 
-// elementwise != 0 runs the element-level sphere mask at radius (ELEM).
+// elementwise != 0 runs the element-level sphere mask at radius (ELEM);
+// lse: null, or [BH, T] fp32 for the row log-sum-exps.
 extern "C" int sufa_mma_bf16(const void* q, const void* k, const void* v,
                              const void* idx, const void* valid, void* out,
-                             int BH, int T, int S, int keep, int block_q,
-                             int block_kv, int D, int causal, int strict,
-                             int elementwise, float scale, float radius,
-                             void* stream) {
+                             void* lse, int BH, int T, int S, int keep,
+                             int block_q, int block_kv, int D, int causal,
+                             int strict, int elementwise, float scale,
+                             float radius, void* stream) {
   if (bad_shape(BH, T, S, keep, block_q, block_kv))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* ip = static_cast<const int64_t*>(idx);
   const uint8_t* vp = static_cast<const uint8_t*>(valid);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SUFA_TILES(64)
   SUFA_TILES(128)

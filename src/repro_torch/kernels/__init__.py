@@ -12,13 +12,17 @@ launches by form, and ``<kernel>/noncausal`` the prefill kernels' (K2,
 K3, K4) launches without the causal mask (an encoder's self-attention,
 a decoder's cross-attention). K1's unnormalised (m, l, o) form for the
 spatial merge (``kernels.paged.paged_decode_stats_attention``) counts
-under its own name, ``paged_decode_stats``, in both lanes. K4's
-backward (``kernels.flash.flash_bwd``, training) counts as ``flash_bwd``.
+under its own name, ``paged_decode_stats``, in both lanes. The
+backwards of K4 and K3 (``kernels.flash.flash_bwd``,
+``kernels.sufa.sufa_bwd``; training) count as ``flash_bwd`` and
+``sufa_bwd``, and ``<kernel>/noncausal`` counts theirs without the mask.
+K1 and K2 have no backward: the decode is not trained and STAR's tile
+selection carries no gradient.
 """
 
 LAUNCHES: dict[str, int] = {"paged_decode": 0, "paged_decode_stats": 0,
                             "dlzs_block": 0, "sufa": 0, "flash": 0,
-                            "flash_bwd": 0}
+                            "flash_bwd": 0, "sufa_bwd": 0}
 FORM_LAUNCHES: dict[str, int] = {"dlzs_block/wgmma": 0,
                                  "dlzs_block/mma_sync": 0,
                                  "sufa/wgmma": 0, "sufa/mma_sync": 0,
@@ -26,6 +30,7 @@ FORM_LAUNCHES: dict[str, int] = {"dlzs_block/wgmma": 0,
                                  "dlzs_block/noncausal": 0,
                                  "sufa/noncausal": 0, "flash/noncausal": 0,
                                  "flash_bwd/noncausal": 0,
+                                 "sufa_bwd/noncausal": 0,
                                  "paged_decode/fp": 0,
                                  "paged_decode/int8": 0,
                                  "paged_decode_stats/fp": 0,

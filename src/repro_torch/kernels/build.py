@@ -28,14 +28,15 @@ SOURCES = {"paged_decode": CSRC / "paged_decode.cu",
            "dlzs_block": CSRC / "dlzs_block.cu",
            "sufa": CSRC / "sufa.cu",
            "flash": CSRC / "flash.cu",
-           "flash_bwd": CSRC / "flash_bwd.cu"}
+           "flash_bwd": CSRC / "flash_bwd.cu",
+           "sufa_bwd": CSRC / "sufa_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the wgmma kernels (flash.cu, and the wgmma forms in dlzs_block.cu and
 # sufa.cu) encode TMA tensor maps with cuTensorMapEncodeTiled, which
-# libcuda provides; flash_bwd.cu includes the same header
-EXTRA_FLAGS = {name: ("-lcuda",)
-               for name in ("dlzs_block", "sufa", "flash", "flash_bwd")}
+# libcuda provides; flash_bwd.cu and sufa_bwd.cu include the same header
+EXTRA_FLAGS = {name: ("-lcuda",) for name in ("dlzs_block", "sufa", "flash",
+                                              "flash_bwd", "sufa_bwd")}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -1,5 +1,6 @@
 """Checks and the launch step shared by the prefill tile kernels' wrappers
-(``kernels.dlzs``, ``kernels.sufa``, ``kernels.flash``).
+(``kernels.dlzs``, ``kernels.sufa``, ``kernels.flash``) and their
+backwards.
 
 A wrapper calls ``require_cuda`` once it knows its tensors are not on the
 CPU, ``check_operands`` on what the kernel reads and writes, and
@@ -31,8 +32,9 @@ def check_operands(kernel: str, **tensors: torch.Tensor) -> None:
     """bf16 operands on one device, contiguous and 16-byte aligned (the
     kernels copy rows to shared memory 16 bytes at a time), none of them
     asking for a gradient: a kernel's output carries none, so an operand
-    that requires one would lose it without a word (K4 runs inside its
-    ``autograd.Function``, where grad mode is off)."""
+    that requires one would lose it without a word. Only K1 and K2 can
+    see one (they have no backward); K3 and K4 run inside their
+    ``autograd.Function``, where grad mode is off."""
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in tensors.values()):
         raise RuntimeError(f"{kernel}: the kernel has no backward; its "

@@ -16,7 +16,9 @@ it); the model's STAR prefill calls it, and its dense prefill calls
 ``flash`` (K4).
 
 Every call goes through the wrappers, so on the CPU the plain versions
-run and on a GPU the kernels launch.
+run and on a GPU the kernels launch. Both prefills are differentiable
+(training): K4 and K3 through their ``autograd.Function``s, the selection
+(K2 and SADS) outside autograd.
 
 Tile ties. The plain STAR form computes Â in the model dtype,
 ``bf16(bf16(Q·pow2(K)ᵀ)·scale)`` when q is bf16, so its tile maxima tie
@@ -92,12 +94,16 @@ def star_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"the tiles {block_q} x {block_kv}")
     keep = min(keep, s // block_kv)
 
-    # Stage 1+2a (K2): unscaled predicted tile maxima.
-    raw = dlzs_block_scores(q, k, causal=causal, scale=1.0, block_q=block_q,
-                            block_kv=block_kv)
-    # Stage 2b: SADS tile top-k (descending) + sphere on the tiny matrix.
-    idx, valid = select_tiles(raw, keep, scale=scale, radius=radius,
-                              dtype=q.dtype)
+    # Stage 1+2a (K2): unscaled predicted tile maxima. Stage 2b: SADS tile
+    # top-k (descending) + sphere on the tiny matrix. The selection is not
+    # differentiated (in the reference top-k ids and booleans carry no
+    # gradient, and pow2's is zero), so in training it reads detached q, k.
+    with torch.no_grad():
+        raw = dlzs_block_scores(q.detach(), k.detach(), causal=causal,
+                                scale=1.0, block_q=block_q,
+                                block_kv=block_kv)
+        idx, valid = select_tiles(raw, keep, scale=scale, radius=radius,
+                                  dtype=q.dtype)
     # Stage 3 (K3): block-sparse flash over the survivors, read in place.
     return sufa_attention(q, k, v, idx, valid, block_q=block_q,
                           block_kv=block_kv, causal=causal, scale=scale,

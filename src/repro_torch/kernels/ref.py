@@ -79,9 +79,11 @@ def flash_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def sufa_ref(q: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
-             mask: torch.Tensor, *, scale: Optional[float] = None
-             ) -> torch.Tensor:
-    """Masked softmax over gathered tiles. Shapes as ``kernels.sufa``."""
+             mask: torch.Tensor, *, scale: Optional[float] = None,
+             return_lse: bool = False):
+    """Masked softmax over gathered tiles. Shapes as ``kernels.sufa``;
+    with ``return_lse`` also each row's fp32 log-sum-exp of the scaled
+    visible scores [BH, T] (+inf on a row that sees no key)."""
     bh, t, d = q.shape
     _, n_qt, keep, bc, _ = kg.shape
     bq = t // n_qt
@@ -93,10 +95,15 @@ def sufa_ref(q: torch.Tensor, kg: torch.Tensor, vg: torch.Tensor,
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.exp(sc - m)
     p = p.masked_fill(sc <= NEG_INF / 2, 0.0)
-    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    total = p.sum(dim=-1, keepdim=True)
+    l = torch.clamp(total, min=1e-30)
     vflat = vg.reshape(bh, n_qt, keep * bc, d).float()
     o = torch.einsum("bqtc,bqcd->bqtd", p / l, vflat)
-    return o.reshape(bh, t, d).to(q.dtype)
+    o = o.reshape(bh, t, d).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(total > 0, m + torch.log(l), torch.inf)
+    return o, lse.reshape(bh, t)
 
 
 def dlzs_block_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,

@@ -27,6 +27,21 @@ and runs the exact masked softmax or the frozen-max recurrence over them.
 Tensors on the CPU take it; tensors on a GPU launch the kernel (bf16) or
 raise. ``kernels.LAUNCHES["sufa"]`` counts launches,
 ``kernels.FORM_LAUNCHES`` each form's.
+
+``sufa_attention`` is differentiable, for STAR in training
+(``ModelCfg.star_train``): where grad mode is on and q, k or v requires
+grad it runs as ``_Sufa`` (a ``torch.autograd.Function``), whose forward
+keeps the row log-sum-exp (both forms write it; the max cancels in
+o / l, so the frozen-max recurrence gives the same lse) and whose
+backward is ``sufa_bwd``: the gradient of the masked softmax over exactly
+the keys the forward saw, the same for both ``strict`` modes. The TPU
+kernel has no VJP (the reference differentiates ``core.sufa.
+sufa_gathered`` or ``sufa_scan`` through XLA); on the card the backward
+is ``csrc/sufa_bwd.cu`` (``kernels.LAUNCHES["sufa_bwd"]``), on the CPU
+``sufa_bwd_ref``. The tile ids and their validity carry no gradient.
+The card's backward takes tiles of 64 or 128 without the element mask;
+``_Sufa`` raises ``NotImplementedError`` on a CUDA tensor for the rest
+(ROADMAP §1, item 7's remainder) and never runs the plain backward there.
 """
 
 from __future__ import annotations
@@ -68,10 +83,13 @@ def gather_selected(k: torch.Tensor, v: torch.Tensor, idx: torch.Tensor,
     return kg, vg, mask
 
 
-def _descend_reference(q, kg, vg, mask, *, scale: float) -> torch.Tensor:
+def _descend_reference(q, kg, vg, mask, *, scale: float,
+                       return_lse: bool = False):
     """The fast path's recurrence (``strict=False``), tile by tile as the
     TPU kernel runs it: each row's max is set by the first tile in which
-    it sees a key and never rescaled."""
+    it sees a key and never rescaled. With ``return_lse`` also the row
+    log-sum-exp m + log l [BH, T] (+inf on a row that sees no key): with
+    the max frozen it is the same number as the exact one's."""
     bh, t, d = q.shape
     _, n_qt, keep, _, _ = kg.shape
     qt = q.reshape(bh, n_qt, t // n_qt, d).float()
@@ -86,7 +104,12 @@ def _descend_reference(q, kg, vg, mask, *, scale: float) -> torch.Tensor:
         l = l + p.sum(dim=-1)
         o = o + p @ vg[:, :, j].float()
     out = o / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(bh, t, d).to(q.dtype)
+    out = out.reshape(bh, t, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.inf)
+    return out, lse.reshape(bh, t)
 
 
 def sphere_mask(q, kg, mask, *, scale: float, radius: float
@@ -107,43 +130,76 @@ def sphere_mask(q, kg, mask, *, scale: float, radius: float
 
 def sufa_reference(q, k, v, idx, valid, *, block_q: int, block_kv: int,
                    causal: bool, scale: float, strict: bool,
-                   elementwise: bool = False, radius: float = 5.0
-                   ) -> torch.Tensor:
+                   elementwise: bool = False, radius: float = 5.0,
+                   return_lse: bool = False):
     """The plain version: gather the selected tiles and their mask (with
     ``elementwise``, the sphere's too), then the exact masked softmax
-    (``ref.sufa_ref``) for ``strict``, else the frozen-max recurrence."""
+    (``ref.sufa_ref``) for ``strict``, else the frozen-max recurrence;
+    with ``return_lse`` also the fp32 row log-sum-exp [BH, T]."""
     kg, vg, mask = gather_selected(k, v, idx, valid, t=q.shape[1],
                                    block_q=block_q, block_kv=block_kv,
                                    causal=causal)
     if elementwise:
         mask = sphere_mask(q, kg, mask, scale=scale, radius=radius)
     if strict:
-        return ref.sufa_ref(q, kg, vg, mask, scale=scale)
-    return _descend_reference(q, kg, vg, mask, scale=scale)
+        return ref.sufa_ref(q, kg, vg, mask, scale=scale,
+                            return_lse=return_lse)
+    return _descend_reference(q, kg, vg, mask, scale=scale,
+                              return_lse=return_lse)
 
 
-def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   idx: torch.Tensor, valid: torch.Tensor, *,
-                   block_q: int = 128, block_kv: int = 128,
-                   causal: bool = True, scale: Optional[float] = None,
-                   strict: bool = False, elementwise: bool = False,
-                   radius: float = 5.0) -> torch.Tensor:
-    """q [BH, T, d], k/v [BH, S, d] (the queries are the last T of the S
-    positions); idx [BH, T/block_q, keep] key-tile ids in visiting order
-    (descending predicted max), valid [BH, T/block_q, keep] bool
-    -> [BH, T, d] in q's dtype. ``elementwise`` applies the element-level
-    sphere of ``radius`` inside the selected tiles."""
+def sufa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 idx: torch.Tensor, valid: torch.Tensor, o: torch.Tensor,
+                 lse: torch.Tensor, do: torch.Tensor, *, block_q: int,
+                 block_kv: int, causal: bool, scale: Optional[float] = None,
+                 elementwise: bool = False, radius: float = 5.0) -> tuple:
+    """The gradient of K3's function in fp32: the masked softmax over
+    exactly the keys its forward saw (the selected tiles' validity, the
+    in-tile causal mask at offset S − T and, with ``elementwise``, the
+    element sphere), by K4's backward steps over the gathered tiles:
+    P = exp(scale·q·kᵀ − lse) (0 where masked, and on a row with lse =
+    +inf), D = rowsum(dO∘O), dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P∘(dP − D),
+    dQ = scale·dS·K, dK = scale·dSᵀ·Q. Each tile's dK and dV are added
+    back into [BH, S, d] in a fixed order (ascending q-tile, then slot);
+    keys that no q-tile selected get exact zeros. The strict and the fast
+    forward compute the same function, so they share it. Returns (dq, dk,
+    dv) in the dtypes of q, k, v."""
     bh, t, d = q.shape
     s = k.shape[1]
+    n_qt, keep = idx.shape[1], idx.shape[2]
     scale = scale or (1.0 / math.sqrt(d))
-    if q.device.type == "cpu":
-        return sufa_reference(q, k, v, idx, valid, block_q=block_q,
-                              block_kv=block_kv, causal=causal, scale=scale,
-                              strict=strict, elementwise=elementwise,
-                              radius=radius)
-    name = "sufa"
-    launch.require_cuda(name, q.device)
-    launch.check_operands(name, q=q, k=k, v=v)
+    kg, vg, mask = gather_selected(k, v, idx, valid, t=t, block_q=block_q,
+                                   block_kv=block_kv, causal=causal)
+    if elementwise:
+        mask = sphere_mask(q, kg, mask, scale=scale, radius=radius)
+    qt = q.reshape(bh, n_qt, block_q, d).float()
+    dot = do.reshape(bh, n_qt, block_q, d).float()
+    kf, vf = kg.float(), vg.float()
+    sc = torch.einsum("bqtd,bqjcd->bqjtc", qt, kf) * scale
+    p = torch.exp(sc - lse.float().reshape(bh, n_qt, 1, block_q, 1))
+    p = p.masked_fill(~mask, 0.0)
+    dvec = (dot * o.reshape(bh, n_qt, block_q, d).float()).sum(dim=-1)
+    dvg = torch.einsum("bqjtc,bqtd->bqjcd", p, dot)
+    dp = torch.einsum("bqtd,bqjcd->bqjtc", dot, vf)
+    ds = p * (dp - dvec[:, :, None, :, None])
+    dq = torch.einsum("bqjtc,bqjcd->bqtd", ds, kf) * scale
+    dkg = torch.einsum("bqjtc,bqtd->bqjcd", ds, qt) * scale
+    dk = torch.zeros((bh, s // block_kv, block_kv, d), device=q.device)
+    dv = torch.zeros_like(dk)
+    rows = torch.arange(bh, device=q.device)
+    for i in range(n_qt):           # one (head, tile) pair per row: no
+        for j in range(keep):       # index repeats within one update
+            dk[rows, idx[:, i, j]] += dkg[:, i, j]
+            dv[rows, idx[:, i, j]] += dvg[:, i, j]
+    return (dq.reshape(bh, t, d).to(q.dtype), dk.reshape(bh, s, d).to(k.dtype),
+            dv.reshape(bh, s, d).to(v.dtype))
+
+
+def _check(name: str, q, k, v, idx, valid, block_q: int, block_kv: int
+           ) -> None:
+    """The CUDA kernels' operand checks (K3's forward and backward)."""
+    bh, t, d = q.shape
+    s = k.shape[1]
     launch.check_head_dim(name, d)
     launch.check_tile(name, "block_q", block_q)
     launch.check_tile(name, "block_kv", block_kv)
@@ -163,25 +219,157 @@ def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or idx.dtype != torch.int64 or valid.dtype != torch.bool:
         raise TypeError(f"{name}: idx must be int64 and valid bool, both "
                         f"on {q.device}")
+
+
+def _forward(q, k, v, idx, valid, *, block_q: int, block_kv: int,
+             causal: bool, scale: float, strict: bool, elementwise: bool,
+             radius: float, with_lse: bool):
+    """One forward call: o, or (o, lse [BH, T] fp32) ``with_lse``."""
+    if q.device.type == "cpu":
+        return sufa_reference(q, k, v, idx, valid, block_q=block_q,
+                              block_kv=block_kv, causal=causal, scale=scale,
+                              strict=strict, elementwise=elementwise,
+                              radius=radius, return_lse=with_lse)
+    name = "sufa"
+    launch.require_cuda(name, q.device)
+    launch.check_operands(name, q=q, k=k, v=v)
+    _check(name, q, k, v, idx, valid, block_q, block_kv)
+    bh, t, d = q.shape
+    s = k.shape[1]
     idx, valid = idx.contiguous(), valid.contiguous()
     keep = idx.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     form = launch.tile_form(block_q, block_kv)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-            valid.data_ptr(), out.data_ptr())
+            valid.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr())
     if form == "wgmma":
         fn = launch.bind(name, "sufa_wgmma_bf16",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                          + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         args = (*ptrs, bh, t, s, keep, d, int(causal), int(strict),
                 int(elementwise), float(scale), float(radius))
     else:
         fn = launch.bind(name, "sufa_mma_bf16",
-                         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                          + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         args = (*ptrs, bh, t, s, keep, block_q, block_kv, d, int(causal),
                 int(strict), int(elementwise), float(scale), float(radius))
     launch.launch(name, fn, q.device, *args, form=form, causal=causal)
     if elementwise:
         kernels.FORM_LAUNCHES[f"{name}/elementwise"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+BWD_TILES = (64, 128)     # tiles the card's backward takes
+
+
+def _require_card_backward(block_q: int, block_kv: int,
+                           elementwise: bool) -> None:
+    """Raise where the card's backward does not cover the case: tiles
+    other than ``BWD_TILES``, or the element mask."""
+    if elementwise or block_q not in BWD_TILES or block_kv not in BWD_TILES:
+        raise NotImplementedError(
+            f"sufa_bwd: the card's backward takes tiles of {BWD_TILES} "
+            f"without the element mask; got {block_q} x {block_kv}, "
+            f"elementwise={elementwise} (ROADMAP §1, item 7's remainder)")
+
+
+def sufa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             idx: torch.Tensor, valid: torch.Tensor, o: torch.Tensor,
+             lse: torch.Tensor, do: torch.Tensor, *, block_q: int = 128,
+             block_kv: int = 128, causal: bool = True,
+             scale: Optional[float] = None, elementwise: bool = False,
+             radius: float = 5.0) -> tuple:
+    """K3's gradient: (dq, dk, dv) of ``sufa_attention(q, k, v, idx,
+    valid)`` for the output gradient ``do`` [BH, T, d], given the
+    forward's output ``o`` and fp32 ``lse`` [BH, T]; the same for both
+    ``strict`` modes. CPU tensors take ``sufa_bwd_ref``; on a GPU the
+    kernel runs (bf16 operands, contiguous; tiles of 64 or 128, no element
+    mask) or this raises."""
+    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
+    if q.device.type == "cpu":
+        return sufa_bwd_ref(q, k, v, idx, valid, o, lse, do,
+                                block_q=block_q, block_kv=block_kv,
+                                causal=causal, scale=scale,
+                                elementwise=elementwise, radius=radius)
+    name = "sufa_bwd"
+    launch.require_cuda(name, q.device)
+    _require_card_backward(block_q, block_kv, elementwise)
+    launch.check_operands(name, q=q, k=k, v=v, o=o, do=do)
+    _check(name, q, k, v, idx, valid, block_q, block_kv)
+    bh, t, d = q.shape
+    s = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, t) \
+            or lse.dtype != torch.float32 or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise ValueError(f"{name}: o, do must be [BH,T,d] like q and lse "
+                         f"fp32 contiguous [BH,T] on {q.device}; got o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    idx, valid = idx.contiguous(), valid.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(2 * bh * t, dtype=torch.float32, device=q.device)
+    fn = launch.bind(name, "sufa_bwd_bf16",
+                     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                     + [ctypes.c_float, ctypes.c_void_p])
+    launch.launch(name, fn, q.device, *(x.data_ptr() for x in (
+        q, k, v, idx, valid, o, lse, do, dq, dk, dv, scratch)), bh, t, s,
+        idx.shape[2], block_q, block_kv, d, int(causal), float(scale),
+        causal=causal)
+    return dq, dk, dv
+
+
+class _Sufa(torch.autograd.Function):
+    """K3 with its gradient: the forward saves q, k, v, o, the row
+    log-sum-exp and the selection; the backward is ``sufa_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, idx, valid, kw: dict):
+        if q.device.type != "cpu":
+            _require_card_backward(kw["block_q"], kw["block_kv"],
+                                   kw["elementwise"])
+        o, lse = _forward(q, k, v, idx, valid, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, idx, valid, o, lse)
+        # both modes compute one function: the backward takes no `strict`
+        ctx.kw = {name: x for name, x in kw.items() if name != "strict"}
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, idx, valid, o, lse = ctx.saved_tensors
+        dq, dk, dv = sufa_bwd(q, k, v, idx, valid, o, lse, do.contiguous(),
+                              **ctx.kw)
+        return dq, dk, dv, None, None, None
+
+
+def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   idx: torch.Tensor, valid: torch.Tensor, *,
+                   block_q: int = 128, block_kv: int = 128,
+                   causal: bool = True, scale: Optional[float] = None,
+                   strict: bool = False, elementwise: bool = False,
+                   radius: float = 5.0, return_lse: bool = False):
+    """q [BH, T, d], k/v [BH, S, d] (the queries are the last T of the S
+    positions); idx [BH, T/block_q, keep] key-tile ids in visiting order
+    (descending predicted max), valid [BH, T/block_q, keep] bool
+    -> [BH, T, d] in q's dtype; with ``return_lse`` also the fp32 row
+    log-sum-exp [BH, T] (natural base, +inf on a row that sees no key;
+    not differentiable). ``elementwise`` applies the element-level sphere
+    of ``radius`` inside the selected tiles. Differentiable in q, k and v
+    (``_Sufa``) where grad mode is on and one of them requires grad."""
+    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
+    kw = dict(block_q=block_q, block_kv=block_kv, causal=causal,
+              scale=scale, strict=strict, elementwise=elementwise,
+              radius=radius)
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    if return_lse:
+        if needs_grad:
+            raise ValueError("sufa_attention: return_lse is not "
+                             "differentiable")
+        return _forward(q, k, v, idx, valid, with_lse=True, **kw)
+    if needs_grad:
+        return _Sufa.apply(q, k, v, idx, valid, kw)
+    return _forward(q, k, v, idx, valid, with_lse=False, **kw)

@@ -8,9 +8,12 @@ paged pool, one-token decode against the dense slot cache (the dense
 engine's), the spatial (sequence-sharded) forms of the chunk prefills
 and the paged decode, and the encoder-decoder cross-attention.
 
-Training differentiates ``apply_prefill`` (``star=None`` in train mode):
-K4's wrapper is a ``torch.autograd.Function`` whose backward is K4's
-backward kernel, and the GQA expansion sums dK/dV over each group.
+Training differentiates ``apply_prefill``: dense (``star=None`` in train
+mode unless ``star_train``) through K4, whose wrapper is a
+``torch.autograd.Function`` whose backward is K4's backward kernel, or
+STAR (``star_train``) through K3's, whose backward is K3's backward
+kernel (the tile selection is not differentiated, as in the reference);
+the GQA expansion sums dK/dV over each group.
 
 Where the reference updates a donated cache functionally
 (``cache.at[...].set``), the port writes the pool slab or the dense slab

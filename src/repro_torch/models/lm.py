@@ -27,9 +27,10 @@ stub's embeddings) skips the token embedding.
 Training (``loss_fn``) runs the stack in ``mode="train"``: each layer's
 super-block under the ``remat`` policy (``torch.utils.checkpoint``), the
 dense attention through K4 and its backward (STAR is off in training,
-as in the reference, unless ``star_train``, which needs K3's backward
-and is refused), and the MoE blocks' load-balance loss summed as
-``aux · aux_loss_weight``; the serving modes drop that loss.
+as in the reference, unless ``star_train``: then the STAR prefill runs
+K2 -> SADS -> K3 and K3's backward, the selection undifferentiated),
+and the MoE blocks' load-balance loss summed as ``aux ·
+aux_loss_weight``; the serving modes drop that loss.
 """
 
 from __future__ import annotations
@@ -78,8 +79,7 @@ class ModelCfg:
     enc_layers: int = 0            # > 0 => encoder-decoder
     embeds_input: bool = False     # modality frontend stub feeds embeddings
     star: Optional[STARConfig] = None   # serving-time sparse attention
-    star_train: bool = False            # STAR in training (refused: needs
-    #                                     K3's backward)
+    star_train: bool = False            # STAR in training (K3's backward)
     star_chunk_sparse: bool = False     # DLZS page selection inside later
     #                                     prefill chunks (approximate)
     causal: bool = True
@@ -493,10 +493,6 @@ def loss_fn(params, cfg: ModelCfg, batch):
     so the [B, chunk, vocab] logits are recomputed in the backward and
     [B, S, vocab] never materialises (the reference's
     ``jax.checkpoint(ce_chunk)``)."""
-    if cfg.star_train and cfg.star is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: STAR in training needs K2/K3 in train mode and "
-            f"K3's backward (ROADMAP §1 item 7)")
     x = _embed_inputs(params, cfg, batch)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)

@@ -6,6 +6,8 @@ marked ``cuda`` and skips without a GPU; run them there with
 """
 
 import dataclasses
+import functools
+import pathlib
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import paged as kpaged  # noqa: E402
 
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)     # tests/test_kernels.py's bf16 bound
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -1008,11 +1011,181 @@ def test_training_step_launches_k4_backward(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_without_backward_refuse_grad(cuda_device):
-    """K2 and K3 have no backward: operands that require grad raise
-    rather than lose their gradient."""
+    """K2 has no backward (STAR's selection is not differentiated):
+    operands that require grad raise rather than lose their gradient."""
     from repro_torch.kernels import dlzs as kdlzs
     gen = torch.Generator(device="cpu").manual_seed(0)
     q, k = (_bf16((2, 256, 128), gen, cuda_device).requires_grad_()
             for _ in range(2))
     with pytest.raises(RuntimeError, match="no backward"):
         kdlzs.dlzs_block_scores(q, k, causal=True)
+
+
+# -- K3's backward (STAR in training) ----------------------------------------
+
+def _star_selection(q, k, block, keep):
+    """The glue's selection for q, k (K2's maxima, SADS at radius 5)."""
+    from repro_torch.kernels import dlzs as kdlzs
+    from repro_torch.kernels import ops
+    raw = kdlzs.dlzs_block_scores(q, k, causal=True, scale=1.0,
+                                  block_q=block, block_kv=block)
+    return ops.select_tiles(raw, keep, scale=q.shape[-1] ** -0.5,
+                            radius=5.0, dtype=q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("d,block,t,s,causal", [
+    (128, 128, 2048, 2048, True), (64, 128, 1024, 1024, False),
+    (128, 128, 256, 2048, True), (128, 64, 512, 512, True),
+    (64, 16, 256, 256, True), (128, 48, 192, 384, False)])
+def test_sufa_lse_output(cuda_device, strict, d, block, t, s, causal):
+    """K3's optional lse in both forms and modes: the plain log-sum-exp at
+    1e-4 (+inf on a q-tile with no valid slot), and the same O bits with
+    it as without."""
+    from repro_torch.kernels import sufa as ksufa
+    gen = torch.Generator(device="cpu").manual_seed(d + block + t + s)
+    q = _bf16((4, t, d), gen, cuda_device)
+    k, v = (_bf16((4, s, d), gen, cuda_device) for _ in range(2))
+    idx, valid = _selection(4, t, s, min(3, s // block), block, block, gen,
+                            cuda_device)
+    valid[1, 0] = False
+    kw = dict(block_q=block, block_kv=block, causal=causal, strict=strict)
+    o, lse = ksufa.sufa_attention(q, k, v, idx, valid, return_lse=True, **kw)
+    plain = ksufa.sufa_attention(q, k, v, idx, valid, **kw)
+    assert torch.equal(o.view(torch.int16), plain.view(torch.int16))
+    _, want = ksufa.sufa_reference(q, k, v, idx, valid, scale=d ** -0.5,
+                                   return_lse=True, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    assert bool(torch.isinf(lse[1, :block]).all())
+    fin = torch.isfinite(want)
+    np.testing.assert_allclose(lse[fin].cpu().numpy(),
+                               want[fin].cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bh,t,s,block,causal,edges", [
+    (4, 2048, 2048, 128, True, False), (4, 1024, 1024, 128, False, True),
+    (4, 256, 2048, 128, True, True), (2, 512, 512, 64, True, True),
+    (2, 256, 512, 64, False, False), (1, 128, 128, 128, True, False),
+    (1, 64, 128, 64, True, True)])
+def test_sufa_bwd_kernel_matches_plain(cuda_device, monkeypatch, d, bh, t,
+                                       s, block, causal, edges):
+    """K3's backward on the glue's selection against ``sufa.sufa_bwd_ref``
+    in fp32: dQ, dK and dV each no further from it than twice the bf16
+    plain gradient under the selection's mask is (plus 1e-5); with
+    ``edges`` an invalid slot, a key tile of head 0 that no q-tile chose
+    (dK = dV = 0 exactly) and a q-tile of head 1 with no valid slot
+    (dQ = 0 exactly); one counted launch; three calls bit-equal, one on a
+    side stream."""
+    from repro_torch.kernels import sufa as ksufa
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    gen = torch.Generator(device="cpu").manual_seed(d * 3 + t + s + block)
+    q = _bf16((bh, t, d), gen, cuda_device)
+    k = _bf16((bh, s, d), gen, cuda_device)
+    v, do = _bf16((bh, s, d), gen, cuda_device), _bf16((bh, t, d), gen,
+                                                       cuda_device)
+    keep = max(1, min(s // block, -(-s // block // 5)))
+    if causal:
+        idx, valid = _star_selection(q, k, block, keep)
+    else:
+        idx, valid = _selection(bh, t, s, keep, block, block, gen,
+                                cuda_device)
+    if edges:
+        unchosen = int(idx[0, -1, 0])
+        valid[0] &= idx[0] != unchosen
+        valid[:, 0, -1] = False
+        valid[min(1, bh - 1), -1] = False
+    kw = dict(block_q=block, block_kv=block, causal=causal)
+    o, lse = ksufa.sufa_attention(q, k, v, idx, valid, return_lse=True,
+                                  strict=True, **kw)
+    kernels.reset_launches()
+    got = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sufa_bwd"] == 1
+    assert kernels.FORM_LAUNCHES["sufa_bwd/noncausal"] == int(not causal)
+    again = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        third = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for other in (again, third) for a, b in zip(got, other))
+    if edges:
+        sl = slice(unchosen * block, (unchosen + 1) * block)
+        assert float(got[1][0, sl].abs().max()) == 0.0
+        assert float(got[2][0, sl].abs().max()) == 0.0
+        assert float(got[0][min(1, bh - 1), t - block:].abs().max()) == 0.0
+    f32 = [x.float() for x in (q, k, v)]
+    o32, lse32 = ksufa.sufa_reference(*f32, idx, valid, scale=d ** -0.5,
+                                      strict=True, return_lse=True, **kw)
+    want = ksufa.sufa_bwd_ref(*f32, idx, valid, o32, lse32, do.float(), **kw)
+    dense = cs.selection_mask(idx, valid, t=t, s=s, block=block,
+                              causal=causal)
+    lowp = cs.grads_of(functools.partial(
+        cs.plain_masked_lowp, dense=dense, scale=d ** -0.5), q, k, v, do)
+    for g, w, p in zip(got, want, lowp):
+        err = float((g.float() - w).abs().max())
+        assert err <= 2 * float((p.float() - w).abs().max()) + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["elementwise", "tile16", "tile96"])
+def test_sufa_backward_refuses_uncovered_cases(cuda_device, case):
+    """Where the card's backward does not reach (the element mask, tiles
+    other than 64 and 128) the differentiable K3 raises before it
+    launches, and never runs the plain backward on the card."""
+    from repro_torch.kernels import sufa as ksufa
+    block = {"elementwise": 128, "tile16": 16, "tile96": 96}[case]
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v = (_bf16((2, 384, 64), gen, cuda_device).requires_grad_()
+               for _ in range(3))
+    idx, valid = _selection(2, 384, 384, 1, block, block, gen, cuda_device)
+    kernels.reset_launches()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ksufa.sufa_attention(q, k, v, idx, valid, block_q=block,
+                             block_kv=block,
+                             elementwise=case == "elementwise")
+    assert kernels.LAUNCHES["sufa"] == kernels.LAUNCHES["sufa_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_star_training_step_launches_k3_backward(cuda_device):
+    """A loss's backward through ``lm.loss_fn`` with ``star_train`` on the
+    card runs K2 and K3 twice per attention layer (forward and recompute
+    under ``remat="full"``) and K3's backward once, K4 never; the loss and
+    gradients agree with the same step on the CPU's plain path at the
+    bf16 bound."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.star_attention import STARConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(
+        get_smoke_config("olmo_1b"), n_heads=2, n_kv=2, d_model=128,
+        d_ff=256, star_train=True,
+        star=STARConfig(top_k_ratio=0.5, block_q=64, block_kv=64))
+    params = lm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 256), generator=gen)
+             for k in ("tokens", "labels")}
+    kernels.reset_launches()
+    (loss, _), grads = steps.value_and_grad(
+        _to(params, cuda_device), cfg,
+        {k: v.to(cuda_device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sufa_bwd"] == cfg.n_layers
+    assert kernels.LAUNCHES["sufa"] == kernels.LAUNCHES["dlzs_block"] == \
+        2 * cfg.n_layers
+    assert kernels.LAUNCHES["flash"] == kernels.LAUNCHES["flash_bwd"] == 0
+    (loss_cpu, _), grads_cpu = steps.value_and_grad(params, cfg, batch)
+    assert abs(float(loss) - float(loss_cpu)) <= 2e-2 * float(loss_cpu)
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_cpu)):
+        w = w.float()
+        np.testing.assert_allclose(
+            g.float().cpu().numpy(), w.numpy(), rtol=2e-2,
+            atol=2e-2 * max(1.0, float(w.abs().max())))

@@ -164,11 +164,15 @@ def test_configs_resolve_field_for_field():
     assert tconfigs.get_config(ARCH).enc_layers == 24
 
 
-def test_converter_refuses_star_train():
-    """Only STAR in training stays unported (ROADMAP §1 item 7)."""
+def test_converter_carries_star_train():
+    """STAR in training converts (its encoder keeps STAR in every mode,
+    as the reference's ``mode="encode"`` does; its decoder keeps it in
+    training with ``star_train``)."""
     jcfg = dataclasses.replace(jget_smoke(ARCH), star_train=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        convert.model_cfg_from_reference(jcfg)
+    tcfg = convert.model_cfg_from_reference(jcfg)
+    assert tcfg.star_train and tcfg.star is not None
+    assert tcfg.attn_cfg(mode="train").star == tcfg.star
+    assert tcfg.attn_cfg(mode="encode").star == tcfg.star
 
 
 @pytest.mark.parametrize("variant", [VARIANTS[0], VARIANTS[2]], ids=IDS[::2])

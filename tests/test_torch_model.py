@@ -155,13 +155,15 @@ def test_converter_round_trip(models, dtype):
         (jcfg.n_layers, jcfg.d_model, jcfg.n_heads, jcfg.dh)
 
 
-def test_converter_rejects_unported_families():
-    """Every model family converts now; STAR in training (ROADMAP §1 item
-    7) is what the converter still refuses."""
+def test_converter_carries_star_train():
+    """Every model family converts, STAR in training included: the
+    converter carries ``star_train`` and the STAR config with it."""
     train = dataclasses.replace(get_smoke_config("olmo_1b"),
                                 star_train=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        convert.model_cfg_from_reference(train)
+    tcfg = convert.model_cfg_from_reference(train)
+    assert tcfg.star_train and tcfg.star is not None
+    assert tcfg == dataclasses.replace(tolmo.smoke_config(), star_train=True)
+    assert tcfg.attn_cfg(mode="train").star == tcfg.star
 
 
 def test_port_init_matches_reference_tree():

@@ -349,7 +349,7 @@ assert all(n in sys.modules for n in new), new
 import chip_smoke
 sys.path.insert(0, {tools!r})
 import torch_profile_prefill, torch_star_drift, torch_decode_forms
-import torch_k1_int8, torch_served_logits
+import torch_k1_int8, torch_served_logits, torch_grad_norms
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad

@@ -1,8 +1,8 @@
 """The port's training step on every smoke config (the twin of
 ``tests/test_models_smoke.py``'s train tests: loss finite and positive,
 gradients finite), the remat policies' gradients bit-equal, gradient
-accumulation against one batch, the refusal of ``star_train``, and the
-training launcher (``python -m repro_torch.launch.train``). It uses
+accumulation against one batch, a smoke step with ``star_train``, and
+the training launcher (``python -m repro_torch.launch.train``). It uses
 ``test_torch_train``'s helpers.
 """
 
@@ -52,14 +52,21 @@ def test_remat_policies_give_equal_grads(arch):
             assert torch.equal(a, b)
 
 
-def test_star_train_is_refused():
-    """STAR in training needs K3's backward (not ported): the port's own
-    config with ``star_train`` raises instead of training without it."""
+def test_star_train_smoke_trains():
+    """olmo_1b's smoke config trains with ``star_train`` (K3's backward):
+    loss finite, every gradient finite, and the loss differs from the
+    same step with ``star=None`` (STAR is really on in training)."""
     cfg = dataclasses.replace(tsmoke("olmo_1b"), star_train=True)
     params = tlm.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = _torch_batch(_batch(cfg, np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tlm.loss_fn(params, cfg, batch)
+    batch = _torch_batch(_batch(cfg, np.random.default_rng(0), s=128),
+                         cfg.dtype)
+    (loss, _), grads = steps.value_and_grad(params, cfg, batch)
+    assert np.isfinite(float(loss)) and float(loss) > 0
+    for g in tree_leaves(grads):
+        assert torch.isfinite(g.float()).all()
+    (dense, _), _ = steps.value_and_grad(
+        params, dataclasses.replace(cfg, star=None), batch)
+    assert float(loss) != float(dense)
 
 
 def test_train_accum_equals_one_batch():
