@@ -256,16 +256,19 @@ Phases, each printing its numbers on a line of its own:
    (strict and fast: O bit-equal with and without it, the plain lse at
    1e-4) and K3's backward (``csrc/sufa_bwd.cu``) on the glue's selection
    against its plain version (``sufa_bwd_ref``) by phase 20a's rule, for
-   the backward of either forward, two calls bit-equal: OLMo-1B's
-   training shape (BH 128, T = S = 2048, d 128, causal, keep 4 of 16),
+   the backward of either forward, two calls bit-equal, in the form the
+   tiles pick: the ``wgmma`` form (tiles of 128) at OLMo-1B's training
+   shape (BH 128, T = S = 2048, d 128, causal, keep 4 of 16),
    SeamlessM4T's encoder (BH 16, T = S = 2048, d 64, not causal), T 256
-   over S 2048, and edges (invalid slots, a key tile no q-tile chose
-   with dK = dV = 0, a q-tile with no valid slot with dQ = 0); the first
-   two timed beside their bounds (10·d flops per visible selected pair),
-   the plain version and SDPA's backward under the selection's dense
-   mask, with the split of its three kernels; (b) OLMo-1B with
-   ``star_train`` trained as in 20b: the loss falls by more than 0.1,
-   K2 = K3 = steps x 32, K3's backward steps x 16, K1 and K4 never; step
+   over S 2048, edges (invalid slots, a key tile no q-tile chose with
+   dK = dV = 0, a q-tile with no valid slot with dQ = 0) and a key tile
+   chosen by every q-tile of a head; the ``mma_sync`` form at tiles of
+   64 with the edges; the first two timed beside their bounds (10·d
+   flops per visible selected pair), the plain version and SDPA's
+   backward under the selection's dense mask, with the split of the
+   ``wgmma`` form's two kernels; (b) OLMo-1B with ``star_train``
+   trained as in 20b: the loss falls by more than 0.1, K2 = K3 = steps x
+   32, K3's backward steps x 16 (all ``wgmma``), K1 and K4 never; step
    ms, tokens/s, MFU, peak memory and one profiled step's split (K2, K3,
    K3's backward, the selection glue, GEMMs, AdamW, the rest); (c) 20c's
    restart check with ``star_train``, in 20c's child process after the
@@ -421,8 +424,9 @@ RESTART_LAYERS = 2
 RESTART_BATCH = 4
 # K4's backward's kernels (csrc/flash_bwd.cu), by name prefix
 BWD_KERNELS = ("bwd_prep", "bwd_kv")
-# phase 21: STAR in training; K3's backward's kernels (csrc/sufa_bwd.cu)
-SUFA_BWD_KERNELS = ("sufa_grad_prep", "sufa_grad_kv", "sufa_grad_q")
+# phase 21: STAR in training; the kernels of K3's backward's wgmma form
+# (csrc/sufa_bwd.cu, 128 x 128 tiles) in launch order, by name prefix
+SUFA_BWD_KERNELS = ("sufa_grad_q_wgmma", "sufa_grad_kv_wgmma")
 STARTED = time.perf_counter()
 
 
@@ -3597,7 +3601,8 @@ def flash_bwd_split(fn, flush, iters: int = 10,
                     parts=BWD_KERNELS) -> dict:
     """Device ms per launch of each kernel a backward launches (K4's:
     the prep pass, and the key-tile pass that computes dK, dV and dQ;
-    K3's with ``parts=SUFA_BWD_KERNELS``: prep, dK/dV, dQ), from
+    K3's ``wgmma`` form with ``parts=SUFA_BWD_KERNELS``: the dQ pass
+    that also sums D, then dK/dV), from
     ``torch.profiler`` over ``iters`` calls of ``fn``, each after an L2
     flush (averaged over the launches the trace holds); their sum beside
     them."""
@@ -3730,7 +3735,7 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
         parts = {"k2_ms": by_name("dlzs_wgmma_kernel", "dlzs_mma_kernel"),
                  "k3_forward_ms": by_name("sufa_wgmma_kernel",
                                           "sufa_mma_kernel"),
-                 "k3_backward_ms": by_name(*SUFA_BWD_KERNELS),
+                 "k3_backward_ms": by_name("sufa_grad_"),
                  "selection_ms": profiling.range_device_ms(
                      prof, "selection", names)}
     else:
@@ -3799,6 +3804,8 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
     if on_card and star_trained(cfg):
         want.update(dlzs_block=steps * layers * 2, sufa=steps * layers * 2,
                     sufa_bwd=steps * layers)
+        want.update({"sufa_bwd/wgmma": steps * layers,
+                     "sufa_bwd/mma_sync": 0})
     elif on_card:
         want.update(flash=steps * layers * 2, flash_bwd=steps * layers)
     tokens = seq * batch
@@ -4071,7 +4078,7 @@ def lse_held(tag: str, got, want, **case) -> dict:
 
 
 def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
-                   edges=False, block=128) -> dict:
+                   edges=False, all_choosers=False, block=128) -> dict:
     """Phase 21a: K3's lse and backward on the glue's selection (K2, then
     ``ops.select_tiles`` keeping as many tiles as olmo_1b's STAR config).
     K3's forward, strict and fast, must give the same O bits with and
@@ -4080,13 +4087,18 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
     ``gradient_rule`` against the fp32 plain gradient (``sufa_bwd_ref``
     on fp32 copies, the fp32 strict forward's o and lse), the bf16
     yardstick being autograd through the bf16 plain form under the
-    selection's dense mask, and two calls must give the same bits. With
-    ``edges``: invalid slots, a key tile of head 0 that no q-tile chose
-    (dK = dV = 0 exactly) and a q-tile of head 1 with no valid slot
-    (dQ = 0 exactly, its lse +inf). Timed: the kernel, its plain
+    selection's dense mask, and two calls must give the same bits, every
+    launch in the form the tiles pick (``launch.tile_form``: ``wgmma`` at
+    128, ``mma_sync`` at 64). With ``edges``: invalid slots, a key tile
+    of head 0 that no q-tile chose (dK = dV = 0 exactly) and a q-tile of
+    head 1 with no valid slot (dQ = 0 exactly, its lse +inf). With
+    ``all_choosers``: key tile 0 in a slot of every q-tile of head 0
+    (the dK/dV pass's longest walk; no slot names a tile twice, so the
+    dense mask stays the yardstick's). Timed: the kernel, its plain
     version, its bound (10·d flops per visible selected pair, or its
     bytes) and SDPA's backward under the dense mask (``autograd.grad`` on
-    a retained graph), with the split of its three kernels."""
+    a retained graph), with the split of the wgmma form's two kernels
+    (each traced at least once)."""
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
     if s != t:
         _, k, v = prefill_inputs(bh, s, d, seed + 1, dev)
@@ -4100,8 +4112,16 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
                                   block_q=block, block_kv=block)
     idx, valid = ops.select_tiles(raw, keep, scale=scale, radius=star.radius,
                                   dtype=q.dtype)
+    form = launch.tile_form(block, block)
     case = dict(kernel="sufa_bwd", BH=bh, T=t, S=s, d=d, block=block,
-                keep=keep, causal=causal, edges=edges)
+                keep=keep, causal=causal, edges=edges,
+                all_choosers=all_choosers, form=form)
+    if all_choosers:
+        named = ((idx[0] == 0) & valid[0]).any(dim=-1)
+        idx[0, ~named, -1] = 0
+        valid[0, ~named, -1] = True
+        case["key_tile_0_choosers"] = int(((idx[0] == 0) & valid[0]).any(
+            dim=-1).sum())
     if edges:
         unchosen = int(idx[0, -1, 0])
         valid[0] &= idx[0] != unchosen
@@ -4135,6 +4155,7 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
     lowp = dict(zip(names, grads_of(functools.partial(
         plain_masked_lowp, dense=dense, scale=scale), q, k, v, do)))
     modes = {}
+    before = launched()
     for strict in (True, False):
         o, lse = fwd[strict]
         got = dict(zip(names, ksufa.sufa_bwd(q, k, v, idx, valid, o, lse,
@@ -4158,7 +4179,15 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
                                  f"an empty q-tile has a gradient: {res}")
         res["lse_max_abs_err"] = lse_err[strict]
         modes[strict] = res
+    on_card = torch.device(dev).type == "cuda"
+    calls = {f"sufa_bwd/{f}": launched()[f"sufa_bwd/{f}"]
+             - before[f"sufa_bwd/{f}"] for f in ("wgmma", "mma_sync")}
+    if calls != {f"sufa_bwd/{f}": 4 * (on_card and f == form)
+                 for f in ("wgmma", "mma_sync")}:
+        raise SystemExit(f"sufa_bwd {case}: launches by form {calls}, not "
+                         f"4 in the {form} form")
     out = dict(modes[True])
+    out["form_launches"] = calls
     out["fast"] = {key: modes[False][key] for key in (
         "max_abs_err", "lse_max_abs_err", "two_calls_bit_equal")}
     del want, lowp
@@ -4183,6 +4212,10 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
                   bytes_=nbytes(q, k, v, o, do, q, k, v, lse, idx, valid),
                   flops=10 * d * pairs)
         out.update(flash_bwd_split(kernel, flush, parts=SUFA_BWD_KERNELS))
+        if not all(out[f"{part}_launches_traced"]
+                   for part in SUFA_BWD_KERNELS):
+            raise SystemExit(f"sufa_bwd {case}: the trace holds no launch "
+                             f"of one of {SUFA_BWD_KERNELS}: {out}")
         out["selected_pairs"] = pairs
         out["dense_causal_pairs"] = bh * visible_pairs(t, s, causal)
         out["tflop_s_10d"] = 10 * d * pairs / out["ms"] / 1e9
@@ -4192,11 +4225,14 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
 
 
 def check_sufa_bwd_shapes(dev, ptxas=()) -> dict:
-    """Phase 21a's shapes: OLMo-1B's training shape (BH 128, T = S =
-    2048, d 128, causal, keep 4 of 16), timed; SeamlessM4T's encoder
-    (BH 16, T = S = 2048, d 64, not causal), timed; T 256 over S 2048,
-    causal; the edges at BH 16, T = S = 1024. ``ptxas``: the backward's
-    register and spill lines from the build log, emitted beside them."""
+    """Phase 21a's shapes, in the wgmma form (tiles of 128): OLMo-1B's
+    training shape (BH 128, T = S = 2048, d 128, causal, keep 4 of 16),
+    timed; SeamlessM4T's encoder (BH 16, T = S = 2048, d 64, not causal),
+    timed; T 256 over S 2048, causal; the edges at BH 16, T = S = 1024;
+    key tile 0 chosen by every q-tile of a head (BH 16, T = S = 2048).
+    In the mma_sync form, tiles of 64: BH 16, T = S = 1024, d 128, causal,
+    with the edges. ``ptxas``: the backward's register and spill lines
+    from the build log, emitted beside them."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     out = {"train": check_sufa_bwd(dev, flush, bh=TRAIN_BATCH * 16,
                                    t=TRAIN_SEQ, s=TRAIN_SEQ, d=128,
@@ -4207,7 +4243,13 @@ def check_sufa_bwd_shapes(dev, ptxas=()) -> dict:
                                   causal=True, seed=2103, timed=False),
            "edges": check_sufa_bwd(dev, flush, bh=16, t=1024, s=1024, d=128,
                                    causal=True, seed=2104, timed=False,
-                                   edges=True)}
+                                   edges=True),
+           "all_choosers": check_sufa_bwd(dev, flush, bh=16, t=2048, s=2048,
+                                          d=128, causal=True, seed=2105,
+                                          timed=False, all_choosers=True),
+           "mma_sync": check_sufa_bwd(dev, flush, bh=16, t=1024, s=1024,
+                                      d=128, causal=True, seed=2106,
+                                      timed=False, edges=True, block=64)}
     emit("sufa_bwd_build", ptxas=[f"{fn} {line}" for fn, line in ptxas])
     del flush
     free_cache(dev)
@@ -4711,6 +4753,7 @@ def main() -> int:
              "(src/repro/core/sufa.py:107)",
              star_train["launches"]["sufa_bwd"], sbwd["train"],
              launches_from="phase 21b, OLMo-1B trained with star_train",
+             form=sbwd["train"]["form"],
              max_abs_err_by_grad={n: sbwd["train"][f"max_abs_err_{n}"]
                                   for n in ("dq", "dk", "dv")},
              bf16_plain_err_by_grad={n: sbwd["train"][f"bf16_plain_err_{n}"]
@@ -4721,6 +4764,11 @@ def main() -> int:
                  "library_ms", "tflop_s_10d")},
              max_abs_err_t256=sbwd["t256"]["max_abs_err"],
              max_abs_err_edges=sbwd["edges"]["max_abs_err"],
+             max_abs_err_all_choosers=sbwd["all_choosers"]["max_abs_err"],
+             launches_by_form={f: star_train["launches"][f"sufa_bwd/{f}"]
+                               for f in ("wgmma", "mma_sync")},
+             mma_sync_tiles64={key: sbwd["mma_sync"][key] for key in (
+                 "max_abs_err", "tolerance", "two_calls_bit_equal")},
              split_ms={part: sbwd["train"][f"{part}_ms"]
                        for part in SUFA_BWD_KERNELS},
              tflop_s_10d=sbwd["train"]["tflop_s_10d"],

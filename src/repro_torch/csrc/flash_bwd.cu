@@ -116,15 +116,6 @@ constexpr int kConsumerRegs = 240;
 constexpr int kDsBar = 1;       // named barrier: all of dS^T stored
 constexpr float kLog2e = 1.4426950408889634f;
 
-// one swizzled box: `rows` rows of 64 bf16 (128 bytes)
-__host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
-
-// a [rows, D] tile: D / 64 boxes side by side
-template <int D>
-__host__ __device__ constexpr int tile_bytes(int rows) {
-  return (D / 64) * box_bytes(rows);
-}
-
 // a dQ partial: 64 query rows x D fp32
 template <int D>
 __host__ __device__ constexpr int dq_bytes() {
@@ -149,42 +140,6 @@ __device__ __forceinline__ float bf16_lo(uint32_t x) {
 
 __device__ __forceinline__ float bf16_hi(uint32_t x) {
   return __uint_as_float(x & 0xFFFF0000u);
-}
-
-// A descriptor the compiler cannot hoist out of the step loop (eight 64-bit
-// descriptors per operand would pin 16 registers each).
-__device__ __forceinline__ uint64_t opaque(uint64_t d) {
-  asm volatile("" : "+l"(d));
-  return d;
-}
-
-__device__ __forceinline__ uint64_t kdesc(const uint8_t* p) {
-  return opaque(sw128_desc(p, 16, 1024));
-}
-
-__device__ __forceinline__ uint64_t mndesc(const uint8_t* p, int box) {
-  return opaque(sw128_desc(p, box, 1024));
-}
-
-// K-major: k16 step kk sits 32 bytes on inside a box, boxes `box` apart
-__device__ __forceinline__ uint64_t kmajor(uint64_t base, int box, int kk) {
-  return base + (((kk >> 2) * box + (kk & 3) * 32) >> 4);
-}
-
-// MN-major: k16 step kk is 16 rows (2048 bytes) on
-__device__ __forceinline__ uint64_t mnmajor(uint64_t base, int kk) {
-  return base + ((kk * 2048) >> 4);
-}
-
-// d += A . B over D output columns: A from registers (one k16 step), B
-// MN-major
-template <int D>
-__device__ __forceinline__ void rs_step(float (&d)[D / 2],
-                                        const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 128)
-    wgmma_rs_m64n128(d, a, db);
-  else
-    wgmma_rs_m64n64(d, a, db);
 }
 
 // d += A . B over D output columns: A K-major, B MN-major in shared memory

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels
-// (flash.cu, flash_bwd.cu, sufa.cu, dlzs_block.cu): mbarrier hand-offs,
-// named barriers and the async-proxy fences, TMA tile loads, bulk copies
-// and reductions, flags between blocks and the host-side tensor-map
-// encoder, setmaxnreg, wgmma shared-memory descriptors and the wgmma
-// products themselves, as inline PTX (no CUTLASS needed).
+// (flash.cu, flash_bwd.cu, sufa.cu, sufa_bwd.cu, dlzs_block.cu): mbarrier
+// hand-offs, named barriers and the async-proxy fences, TMA tile loads,
+// bulk copies and reductions, flags between blocks and the host-side
+// tensor-map encoder, setmaxnreg, wgmma shared-memory descriptors, the
+// wgmma products themselves, as inline PTX (no CUTLASS needed), and the
+// descriptor steps over swizzled tiles that the backwards share.
 //
 // Shared-memory tiles arrive from TMA with CU_TENSOR_MAP_SWIZZLE_128B: a
 // box is at most 64 bf16 wide (128 bytes), its rows are 128 bytes apart,
@@ -396,6 +397,55 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// -- swizzled tiles read by wgmma in steps -------------------------------------
+
+// one swizzled box: `rows` rows of 64 bf16 (128 bytes)
+__host__ __device__ constexpr int box_bytes(int rows) { return rows * 128; }
+
+// a [rows, D] tile: D / 64 boxes side by side
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return (D / 64) * box_bytes(rows);
+}
+
+// A descriptor the compiler cannot hoist out of a step loop (eight 64-bit
+// descriptors per operand would pin 16 registers each).
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// a tile read K-major (its rows contiguous along the reduced dim)
+__device__ __forceinline__ uint64_t kdesc(const uint8_t* p) {
+  return opaque(sw128_desc(p, 16, 1024));
+}
+
+// a tile read MN-major, its 64-column boxes `box` bytes apart
+__device__ __forceinline__ uint64_t mndesc(const uint8_t* p, int box) {
+  return opaque(sw128_desc(p, box, 1024));
+}
+
+// K-major: k16 step kk sits 32 bytes on inside a box, boxes `box` apart
+__device__ __forceinline__ uint64_t kmajor(uint64_t base, int box, int kk) {
+  return base + (((kk >> 2) * box + (kk & 3) * 32) >> 4);
+}
+
+// MN-major: k16 step kk is 16 rows (2048 bytes) on
+__device__ __forceinline__ uint64_t mnmajor(uint64_t base, int kk) {
+  return base + ((kk * 2048) >> 4);
+}
+
+// d += A . B over D output columns: A from registers (one k16 step), B
+// MN-major
+template <int D>
+__device__ __forceinline__ void rs_step(float (&d)[D / 2],
+                                        const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 128)
+    wgmma_rs_m64n128(d, a, db);
+  else
+    wgmma_rs_m64n64(d, a, db);
 }
 
 }  // namespace star

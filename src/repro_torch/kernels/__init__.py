@@ -15,7 +15,9 @@ spatial merge (``kernels.paged.paged_decode_stats_attention``) counts
 under its own name, ``paged_decode_stats``, in both lanes. The
 backwards of K4 and K3 (``kernels.flash.flash_bwd``,
 ``kernels.sufa.sufa_bwd``; training) count as ``flash_bwd`` and
-``sufa_bwd``, and ``<kernel>/noncausal`` counts theirs without the mask.
+``sufa_bwd``, and ``<kernel>/noncausal`` counts theirs without the mask;
+K3's backward has K3's two forms, counted as ``sufa_bwd/wgmma`` and
+``sufa_bwd/mma_sync``.
 K1 and K2 have no backward: the decode is not trained and STAR's tile
 selection carries no gradient.
 """
@@ -31,6 +33,8 @@ FORM_LAUNCHES: dict[str, int] = {"dlzs_block/wgmma": 0,
                                  "sufa/noncausal": 0, "flash/noncausal": 0,
                                  "flash_bwd/noncausal": 0,
                                  "sufa_bwd/noncausal": 0,
+                                 "sufa_bwd/wgmma": 0,
+                                 "sufa_bwd/mma_sync": 0,
                                  "paged_decode/fp": 0,
                                  "paged_decode/int8": 0,
                                  "paged_decode_stats/fp": 0,

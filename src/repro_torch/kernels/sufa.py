@@ -39,6 +39,13 @@ kernel has no VJP (the reference differentiates ``core.sufa.
 sufa_gathered`` or ``sufa_scan`` through XLA); on the card the backward
 is ``csrc/sufa_bwd.cu`` (``kernels.LAUNCHES["sufa_bwd"]``), on the CPU
 ``sufa_bwd_ref``. The tile ids and their validity carry no gradient.
+Like the forward, the backward has two forms, picked by
+``launch.tile_form``: at the 128 x 128 tiles training runs, two
+warp-specialised ``wgmma`` + TMA passes (dQ by q-tile over its slots,
+summing D = rowsum(dO∘O) on the way; then dK and dV by key tile over the
+q-tiles that chose it, in persistent blocks); ``mma_sync`` at tiles of 64
+and the mixed ones (``FORM_LAUNCHES["sufa_bwd/<form>"]``). No sum crosses
+a block, so two calls give the same bits.
 The card's backward takes tiles of 64 or 128 without the element mask;
 ``_Sufa`` raises ``NotImplementedError`` on a CUDA tensor for the rest
 (ROADMAP §1, item 7's remainder) and never runs the plain backward there.
@@ -288,13 +295,14 @@ def sufa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's output ``o`` and fp32 ``lse`` [BH, T]; the same for both
     ``strict`` modes. CPU tensors take ``sufa_bwd_ref``; on a GPU the
     kernel runs (bf16 operands, contiguous; tiles of 64 or 128, no element
-    mask) or this raises."""
+    mask) in the form its tiles pick (``launch.tile_form``) or this
+    raises."""
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
     if q.device.type == "cpu":
         return sufa_bwd_ref(q, k, v, idx, valid, o, lse, do,
-                                block_q=block_q, block_kv=block_kv,
-                                causal=causal, scale=scale,
-                                elementwise=elementwise, radius=radius)
+                            block_q=block_q, block_kv=block_kv,
+                            causal=causal, scale=scale,
+                            elementwise=elementwise, radius=radius)
     name = "sufa_bwd"
     launch.require_cuda(name, q.device)
     _require_card_backward(block_q, block_kv, elementwise)
@@ -311,14 +319,26 @@ def sufa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(lse.shape)} {lse.dtype}")
     idx, valid = idx.contiguous(), valid.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(2 * bh * t, dtype=torch.float32, device=q.device)
-    fn = launch.bind(name, "sufa_bwd_bf16",
-                     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
-                     + [ctypes.c_float, ctypes.c_void_p])
-    launch.launch(name, fn, q.device, *(x.data_ptr() for x in (
-        q, k, v, idx, valid, o, lse, do, dq, dk, dv, scratch)), bh, t, s,
-        idx.shape[2], block_q, block_kv, d, int(causal), float(scale),
-        causal=causal)
+    # D and lse in base 2 per row, then the wgmma form's work counter
+    scratch = torch.empty(2 * bh * t + 4, dtype=torch.float32,
+                          device=q.device)
+    ptrs = [x.data_ptr() for x in (q, k, v, idx, valid, o, lse, do, dq, dk,
+                                   dv, scratch)]
+    keep = idx.shape[2]
+    form = launch.tile_form(block_q, block_kv)
+    if form == "wgmma":
+        fn = launch.bind(name, "sufa_bwd_wgmma_bf16",
+                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                         + [ctypes.c_float, ctypes.c_void_p])
+        args = (bh, t, s, keep, d, int(causal), float(scale))
+    else:
+        fn = launch.bind(name, "sufa_bwd_bf16",
+                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                         + [ctypes.c_float, ctypes.c_void_p])
+        args = (bh, t, s, keep, block_q, block_kv, d, int(causal),
+                float(scale))
+    launch.launch(name, fn, q.device, *ptrs, *args, form=form,
+                  causal=causal)
     return dq, dk, dv
 
 

@@ -1063,22 +1063,64 @@ def test_sufa_lse_output(cuda_device, strict, d, block, t, s, causal):
                                want[fin].cpu().numpy(), rtol=1e-4, atol=1e-4)
 
 
+def _selection_counts(idx, valid, *, t, s, block, causal):
+    """How many valid slots name each key of each row's selection [BH, T,
+    S] (causal at offset S - T): the forward's softmax counts a tile as
+    often as its q-tile's slots name it."""
+    bh, n_qt, keep = idx.shape
+    counts = torch.zeros((bh, n_qt, s // block), device=idx.device)
+    counts.scatter_add_(2, idx, valid.float())
+    dense = counts.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        pos = torch.arange(t, device=idx.device)[:, None] + (s - t)
+        dense = dense * (torch.arange(s, device=idx.device)[None] <= pos)
+    return dense
+
+
+def _plain_counted_lowp(q, k, v, *, counts, scale):
+    """The bf16 plain form of K3's function over a selection with
+    multiplicities: a key named twice enters the softmax twice, which is
+    a score raised by log 2 (``chip_smoke.plain_masked_lowp`` when every
+    count is 0 or 1)."""
+    sc = torch.einsum("btd,bsd->bts", q, k) * scale
+    sc = (sc + torch.log(counts).to(sc.dtype)).masked_fill(counts == 0,
+                                                           -1e30)
+    p = torch.softmax(sc, dim=-1).masked_fill(counts == 0, 0.0)
+    return torch.einsum("bts,bsd->btd", p.to(v.dtype), v)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("bh,t,s,block,causal,edges", [
-    (4, 2048, 2048, 128, True, False), (4, 1024, 1024, 128, False, True),
-    (4, 256, 2048, 128, True, True), (2, 512, 512, 64, True, True),
-    (2, 256, 512, 64, False, False), (1, 128, 128, 128, True, False),
-    (1, 64, 128, 64, True, True)])
+@pytest.mark.parametrize("bh,t,s,block,causal,edges,variant", [
+    (4, 2048, 2048, 128, True, False, None),
+    (4, 1024, 1024, 128, False, True, None),
+    (4, 256, 2048, 128, True, True, None),
+    (2, 512, 512, 64, True, True, None),
+    (2, 256, 512, 64, False, False, None),
+    (1, 128, 128, 128, True, False, None),
+    (1, 64, 128, 64, True, True, None),
+    (3, 1024, 1024, 128, True, True, None),
+    (2, 2048, 2048, 128, True, False, "all_choosers"),
+    (2, 1024, 1024, 128, False, False, "all_choosers"),
+    (2, 1024, 1024, 128, True, False, "twice"),
+    (2, 512, 512, 64, False, False, "twice"),
+    (2, 2048, 2048, 128, True, False, "sink_only")])
 def test_sufa_bwd_kernel_matches_plain(cuda_device, monkeypatch, d, bh, t,
-                                       s, block, causal, edges):
+                                       s, block, causal, edges, variant):
     """K3's backward on the glue's selection against ``sufa.sufa_bwd_ref``
     in fp32: dQ, dK and dV each no further from it than twice the bf16
     plain gradient under the selection's mask is (plus 1e-5); with
     ``edges`` an invalid slot, a key tile of head 0 that no q-tile chose
-    (dK = dV = 0 exactly) and a q-tile of head 1 with no valid slot
-    (dQ = 0 exactly); one counted launch; three calls bit-equal, one on a
-    side stream."""
+    (dK = dV = 0 exactly) and a q-tile of the second head with no valid
+    slot (dQ = 0 exactly); ``all_choosers``: one key tile chosen by every
+    q-tile of head 0 (the dK/dV pass's longest walk); ``twice``: slots
+    that name their q-tile's first tile again, counted twice as the
+    forward counts them (the yardstick raises their scores by log 2);
+    ``sink_only``: only the slots naming key tile 0 stay valid, so every
+    other key tile is unchosen and most of the dK/dV pass's blocks find
+    no work. One counted launch, in the form the tiles pick (``wgmma`` at
+    128 x 128, ``mma_sync`` at 64); three calls bit-equal, one on a side
+    stream."""
     from repro_torch.kernels import sufa as ksufa
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke as cs
@@ -1098,13 +1140,27 @@ def test_sufa_bwd_kernel_matches_plain(cuda_device, monkeypatch, d, bh, t,
         valid[0] &= idx[0] != unchosen
         valid[:, 0, -1] = False
         valid[min(1, bh - 1), -1] = False
+    if variant == "all_choosers":
+        # key tile 0 (causally visible to every q-tile) in the last slot
+        # of every q-tile of head 0 that does not name it yet
+        named = ((idx[0] == 0) & valid[0]).any(dim=-1)
+        idx[0, ~named, -1] = 0
+        valid[0, ~named, -1] = True
+        assert bool(((idx[0] == 0) & valid[0]).any(dim=-1).all())
+    if variant == "twice":
+        idx[:, :, 1] = idx[:, :, 0]
+        valid[:, :, 1] = valid[:, :, 0]
+    if variant == "sink_only":
+        valid &= idx == 0
     kw = dict(block_q=block, block_kv=block, causal=causal)
     o, lse = ksufa.sufa_attention(q, k, v, idx, valid, return_lse=True,
                                   strict=True, **kw)
     kernels.reset_launches()
     got = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
     torch.cuda.synchronize()
+    form = "wgmma" if block == 128 else "mma_sync"
     assert kernels.LAUNCHES["sufa_bwd"] == 1
+    assert kernels.FORM_LAUNCHES[f"sufa_bwd/{form}"] == 1
     assert kernels.FORM_LAUNCHES["sufa_bwd/noncausal"] == int(not causal)
     again = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
     side = torch.cuda.Stream()
@@ -1124,10 +1180,12 @@ def test_sufa_bwd_kernel_matches_plain(cuda_device, monkeypatch, d, bh, t,
     o32, lse32 = ksufa.sufa_reference(*f32, idx, valid, scale=d ** -0.5,
                                       strict=True, return_lse=True, **kw)
     want = ksufa.sufa_bwd_ref(*f32, idx, valid, o32, lse32, do.float(), **kw)
-    dense = cs.selection_mask(idx, valid, t=t, s=s, block=block,
-                              causal=causal)
+    counts = _selection_counts(idx, valid, t=t, s=s, block=block,
+                               causal=causal)
+    if variant == "twice":
+        assert int(counts.max()) == 2
     lowp = cs.grads_of(functools.partial(
-        cs.plain_masked_lowp, dense=dense, scale=d ** -0.5), q, k, v, do)
+        _plain_counted_lowp, counts=counts, scale=d ** -0.5), q, k, v, do)
     for g, w, p in zip(got, want, lowp):
         err = float((g.float() - w).abs().max())
         assert err <= 2 * float((p.float() - w).abs().max()) + 1e-5

@@ -350,6 +350,7 @@ import chip_smoke
 sys.path.insert(0, {tools!r})
 import torch_profile_prefill, torch_star_drift, torch_decode_forms
 import torch_k1_int8, torch_served_logits, torch_grad_norms
+import torch_k3_bwd_forms
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad

@@ -172,30 +172,107 @@ def test_sufa_function_on_cpu_is_the_plain_gradient(t, s, causal, edges,
     np.testing.assert_allclose(lse[fin].numpy(), want[fin].numpy(), **F32)
 
 
+# -- the card's two forms: names and dispatch, checked without a card ----------
+
+def _sources():
+    import re
+    cu = (ROOT / "src/repro_torch/csrc/sufa_bwd.cu").read_text()
+    kernels_ = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
+        cu))
+    entries = set(re.findall(r'extern "C" int (\w+)\(', cu))
+    wrapper = (ROOT / "src/repro_torch/kernels/sufa.py").read_text()
+    return kernels_, entries, wrapper
+
+
+def test_sufa_bwd_split_names_are_kernels_of_the_source(monkeypatch):
+    """Every name of ``chip_smoke.SUFA_BWD_KERNELS`` (the split phase 21a
+    reads from a profiler trace) is ``<name>_kernel``, a ``__global__``
+    of ``csrc/sufa_bwd.cu``, and no other kernel's name holds it: a
+    renamed kernel would leave the split reading 0 launches. The
+    ``mma_sync`` form's kernels are there too."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    kernels_, _, _ = _sources()
+    assert {"sufa_grad_prep_kernel", "sufa_grad_kv_kernel",
+            "sufa_grad_q_kernel", "sufa_grad_kv_wgmma_kernel",
+            "sufa_grad_q_wgmma_kernel"} <= kernels_
+    for part in cs.SUFA_BWD_KERNELS:
+        assert [k for k in kernels_ if f"{part}_kernel" in k] \
+            == [f"{part}_kernel"]
+
+
+@pytest.mark.parametrize("block_q,block_kv", [(128, 128), (64, 64),
+                                              (64, 128), (128, 64)])
+def test_sufa_bwd_form_dispatch(block_q, block_kv):
+    """The tiles pick the form as K3's forward picks it (``wgmma`` at 128
+    x 128, ``mma_sync`` otherwise), each form has its count, and the
+    wrapper binds each form's C entry point, which the source defines."""
+    from repro_torch import kernels as tkernels
+    from repro_torch.kernels import launch
+    form = launch.tile_form(block_q, block_kv)
+    assert form == ("wgmma" if block_q == block_kv == 128 else "mma_sync")
+    assert f"sufa_bwd/{form}" in tkernels.FORM_LAUNCHES
+    _, entries, wrapper = _sources()
+    entry = {"wgmma": "sufa_bwd_wgmma_bf16", "mma_sync": "sufa_bwd_bf16"}
+    assert entry[form] in entries and f'"{entry[form]}"' in wrapper
+
+
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sufa_bwd_on_cpu_is_the_plain_gradient(block, causal):
+    """On CPU tensors ``sufa_bwd`` returns ``sufa_bwd_ref``'s gradient bit
+    for bit at either form's tiles and counts no launch."""
+    from repro_torch import kernels as tkernels
+    rng = np.random.default_rng(block + causal)
+    bh, t, s, d, keep = 2, 2 * block, 4 * block, 16, 2
+    q, do = (torch.from_numpy(rng.standard_normal((bh, t, d)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)) for _ in range(2))
+    idx, valid = (torch.from_numpy(x) for x in _selection(
+        bh, t // block, s // block, keep, rng, causal=causal))
+    kw = dict(block_q=block, block_kv=block, causal=causal, scale=d ** -0.5)
+    o, lse = ksufa.sufa_reference(q, k, v, idx, valid, strict=True,
+                                  return_lse=True, **kw)
+    tkernels.reset_launches()
+    got = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+    want = ksufa.sufa_bwd_ref(q, k, v, idx, valid, o, lse, do, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not any(tkernels.LAUNCHES.values())
+    assert not any(tkernels.FORM_LAUNCHES.values())
+
+
 # -- chip_smoke.py's phase 21, rehearsed ---------------------------------------
 
 def test_chip_smoke_star_training_phases_rehearse_on_cpu(monkeypatch,
                                                          tmp_path):
     """Phase 21 on the CPU at smoke size (tiles of 16; the plain versions
     run, so every kernel count stays 0): 21a's lse and backward checks
-    (causal with the edges, not causal, T < S), the training run with
+    (causal with the edges, not causal, T < S, a key tile chosen by every
+    q-tile of a head), the training run with
     ``star_train`` (the loss falls by 0.1), the restart run bit-equal,
     and one step against the fp32 plain path on the kernel run's tiles
     (the recompute's selection the forward's)."""
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke as cs
     monkeypatch.setattr(cs, "BUILD_DIR", tmp_path)
-    for t, s, causal, edges in ((128, 128, True, True),
-                                (128, 128, False, False),
-                                (64, 128, True, False)):
+    for t, s, causal, edges, every in ((128, 128, True, True, False),
+                                       (128, 128, False, False, False),
+                                       (64, 128, True, False, False),
+                                       (128, 128, True, False, True)):
         out = cs.check_sufa_bwd("cpu", None, bh=4, t=t, s=s, d=16,
                                 causal=causal, seed=t + s, timed=False,
-                                edges=edges, block=16)
+                                edges=edges, all_choosers=every, block=16)
         assert out["two_calls_bit_equal"]
         assert out["fast"]["two_calls_bit_equal"]
         assert out["lse_max_abs_err"] <= 1e-4 and out["keep"] >= 2
+        assert out["form"] == "mma_sync" and not any(
+            out["form_launches"].values())
         if edges:
             assert out["unchosen_dk_dv_zero"] and out["empty_q_tile_dq_zero"]
+        if every:
+            assert out["key_tile_0_choosers"] == t // 16
     cfg = dataclasses.replace(cs.olmo_1b.smoke_config(), star_train=True)
     gen = torch.Generator().manual_seed(0)
     out = cs.check_training(cfg, "cpu", gen, steps=25, seq=32, batch=4,
