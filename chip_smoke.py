@@ -228,23 +228,30 @@ Phases, each printing its numbers on a line of its own:
    forward over the same frames.
 20. training: (a) K4's backward (``csrc/flash_bwd.cu``) against its plain
    version at BH 16 and at OLMo-1B's training shape (BH 128; T = S 2048,
-   d 128, causal), a ragged T = S = 1000 and non-causal T 256 over S
-   2048 at d 64: dQ, dK and dV each within twice the bf16 plain
+   d 128, causal), a ragged T = S = 1000, non-causal T 256 over S 2048
+   at d 64, and causal T = S = 256 at d 64 and BH 96 (phase 22's
+   star_paper model: batch 8 x 12 heads): dQ, dK and dV each within
+   twice the bf16 plain
    gradient's error against the fp32 one (plus 1e-5), two calls
    bit-equal, K4's lse at 1e-4 and its O bit-equal with and without
-   lse; the training shape and the non-causal one timed beside their
+   lse; the training shape and both d 64 cases timed beside their
    bounds, the plain version and SDPA's backward, with each of the
    backward's two kernels' device time (prep, and the key-tile pass that
    computes dK, dV and dQ; by ``torch.profiler``), the achieved TFLOP/s
-   and ptxas's register and spill lines of ``flash_bwd.cu``; (b) OLMo-1B
+   and ptxas's register and spill lines of ``flash_bwd.cu``; and K4's
+   forward at the training shape against its plain version, timed beside
+   its bound and SDPA; (b) OLMo-1B
    at full width and depth trained 20 steps of 8 x 2048 ``SyntheticLM``
    tokens through ``launch.steps.make_train_step`` and
    ``runtime.train_loop``
    (AdamW with bf16 moments, ``remat="full"``, lr 6e-4, warmup 5), one
    final save under ``build/`` that the phase removes: the loss falls by
    more than 0.1, every loss and grad norm finite, K4 = steps x 32 and
-   its backward steps x 16, K1-K3 never; step ms, tokens/s, MFU, peak
-   memory, the save's seconds and bytes, and one more step profiled;
+   its backward steps x 16, K1-K3 never; step ms, tokens/s, MFU by the
+   reference's convention (``launch.roofline.model_flops``: 6·N·D with
+   N the body parameters, embedding and output head excluded) and, as
+   ``mfu_all_params``, by all parameters, peak memory, the save's
+   seconds and bytes, and one more step profiled;
    (c) in a child process with deterministic algorithms (``--restart-child
    DIR``), 2 of its 16 layers: a run failed at step 7 and resumed from
    step 5 ends with the uninterrupted run's params and optimizer state,
@@ -266,7 +273,10 @@ Phases, each printing its numbers on a line of its own:
    64 with the edges; the first two timed beside their bounds (10·d
    flops per visible selected pair), the plain version and SDPA's
    backward under the selection's dense mask, with the split of the
-   ``wgmma`` form's two kernels; (b) OLMo-1B with ``star_train``
+   ``wgmma`` form's two kernels; and K3's forward (strict) at the
+   training shape on the glue's selection (keep 4 of 16) against its
+   plain version, timed beside its bound and SDPA over the gathered
+   rows; (b) OLMo-1B with ``star_train``
    trained as in 20b: the loss falls by more than 0.1, K2 = K3 = steps x
    32, K3's backward steps x 16 (all ``wgmma``), K1 and K4 never; step
    ms, tokens/s, MFU, peak memory and one profiled step's split (K2, K3,
@@ -274,6 +284,24 @@ Phases, each printing its numbers on a line of its own:
    restart check with ``star_train``, in 20c's child process after the
    dense run; (d) 20d's model step with ``star_train``, the plain runs
    taking the kernel run's tile ids.
+22. the examples: each twin in ``examples/torch_*.py`` run through its
+   ``main`` on the GPU at the JAX example's sizes, with every kernel's
+   launches counted from 0 and held to the count its path gives: the
+   quickstart (T 512, S 2048, d 128; no kernel: ``core`` is plain
+   PyTorch) with its rel error and reduction within 1e-4 of the same
+   twin's CPU run; serve_star (star_paper's smoke config, 12 layers,
+   pages of 64, 10 requests on a shared system page): every request
+   served and prefix-share hits, K1 = decode ticks x 12, K2 = K3 =
+   prefill calls (the pool's probe) x 12; train_star_lm (the 100M model,
+   60 steps of 8 x 256, ``star_train`` off): every loss finite and the
+   last below the first, K4 = steps x 24 and its backward steps x 12
+   (causal, d 64, BH 96), its checkpoints under ``build/`` removed;
+   spatial_longctx (OLMo-1B's smoke config, head width 64, ``star``
+   off): one pool refuses the 500-token prompt and 4 shards on the card
+   serve it, K1's stats form = spatial decode ticks x 2, K4 = prefill
+   calls (the probes) x 2; the ring demo (8 shards of 128 x 64, fp32):
+   max |err| <= 1e-4 against dense attention, 0 link conflicts, no
+   kernel.
 Phase 4 also counts K4: oracle forwards x attention layers launches (an
 encoder-decoder forward's: its encoder, self- and cross-attention
 layers).
@@ -289,6 +317,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import json
 import math
 import os
@@ -313,7 +342,7 @@ from repro_torch.configs import (chatglm3_6b, grok_1_314b,  # noqa: E402
                                  olmo_1b, olmoe_1b_7b, seamless_m4t_large_v2,
                                  star_paper, starcoder2_15b, xlstm_125m)
 from repro_torch.core import sads  # noqa: E402
-from repro_torch.core import star_attention as core_star  # noqa: E402
+core_star = importlib.import_module("repro_torch.core.star_attention")
 from repro_torch.kernels import build, launch, ops  # noqa: E402
 from repro_torch.kernels import dlzs as kdlzs  # noqa: E402
 from repro_torch.kernels import flash as kflash  # noqa: E402
@@ -328,17 +357,19 @@ from repro_torch import obs as tobs  # noqa: E402
 from repro_torch import profiling  # noqa: E402
 from repro_torch.serving import (LLM, DisaggRouter, EngineCfg,  # noqa: E402
                                  FaultPlan, PagedEngineCfg, SchedulerCfg)
+from repro_torch.serving.paged import PagedBackend  # noqa: E402
 from repro_torch.spatial import SpatialEngineCfg  # noqa: E402
+from repro_torch.spatial.engine import SpatialBackend  # noqa: E402
 from repro_torch.tree import sorted_items, tree_leaves, tree_map  # noqa
 from repro_torch.data import PrefetchLoader, SyntheticLM  # noqa: E402
+from repro_torch.launch import roofline, shapes  # noqa: E402
 from repro_torch.launch import steps as launch_steps  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import TrainLoopCfg, train_loop  # noqa: E402
 
 SEED = 0
 # NVIDIA H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core peak
-HBM_BYTES_S = 3.35e12
-BF16_FLOP_S = 989e12
+HBM_BYTES_S, BF16_FLOP_S = roofline.HBM_BW, roofline.PEAK_FLOPS
 TOL = 2e-2                  # bf16 bound of tests/test_kernels.py
 REACH = 4                   # a wrong int8 form lies >= 4x K1's error off
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: each timed launch starts cold
@@ -1555,6 +1586,17 @@ def check_prefill_kernels(dev) -> dict:
         timed[f"flash_cross_s{s}"] = check_flash(
             dev, flush, bh=16, t=256, s=s, causal=False, seed=53 + s,
             timed=True, d=64)
+    # phase 22's forms (d 64): examples/torch_serve_star.py's K2 and K3
+    # (star_paper's smoke config: 12 heads, one q-tile of 64 at tiles of
+    # 64), and examples/torch_spatial_longctx.py's K4 (4 heads, a causal
+    # 16-token prefill)
+    check_dlzs(dev, flush, bh=12, t=64, block=64, causal=True, seed=61,
+               timed=False, d=64)
+    for strict in (True, False):
+        check_sufa(dev, flush, bh=12, t=64, block=64, strict=strict,
+                   seed=62, timed=False, d=64)
+    check_flash(dev, flush, bh=4, t=16, causal=True, seed=63, timed=False,
+                d=64)
     del flush
     # phase 18's forms: InternVL2-26B's 48 heads (K/V expanded from 8) at
     # its longest whole prompt
@@ -3629,9 +3671,10 @@ def flash_bwd_split(fn, flush, iters: int = 10,
 def check_flash_bwd_shapes(dev, ptxas=()) -> dict:
     """Phase 20a's shapes: OLMo-1B's attention at BH 16 and at its
     training shape (seq 2048 x batch 8: BH 128), T = S = 2048, d 128,
-    causal; a ragged T = S = 1000; non-causal T 256 over S 2048 at d 64.
-    Returns {case: numbers}; the training shape and the non-causal one
-    are timed. ``ptxas``: the backward's register and spill lines from
+    causal; a ragged T = S = 1000; non-causal T 256 over S 2048 at d 64;
+    causal T = S = 256 at d 64, BH 96; and K4's forward at the training
+    shape. Returns {case: numbers}; all but BH 16 and the ragged case are
+    timed. ``ptxas``: the backward's register and spill lines from
     the build log, emitted beside them."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     out = {"bh16": check_flash_bwd(dev, flush, bh=16, t=2048, causal=True,
@@ -3643,7 +3686,16 @@ def check_flash_bwd_shapes(dev, ptxas=()) -> dict:
                                      seed=2003, timed=False),
            "noncausal": check_flash_bwd(dev, flush, bh=16, t=256, s=2048,
                                         causal=False, seed=2004, timed=True,
-                                        d=64)}
+                                        d=64),
+           # phase 22's star_paper model: batch 8 x 12 heads of 64
+           "causal_d64": check_flash_bwd(dev, flush, bh=96, t=256,
+                                         causal=True, seed=2005, timed=True,
+                                         d=64),
+           # K4's forward at the training shape (phase 20b launches it
+           # twice per layer and step: the forward and its recompute)
+           "forward_train": check_flash(dev, flush, bh=TRAIN_BATCH * 16,
+                                        t=TRAIN_SEQ, causal=True, seed=2006,
+                                        timed=True)}
     emit("flash_bwd_build", ptxas=[f"{fn} {line}" for fn, line in ptxas])
     del flush
     free_cache(dev)
@@ -3809,14 +3861,22 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
     elif on_card:
         want.update(flash=steps * layers * 2, flash_bwd=steps * layers)
     tokens = seq * batch
+    train_shape = shapes.ShapeCfg("train", seq, batch, "train")
     step_s = float(np.median(run["step_s"][1:] or run["step_s"]))
     out.update(loss=run["loss"], grad_norm=run["grad_norm"],
                step_ms=[1e3 * x for x in run["step_s"]],
                step_ms_median=1e3 * step_s, tokens_per_step=tokens,
                tokens_per_s=tokens / step_s,
-               mfu=6 * info["params"] * tokens / step_s / BF16_FLOP_S,
-               mfu_formula="6 * params * tokens per step / median step s "
-                           "(steps 1..) / 989e12",
+               mfu=roofline.model_flops(cfg, train_shape) / step_s
+               / BF16_FLOP_S,
+               mfu_formula="launch.roofline.model_flops (6 * body params, "
+                           "embedding and output head excluded, * tokens "
+                           "per step) / median step s (steps 1..) / 989e12",
+               mfu_all_params=6 * info["params"] * tokens / step_s
+               / BF16_FLOP_S,
+               mfu_all_params_formula="6 * all params * tokens per step / "
+                                      "median step s (steps 1..) / 989e12",
+               body_params=roofline.count_params(cfg)[1],
                peak_memory_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
                                if on_card else None),
                save_s=run["save_s"], launches=got,
@@ -4231,8 +4291,9 @@ def check_sufa_bwd_shapes(dev, ptxas=()) -> dict:
     timed; T 256 over S 2048, causal; the edges at BH 16, T = S = 1024;
     key tile 0 chosen by every q-tile of a head (BH 16, T = S = 2048).
     In the mma_sync form, tiles of 64: BH 16, T = S = 1024, d 128, causal,
-    with the edges. ``ptxas``: the backward's register and spill lines
-    from the build log, emitted beside them."""
+    with the edges. K3's forward at the training shape, timed.
+    ``ptxas``: the backward's register and spill lines from the build
+    log, emitted beside them."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     out = {"train": check_sufa_bwd(dev, flush, bh=TRAIN_BATCH * 16,
                                    t=TRAIN_SEQ, s=TRAIN_SEQ, d=128,
@@ -4250,8 +4311,180 @@ def check_sufa_bwd_shapes(dev, ptxas=()) -> dict:
            "mma_sync": check_sufa_bwd(dev, flush, bh=16, t=1024, s=1024,
                                       d=128, causal=True, seed=2106,
                                       timed=False, edges=True, block=64)}
+    # K3's forward at the training shape, timed (phase 21b launches it
+    # twice per layer and step: the forward and its remat recompute)
+    out["forward_train"] = check_sufa(dev, flush, bh=TRAIN_BATCH * 16,
+                                      t=TRAIN_SEQ, block=128, strict=True,
+                                      seed=2107, timed=True)
     emit("sufa_bwd_build", ptxas=[f"{fn} {line}" for fn, line in ptxas])
     del flush
+    free_cache(dev)
+    return out
+
+
+# -- phase 22: the example twins ---------------------------------------------
+
+EXAMPLE_TRAIN_STEPS = 60     # the JAX script's 300, cut for the time limit
+QUICKSTART_TOL = 1e-4        # the card's numbers against its CPU run
+RING_TOL = 1e-4              # DRAttention against dense attention, fp32
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` of this checkout, as a module."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def counted_calls(owner, name: str, tally: dict):
+    """Count the calls of ``owner.name`` (a class's method or a module's
+    function) into ``tally[name]`` while the block runs."""
+    real = getattr(owner, name)
+
+    def counted(*args, **kw):
+        tally[name] += 1
+        return real(*args, **kw)
+    setattr(owner, name, counted)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+@contextlib.contextmanager
+def recorded_losses(losses: list):
+    """Record every training step's loss of a ``make_train_step`` made
+    while the block runs."""
+    real = launch_steps.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def recorded(params, opt_state, batch):
+            params, opt_state, metrics = step(params, opt_state, batch)
+            losses.append(float(metrics["loss"]))
+            return params, opt_state, metrics
+        return recorded
+    launch_steps.make_train_step = make
+    try:
+        yield
+    finally:
+        launch_steps.make_train_step = real
+
+
+def run_example(name: str, dev, argv: list, expected, *,
+                backend=None) -> dict:
+    """``main(argv)`` of one twin on ``dev`` from a zero launch count,
+    with the decode ticks of ``backend`` (a backend class) and the
+    ``lm.prefill`` calls counted; ``expected(calls)`` gives every
+    kernel's and form's launches on the card (0 unless named; all 0 off
+    the card, where the plain versions run). Fails unless the launches
+    equal them."""
+    on_card = torch.device(dev).type == "cuda"
+    mod = load_example(name)
+    calls = {"decode_step": 0, "prefill": 0}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(counted_calls(lm, "prefill", calls))
+        if backend is not None:
+            stack.enter_context(counted_calls(backend, "decode_step", calls))
+        out = mod.main(argv + ["--device", torch.device(dev).type])
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    got = launched()
+    want = {key: 0 for key in got}
+    if on_card:
+        want.update(expected(calls))
+    out = {key: val for key, val in out.items() if key != "outputs"}
+    out.update(seconds=seconds, calls=calls,
+               launches={k: v for k, v in got.items() if v},
+               expected_launches={k: v for k, v in want.items() if v})
+    if got != want:
+        raise SystemExit(f"example {name}: launches {got}; expected "
+                         f"{want}")
+    return out
+
+
+def check_examples(dev, train_steps: int = EXAMPLE_TRAIN_STEPS) -> dict:
+    """Phase 22: each example twin's ``main`` on the card at the JAX
+    example's sizes (train_star_lm cut to ``train_steps`` steps), its
+    numbers held and its launches counted."""
+    t0 = time.perf_counter()
+    out = {}
+    qs = run_example("quickstart", dev, [], lambda c: {})
+    cpu = load_example("quickstart").main(["--device", "cpu"])
+    qs.update({f"{key}_cpu": cpu[key] for key in ("rel_err", "reduction")})
+    out["quickstart"] = qs
+    emit("example_quickstart", **qs)
+    if max(abs(qs["rel_err"] - cpu["rel_err"]),
+           abs(qs["reduction"] - cpu["reduction"])) > QUICKSTART_TOL:
+        raise SystemExit(f"quickstart: card {qs['rel_err']}, "
+                         f"{qs['reduction']}; CPU {cpu['rel_err']}, "
+                         f"{cpu['reduction']}")
+
+    layers = attn_layers(star_paper.smoke_config())
+    ss = run_example(
+        "serve_star", dev, [], lambda c: {
+            "paged_decode": c["decode_step"] * layers,
+            "paged_decode/fp": c["decode_step"] * layers,
+            "dlzs_block": c["prefill"] * layers,
+            "dlzs_block/mma_sync": c["prefill"] * layers,
+            "sufa": c["prefill"] * layers,
+            "sufa/mma_sync": c["prefill"] * layers},
+        backend=PagedBackend)
+    out["serve_star"] = ss
+    emit("example_serve_star", **ss)
+    if ss["requests"] != 10 or ss["shared_hits"] <= 0 \
+            or not ss["calls"]["decode_step"]:
+        raise SystemExit(f"serve_star: {ss['requests']} of 10 requests "
+                         f"served, {ss['shared_hits']} prefix-share hits")
+
+    losses = []
+    ckpt = pathlib.Path(tempfile.mkdtemp(prefix="example_ckpt_",
+                                         dir=BUILD_DIR))
+    try:
+        with recorded_losses(losses):
+            tr = run_example(
+                "train_star_lm", dev, ["--steps", str(train_steps),
+                                  "--seq", "256", "--batch", "8", "--ckpt",
+                                  str(ckpt)],
+                lambda c: {"flash": train_steps * layers * 2,
+                           "flash_bwd": train_steps * layers})
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    tr["loss"] = losses
+    out["train_star_lm"] = tr
+    emit("example_train_star_lm", **tr)
+    if len(losses) != train_steps or not all(
+            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"train_star_lm: losses {losses}")
+
+    sl_layers = olmo_1b.smoke_config().n_layers
+    sl = run_example(
+        "spatial_longctx", dev, [], lambda c: {
+            "paged_decode_stats": c["decode_step"] * sl_layers,
+            "paged_decode_stats/fp": c["decode_step"] * sl_layers,
+            "flash": c["prefill"] * sl_layers},
+        backend=SpatialBackend)
+    out["spatial_longctx"] = sl
+    emit("example_spatial_longctx", **sl)
+    if not sl["refused"] or sl["requests"] != 4 \
+            or not sl["calls"]["decode_step"]:
+        raise SystemExit(f"spatial_longctx: {sl}")
+
+    rd = run_example("spatial_ring_demo", dev, [], lambda c: {})
+    out["spatial_ring_demo"] = rd
+    emit("example_spatial_ring_demo", **rd)
+    if not rd["max_abs_err"] <= RING_TOL or rd["link_conflicts"]:
+        raise SystemExit(f"spatial_ring_demo: max |err| "
+                         f"{rd['max_abs_err']}, {rd['link_conflicts']} "
+                         f"link conflicts")
+    out["seconds"] = time.perf_counter() - t0
+    emit("examples", ok=True, seconds=out["seconds"])
     free_cache(dev)
     return out
 
@@ -4385,6 +4618,19 @@ def main() -> int:
                           w=sp_w, p=SPATIAL_PAGES_LOCAL,
                           kv_len=(1040, 33, 500, 1), seed=8, timed=False,
                           quant=lane == "int8", empty_shard=2)
+    # phase 22's decode shapes (d 64): examples/torch_serve_star.py's
+    # (star_paper's smoke config, G 12, pages of 64, W its 4 hot pages of
+    # a 32-page pool) and examples/torch_spatial_longctx.py's stats form
+    # (4 shards of 12 pages, G 4, pages of 16, W its 10 hot pages; the
+    # 500-token prompt and three short requests at their last tick)
+    k1_examples = {
+        "serve_star": check_paged_kernel(
+            dev, "serve_star_example", b=4, g=12, r=1, d=64, page=64, w=4,
+            p=32, kv_len=(123, 111, 87, 73), seed=11, timed=False),
+        "spatial_longctx": check_paged_stats(
+            dev, "spatial_longctx_example", 4, b=4, g=4, r=1, d=64,
+            page=16, w=10, p=12, kv_len=(515, 40, 33, 25), seed=12,
+            timed=False)}
 
     # 3. the main path: full-width OLMo-1B on the paged engine
     cfg = olmo_1b.config()
@@ -4529,6 +4775,9 @@ def main() -> int:
     star_train = check_training(star_cfg, dev, gen, save=False)
     check_model_step(star_cfg, dev, gen)
 
+    # 22. the example twins on the card, their launches counted
+    ex = check_examples(dev)
+
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
@@ -4563,6 +4812,15 @@ def main() -> int:
     def served(run, name):
         return run["launches"][name]
 
+    def example(name, kernel):
+        """Phase 22's launches of ``kernel`` in one example twin."""
+        return ex[name]["launches"].get(kernel, 0)
+
+    def timed(case):
+        return {key: case[key] for key in (
+            "max_abs_err", "tolerance", "ms", "ms_repeat", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}
+
     print(json.dumps({"kernels": [
         line("paged_decode", "paged_decode.cu",
              "src/repro/kernels/paged.py:67", main["k1_launches"], k1,
@@ -4571,7 +4829,11 @@ def main() -> int:
              ms_w130=k1_w130["ms"], bound_ms_w130=k1_w130["bound_ms"],
              plain_ms_w130=k1_w130["plain_ms"],
              library_ms_w130=k1_w130["library_ms"],
-             n_split_w130=k1_w130["n_split"]),
+             n_split_w130=k1_w130["n_split"],
+             launches_serve_star_example=example("serve_star",
+                                                 "paged_decode"),
+             max_abs_err_serve_star_example=k1_examples["serve_star"][
+                 "max_abs_err"]),
         # the int8 form: the reference serves this read path through its
         # XLA gather (src/repro/kvcache/paged_attention.py:68); it runs on
         # the decode ticks that read the tier, those of the tier-read run
@@ -4598,6 +4860,8 @@ def main() -> int:
              ms_noncausal=tiles["dlzs_block_noncausal"]["ms"],
              bound_ms_noncausal=tiles["dlzs_block_noncausal"]["bound_ms"],
              launches_jamba=jamba["star"]["dlzs_block_launches"],
+             launches_serve_star_example=example("serve_star",
+                                                 "dlzs_block"),
              **bh64("dlzs_block")),
         line("sufa", "sufa.cu", "src/repro/kernels/sufa.py:72",
              whole["sufa_launches"], tiles["sufa"],
@@ -4616,13 +4880,25 @@ def main() -> int:
              lse_max_abs_err={
                  "strict": sbwd["train"]["lse_max_abs_err"],
                  "fast": sbwd["train"]["fast"]["lse_max_abs_err"],
-                 "tolerance": 1e-4}, **bh64("sufa")),
+                 "tolerance": 1e-4},
+             launches_serve_star_example=example("serve_star", "sufa"),
+             forward_train=dict(timed(sbwd["forward_train"]),
+                                keep=sbwd["forward_train"]["keep"],
+                                launches_per_step=star_train["launches"][
+                                    "sufa"] // star_train["steps"]),
+             **bh64("sufa")),
         line("flash", "flash.cu", "src/repro/kernels/flash.py:67",
              exact["k4_launches"], tiles["flash"],
              launches_training=train["launches"]["flash"],
              launches_olmoe_oracle=olmoe["exact"]["k4_launches"],
              launches_jamba=jamba["exact"]["flash_launches"],
              launches_jamba_oracle=jamba["exact"]["k4_launches"],
+             launches_train_example=example("train_star_lm", "flash"),
+             launches_spatial_longctx_example=example("spatial_longctx",
+                                                      "flash"),
+             forward_train=dict(timed(bwd["forward_train"]),
+                                launches_per_step=train["launches"][
+                                    "flash"] // train["steps"]),
              **bh64("flash")),
         # K1 at ChatGLM3-6B's group (R = 16): phase 10a's served path;
         # its int8 form timed beside it (no served path reads the tier
@@ -4673,6 +4949,10 @@ def main() -> int:
              spatial["served"]["k1_stats_launches"], k1_stats["fp"],
              launches_from="phase 13, OLMo-1B over 4 shards",
              launches_bounded_run=spatial["bounded"]["k1_stats_launches"],
+             launches_spatial_longctx_example=example(
+                 "spatial_longctx", "paged_decode_stats"),
+             max_abs_err_spatial_longctx_example=k1_examples[
+                 "spatial_longctx"]["max_abs_err"],
              library=k1_stats["fp"]["library"],
              max_abs_err_m=k1_stats["fp"]["max_abs_err_m"],
              max_abs_err_l=k1_stats["fp"]["max_abs_err_l"],
@@ -4743,6 +5023,9 @@ def main() -> int:
              split_ms={part: bwd["train"][f"{part}_ms"]
                        for part in BWD_KERNELS},
              tflop_s_10d=bwd["train"]["tflop_s_10d"],
+             causal_d64=dict(timed(bwd["causal_d64"]),
+                             tflop_s_10d=bwd["causal_d64"]["tflop_s_10d"]),
+             launches_train_example=example("train_star_lm", "flash_bwd"),
              restart_bit_equal=restart["bit_equal"]),
         # phase 21: K3's backward (STAR in training has no TPU kernel: the
         # reference differentiates core.sufa.sufa_gathered through XLA;

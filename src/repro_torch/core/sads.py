@@ -124,3 +124,13 @@ def gather_blocks(kv: torch.Tensor, block_idx: torch.Tensor,
         tiles, -3, flat[..., None, None].expand(
             *flat.shape, block_kv, d))
     return g.reshape(*lead, n_qt, keep, block_kv, d)
+
+
+def sphere_stats(scores: torch.Tensor, n_segments: int,
+                 radius: float) -> torch.Tensor:
+    """rho: the fraction of entries inside their segment's sphere (the
+    paper's complexity model O(S·S·k·rho/n))."""
+    s = scores.shape[-1]
+    segs = scores.reshape(*scores.shape[:-1], n_segments, s // n_segments)
+    seg_max = segs.amax(dim=-1, keepdim=True)
+    return (segs >= seg_max - radius).float().mean()

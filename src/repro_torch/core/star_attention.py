@@ -13,6 +13,8 @@ Entry points:
   * ``star_attention``       — tile-granular prefill attention (one head).
   * ``star_attention_scanq`` — the same over query chunks, memory O(chunk),
                                with causal ``prefix_groups``.
+  * ``star_attention_batched`` — either prefill form over leading batch
+                               dims (the reference vmaps; this loops).
   * ``star_decode``          — element-granular decode against a dense
                                (optionally LZ-compressed) KV cache.
   * ``dense_attention``      — the non-sparse baseline.
@@ -183,6 +185,27 @@ def star_attention_scanq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal=causal, q_offset=q_offset + c * chunk,
                 k_pow2=k_pow2[:prefix], scale=scale))
     return torch.cat(outs, dim=0)
+
+
+def star_attention_batched(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, cfg: STARConfig, *, causal: bool,
+                           scan_q: bool = False,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """q [..., T, d], k/v [..., S, d] with matching lead dims: one head
+    at a time, through ``star_attention_scanq`` (queries at the trailing
+    T positions) or ``star_attention``."""
+    t, d = q.shape[-2:]
+    s = k.shape[-2]
+    heads = zip(q.reshape(-1, t, d), k.reshape(-1, s, d),
+                v.reshape(-1, s, d))
+    if scan_q:
+        outs = [star_attention_scanq(q_, k_, v_, cfg, causal=causal,
+                                     q_offset=s - t, scale=scale)
+                for q_, k_, v_ in heads]
+    else:
+        outs = [star_attention(q_, k_, v_, cfg, causal=causal, scale=scale)
+                for q_, k_, v_ in heads]
+    return torch.stack(outs).reshape(q.shape)
 
 
 def star_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

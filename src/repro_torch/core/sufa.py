@@ -102,3 +102,36 @@ def sufa_gathered(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vg = vg.reshape(n_qt, keep * block_kv, d)
     out = torch.einsum("qtc,qcd->qtd", (p / l).to(q.dtype), vg)
     return out.reshape(t, d).to(q.dtype)
+
+
+def masked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         mask: torch.Tensor, *, scale: float
+                         ) -> torch.Tensor:
+    """Oracle: dense softmax attention restricted to ``mask`` [T, S]."""
+    sc = (q @ k.transpose(-1, -2)).float() * scale
+    sc = sc.masked_fill(~mask, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    p = p.masked_fill(sc <= NEG_INF / 2, 0.0)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return ((p / l) @ v.float()).to(q.dtype)
+
+
+def selection_to_mask(sel: BlockSelection, t: int, s: int, block_q: int,
+                      block_kv: int,
+                      elem_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Expand a BlockSelection (and an optional in-tile mask
+    [n_qt, keep, Bq, Bc]) to a dense [T, S] mask."""
+    n_qt = sel.block_idx.shape[0]
+    n_kt = s // block_kv
+    onehot = torch.nn.functional.one_hot(sel.block_idx, n_kt).bool()
+    onehot = onehot & sel.block_valid[..., None]         # [n_qt, keep, n_kt]
+    if elem_mask is None:
+        blk = onehot.any(dim=1)                          # [n_qt, n_kt]
+        return blk.repeat_interleave(block_q, 0).repeat_interleave(
+            block_kv, 1)
+    # elem_mask [n_qt, keep, Bq, Bc] scattered to [n_qt, Bq, n_kt, Bc]
+    dense = (elem_mask[:, :, :, None, :] & onehot[:, :, None, :, None]
+             ).any(dim=1)
+    return dense.reshape(n_qt * block_q, n_kt * block_kv)

@@ -165,9 +165,12 @@ def _core_init(generator, cfg: ModelCfg, kind: str, device, n_layers):
 
 def init(cfg: ModelCfg, generator: torch.Generator, device=None):
     """Random parameters (the reference's distribution, drawn from
-    ``generator``) on ``device`` (default ``cuda``; raises without one)."""
+    ``generator``) on ``device`` (default ``cuda``; raises without one).
+    ``meta`` gives the tree's shapes and dtypes with nothing allocated
+    (``launch.shapes.params_specs``)."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     vp = cfg.vocab_padded
     p = {
         "embed": common.truncated_normal_init(generator, (vp, cfg.d_model),

@@ -1,5 +1,6 @@
 """Optimizers and schedules of the port (``repro.optim`` in PyTorch):
-AdamW, Adafactor and the warmup-cosine schedule. Each update takes the
+AdamW, Adafactor, the warmup-cosine schedule and gradient compression
+with error feedback (``optim.compression``). Each update takes the
 parameter, gradient and state trees as nested dicts of tensors, does its
 math in fp32 and writes the parameters and the state back in place in
 their storage dtypes."""

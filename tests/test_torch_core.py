@@ -24,7 +24,7 @@ from repro.core import sads as jsads  # noqa: E402
 from repro.core import sufa as jsufa  # noqa: E402
 from repro_torch.core import dlzs as tdlzs  # noqa: E402
 from repro_torch.core import sads as tsads  # noqa: E402
-from repro_torch.core import star_attention as tstar  # noqa: E402
+tstar = importlib.import_module("repro_torch.core.star_attention")
 from repro_torch.core import sufa as tsufa  # noqa: E402
 
 # ``repro.core`` re-exports the function ``star_attention`` under the

@@ -34,7 +34,7 @@ from repro.serving import LLM as JLLM  # noqa: E402
 from repro.serving import EngineCfg as JEngineCfg  # noqa: E402
 from repro.serving import ServingEngine as JServingEngine  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import star_attention as tstar  # noqa: E402
+tstar = importlib.import_module("repro_torch.core.star_attention")
 from repro_torch.models import attention as tattention  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.serving import (LLM, EngineCfg, PagedEngineCfg,  # noqa: E402

@@ -35,7 +35,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import dlzs as tdlzs  # noqa: E402
 from repro_torch.core import sads as tsads  # noqa: E402
-from repro_torch.core import star_attention as tstar  # noqa: E402
+tstar = importlib.import_module("repro_torch.core.star_attention")
 from repro_torch.kernels import dlzs as kdlzs  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 
