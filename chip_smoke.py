@@ -283,7 +283,24 @@ Phases, each printing its numbers on a line of its own:
    K3's backward, the selection glue, GEMMs, AdamW, the rest); (c) 20c's
    restart check with ``star_train``, in 20c's child process after the
    dense run; (d) 20d's model step with ``star_train``, the plain runs
-   taking the kernel run's tile ids.
+   taking the kernel run's tile ids; 21a also holds, with the element
+   mask (K3's forward writes its keep bits, the backward reads them), the
+   ``wgmma`` form at the training shape (timed) and with the edges, each
+   pair where the bits differ from ``sphere_mask``'s within one bf16 step
+   of its row's edge, O and lse the same bits with and without the keep
+   bits; the ``mma_sync`` form at tiles 16 x 16, 32 x 32, 48 x 48, 16 x
+   64 and 64 x 16, d 64 and 128, causal (with the edges) and not, with and
+   without the element mask (BH 4, T = S = 768), and at tiles of 16 and
+   32 at the training shape (timed; 16 also with the mask); (e) OLMo-1B
+   with ``star_train`` and ``STARConfig(top_k_ratio=0.2,
+   elementwise=True)`` (tiles 128, radius 5) trained as 21b: the loss
+   falls by more than 0.1, K2 = K3 = steps x 32 (``sufa/elementwise``
+   too), K3's backward steps x 16 in the ``wgmma`` form and as
+   ``elementwise``, K1 and K4 never; then 21d's step, the plain runs
+   taking the kernel run's tile ids and keep bits; (f) OLMo-1B at its
+   published width cut to 2 layers, STAR at tiles of 16 (keep 26 of 128),
+   21d's step at 2 x 2048 tokens without and with the element mask, K3's
+   backward once per layer in the ``mma_sync`` form.
 22. the examples: each twin in ``examples/torch_*.py`` run through its
    ``main`` on the GPU at the JAX example's sizes, with every kernel's
    launches counted from 0 and held to the count its path gives: the
@@ -458,6 +475,8 @@ BWD_KERNELS = ("bwd_prep", "bwd_kv")
 # phase 21: STAR in training; the kernels of K3's backward's wgmma form
 # (csrc/sufa_bwd.cu, 128 x 128 tiles) in launch order, by name prefix
 SUFA_BWD_KERNELS = ("sufa_grad_q_wgmma", "sufa_grad_kv_wgmma")
+# and of its mma_sync form (other tilings), in launch order
+SUFA_BWD_MMA_KERNELS = ("sufa_grad_prep", "sufa_grad_kv", "sufa_grad_q")
 STARTED = time.perf_counter()
 
 
@@ -540,14 +559,14 @@ def held(tag: str, got, want, tol: float, **case) -> dict:
 
 
 def add_times(out: dict, kernel, plain, library, flush, *, bytes_: int,
-              flops: int) -> None:
+              flops: int, plain_iters: int = 50) -> None:
     """Kernel, plain and library times (median of 50 launches after an L2
-    flush), the kernel again to see the spread, and the least time the
-    card could take: bytes each read or written once over the HBM rate,
-    or the bf16 operations over the tensor-core peak, whichever is
-    larger."""
+    flush; the plain version's of ``plain_iters``), the kernel again to
+    see the spread, and the least time the card could take: bytes each
+    read or written once over the HBM rate, or the bf16 operations over
+    the tensor-core peak, whichever is larger."""
     out["ms"] = time_ms(kernel, flush=flush)
-    out["plain_ms"] = time_ms(plain, flush=flush)
+    out["plain_ms"] = time_ms(plain, iters=plain_iters, flush=flush)
     out["library_ms"] = None if library is None else time_ms(library,
                                                              flush=flush)
     out["ms_repeat"] = time_ms(kernel, flush=flush)
@@ -1383,17 +1402,21 @@ def check_dlzs(dev, flush, *, bh, t, block, causal, seed, timed,
     return out
 
 
-def selected_pairs(idx, valid, *, t: int, s: int, block: int,
-                   causal: bool = True) -> int:
+def selected_pairs(idx, valid, *, t: int, s: int, block: int = 128,
+                   block_kv: int | None = None, causal: bool = True,
+                   block_q: int | None = None) -> int:
     """(query, key) pairs K3 computes: the causal keys (every key, when
     not ``causal``) of each valid selected tile, for each query row of
-    its q-tile."""
+    its q-tile (tiles ``block_q`` x ``block_kv``, both ``block`` unless
+    given)."""
+    block_q, block_kv = block_q or block, block_kv or block
     if not causal:
-        return int(valid.sum()) * block * block
-    n_qt = t // block
-    q_pos = torch.arange(t, device=idx.device).reshape(n_qt, block) + (s - t)
-    first = idx[..., None] * block                   # [BH, n_qt, keep, 1]
-    seen = (q_pos[None, :, None, :] - first + 1).clamp(0, block)
+        return int(valid.sum()) * block_q * block_kv
+    n_qt = t // block_q
+    q_pos = torch.arange(t, device=idx.device).reshape(n_qt, block_q) \
+        + (s - t)
+    first = idx[..., None] * block_kv                # [BH, n_qt, keep, 1]
+    seen = (q_pos[None, :, None, :] - first + 1).clamp(0, block_kv)
     return int((seen * valid[..., None]).sum())
 
 
@@ -3818,7 +3841,9 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
     twice per attention layer and step (the forward and its recompute
     under remat), its backward once, K1-K3 never; with ``star_train``
     (phase 21b) K2 and K3 twice and K3's backward once instead, K1 and K4
-    never."""
+    never, each launch of K3 and its backward in the form the config's
+    tiles pick, and counted as ``elementwise`` where the config has the
+    element mask (phase 21e)."""
     on_card = torch.device(dev).type == "cuda"
     params, info = init_params(cfg, gen, dev)
     _, opt_init, _ = launch_steps.make_optimizer(cfg, lr)
@@ -3826,6 +3851,8 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "star_train": star_trained(cfg),
+           "star": dataclasses.asdict(cfg.star) if star_trained(cfg)
+           else None,
            "seq": seq, "batch": batch, "steps": steps, "lr": lr,
            "warmup": TRAIN_WARMUP, "remat": cfg.remat, **info,
            "free_disk_gb_before": free_disk_gb(BUILD_DIR)}
@@ -3856,8 +3883,12 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
     if on_card and star_trained(cfg):
         want.update(dlzs_block=steps * layers * 2, sufa=steps * layers * 2,
                     sufa_bwd=steps * layers)
-        want.update({"sufa_bwd/wgmma": steps * layers,
-                     "sufa_bwd/mma_sync": 0})
+        form = launch.tile_form(cfg.star.block_q, cfg.star.block_kv)
+        elem = cfg.star.elementwise
+        want.update({f"sufa_bwd/{f}": steps * layers * (f == form)
+                     for f in ("wgmma", "mma_sync")})
+        want.update({"sufa/elementwise": steps * layers * 2 * elem,
+                     "sufa_bwd/elementwise": steps * layers * elem})
     elif on_card:
         want.update(flash=steps * layers * 2, flash_bwd=steps * layers)
     tokens = seq * batch
@@ -3988,49 +4019,70 @@ def plain_flash_train(q, k, v, *, causal, scale):
     return kref.flash_ref(q, k, v, causal=causal, scale=scale)
 
 
-def plain_sufa_train(q, k, v, idx, valid, *, scale, **kw):
+def plain_sufa_train(q, k, v, idx, valid, *, scale, keeps=None, **kw):
     """``ops.sufa_attention`` as its plain version under autograd (21d's
     plain path): ``sufa_reference``'s fp32 softmax over the gathered
-    tiles, differentiated by torch."""
-    return ksufa.sufa_reference(q, k, v, idx, valid, scale=scale, **kw)
+    tiles, differentiated by torch; with the element mask, over the keys
+    of the kernel run's keep bits where ``keeps`` (an iterator) gives
+    them."""
+    bits = next(keeps) if keeps is not None and kw.get("elementwise") \
+        else None
+    return ksufa.sufa_reference(q, k, v, idx, valid, scale=scale,
+                                keep_bits=bits, **kw)
 
 
-def model_grads(params, cfg, batch, plain: bool, tiles=None) -> tuple:
+def model_grads(params, cfg, batch, plain: bool, tiles=None,
+                keeps=None) -> tuple:
     """(loss, metrics, grads) of one ``lm.loss_fn`` step, with the kernels
     and their backwards, or ``plain`` with the plain versions in their
     place (``plain_flash_train``, K2's ``dlzs_block_ref``,
     ``plain_sufa_train``). With ``tiles`` (a list; STAR in training) a
     kernel run appends each STAR call's (tile ids, validity) to it, and a
     plain run takes them from it in call order, so both compute attention
-    over the tiles the kernels' selection kept."""
+    over the tiles the kernels' selection kept; ``keeps`` (a list; the
+    element mask) does the same with K3's keep bits, so both compute it
+    over the keys the kernel kept."""
     names = ("flash", "dlzs_block_scores", "select_tiles", "sufa_attention")
     real = {name: getattr(ops, name) for name in names}
+    real_forward = ksufa._forward
     replay = iter(tiles or ())
+    replay_keeps = None if keeps is None else iter(keeps)
     if plain:
         ops.flash = plain_flash_train
         ops.dlzs_block_scores = kref.dlzs_block_ref
-        ops.sufa_attention = plain_sufa_train
+        ops.sufa_attention = functools.partial(plain_sufa_train,
+                                               keeps=replay_keeps)
         if tiles is not None:
             ops.select_tiles = lambda raw, keep, **kw: next(replay)
-    elif tiles is not None:
-        def record(raw, keep, **kw):
-            tiles.append(real["select_tiles"](raw, keep, **kw))
-            return tiles[-1]
-        ops.select_tiles = record
+    else:
+        if tiles is not None:
+            def record(raw, keep, **kw):
+                tiles.append(real["select_tiles"](raw, keep, **kw))
+                return tiles[-1]
+            ops.select_tiles = record
+        if keeps is not None:
+            def record_keep(*args, **kw):
+                got = real_forward(*args, **kw)
+                if kw.get("with_keep"):
+                    keeps.append(got[-1])
+                return got
+            ksufa._forward = record_keep
     try:
         (loss, metrics), grads = launch_steps.value_and_grad(params, cfg,
                                                              batch)
     finally:
         for name, fn in real.items():
             setattr(ops, name, fn)
-    if plain and tiles is not None and next(replay, None) is not None:
-        raise SystemExit("training step: the plain run made fewer STAR "
-                         "calls than the kernel run")
+        ksufa._forward = real_forward
+    for left in (replay, replay_keeps):
+        if plain and left is not None and next(left, None) is not None:
+            raise SystemExit("training step: the plain run made fewer STAR "
+                             "calls than the kernel run")
     return loss, metrics, grads
 
 
 def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
-                     batch=2) -> dict:
+                     batch=2, tag=None) -> dict:
     """Phase 20d: one training step's loss and gradients at ``layers``
     layers, ``batch`` x ``seq`` tokens, with K4 and its backward, held
     against the same step on the plain path in fp32 (``flash_ref`` under
@@ -4040,11 +4092,14 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
     rule at model level. With ``star_train`` (phase 21d) the plain runs,
     fp32 and bf16, take the kernel run's tile ids call by call (an fp32
     selection rounds its estimates apart and may keep other tiles, a
-    different function), and the recompute's selection under remat must
-    be the forward's."""
+    different function), with the element mask also K3's keep bits
+    (phase 21e; phase 21f at tiles of 16), and the recompute's selection
+    under remat must be the forward's. ``launches``: the kernel run's, its
+    one step's. ``tag`` names the phase's line."""
     star = star_trained(cfg)
     tiles = [] if star else None
-    tag = "star_training_step" if star else "training_step"
+    keeps = [] if star and cfg.star.elementwise else None
+    tag = tag or ("star_training_step" if star else "training_step")
     reduced = {"n_layers": f"{layers} of {cfg.n_layers}"}
     cfg = dataclasses.replace(cfg, n_layers=layers)
     params, _ = init_params(cfg, gen, dev)
@@ -4052,11 +4107,18 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
     bt = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     p32 = tree_map(lambda t: t.float(), params)
-    loss, _, g = model_grads(params, cfg, bt, plain=False, tiles=tiles)
-    loss32, _, g32 = model_grads(p32, cfg32, bt, plain=True, tiles=tiles)
-    loss_lp, _, g_lp = model_grads(params, cfg, bt, plain=True, tiles=tiles)
+    kernels.reset_launches()
+    loss, _, g = model_grads(params, cfg, bt, plain=False, tiles=tiles,
+                             keeps=keeps)
+    launches = launched()
+    loss32, _, g32 = model_grads(p32, cfg32, bt, plain=True, tiles=tiles,
+                                 keeps=keeps)
+    loss_lp, _, g_lp = model_grads(params, cfg, bt, plain=True, tiles=tiles,
+                                   keeps=keeps)
     gn, gn32 = float(adamw.global_norm(g)), float(adamw.global_norm(g32))
     out = {"reduced": reduced, "seq": seq, "batch": batch,
+           "star": dataclasses.asdict(cfg.star) if star else None,
+           "launches": launches,
            "loss": float(loss),
            "loss_fp32_plain": float(loss32),
            "loss_bf16_plain": float(loss_lp), "grad_norm": gn,
@@ -4064,6 +4126,17 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
     out["loss_rel_err"] = abs(out["loss"] - out["loss_fp32_plain"]) / abs(
         out["loss_fp32_plain"])
     out["grad_norm_rel_err"] = abs(gn - gn32) / gn32
+    if keeps is not None:
+        # the keys the element mask kept of those its tiles made visible
+        kept = visible = 0
+        for (ids, ok), bits in zip(tiles, keeps):
+            rows = torch.empty((ids.shape[0], seq, 1), device=ids.device)
+            kept += int(ksufa.unpack_keep_bits(bits,
+                                               cfg.star.block_kv).sum())
+            visible += int(ksufa.gather_selected(
+                rows, rows, ids, ok, t=seq, block_q=cfg.star.block_q,
+                block_kv=cfg.star.block_kv, causal=cfg.causal)[2].sum())
+        out.update(kept_pairs=kept, visible_pairs=visible)
     if star:
         # under remat each layer's recompute follows the forward, the
         # layers in reverse order
@@ -4096,23 +4169,57 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
 
 # -- phase 21: STAR in training -----------------------------------------------
 
-def selection_mask(idx, valid, *, t: int, s: int, block: int,
-                   causal: bool) -> torch.Tensor:
+def selection_mask(idx, valid, *, t: int, s: int, block_q: int,
+                   block_kv: int, causal: bool, keep_bits=None
+                   ) -> torch.Tensor:
     """The dense [BH, T, S] boolean mask of the keys K3 sees under a
-    selection: each valid selected tile, causal at offset S - T."""
+    selection: each valid selected tile, causal at offset S - T, cut by
+    the forward's ``keep_bits`` (the element mask) where given."""
     bh, n_qt, keep = idx.shape
-    n_kt = s // block
+    n_kt = s // block_kv
     rows = torch.empty((bh, s, 1), device=idx.device)
     _, _, mask = ksufa.gather_selected(rows, rows, idx, valid, t=t,
-                                       block_q=block, block_kv=block,
+                                       block_q=block_q, block_kv=block_kv,
                                        causal=causal)
-    dense = torch.zeros((bh, n_qt, n_kt, block, block), dtype=torch.bool,
-                        device=idx.device)
+    if keep_bits is not None:
+        mask &= ksufa.unpack_keep_bits(keep_bits, block_kv)
+    dense = torch.zeros((bh, n_qt, n_kt, block_q, block_kv),
+                        dtype=torch.bool, device=idx.device)
     heads = torch.arange(bh, device=idx.device)[:, None]
     qts = torch.arange(n_qt, device=idx.device)[None, :]
     for j in range(keep):
         dense[heads, qts, idx[..., j]] |= mask[:, :, j]
     return dense.permute(0, 1, 3, 2, 4).reshape(bh, t, s)
+
+
+def keep_bits_vs_sphere(q, k, idx, valid, bits, *, block_q: int,
+                        block_kv: int, causal: bool, scale: float,
+                        radius: float) -> dict:
+    """The forward's keep bits against ``sufa.sphere_mask``'s on the same
+    inputs, its estimates an fp32-summed bf16 product (the kernel's
+    arithmetic up to the order of that sum): the pairs kept and visible,
+    the pairs where the two differ, the largest gap of such a pair's
+    estimate from its row's edge bf16(max - radius) in bf16 steps of the
+    edge, and the kept pairs outside the validity x causal mask."""
+    bh, t, d = q.shape
+    kg, _, visible = ksufa.gather_selected(k, k, idx, valid, t=t,
+                                           block_q=block_q, block_kv=block_kv,
+                                           causal=causal)
+    qt = q.reshape(bh, t // block_q, block_q, d)
+    with fp32_summed_bf16_gemms():
+        est = torch.einsum("bqtd,bqjcd->bqjtc", qt,
+                           ksufa.pow2_quantize(kg)) * scale
+    del kg
+    est = est.masked_fill(~visible, kref.NEG_INF)
+    edge = est.amax(dim=(2, 4), keepdim=True) - radius
+    got = ksufa.unpack_keep_bits(bits, block_kv)
+    differ = got != (visible & (est >= edge))
+    gap = ((est.float() - edge.float()).abs()
+           / bf16_step(edge.float()))[differ]
+    return {"kept_pairs": int(got.sum()), "visible_pairs": int(visible.sum()),
+            "pairs_differ_from_sphere_mask": int(differ.sum()),
+            "max_gap_steps": float(gap.max()) if gap.numel() else 0.0,
+            "outside_visible": int((got & ~visible).sum())}
 
 
 def plain_masked_lowp(q, k, v, *, dense, scale: float):
@@ -4138,27 +4245,39 @@ def lse_held(tag: str, got, want, **case) -> dict:
 
 
 def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
-                   edges=False, all_choosers=False, block=128) -> dict:
+                   edges=False, all_choosers=False, block=128,
+                   block_kv=None, elementwise=False) -> dict:
     """Phase 21a: K3's lse and backward on the glue's selection (K2, then
-    ``ops.select_tiles`` keeping as many tiles as olmo_1b's STAR config).
+    ``ops.select_tiles`` keeping as many tiles as olmo_1b's STAR config)
+    at tiles ``block`` x ``block_kv`` (square unless given).
     K3's forward, strict and fast, must give the same O bits with and
-    without lse, and its lse the plain version's at 1e-4; the backward
+    without lse (and, with ``elementwise``, its keep bits), and its lse
+    the plain version's at 1e-4; the backward
     of each forward's o and lse (one function) must meet
     ``gradient_rule`` against the fp32 plain gradient (``sufa_bwd_ref``
     on fp32 copies, the fp32 strict forward's o and lse), the bf16
     yardstick being autograd through the bf16 plain form under the
     selection's dense mask, and two calls must give the same bits, every
     launch in the form the tiles pick (``launch.tile_form``: ``wgmma`` at
-    128, ``mma_sync`` at 64). With ``edges``: invalid slots, a key tile
+    128 x 128, ``mma_sync`` otherwise). With ``elementwise`` (the
+    config's radius) the forward's keep bits must be the same in both
+    modes, every pair where they differ from ``sphere_mask``'s on the same
+    inputs must lie within one bf16 step of its row's edge
+    (``keep_bits_vs_sphere``), and the backward, its fp32 plain version
+    and the dense mask all take the kernel's bits; each backward launch
+    also counts as ``sufa_bwd/elementwise``. With ``edges``: invalid
+    slots, a key tile
     of head 0 that no q-tile chose (dK = dV = 0 exactly) and a q-tile of
     head 1 with no valid slot (dQ = 0 exactly, its lse +inf). With
     ``all_choosers``: key tile 0 in a slot of every q-tile of head 0
     (the dK/dV pass's longest walk; no slot names a tile twice, so the
     dense mask stays the yardstick's). Timed: the kernel, its plain
     version, its bound (10·d flops per visible selected pair, or its
-    bytes) and SDPA's backward under the dense mask (``autograd.grad`` on
-    a retained graph), with the split of the wgmma form's two kernels
-    (each traced at least once)."""
+    bytes; the keep bits' bytes counted; the plain version over 5 calls in
+    the ``mma_sync`` form) and SDPA's backward under the dense mask
+    (``autograd.grad`` on a retained graph), with the split of the form's
+    kernels (each traced at least once)."""
+    block_q, block_kv = block, block_kv or block
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
     if s != t:
         _, k, v = prefill_inputs(bh, s, d, seed + 1, dev)
@@ -4166,16 +4285,17 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
     do = torch.randn((bh, t, d), generator=gen).to(dev, torch.bfloat16)
     scale = d ** -0.5
     star = olmo_1b.config().star
-    keep = dataclasses.replace(star, block_q=block,
-                               block_kv=block).keep_blocks(s)
+    keep = dataclasses.replace(star, block_q=block_q,
+                               block_kv=block_kv).keep_blocks(s)
     raw = kdlzs.dlzs_block_scores(q, k, causal=causal, scale=1.0,
-                                  block_q=block, block_kv=block)
+                                  block_q=block_q, block_kv=block_kv)
     idx, valid = ops.select_tiles(raw, keep, scale=scale, radius=star.radius,
                                   dtype=q.dtype)
-    form = launch.tile_form(block, block)
-    case = dict(kernel="sufa_bwd", BH=bh, T=t, S=s, d=d, block=block,
-                keep=keep, causal=causal, edges=edges,
-                all_choosers=all_choosers, form=form)
+    form = launch.tile_form(block_q, block_kv)
+    case = dict(kernel="sufa_bwd", BH=bh, T=t, S=s, d=d, block_q=block_q,
+                block_kv=block_kv, keep=keep, causal=causal, edges=edges,
+                all_choosers=all_choosers, elementwise=elementwise,
+                form=form)
     if all_choosers:
         named = ((idx[0] == 0) & valid[0]).any(dim=-1)
         idx[0, ~named, -1] = 0
@@ -4187,31 +4307,65 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
         valid[0] &= idx[0] != unchosen
         valid[:, :, -1] = False
         valid[1, -1] = False
-        case.update(unchosen_key_tile=unchosen, empty_q_tile=t // block - 1)
+        case.update(unchosen_key_tile=unchosen,
+                    empty_q_tile=t // block_q - 1)
     case["valid_slots"] = int(valid.sum())
-    kw = dict(block_q=block, block_kv=block, causal=causal, scale=scale)
-    fwd, lse_err = {}, {}
+    kw = dict(block_q=block_q, block_kv=block_kv, causal=causal, scale=scale)
+    if elementwise:
+        kw.update(elementwise=True, radius=star.radius)
+    fwd, lse_err, bits = {}, {}, {}
     for strict in (True, False):
-        o, lse = ksufa.sufa_attention(q, k, v, idx, valid, strict=strict,
-                                      return_lse=True, **kw)
-        if not torch.equal(o.view(torch.int16), ksufa.sufa_attention(
-                q, k, v, idx, valid, strict=strict, **kw).view(torch.int16)):
-            raise SystemExit(f"sufa {case}: K3's O changes when lse is "
-                             f"asked for (strict={strict})")
-        _, plain_lse = ksufa.sufa_reference(q, k, v, idx, valid,
-                                            strict=strict, return_lse=True,
-                                            **kw)
+        o, lse, *kb = ksufa.sufa_attention(q, k, v, idx, valid, strict=strict,
+                                           return_lse=True,
+                                           return_keep=elementwise, **kw)
+        plain_o = ksufa.sufa_attention(q, k, v, idx, valid, strict=strict,
+                                       **kw)
+        if not torch.equal(o.view(torch.int16), plain_o.view(torch.int16)):
+            raise SystemExit(f"sufa {case}: K3's O changes when lse (and the "
+                             f"keep bits) are asked for (strict={strict})")
+        if elementwise:
+            o_lse = ksufa.sufa_attention(q, k, v, idx, valid, strict=strict,
+                                         return_lse=True, **kw)
+            if not (torch.equal(o_lse[0].view(torch.int16),
+                                plain_o.view(torch.int16))
+                    and torch.equal(o_lse[1], lse)):
+                raise SystemExit(f"sufa {case}: K3's O or lse changes when "
+                                 f"the keep bits are asked for "
+                                 f"(strict={strict})")
+            bits[strict] = kb[0]
+        _, plain_lse = ksufa.sufa_reference(
+            q, k, v, idx, valid, strict=strict, return_lse=True,
+            keep_bits=kb[0] if kb else None, **kw)
         lse_err[strict] = lse_held("sufa_lse", lse, plain_lse, strict=strict,
                                    **case)["max_abs_err"]
         fwd[strict] = (o, lse)
+    keep_bits = None
+    if elementwise:
+        keep_bits = bits[True]
+        if not torch.equal(keep_bits, bits[False]):
+            raise SystemExit(f"sufa {case}: the strict and the fast forward "
+                             f"kept other keys")
+        audit = keep_bits_vs_sphere(q, k, idx, valid, keep_bits,
+                                    block_q=block_q, block_kv=block_kv,
+                                    causal=causal, scale=scale,
+                                    radius=star.radius)
+        case.update(audit)
+        if audit["outside_visible"] or audit["max_gap_steps"] > 1.0:
+            emit("sufa_bwd", ok=False, **case)
+            raise SystemExit(f"sufa {case}: the forward's keep bits differ "
+                             f"from sphere_mask's away from the edge")
     f32 = [x.float() for x in (q, k, v)]
     o32, lse32 = ksufa.sufa_reference(*f32, idx, valid, strict=True,
-                                      return_lse=True, **kw)
+                                      return_lse=True, keep_bits=keep_bits,
+                                      **kw)
     names = ("dq", "dk", "dv")
     want = dict(zip(names, ksufa.sufa_bwd_ref(*f32, idx, valid, o32, lse32,
-                                             do.float(), **kw)))
+                                             do.float(), keep_bits=keep_bits,
+                                             **kw)))
     del f32, o32, lse32
-    dense = selection_mask(idx, valid, t=t, s=s, block=block, causal=causal)
+    dense = selection_mask(idx, valid, t=t, s=s, block_q=block_q,
+                           block_kv=block_kv, causal=causal,
+                           keep_bits=keep_bits)
     lowp = dict(zip(names, grads_of(functools.partial(
         plain_masked_lowp, dense=dense, scale=scale), q, k, v, do)))
     modes = {}
@@ -4219,8 +4373,9 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
     for strict in (True, False):
         o, lse = fwd[strict]
         got = dict(zip(names, ksufa.sufa_bwd(q, k, v, idx, valid, o, lse,
-                                             do, **kw)))
-        again = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+                                             do, keep_bits=keep_bits, **kw)))
+        again = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do,
+                               keep_bits=keep_bits, **kw)
         res = gradient_rule("sufa_bwd", got, want, lowp, strict=strict,
                             **case)
         res["two_calls_bit_equal"] = all(
@@ -4229,10 +4384,10 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
         if not res["two_calls_bit_equal"]:
             raise SystemExit(f"sufa_bwd {case}: two calls differ")
         if edges:
-            tile = slice(unchosen * block, (unchosen + 1) * block)
+            tile = slice(unchosen * block_kv, (unchosen + 1) * block_kv)
             res["unchosen_dk_dv_zero"] = not (got["dk"][0, tile].any()
                                               or got["dv"][0, tile].any())
-            res["empty_q_tile_dq_zero"] = not got["dq"][1, t - block:].any()
+            res["empty_q_tile_dq_zero"] = not got["dq"][1, t - block_q:].any()
             if not (res["unchosen_dk_dv_zero"]
                     and res["empty_q_tile_dq_zero"]):
                 raise SystemExit(f"sufa_bwd {case}: an unchosen key tile or "
@@ -4240,10 +4395,12 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
         res["lse_max_abs_err"] = lse_err[strict]
         modes[strict] = res
     on_card = torch.device(dev).type == "cuda"
+    kinds = ("wgmma", "mma_sync", "elementwise")
     calls = {f"sufa_bwd/{f}": launched()[f"sufa_bwd/{f}"]
-             - before[f"sufa_bwd/{f}"] for f in ("wgmma", "mma_sync")}
-    if calls != {f"sufa_bwd/{f}": 4 * (on_card and f == form)
-                 for f in ("wgmma", "mma_sync")}:
+             - before[f"sufa_bwd/{f}"] for f in kinds}
+    if calls != {f"sufa_bwd/{f}": 4 * (on_card and (
+            f == form or (f == "elementwise" and elementwise)))
+                 for f in kinds}:
         raise SystemExit(f"sufa_bwd {case}: launches by form {calls}, not "
                          f"4 in the {form} form")
     out = dict(modes[True])
@@ -4255,10 +4412,12 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
         o, lse = fwd[True]
 
         def kernel():
-            ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
+            ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do,
+                           keep_bits=keep_bits, **kw)
 
         def plain():
-            ksufa.sufa_bwd_ref(q, k, v, idx, valid, o, lse, do, **kw)
+            ksufa.sufa_bwd_ref(q, k, v, idx, valid, o, lse, do,
+                               keep_bits=keep_bits, **kw)
         leaves = [x.detach()[None].requires_grad_() for x in (q, k, v)]
         with torch.enable_grad():
             sdpa_out = SDPA(*leaves, attn_mask=dense[None], scale=scale)
@@ -4266,16 +4425,24 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
         def library():
             torch.autograd.grad(sdpa_out, leaves, do[None],
                                 retain_graph=True)
-        pairs = selected_pairs(idx, valid, t=t, s=s, block=block,
-                               causal=causal)
+        # the pairs the gradient needs: each kept (query, key) pair, the
+        # element mask's bits applied where it is on
+        pairs = int(dense.sum()) if elementwise else selected_pairs(
+            idx, valid, t=t, s=s, block_q=block_q, block_kv=block_kv,
+            causal=causal)
+        extra = () if keep_bits is None else (keep_bits,)
+        # the plain version's scatter is a Python loop over every (q-tile,
+        # slot): 0.64 s a call at tiles of 16, so 5 calls of it there
         add_times(out, kernel, plain, library, flush,
-                  bytes_=nbytes(q, k, v, o, do, q, k, v, lse, idx, valid),
-                  flops=10 * d * pairs)
-        out.update(flash_bwd_split(kernel, flush, parts=SUFA_BWD_KERNELS))
-        if not all(out[f"{part}_launches_traced"]
-                   for part in SUFA_BWD_KERNELS):
+                  bytes_=nbytes(q, k, v, o, do, q, k, v, lse, idx, valid,
+                                *extra),
+                  flops=10 * d * pairs,
+                  plain_iters=50 if form == "wgmma" else 5)
+        parts = SUFA_BWD_KERNELS if form == "wgmma" else SUFA_BWD_MMA_KERNELS
+        out.update(flash_bwd_split(kernel, flush, parts=parts))
+        if not all(out[f"{part}_launches_traced"] for part in parts):
             raise SystemExit(f"sufa_bwd {case}: the trace holds no launch "
-                             f"of one of {SUFA_BWD_KERNELS}: {out}")
+                             f"of one of {parts}: {out}")
         out["selected_pairs"] = pairs
         out["dense_causal_pairs"] = bh * visible_pairs(t, s, causal)
         out["tflop_s_10d"] = 10 * d * pairs / out["ms"] / 1e9
@@ -4284,20 +4451,35 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
     return out
 
 
+# phase 21a's mma.sync cases: every kind of small and mixed tiling, both
+# head dims, causal or not, with and without the element mask
+MMA_BWD_TILES = ((16, 16), (32, 32), (48, 48), (16, 64), (64, 16))
+MMA_BWD_SHAPE = dict(bh=4, t=768, s=768)   # 768: a multiple of 48 and 64
+
+
 def check_sufa_bwd_shapes(dev, ptxas=()) -> dict:
     """Phase 21a's shapes, in the wgmma form (tiles of 128): OLMo-1B's
     training shape (BH 128, T = S = 2048, d 128, causal, keep 4 of 16),
-    timed; SeamlessM4T's encoder (BH 16, T = S = 2048, d 64, not causal),
-    timed; T 256 over S 2048, causal; the edges at BH 16, T = S = 1024;
-    key tile 0 chosen by every q-tile of a head (BH 16, T = S = 2048).
-    In the mma_sync form, tiles of 64: BH 16, T = S = 1024, d 128, causal,
-    with the edges. K3's forward at the training shape, timed.
-    ``ptxas``: the backward's register and spill lines from the build
-    log, emitted beside them."""
+    timed, and again with the element mask (phase 21e's), timed;
+    SeamlessM4T's encoder (BH 16, T = S = 2048, d 64, not causal), timed;
+    T 256 over S 2048, causal; the edges at BH 16, T = S = 1024, without
+    and with the element mask; key tile 0 chosen by every q-tile of a
+    head (BH 16, T = S = 2048). In the mma_sync form: tiles of 64, BH 16,
+    T = S = 1024, d 128, causal, with the edges; each tiling of
+    ``MMA_BWD_TILES`` at d 64 and 128, causal (with the edges) and not,
+    without and with the element mask, at ``MMA_BWD_SHAPE``; tiles of 16
+    and 32 at the training shape, timed (16 also with the element mask,
+    phase 21f's). K3's forward at the training shape, timed.
+    ``ptxas``: the register and spill lines of K3's forward and backward
+    from the build log, emitted beside them."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    out = {"train": check_sufa_bwd(dev, flush, bh=TRAIN_BATCH * 16,
-                                   t=TRAIN_SEQ, s=TRAIN_SEQ, d=128,
-                                   causal=True, seed=2101, timed=True),
+    train = dict(bh=TRAIN_BATCH * 16, t=TRAIN_SEQ, s=TRAIN_SEQ, d=128,
+                 causal=True)
+    out = {"train": check_sufa_bwd(dev, flush, seed=2101, timed=True,
+                                   **train),
+           "train_elementwise": check_sufa_bwd(dev, flush, seed=2108,
+                                               timed=True, elementwise=True,
+                                               **train),
            "encoder": check_sufa_bwd(dev, flush, bh=16, t=2048, s=2048, d=64,
                                      causal=False, seed=2102, timed=True),
            "t256": check_sufa_bwd(dev, flush, bh=16, t=256, s=2048, d=128,
@@ -4305,12 +4487,30 @@ def check_sufa_bwd_shapes(dev, ptxas=()) -> dict:
            "edges": check_sufa_bwd(dev, flush, bh=16, t=1024, s=1024, d=128,
                                    causal=True, seed=2104, timed=False,
                                    edges=True),
+           "edges_elementwise": check_sufa_bwd(
+               dev, flush, bh=16, t=1024, s=1024, d=128, causal=True,
+               seed=2109, timed=False, edges=True, elementwise=True),
            "all_choosers": check_sufa_bwd(dev, flush, bh=16, t=2048, s=2048,
                                           d=128, causal=True, seed=2105,
                                           timed=False, all_choosers=True),
            "mma_sync": check_sufa_bwd(dev, flush, bh=16, t=1024, s=1024,
                                       d=128, causal=True, seed=2106,
                                       timed=False, edges=True, block=64)}
+    seed = 2200
+    for bq, bk in MMA_BWD_TILES:
+        for d in (64, 128):
+            for causal in (True, False):
+                for elem in (False, True):
+                    seed += 1
+                    out[f"mma_{bq}x{bk}_d{d}_{'causal' if causal else 'full'}"
+                        f"{'_elementwise' if elem else ''}"] = check_sufa_bwd(
+                        dev, flush, d=d, causal=causal, seed=seed,
+                        timed=False, edges=causal, block=bq, block_kv=bk,
+                        elementwise=elem, **MMA_BWD_SHAPE)
+    for block, elem in ((16, False), (32, False), (16, True)):
+        out[f"train_tiles{block}{'_elementwise' if elem else ''}"] = \
+            check_sufa_bwd(dev, flush, seed=2110 + block + elem, timed=True,
+                           block=block, elementwise=elem, **train)
     # K3's forward at the training shape, timed (phase 21b launches it
     # twice per layer and step: the forward and its remat recompute)
     out["forward_train"] = check_sufa(dev, flush, bh=TRAIN_BATCH * 16,
@@ -4319,6 +4519,50 @@ def check_sufa_bwd_shapes(dev, ptxas=()) -> dict:
     emit("sufa_bwd_build", ptxas=[f"{fn} {line}" for fn, line in ptxas])
     del flush
     free_cache(dev)
+    return out
+
+
+def elementwise_star(cfg):
+    """``cfg`` with the element-level sphere mask on (STARConfig(
+    top_k_ratio=0.2, elementwise=True): tiles 128, radius 5)."""
+    return dataclasses.replace(cfg, star=dataclasses.replace(
+        cfg.star, elementwise=True))
+
+
+SMALL_TILE = 16     # phase 21f: the smallest tile K3 takes
+
+
+def check_small_tiles(cfg, dev, gen, *, tile: int = SMALL_TILE,
+                      layers: int = RESTART_LAYERS, seq: int = TRAIN_SEQ,
+                      batch: int = 2) -> dict:
+    """Phase 21f: ``cfg`` (OLMo-1B with ``star_train``) at its published
+    width, cut to ``layers`` layers, STAR at tiles of ``tile`` (keep
+    ceil(0.2 x S / tile)), one step of ``batch`` x ``seq`` tokens held to
+    21d's rule (``check_model_step``), once without and once with the
+    element mask; its kernel run launches K3's backward once per layer,
+    every launch in the ``mma_sync`` form (and ``elementwise`` with the
+    mask), K4 never."""
+    small = dataclasses.replace(cfg, star=dataclasses.replace(
+        cfg.star, block_q=tile, block_kv=tile))
+    out = {}
+    for name, c in (("tiles", small), ("elementwise", elementwise_star(
+            small))):
+        step = check_model_step(c, dev, gen, layers=layers, seq=seq,
+                                batch=batch,
+                                tag=f"star_training_step_tiles{tile}_"
+                                    f"{name}")
+        got, n = step["launches"], attn_layers(dataclasses.replace(
+            c, n_layers=layers))
+        on_card = torch.device(dev).type == "cuda"
+        want = {"sufa_bwd": n, "sufa_bwd/mma_sync": n, "sufa_bwd/wgmma": 0,
+                "sufa_bwd/elementwise": n * c.star.elementwise,
+                "sufa": 2 * n, "dlzs_block": 2 * n, "flash": 0,
+                "flash_bwd": 0}
+        want = {k: v * on_card for k, v in want.items()}
+        if {k: got[k] for k in want} != want:
+            raise SystemExit(f"phase 21f ({name}): launches {got}; expected "
+                             f"{want}")
+        out[name] = step
     return out
 
 
@@ -4770,10 +5014,24 @@ def main() -> int:
     # versions (21a), OLMo-1B with star_train trained at full width and
     # depth (21b), one model step against the plain path on the same
     # tiles (21d); restart exactness (21c) ran in 20c's child
-    sbwd = check_sufa_bwd_shapes(dev, ptxas_report(built["sufa_bwd"]["log"]))
+    sbwd = check_sufa_bwd_shapes(
+        dev, ptxas_report(built["sufa"]["log"])
+        + ptxas_report(built["sufa_bwd"]["log"]))
     star_cfg = dataclasses.replace(olmo_1b.config(), star_train=True)
     star_train = check_training(star_cfg, dev, gen, save=False)
     check_model_step(star_cfg, dev, gen)
+
+    # 21e. OLMo-1B with star_train and the element mask (tiles 128,
+    # radius 5), trained as 21b, and 21d's model step on the kernel run's
+    # tiles and keep bits
+    elem_cfg = elementwise_star(star_cfg)
+    elem_train = check_training(elem_cfg, dev, gen, save=False)
+    check_model_step(elem_cfg, dev, gen, tag="star_training_step_elementwise")
+
+    # 21f. OLMo-1B at its published width cut to 2 layers, STAR at tiles
+    # of 16: 21d's model step without and with the element mask, K3's
+    # backward in its mma_sync form
+    small = check_small_tiles(star_cfg, dev, gen)
 
     # 22. the example twins on the card, their launches counted
     ex = check_examples(dev)
@@ -5056,6 +5314,41 @@ def main() -> int:
                        for part in SUFA_BWD_KERNELS},
              tflop_s_10d=sbwd["train"]["tflop_s_10d"],
              restart_bit_equal=star_restart["bit_equal"]),
+        # K3's backward with the element mask (the forward's keep bits):
+        # phase 21e's training run at OLMo-1B's training shape
+        line("sufa_bwd/elementwise", "sufa_bwd.cu",
+             "none: the reference differentiates sufa_gathered through XLA "
+             "(src/repro/core/sufa.py:107)",
+             elem_train["launches"]["sufa_bwd/elementwise"],
+             sbwd["train_elementwise"],
+             launches_from="phase 21e, OLMo-1B trained with star_train and "
+                           "elementwise=True",
+             form=sbwd["train_elementwise"]["form"],
+             launches_wgmma=elem_train["launches"]["sufa_bwd/wgmma"],
+             kept_pairs=sbwd["train_elementwise"]["kept_pairs"],
+             visible_pairs=sbwd["train_elementwise"]["visible_pairs"],
+             pairs_differ_from_sphere_mask=sbwd["train_elementwise"][
+                 "pairs_differ_from_sphere_mask"],
+             split_ms={part: sbwd["train_elementwise"][f"{part}_ms"]
+                       for part in SUFA_BWD_KERNELS},
+             max_abs_err_edges=sbwd["edges_elementwise"]["max_abs_err"]),
+        # its mma_sync form at small and mixed tiles: phase 21f's 2-layer
+        # steps at tiles of 16, timed at the training shape
+        line("sufa_bwd/mma_sync", "sufa_bwd.cu",
+             "none: the reference differentiates sufa_gathered through XLA "
+             "(src/repro/core/sufa.py:107)",
+             small["tiles"]["launches"]["sufa_bwd/mma_sync"]
+             + small["elementwise"]["launches"]["sufa_bwd/mma_sync"],
+             sbwd["train_tiles16"],
+             launches_from="phase 21f, OLMo-1B at 2 layers, tiles of 16, "
+                           "one step without and one with the element mask",
+             tiles32=timed(sbwd["train_tiles32"]),
+             tiles16_elementwise=timed(sbwd["train_tiles16_elementwise"]),
+             split_ms={part: sbwd["train_tiles16"][f"{part}_ms"]
+                       for part in SUFA_BWD_MMA_KERNELS},
+             max_abs_err_by_tiling={
+                 key[4:]: val["max_abs_err"] for key, val in sbwd.items()
+                 if key.startswith("mma_")}),
     ]}), flush=True)
     print_device_line()
     return 0

@@ -78,6 +78,17 @@
 //     224 KB of shared memory in all at D = 128.
 //   * mma.sync (other tiles): the first sweep stages pow2(K) with the
 //     copy; the second stages pow2(K) once more after each tile's S.
+// Given a pointer (keep_out), the ELEM instances also write each key's keep
+// bit for the backward (sufa_bwd.cu), so that it differentiates exactly the
+// softmax this forward computed: [BH, n_qt, keep, Bq, W] 32-bit words, W =
+// ceil(Bc / 32), bit c % 32 of word c / 32 set where key idx * Bc + c
+// survives the validity, causal and element masks for that query row
+// (zeros for an invalid slot). A null pointer writes nothing, and the
+// output's arithmetic is the same either way. In the wgmma form each
+// thread holds its stage's keep mask as 64 bits (two rows, 32 keys each,
+// spread over the quad); the quad ORs its shares into each row's four
+// words, one word per lane. In the mma.sync form each thread gathers its
+// bits the same way from its score fragments.
 // D is 64 or 128. The kernels allocate nothing and launch on the caller's
 // stream; the C entry points return cudaGetLastError() (the wgmma form
 // encodes its tensor maps with libcuda's cuTensorMapEncodeTiled: -lcuda).
@@ -138,6 +149,28 @@ __device__ __forceinline__ float dlzs_estimate(float dot, float scale) {
   return round_bf16(round_bf16(dot) * scale);
 }
 
+// Gather one row pair's keep words over the quad and store them: word[w][h]
+// holds this thread's bits of word w of row h (row, row + 8); lane q of
+// the quad writes word q of both rows (dst: row's W words; row + 8 is
+// 8 * W words on). W is at most 4.
+template <int W>
+__device__ __forceinline__ void store_keep_words(uint32_t* dst,
+                                                 uint32_t (&word)[W][2],
+                                                 int lane) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      word[w][h] |= __shfl_xor_sync(0xffffffffu, word[w][h], 1);
+      word[w][h] |= __shfl_xor_sync(0xffffffffu, word[w][h], 2);
+    }
+    if ((lane & 3) == w) {
+      dst[w] = word[w][0];
+      dst[8 * W + w] = word[w][1];
+    }
+  }
+}
+
 // ELEM: copy a landed K stage into its pow2(K) stage (sign and exponent
 // bits of every bf16; byte offsets, and so the swizzle, unchanged), fence
 // the writes against wgmma's async-proxy reads, and meet the other
@@ -187,6 +220,7 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
                   const uint8_t* __restrict__ valid,  // [BH, n_qt, keep]
                   uint16_t* __restrict__ out,         // [BH, T, D]
                   float* __restrict__ lse,            // [BH, T] or null
+                  uint32_t* __restrict__ keep_out,    // ELEM: keep bits or null
                   int S, int keep, int q_offset, int causal,
                   float scale_log2, float scale, float radius) {
   constexpr int kTile = tile_bytes<D>();
@@ -303,9 +337,20 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
   }
 
   const int n1 = n;  // the first sweep's tiles
+  // ELEM with keep_out: slot j's words of this thread's rows
+  uint32_t* const keep_row =
+      ELEM && keep_out != nullptr
+          ? keep_out + ((((int64_t)bh * n_qt + qt) * keep) * kBQ + row - q0) * 4
+          : nullptr;
   for (int j = 0; j < keep; ++j) {
     const int kt = selected(ids, ok, j, n_kt);
-    if (kt < 0) continue;
+    if (kt < 0) {
+      if (keep_row != nullptr) {  // an invalid slot keeps no key
+        keep_row[j * kBQ * 4 + (lane & 3)] = 0u;
+        keep_row[j * kBQ * 4 + 32 + (lane & 3)] = 0u;
+      }
+      continue;
+    }
     const int s = n % kStages;
     const uint32_t parity = (n / kStages) & 1;
     // v_full[s] completes once per second-sweep tile of stage s
@@ -335,6 +380,16 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
               dlzs_estimate(e[i], scale) >= edge[(i >> 1) & 1])
             keep_bits[i >> 5] |= 1u << (i & 31);
         }
+      }
+      if (keep_row != nullptr) {
+        // score i is key 8 (i / 4) + t2 + (i & 1) of row half (i / 2) & 1:
+        // word i / 16, bit 8 ((i / 4) & 3) + t2 + (i & 1)
+        uint32_t word[4][2] = {};
+#pragma unroll
+        for (int i = 0; i < kBC / 2; ++i)
+          word[i >> 4][(i >> 1) & 1] |= ((keep_bits[i >> 5] >> (i & 31)) & 1u)
+                                        << (((i >> 2) & 3) * 8 + t2 + (i & 1));
+        store_keep_words<4>(keep_row + j * kBQ * 4, word, lane);
       }
       qk_wgmma<D>(sc, sq_wg, ks);
 #pragma unroll
@@ -442,8 +497,8 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
 template <int D, bool STRICT, bool ELEM>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int64_t* idx, const uint8_t* valid, void* out,
-                         float* lse, int BH, int T, int S, int keep,
-                         int causal, float scale, float radius,
+                         float* lse, uint32_t* keep_out, int BH, int T, int S,
+                         int keep, int causal, float scale, float radius,
                          cudaStream_t stream) {
   static bool configured = false;  // the >48 KB opt-in, once per instance
   if (!configured) {
@@ -461,8 +516,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid(BH, T / kBQ);
   sufa_wgmma_kernel<D, STRICT, ELEM>
       <<<grid, kThreads, smem_bytes<D, ELEM>(), stream>>>(
-          qmap, kmap, vmap, idx, valid, static_cast<uint16_t*>(out), lse, S,
-          keep, S - T, causal, scale * 1.4426950408889634f, scale, radius);
+          qmap, kmap, vmap, idx, valid, static_cast<uint16_t*>(out), lse,
+          keep_out, S, keep, S - T, causal, scale * 1.4426950408889634f,
+          scale, radius);
   return cudaGetLastError();
 }
 
@@ -479,10 +535,12 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
                 const uint8_t* __restrict__ valid,   // [BH, n_qt, keep]
                 uint16_t* __restrict__ out,          // [BH, T, D]
                 float* __restrict__ lse,             // [BH, T] or null
+                uint32_t* __restrict__ keep_out,     // ELEM: keep bits or null
                 int S, int keep, int block_q, int causal, float scale,
                 float radius) {
   constexpr int LD = D + 8;
   constexpr int NT = BC / 8;  // 8-key score tiles
+  constexpr int W = (BC + 31) / 32;  // keep words per row
   __shared__ __align__(16) uint16_t tile[kMaxTile * LD];
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -542,9 +600,20 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
+  // ELEM with keep_out: slot j's words of this thread's rows
+  uint32_t* const keep_row =
+      ELEM && keep_out != nullptr
+          ? keep_out + (((int64_t)bh * n_qt + qt) * keep * block_q + row) * W
+          : nullptr;
   for (int j = 0; j < keep; ++j) {
     const int kt = selected(ids, ok, j, n_kt);
-    if (kt < 0) continue;  // block-uniform
+    if (kt < 0) {  // block-uniform
+      if (keep_row != nullptr && (lane & 3) < W) {  // it keeps no key
+        keep_row[j * block_q * W + (lane & 3)] = 0u;
+        keep_row[j * block_q * W + 8 * W + (lane & 3)] = 0u;
+      }
+      continue;
+    }
     const int kv0 = kt * BC;
     __syncthreads();  // every warp is done with the previous V tile
     load_rows<D>(tile, kb, kv0, BC, S, false);
@@ -574,6 +643,21 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
         s[nt][i] = x;
         mx[i >> 1] = fmaxf(mx[i >> 1], x);
       }
+    }
+    if (keep_row != nullptr) {
+      // a kept score is finite, a dropped one kNegInf: key nt * 8 + t2 +
+      // (i & 1) of row half i / 2 is bit (nt & 3) * 8 + t2 + (i & 1) of
+      // word nt / 4 (packed here, after the estimates, so the words are
+      // not live beside them)
+      uint32_t word[W][2] = {};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          word[nt >> 2][i >> 1] |=
+              static_cast<uint32_t>(s[nt][i] > kNegInf / 2)
+              << ((nt & 3) * 8 + t2 + (i & 1));
+      store_keep_words<W>(keep_row + j * block_q * W, word, lane);
     }
     float alpha[2];
 #pragma unroll
@@ -649,9 +733,10 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
 template <int D, int BC>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int64_t* idx, const uint8_t* valid, void* out,
-                       float* lse, int BH, int T, int S, int keep, int block_q,
-                       int causal, bool strict, bool elementwise, float scale,
-                       float radius, cudaStream_t stream) {
+                       float* lse, uint32_t* keep_out, int BH, int T, int S,
+                       int keep, int block_q, int causal, bool strict,
+                       bool elementwise, float scale, float radius,
+                       cudaStream_t stream) {
   const dim3 grid(T / block_q, BH);
   const dim3 block(block_q / 16 * 32);
   const uint16_t* qp = static_cast<const uint16_t*>(q);
@@ -661,8 +746,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 #define SUFA_MMA(SS, EE)                                                     \
   if (strict == SS && elementwise == EE)                                    \
     sufa_mma_kernel<D, BC, SS, EE><<<grid, block, 0, stream>>>(              \
-        qp, kp, vp, idx, valid, op, lse, S, keep, block_q, causal, scale,    \
-        radius);
+        qp, kp, vp, idx, valid, op, lse, keep_out, S, keep, block_q, causal, \
+        scale, radius);
   SUFA_MMA(true, false)
   SUFA_MMA(false, false)
   SUFA_MMA(true, true)
@@ -681,10 +766,12 @@ bool bad_shape(int BH, int T, int S, int keep, int block_q, int block_kv) {
 }  // namespace
 
 // elementwise != 0 runs the element-level sphere mask at radius (ELEM);
-// lse: null, or [BH, T] fp32 for the row log-sum-exps.
+// lse: null, or [BH, T] fp32 for the row log-sum-exps; keep_out: null, or
+// (with elementwise) [BH, T / 128, keep, 128, 4] words of keep bits.
 extern "C" int sufa_wgmma_bf16(const void* q, const void* k, const void* v,
                                const void* idx, const void* valid, void* out,
-                               void* lse, int BH, int T, int S, int keep,
+                               void* lse, void* keep_out, int BH, int T,
+                               int S, int keep,
                                int D, int causal, int strict,
                                int elementwise, float scale, float radius,
                                void* stream) {
@@ -693,12 +780,13 @@ extern "C" int sufa_wgmma_bf16(const void* q, const void* k, const void* v,
   const int64_t* ip = static_cast<const int64_t*>(idx);
   const uint8_t* vp = static_cast<const uint8_t*>(valid);
   float* lp = static_cast<float*>(lse);
+  uint32_t* keep_p = static_cast<uint32_t*>(keep_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SUFA_WGMMA(DD, SS, EE)                                              \
   if (D == DD && (strict != 0) == SS && (elementwise != 0) == EE)           \
     return static_cast<int>(launch_wgmma<DD, SS, EE>(                       \
-        q, k, v, ip, vp, out, lp, BH, T, S, keep, causal, scale, radius,    \
-        st));
+        q, k, v, ip, vp, out, lp, keep_p, BH, T, S, keep, causal, scale,    \
+        radius, st));
   SUFA_WGMMA(64, true, false)
   SUFA_WGMMA(64, false, false)
   SUFA_WGMMA(128, true, false)
@@ -714,25 +802,28 @@ extern "C" int sufa_wgmma_bf16(const void* q, const void* k, const void* v,
 #define SUFA_CASE(DD, BB)                                                    \
   if (D == DD && block_kv == BB)                                             \
     return static_cast<int>(launch_mma<DD, BB>(                              \
-        q, k, v, ip, vp, out, lp, BH, T, S, keep, block_q, causal,           \
+        q, k, v, ip, vp, out, lp, keep_p, BH, T, S, keep, block_q, causal,   \
         strict != 0, elementwise != 0, scale, radius, st));
 #define SUFA_TILES(DD)                                                      \
   SUFA_CASE(DD, 16) SUFA_CASE(DD, 32) SUFA_CASE(DD, 48) SUFA_CASE(DD, 64)   \
   SUFA_CASE(DD, 80) SUFA_CASE(DD, 96) SUFA_CASE(DD, 112) SUFA_CASE(DD, 128)
 
 // elementwise != 0 runs the element-level sphere mask at radius (ELEM);
-// lse: null, or [BH, T] fp32 for the row log-sum-exps.
+// lse: null, or [BH, T] fp32 for the row log-sum-exps; keep_out: null, or
+// (with elementwise) [BH, T / block_q, keep, block_q, ceil(block_kv / 32)]
+// words of keep bits.
 extern "C" int sufa_mma_bf16(const void* q, const void* k, const void* v,
                              const void* idx, const void* valid, void* out,
-                             void* lse, int BH, int T, int S, int keep,
-                             int block_q, int block_kv, int D, int causal,
-                             int strict, int elementwise, float scale,
-                             float radius, void* stream) {
+                             void* lse, void* keep_out, int BH, int T, int S,
+                             int keep, int block_q, int block_kv, int D,
+                             int causal, int strict, int elementwise,
+                             float scale, float radius, void* stream) {
   if (bad_shape(BH, T, S, keep, block_q, block_kv))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* ip = static_cast<const int64_t*>(idx);
   const uint8_t* vp = static_cast<const uint8_t*>(valid);
   float* lp = static_cast<float*>(lse);
+  uint32_t* keep_p = static_cast<uint32_t*>(keep_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SUFA_TILES(64)
   SUFA_TILES(128)

@@ -17,10 +17,16 @@
 // valid [BH, n_qt, keep] bool, the forward's output o and the output
 // gradient dO [BH, T, D] (bf16), and the forward's fp32 log-sum-exp lse
 // [BH, T] (natural base, +inf on a row that sees no key), it writes dQ,
-// dK, dV in bf16 with fp32 sums. Tiles Bq = block_q and Bc = block_kv of
-// 64 or 128 (T, S their multiples), D 64 and 128. The element-level sphere
-// mask (STARConfig(elementwise=True)) is not covered: the wrapper refuses
-// it (kernels/sufa.py).
+// dK, dV in bf16 with fp32 sums. Tiles Bq = block_q and Bc = block_kv are
+// any multiples of 16 up to 128 (T, S their multiples), mixed pairs
+// included, as K3's forward takes them; D 64 and 128. With the element-level
+// sphere mask (STARConfig(elementwise=True)) the backward takes the keep
+// bits the forward wrote (sufa.cu's keep_out: [BH, n_qt, keep, Bq,
+// ceil(Bc / 32)] words) and lets them decide every key in place of the
+// causal test. Recomputing the DLZS estimates here would sum them in
+// another product shape than the forward's, and a key at the sphere's edge
+// could then be in the forward's softmax but out of its gradient; the bits
+// also spare the passes the estimates' products and row maxima.
 //
 // No sum crosses a block: every dQ, dK and dV element is summed inside one
 // block in a fixed order, so the gradient is the same bits on every run
@@ -90,16 +96,30 @@
 //     cannot load before the current one's products end: shared memory
 //     holds one Q/dO pair beside the ring), and so was (b) in head-major
 //     item order (the last head's sink walk runs alone at the end).
-//   * Other tiles (64 x 64, 64 x 128, 128 x 64): mma.sync (mma_bf16.cuh),
-//     three kernels of 4 warps a block: (a) prep, D = rowsum(dO * O) in
-//     fp32 and lse in base 2, one warp per row; (b) one block per (bh, 64
-//     keys of a key tile) that scans the selection itself and steps over
-//     32-row (D = 128) or 64-row (D = 64) query slices; (c) one block per
-//     (bh, 64-row query slice) stepping over each valid tile in 64-key
-//     steps. Tiles are staged in padded shared rows (D + 8 halves) by plain
-//     16-byte loads; the C fragments of S^T and dS^T are the A operand of
-//     the next product as they stand, and B operands that run along the
-//     rows of a tile are read as column pairs.
+//   * Other tiles (any multiples of 16 up to 128): mma.sync (mma_bf16.cuh),
+//     three kernels: (a) prep, D = rowsum(dO * O) in fp32 and lse in base
+//     2, one warp per row; (b) one block per (bh, chunk of a key tile), the
+//     chunk the largest of 64, 32 and 16 keys that divides Bc (16 keys a
+//     warp), that scans the selection itself (32 slots a ballot) and steps
+//     over the chosen q-tiles' rows in steps of the largest of 64, 32 and 16
+//     that divides Bq (at most 32 at D = 128); (c) one block per (bh, chunk
+//     of a q-tile), the chunk chosen the same way from Bq, stepping over
+//     each valid tile in steps of Bc's chunk. So every step lies inside one
+//     q-tile and one key tile, whose own selection and keep bits it reads:
+//     at Bq = 16 a 64-row slice would span four q-tiles, each with its own
+//     slots. At 64 x 64, 64 x 128, 128 x 64 and 128 x 128 the chunks and
+//     steps are those of the 64-key blocks and 64-row slices this form had
+//     before it took other tiles. Tiles are staged in padded shared rows (D
+//     + 8 halves) by plain 16-byte loads; the C fragments of S^T and dS^T
+//     are the A operand of the next product as they stand, and B operands
+//     that run along the rows of a tile are read as column pairs. With the
+//     element mask each step stages its rows' keep words beside them.
+//   With the element mask the wgmma form's (c) reads each thread's two rows
+//   of a slot's keep words (two 16-byte loads) before its products, and
+//   (b) publishes each step's slot with its first row: each thread reads
+//   the bits of its two keys for the 16 queries it holds (16 words, one
+//   register of mask), so no stage of shared memory grows (the ring has no
+//   room: 231,936 of 232,448 bytes at D = 128).
 //
 // What was hard: the scatter of dK and dV. Several q-tiles choose one key
 // tile, and a pass per q-tile would have to add into shared rows across
@@ -114,7 +134,8 @@
 // none, which the persistent (b) and its order absorb.
 //
 // Later work: ping-pong scheduling of the consumer warpgroups, a (b) that
-// splits the sink's long walk, and the element mask.
+// splits the sink's long walk, and an mma.sync form whose small tiles share
+// a block (at tiles of 16 a block is one warp).
 
 #include <cuda.h>
 
@@ -125,14 +146,20 @@ namespace {
 
 using namespace star;
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;        // most warps of an mma.sync block
 constexpr int kThreads = kWarps * 32;
-constexpr int kBK = 64;          // keys per dK/dV block, and per dQ step
-constexpr int kBQdq = 64;        // query rows per dQ block
+constexpr int kMaxWords = 4;     // keep-bit words per row: 128 keys
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The mma.sync form's chunk of a tile: the largest of 64, 32 and 16 that
+// divides it. A dK/dV block owns a chunk of one key tile's keys, a dQ block
+// a chunk of one q-tile's rows, 16 per warp.
+__host__ __device__ constexpr int chunk_of(int tile) {
+  return tile % 64 == 0 ? 64 : tile % 32 == 0 ? 32 : 16;
+}
+
 template <int D>
-__host__ __device__ constexpr int bq_kv() {  // query rows per dK/dV step
+__host__ __device__ constexpr int bq_kv() {  // most query rows per dK/dV step
   return D == 128 ? 32 : 64;
 }
 
@@ -141,14 +168,17 @@ __host__ __device__ constexpr int ld() {
   return D + 8;
 }
 
-template <int D>
-__host__ __device__ constexpr int smem_kv_bytes() {  // K, V, Q, dO, lse, D
-  return (2 * kBK + 2 * bq_kv<D>()) * ld<D>() * 2 + 2 * bq_kv<D>() * 4;
+// K, V (kc rows); Q, dO, their lse2 and D, and their keep words (STEP rows)
+template <int D, int STEP>
+__host__ __device__ constexpr int smem_kv_bytes(int kc) {
+  return (2 * kc + 2 * STEP) * ld<D>() * 2 + 2 * STEP * 4 +
+         STEP * kMaxWords * 4;
 }
 
-template <int D>
-__host__ __device__ constexpr int smem_q_bytes() {  // Q, dO, K, V
-  return (2 * kBQdq + 2 * kBK) * ld<D>() * 2;
+// Q, dO and their keep words (qc rows); K, V (KS rows)
+template <int D, int KS>
+__host__ __device__ constexpr int smem_q_bytes(int qc) {
+  return (2 * qc + 2 * KS) * ld<D>() * 2 + qc * kMaxWords * 4;
 }
 
 // Tile j of a q-tile's list, or -1 where it is invalid or out of range
@@ -157,6 +187,11 @@ __device__ __forceinline__ int selected(const int64_t* ids,
                                         const uint8_t* ok, int j, int n_kt) {
   const int64_t kt = ids[j];
   return ok[j] && kt >= 0 && kt < n_kt ? static_cast<int>(kt) : -1;
+}
+
+// Key c of a tile in a row's keep words (sufa.cu's layout).
+__device__ __forceinline__ bool kept(const uint32_t* row_words, int c) {
+  return (row_words[c >> 5] >> (c & 31)) & 1u;
 }
 
 __device__ __forceinline__ float bf16_lo(uint32_t x) {
@@ -257,9 +292,12 @@ sufa_grad_prep_kernel(const uint16_t* __restrict__ o,
   }
 }
 
-// (b) dK, dV for one (bh, 64 keys of a key tile), over the q-tiles that
-// selected the tile.
-template <int D>
+// (b) dK, dV for one (bh, chunk of a key tile): blockDim.x / 2 keys, 16 a
+// warp, over the STEP-row query steps of the q-tiles that selected the
+// tile. Every warp scans the selection 32 slots a ballot, so the walk is
+// block-uniform. ELEM: the element mask, whose keep_bits (the forward's)
+// replace the causal test.
+template <int D, int STEP, bool ELEM>
 __global__ void __launch_bounds__(kThreads)
 sufa_grad_kv_kernel(const uint16_t* __restrict__ q,
                     const uint16_t* __restrict__ k,
@@ -268,35 +306,40 @@ sufa_grad_kv_kernel(const uint16_t* __restrict__ q,
                     const uint8_t* __restrict__ valid,
                     const uint16_t* __restrict__ dout,
                     const float* __restrict__ lse2,
-                    const float* __restrict__ dvec, uint16_t* __restrict__ dk,
-                    uint16_t* __restrict__ dv, int T, int S, int keep,
-                    int block_q, int block_kv, int causal, float scale,
-                    float scale_log2) {
+                    const float* __restrict__ dvec,
+                    const uint32_t* __restrict__ keep_bits,
+                    uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                    int T, int S, int keep, int block_q, int block_kv,
+                    int causal, float scale, float scale_log2) {
   constexpr int LD = ld<D>();
-  constexpr int BQ = bq_kv<D>();
+  const int kc = blockDim.x / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint16_t* sk = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sv = sk + kBK * LD;
-  uint16_t* sq = sv + kBK * LD;
-  uint16_t* sdo = sq + BQ * LD;
-  float* sl = reinterpret_cast<float*>(sdo + BQ * LD);
-  float* sd = sl + BQ;
+  uint16_t* sv = sk + kc * LD;
+  uint16_t* sq = sv + kc * LD;
+  uint16_t* sdo = sq + STEP * LD;
+  float* sl = reinterpret_cast<float*>(sdo + STEP * LD);
+  float* sd = sl + STEP;
+  uint32_t* sb = reinterpret_cast<uint32_t*>(sd + STEP);  // [STEP, words]
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBK;
+  const int k0 = blockIdx.y * kc;
   const int kt = k0 / block_kv;
   const int n_qt = T / block_q;
   const int n_kt = S / block_kv;
+  const int n_sel = n_qt * keep;
+  const int words = (block_kv + 31) / 32;
   const int q_offset = S - T;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int t2 = (lane & 3) * 2;
   const int key0 = k0 + warp * 16 + (lane >> 2);  // rows of c0/c1; +8: c2/c3
-  const int64_t* ids = idx + (int64_t)bh * n_qt * keep;
-  const uint8_t* oks = valid + (int64_t)bh * n_qt * keep;
+  const int kr0 = key0 - kt * block_kv;           // the same, in the tile
+  const int64_t* ids = idx + (int64_t)bh * n_sel;
+  const uint8_t* oks = valid + (int64_t)bh * n_sel;
 
-  load_rows<D>(sk, k + (int64_t)bh * S * D, k0, kBK, S, false);
-  load_rows<D>(sv, v + (int64_t)bh * S * D, k0, kBK, S, false);
+  load_rows<D>(sk, k + (int64_t)bh * S * D, k0, kc, S, false);
+  load_rows<D>(sv, v + (int64_t)bh * S * D, k0, kc, S, false);
 
   float acc_k[D / 8][4], acc_v[D / 8][4];
 #pragma unroll
@@ -305,48 +348,66 @@ sufa_grad_kv_kernel(const uint16_t* __restrict__ q,
     for (int c = 0; c < 4; ++c) acc_k[n][c] = acc_v[n][c] = 0.f;
 
   const int64_t qbase = (int64_t)bh * T;
-  // the q-tiles that chose this key tile, in ascending order (a slot that
-  // names it twice counts twice, as the forward visits it twice)
-  for (int qt = 0; qt < n_qt; ++qt) {
-    for (int j = 0; j < keep; ++j) {
-      if (selected(ids + qt * keep, oks + qt * keep, j, n_kt) != kt)
-        continue;  // block-uniform
-      for (int q0 = qt * block_q; q0 < (qt + 1) * block_q; q0 += BQ) {
-        // causal: no row of the slice sees a key of this block
-        if (causal && q0 + BQ - 1 + q_offset < k0) continue;
+  // the q-tiles that chose this key tile, in ascending (q-tile, slot)
+  // order (a slot that names it twice counts twice, as the forward visits
+  // it twice)
+  for (int base = 0; base < n_sel; base += 32) {
+    const int e = base + lane;
+    uint32_t hits = __ballot_sync(
+        0xffffffffu, e < n_sel && selected(ids, oks, e, n_kt) == kt);
+    while (hits) {  // block-uniform
+      const int sel = base + __ffs(hits) - 1;
+      hits &= hits - 1;
+      const int qt = sel / keep;
+      // ELEM: the slot's keep words, from its q-tile's first row
+      const uint32_t* bits =
+          ELEM ? keep_bits + ((int64_t)bh * n_sel + sel) * block_q * words
+               : nullptr;
+      for (int q0 = qt * block_q; q0 < (qt + 1) * block_q; q0 += STEP) {
+        // causal: no row of the step sees a key of this block
+        if (causal && q0 + STEP - 1 + q_offset < k0) continue;
         __syncthreads();  // the previous step is done with the Q / dO tiles
-        load_rows<D>(sq, q + qbase * D, q0, BQ, T, false);
-        load_rows<D>(sdo, dout + qbase * D, q0, BQ, T, false);
-        for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
+        load_rows<D>(sq, q + qbase * D, q0, STEP, T, false);
+        load_rows<D>(sdo, dout + qbase * D, q0, STEP, T, false);
+        for (int i = threadIdx.x; i < STEP; i += blockDim.x) {
           sl[i] = lse2[qbase + q0 + i];
           sd[i] = dvec[qbase + q0 + i];
+        }
+        if constexpr (ELEM) {
+          const uint32_t* src = bits + (q0 - qt * block_q) * words;
+          for (int i = threadIdx.x; i < STEP * words; i += blockDim.x)
+            sb[i] = src[i];
         }
         __syncthreads();
 
         // P^T = 2^(scale_log2 * K . Q^T - lse2), masked
-        float st[BQ / 8][4];
-        rows_dot<D, BQ>(st, sk, warp * 16, sq, lane);
+        float st[STEP / 8][4];
+        rows_dot<D, STEP>(st, sk, warp * 16, sq, lane);
 #pragma unroll
-        for (int n = 0; n < BQ / 8; ++n)
+        for (int n = 0; n < STEP / 8; ++n)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             const int qi = n * 8 + t2 + (c & 1);
-            const int key = key0 + ((c & 2) ? 8 : 0);
-            const bool ok = !causal || key <= q0 + qi + q_offset;
+            const int up = (c & 2) ? 8 : 0;
+            bool ok;
+            if constexpr (ELEM)
+              ok = kept(sb + qi * words, kr0 + up);
+            else
+              ok = !causal || key0 + up <= q0 + qi + q_offset;
             st[n][c] = ok ? fast_exp2(st[n][c] * scale_log2 - sl[qi]) : 0.f;
           }
         // dV += P^T . dO
-        p_dot<D, BQ>(acc_v, st, sdo, lane);
+        p_dot<D, STEP>(acc_v, st, sdo, lane);
         // dS^T = P^T * (V . dO^T - D)
-        float dpt[BQ / 8][4];
-        rows_dot<D, BQ>(dpt, sv, warp * 16, sdo, lane);
+        float dpt[STEP / 8][4];
+        rows_dot<D, STEP>(dpt, sv, warp * 16, sdo, lane);
 #pragma unroll
-        for (int n = 0; n < BQ / 8; ++n)
+        for (int n = 0; n < STEP / 8; ++n)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
             st[n][c] *= dpt[n][c] - sd[n * 8 + t2 + (c & 1)];
         // dK += dS^T . Q
-        p_dot<D, BQ>(acc_k, st, sq, lane);
+        p_dot<D, STEP>(acc_k, st, sq, lane);
       }
     }
   }
@@ -366,8 +427,9 @@ sufa_grad_kv_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-// (c) dQ for one (bh, 64-row query slice), over its q-tile's valid slots.
-template <int D>
+// (c) dQ for one (bh, chunk of a q-tile): blockDim.x / 2 rows, 16 a warp,
+// over its q-tile's valid slots in KS-key steps; ELEM as in (b).
+template <int D, int KS, bool ELEM>
 __global__ void __launch_bounds__(kThreads)
 sufa_grad_q_kernel(const uint16_t* __restrict__ q,
                    const uint16_t* __restrict__ k,
@@ -376,32 +438,38 @@ sufa_grad_q_kernel(const uint16_t* __restrict__ q,
                    const uint8_t* __restrict__ valid,
                    const uint16_t* __restrict__ dout,
                    const float* __restrict__ lse2,
-                   const float* __restrict__ dvec, uint16_t* __restrict__ dq,
-                   int T, int S, int keep, int block_q, int block_kv,
-                   int causal, float scale, float scale_log2) {
+                   const float* __restrict__ dvec,
+                   const uint32_t* __restrict__ keep_bits,
+                   uint16_t* __restrict__ dq, int T, int S, int keep,
+                   int block_q, int block_kv, int causal, float scale,
+                   float scale_log2) {
   constexpr int LD = ld<D>();
+  const int qc = blockDim.x / 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint16_t* sq = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* sdo = sq + kBQdq * LD;
-  uint16_t* sk = sdo + kBQdq * LD;
-  uint16_t* sv = sk + kBK * LD;
+  uint16_t* sdo = sq + qc * LD;
+  uint16_t* sk = sdo + qc * LD;
+  uint16_t* sv = sk + KS * LD;
+  uint32_t* sb = reinterpret_cast<uint32_t*>(sv + KS * LD);  // [qc, words]
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQdq;
+  const int q0 = blockIdx.y * qc;
   const int qt = q0 / block_q;
   const int n_qt = T / block_q;
   const int n_kt = S / block_kv;
+  const int words = (block_kv + 31) / 32;
   const int q_offset = S - T;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int t2 = (lane & 3) * 2;
-  const int row0 = q0 + warp * 16 + (lane >> 2);  // c0/c1; +8: c2/c3
+  const int lr0 = warp * 16 + (lane >> 2);  // c0/c1's row in the chunk
+  const int row0 = q0 + lr0;                // +8: c2/c3
   const int64_t qbase = (int64_t)bh * T;
   const int64_t* ids = idx + ((int64_t)bh * n_qt + qt) * keep;
   const uint8_t* oks = valid + ((int64_t)bh * n_qt + qt) * keep;
 
-  load_rows<D>(sq, q + qbase * D, q0, kBQdq, T, false);
-  load_rows<D>(sdo, dout + qbase * D, q0, kBQdq, T, false);
+  load_rows<D>(sq, q + qbase * D, q0, qc, T, false);
+  load_rows<D>(sdo, dout + qbase * D, q0, qc, T, false);
   float l2[2], dd[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -418,33 +486,45 @@ sufa_grad_q_kernel(const uint16_t* __restrict__ q,
   for (int j = 0; j < keep; ++j) {
     const int kt = selected(ids, oks, j, n_kt);
     if (kt < 0) continue;  // block-uniform
-    for (int kv0 = kt * block_kv; kv0 < (kt + 1) * block_kv; kv0 += kBK) {
-      // causal: every key of the step lies after the slice's last row
-      if (causal && kv0 > q_offset + q0 + kBQdq - 1) continue;
+    // ELEM: slot j's keep words of the chunk's first row
+    const uint32_t* bits =
+        ELEM ? keep_bits + ((((int64_t)bh * n_qt + qt) * keep + j) * block_q +
+                            q0 - qt * block_q) * words
+             : nullptr;
+    for (int kv0 = kt * block_kv; kv0 < (kt + 1) * block_kv; kv0 += KS) {
+      // causal: every key of the step lies after the chunk's last row
+      if (causal && kv0 > q_offset + q0 + qc - 1) continue;
       __syncthreads();  // the previous step is done with the K / V tiles
-      load_rows<D>(sk, k + (int64_t)bh * S * D, kv0, kBK, S, false);
-      load_rows<D>(sv, v + (int64_t)bh * S * D, kv0, kBK, S, false);
+      load_rows<D>(sk, k + (int64_t)bh * S * D, kv0, KS, S, false);
+      load_rows<D>(sv, v + (int64_t)bh * S * D, kv0, KS, S, false);
+      if constexpr (ELEM)
+        for (int i = threadIdx.x; i < qc * words; i += blockDim.x)
+          sb[i] = bits[i];
       __syncthreads();
 
-      float p[kBK / 8][4];
-      rows_dot<D, kBK>(p, sq, warp * 16, sk, lane);
+      float p[KS / 8][4];
+      rows_dot<D, KS>(p, sq, warp * 16, sk, lane);
 #pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
+      for (int n = 0; n < KS / 8; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int key = kv0 + n * 8 + t2 + (c & 1);
           const int h = (c >> 1) & 1;
-          const bool ok = !causal || key <= row0 + 8 * h + q_offset;
+          bool ok;
+          if constexpr (ELEM)
+            ok = kept(sb + (lr0 + 8 * h) * words, key - kt * block_kv);
+          else
+            ok = !causal || key <= row0 + 8 * h + q_offset;
           p[n][c] = ok ? fast_exp2(p[n][c] * scale_log2 - l2[h]) : 0.f;
         }
-      float dp[kBK / 8][4];
-      rows_dot<D, kBK>(dp, sdo, warp * 16, sv, lane);
+      float dp[KS / 8][4];
+      rows_dot<D, KS>(dp, sdo, warp * 16, sv, lane);
 #pragma unroll
-      for (int n = 0; n < kBK / 8; ++n)
+      for (int n = 0; n < KS / 8; ++n)
 #pragma unroll
         for (int c = 0; c < 4; ++c) p[n][c] *= dp[n][c] - dd[(c >> 1) & 1];
       // dQ += dS . K
-      p_dot<D, kBK>(acc, p, sk, lane);
+      p_dot<D, KS>(acc, p, sk, lane);
     }
   }
 
@@ -458,52 +538,107 @@ sufa_grad_q_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                   const int64_t* idx, const uint8_t* valid, const void* o,
-                   const void* lse, const void* dout, void* dq, void* dk,
-                   void* dv, void* scratch, int BH, int T, int S, int keep,
-                   int block_q, int block_kv, int causal, float scale,
-                   cudaStream_t stream) {
+// The arguments every mma.sync pass takes, for the launch helpers.
+struct MmaArgs {
+  const uint16_t *q, *k, *v, *dout;
+  const int64_t* idx;
+  const uint8_t* valid;
+  const float *lse2, *dvec;
+  const uint32_t* keep_bits;
+  uint16_t *dq, *dk, *dv;
+  int BH, T, S, keep, block_q, block_kv, causal;
+  float scale, scale_log2;
+};
+
+template <int D, int STEP, bool ELEM>
+cudaError_t launch_kv(const MmaArgs& a, cudaStream_t stream) {
   static bool configured = false;  // the >48 KB opt-in, once per instance
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sufa_grad_kv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_kv_bytes<D>());
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(sufa_grad_q_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_q_bytes<D>());
+    const cudaError_t err = cudaFuncSetAttribute(
+        sufa_grad_kv_kernel<D, STEP, ELEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_kv_bytes<D, STEP>(64));
     if (err != cudaSuccess) return err;
     configured = true;
   }
+  const int kc = chunk_of(a.block_kv);
+  sufa_grad_kv_kernel<D, STEP, ELEM><<<dim3(a.BH, a.S / kc), kc / 16 * 32,
+                                       smem_kv_bytes<D, STEP>(kc), stream>>>(
+      a.q, a.k, a.v, a.idx, a.valid, a.dout, a.lse2, a.dvec, a.keep_bits,
+      a.dk, a.dv, a.T, a.S, a.keep, a.block_q, a.block_kv, a.causal, a.scale,
+      a.scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D, int KS, bool ELEM>
+cudaError_t launch_q(const MmaArgs& a, cudaStream_t stream) {
+  static bool configured = false;  // the >48 KB opt-in, once per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sufa_grad_q_kernel<D, KS, ELEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q_bytes<D, KS>(64));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int qc = chunk_of(a.block_q);
+  sufa_grad_q_kernel<D, KS, ELEM><<<dim3(a.BH, a.T / qc), qc / 16 * 32,
+                                    smem_q_bytes<D, KS>(qc), stream>>>(
+      a.q, a.k, a.v, a.idx, a.valid, a.dout, a.lse2, a.dvec, a.keep_bits,
+      a.dq, a.T, a.S, a.keep, a.block_q, a.block_kv, a.causal, a.scale,
+      a.scale_log2);
+  return cudaGetLastError();
+}
+
+// (b) and (c) at their steps: (b)'s query step is the q-tile's chunk, at
+// most bq_kv<D>() rows; (c)'s key step the key tile's chunk.
+template <int D, bool ELEM>
+cudaError_t launch_passes(const MmaArgs& a, cudaStream_t stream) {
+  const int chunk = chunk_of(a.block_q);
+  const int step = chunk < bq_kv<D>() ? chunk : bq_kv<D>();
+  cudaError_t err = cudaSuccess;
+  if (step == 16)
+    err = launch_kv<D, 16, ELEM>(a, stream);
+  else if (step == 32)
+    err = launch_kv<D, 32, ELEM>(a, stream);
+  else if constexpr (bq_kv<D>() == 64)
+    err = launch_kv<D, 64, ELEM>(a, stream);
+  if (err != cudaSuccess) return err;
+  switch (chunk_of(a.block_kv)) {
+    case 16: return launch_q<D, 16, ELEM>(a, stream);
+    case 32: return launch_q<D, 32, ELEM>(a, stream);
+    default: return launch_q<D, 64, ELEM>(a, stream);
+  }
+}
+
+// The three passes at any tiles; with keep_bits the element mask's.
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const int64_t* idx, const uint8_t* valid,
+                       const void* o, const void* lse, const void* dout,
+                       void* dq, void* dk, void* dv, void* scratch,
+                       const uint32_t* keep_bits, int BH, int T, int S,
+                       int keep, int block_q, int block_kv, int causal,
+                       float scale, cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(BH) * T;
   float* dvec = static_cast<float*>(scratch);
   float* lse2 = dvec + rows;
-  const auto* qb = static_cast<const uint16_t*>(q);
-  const auto* kb = static_cast<const uint16_t*>(k);
-  const auto* vb = static_cast<const uint16_t*>(v);
   const auto* dob = static_cast<const uint16_t*>(dout);
-  const float scale_log2 = scale * kLog2e;
+  const MmaArgs a{static_cast<const uint16_t*>(q),
+                  static_cast<const uint16_t*>(k),
+                  static_cast<const uint16_t*>(v), dob, idx, valid, lse2,
+                  dvec, keep_bits, static_cast<uint16_t*>(dq),
+                  static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), BH,
+                  T, S, keep, block_q, block_kv, causal, scale,
+                  scale * kLog2e};
 
   sufa_grad_prep_kernel<D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0,
                              stream>>>(static_cast<const uint16_t*>(o), dob,
                                        static_cast<const float*>(lse), dvec,
                                        lse2, rows);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sufa_grad_kv_kernel<D><<<dim3(BH, S / kBK), kThreads, smem_kv_bytes<D>(),
-                           stream>>>(
-      qb, kb, vb, idx, valid, dob, lse2, dvec, static_cast<uint16_t*>(dk),
-      static_cast<uint16_t*>(dv), T, S, keep, block_q, block_kv, causal,
-      scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sufa_grad_q_kernel<D><<<dim3(BH, T / kBQdq), kThreads, smem_q_bytes<D>(),
-                          stream>>>(
-      qb, kb, vb, idx, valid, dob, lse2, dvec, static_cast<uint16_t*>(dq), T,
-      S, keep, block_q, block_kv, causal, scale, scale_log2);
-  return cudaGetLastError();
+  return keep_bits != nullptr ? launch_passes<D, true>(a, stream)
+                              : launch_passes<D, false>(a, stream);
 }
 
 // -- the wgmma form: 128 x 128 tiles ------------------------------------------
@@ -545,8 +680,10 @@ __host__ __device__ constexpr int smem_q_wgmma_bytes() {
 // that chose it. A persistent block takes (bh, key tile) items from a
 // counter, key tile by key tile (every head's tile 0, then tile 1, ...):
 // under causal STAR the low tiles are the most chosen (the sink by every
-// q-tile), so the longest walks start first.
-template <int D>
+// q-tile), so the longest walks start first. ELEM: the element mask, from
+// the forward's keep bits (each step's slot published with it; each
+// thread reads its two keys' bits of the step's 16 queries it holds).
+template <int D, bool ELEM>
 __global__ void __launch_bounds__(kWgThreads, 1)
 sufa_grad_kv_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,   // [BH, T, D], boxes of 64
@@ -556,6 +693,7 @@ sufa_grad_kv_wgmma_kernel(
     const int64_t* __restrict__ idx, const uint8_t* __restrict__ valid,
     const float* __restrict__ lse2,  // [BH, T]
     const float* __restrict__ dvec,  // [BH, T]
+    const uint32_t* __restrict__ keep_bits,  // ELEM: [BH, n_qt, keep, 128, 4]
     int* __restrict__ next_item,     // the next item; (c) zeroed it
     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int BH, int T,
     int S, int keep, int causal, float scale, float scale_log2) {
@@ -569,6 +707,7 @@ sufa_grad_kv_wgmma_kernel(
   __shared__ __align__(8) uint64_t q_empty[kStages];
   __shared__ int step_q0[kStages];    // a stage's first row
   __shared__ int step_item[kStages];  // its item; -1: the walk's end
+  __shared__ int step_sel[kStages];   // its slot, q-tile * keep + j
 
   // swizzled boxes need 1024-byte aligned shared addresses
   uint8_t* const skv =
@@ -626,7 +765,8 @@ sufa_grad_kv_wgmma_kernel(
               0xffffffffu,
               e < n_qt * keep && selected(ids, oks, e, n_kt) == kt);
           while (hits) {  // warp-uniform
-            const int qt = (base + __ffs(hits) - 1) / keep;
+            const int sel = base + __ffs(hits) - 1;
+            const int qt = sel / keep;
             hits &= hits - 1;
             for (int q0 = qt * kTile; q0 < (qt + 1) * kTile; q0 += kStep) {
               if (causal && q0 + kStep - 1 + q_offset < k0) continue;
@@ -649,6 +789,7 @@ sufa_grad_kv_wgmma_kernel(
                   mbar_wait(&q_empty[s], (n / kStages - 1) & 1);
                 step_q0[s] = q0;  // published by the arrival below
                 step_item[s] = w;
+                step_sel[s] = sel;
                 uint8_t* qs = sring + 2 * s * kQ;
                 float* st = sstat + 2 * s * kStep;
                 mbar_expect_tx(&q_full[s], 2 * kQ + 2 * kStep * 4);
@@ -731,6 +872,24 @@ sufa_grad_kv_wgmma_kernel(
         k0 = w / BH * kTile;
         mbar_wait(&kv_full[jc & 1], (jc >> 1) & 1);
       }
+      // ELEM: bit i set where score i (key krow + 8 ((i >> 1) & 1), query
+      // q0 + 8 (i >> 2) + t2 + (i & 1)) survives the forward's masks; read
+      // before the products are issued, so the loads overlap them
+      uint32_t keep_mask = 0u;
+      if constexpr (ELEM) {
+        const uint32_t* b =
+            keep_bits +
+            (((int64_t)(w % BH) * n_qt * keep + step_sel[s]) * kTile +
+             (q0 & (kTile - 1)) + t2) * 4 + (krow >> 5);
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const uint32_t word = b[(8 * a + c) * 4] >> (krow & 31);
+            keep_mask |= ((word & 1u) << (4 * a + c)) |
+                         (((word >> 8) & 1u) << (4 * a + 2 + c));
+          }
+      }
       const uint8_t* qs = sring + 2 * s * kQ;
       const uint8_t* dos = qs + kQ;
       const float* sl = sstat + 2 * s * kStep;
@@ -764,7 +923,11 @@ sufa_grad_kv_wgmma_kernel(
       for (int i = 0; i < kStep / 2; ++i) {
         const int qc = (i >> 2) * 8 + t2 + (i & 1);
         float p = fast_exp2(st[i] * scale_log2 - sl[qc]);
-        if (edge && key + ((i & 2) ? 8 : 0) > q0 + qc + q_offset) p = 0.f;
+        if constexpr (ELEM) {
+          if (!((keep_mask >> i) & 1u)) p = 0.f;
+        } else if (edge && key + ((i & 2) ? 8 : 0) > q0 + qc + q_offset) {
+          p = 0.f;
+        }
         st[i] = p;
       }
       uint32_t pa[kStep / 16][4];
@@ -824,7 +987,9 @@ __device__ __forceinline__ int dq_tile(const int64_t* ids, const uint8_t* ok,
 
 // (c) dQ of one (bh, 128-row q-tile), over its valid slots in their order;
 // first D and lse2 of its rows, which the dK/dV pass (run after it) reads.
-template <int D>
+// ELEM: the element mask, from the forward's keep bits (each thread's two
+// rows of the slot, four words each, in place of the causal test).
+template <int D, bool ELEM>
 __global__ void __launch_bounds__(kWgThreads, 1)
 sufa_grad_q_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,   // [BH, T, D], boxes of 128
@@ -834,6 +999,7 @@ sufa_grad_q_wgmma_kernel(
     const int64_t* __restrict__ idx, const uint8_t* __restrict__ valid,
     const uint16_t* __restrict__ o, const uint16_t* __restrict__ dout,
     const float* __restrict__ lse,  // [BH, T], natural base
+    const uint32_t* __restrict__ keep_bits,  // ELEM: [BH, n_qt, keep, 128, 4]
     float* __restrict__ lse2, float* __restrict__ dvec,
     int* __restrict__ next_item,  // the dK/dV pass's counter, to 0
     uint16_t* __restrict__ dq, int T, int S, int keep, int causal,
@@ -953,6 +1119,15 @@ sufa_grad_q_wgmma_kernel(
       const uint8_t* ks = sring + 2 * s * kTileB;
       const uint8_t* vs = ks + kTileB;
       const int kv0 = kt * kTile;
+      // ELEM: slot j's keep words of rows row and row + 8
+      uint4 kw[2];
+      if constexpr (ELEM) {
+        const uint32_t* b =
+            keep_bits + ((((int64_t)bh * n_qt + qt) * keep + j) * kTile +
+                         row - q0) * 4;
+        kw[0] = *reinterpret_cast<const uint4*>(b);
+        kw[1] = *reinterpret_cast<const uint4*>(b + 32);
+      }
 
       // S = Q . K^T and dP = dO . V^T over D, two wgmma groups
       float sc[kTile / 2], dp[kTile / 2];
@@ -981,8 +1156,17 @@ sufa_grad_q_wgmma_kernel(
       for (int i = 0; i < kTile / 2; ++i) {
         const int h = (i >> 1) & 1;
         float p = fast_exp2(sc[i] * scale_log2 - l2[h]);
-        if (diag && kv0 + (i >> 2) * 8 + t2 + (i & 1) > row + 8 * h + q_offset)
+        if constexpr (ELEM) {
+          // key 8 (i / 4) + t2 + (i & 1): word i / 16 of row half h
+          const uint32_t word = (i >> 4) == 0   ? kw[h].x
+                                : (i >> 4) == 1 ? kw[h].y
+                                : (i >> 4) == 2 ? kw[h].z
+                                                : kw[h].w;
+          if (!((word >> (((i >> 2) & 3) * 8 + t2 + (i & 1))) & 1u)) p = 0.f;
+        } else if (diag &&
+                   kv0 + (i >> 2) * 8 + t2 + (i & 1) > row + 8 * h + q_offset) {
           p = 0.f;
+        }
         sc[i] = p;
       }
       wgmma_wait<0>();
@@ -1023,20 +1207,21 @@ sufa_grad_q_wgmma_kernel(
   }
 }
 
-template <int D>
+template <int D, bool ELEM>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int64_t* idx, const uint8_t* valid,
                          const void* o, const void* lse, const void* dout,
-                         void* dq, void* dk, void* dv, void* scratch, int BH,
-                         int T, int S, int keep, int causal, float scale,
+                         void* dq, void* dk, void* dv, void* scratch,
+                         const uint32_t* keep_bits, int BH, int T, int S,
+                         int keep, int causal, float scale,
                          cudaStream_t stream) {
   static bool configured = false;  // the >48 KB opt-in, once per instance
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        sufa_grad_kv_wgmma_kernel<D>,
+        sufa_grad_kv_wgmma_kernel<D, ELEM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv_wgmma_bytes<D>());
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(sufa_grad_q_wgmma_kernel<D>,
+    err = cudaFuncSetAttribute(sufa_grad_q_wgmma_kernel<D, ELEM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_q_wgmma_bytes<D>());
     if (err != cudaSuccess) return err;
@@ -1065,48 +1250,55 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const float scale_log2 = scale * kLog2e;
 
-  sufa_grad_q_wgmma_kernel<D><<<dim3(T / kTile, BH), kWgThreads,
-                                smem_q_wgmma_bytes<D>(), stream>>>(
+  sufa_grad_q_wgmma_kernel<D, ELEM><<<dim3(T / kTile, BH), kWgThreads,
+                                      smem_q_wgmma_bytes<D>(), stream>>>(
       qtile, dotile, kmap, vmap, idx, valid,
       static_cast<const uint16_t*>(o), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), lse2, dvec, next_item,
+      static_cast<const float*>(lse), keep_bits, lse2, dvec, next_item,
       static_cast<uint16_t*>(dq), T, S, keep, causal, scale, scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sufa_grad_kv_wgmma_kernel<D><<<n_items < sms ? n_items : sms, kWgThreads,
-                                 smem_kv_wgmma_bytes<D>(), stream>>>(
-      qstep, dostep, kmap, vmap, idx, valid, lse2, dvec, next_item,
+  sufa_grad_kv_wgmma_kernel<D, ELEM><<<n_items < sms ? n_items : sms,
+                                       kWgThreads, smem_kv_wgmma_bytes<D>(),
+                                       stream>>>(
+      qstep, dostep, kmap, vmap, idx, valid, lse2, dvec, keep_bits, next_item,
       static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), BH, T, S, keep,
       causal, scale, scale_log2);
   return cudaGetLastError();
 }
 
-bool good_tile(int b) { return b == 64 || b == 128; }
-
 }  // namespace
 
-// scratch: 2 * BH * T floats (D, then lse in base 2). Tiles of 64 or 128.
+// The mma.sync form, for any tiles block_q and block_kv that are multiples
+// of 16 up to 128 (T, S their multiples). scratch: 2 * BH * T floats (D,
+// then lse in base 2). keep_bits: null, or the forward's keep bits of the
+// element mask ([BH, T / block_q, keep, block_q, ceil(block_kv / 32)]
+// words, sufa.cu's keep_out), which then decide every key.
 extern "C" int sufa_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* idx, const void* valid,
                              const void* o, const void* lse, const void* dout,
                              void* dq, void* dk, void* dv, void* scratch,
-                             int BH, int T, int S, int keep, int block_q,
-                             int block_kv, int D, int causal, float scale,
-                             void* stream) {
-  if (BH <= 0 || T <= 0 || S <= 0 || keep <= 0 || !good_tile(block_q) ||
-      !good_tile(block_kv) || T % block_q || S % block_kv)
+                             const void* keep_bits, int BH, int T, int S,
+                             int keep, int block_q, int block_kv, int D,
+                             int causal, float scale, void* stream) {
+  if (BH <= 0 || T <= 0 || S <= 0 || keep <= 0 || block_q <= 0 ||
+      block_q > 128 || block_q % 16 || block_kv <= 0 || block_kv > 128 ||
+      block_kv % 16 || T % block_q || S % block_kv)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ip = static_cast<const int64_t*>(idx);
   const auto* vp = static_cast<const uint8_t*>(valid);
+  const auto* bp = static_cast<const uint32_t*>(keep_bits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return static_cast<int>(launch_mma<64>(q, k, v, ip, vp, o, lse, dout, dq, dk,
-                                       dv, scratch, BH, T, S, keep, block_q,
-                                       block_kv, causal, scale, s));
+    return static_cast<int>(launch_mma<64>(q, k, v, ip, vp, o, lse, dout, dq,
+                                           dk, dv, scratch, bp, BH, T, S,
+                                           keep, block_q, block_kv, causal,
+                                           scale, s));
   if (D == 128)
     return static_cast<int>(launch_mma<128>(q, k, v, ip, vp, o, lse, dout, dq,
-                                        dk, dv, scratch, BH, T, S, keep,
-                                        block_q, block_kv, causal, scale, s));
+                                            dk, dv, scratch, bp, BH, T, S,
+                                            keep, block_q, block_kv, causal,
+                                            scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1118,21 +1310,25 @@ extern "C" int sufa_bwd_wgmma_bf16(const void* q, const void* k,
                                    const void* valid, const void* o,
                                    const void* lse, const void* dout,
                                    void* dq, void* dk, void* dv,
-                                   void* scratch, int BH, int T, int S,
-                                   int keep, int D, int causal, float scale,
-                                   void* stream) {
+                                   void* scratch, const void* keep_bits,
+                                   int BH, int T, int S, int keep, int D,
+                                   int causal, float scale, void* stream) {
   if (BH <= 0 || T <= 0 || S <= 0 || keep <= 0 || T % kTile || S % kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ip = static_cast<const int64_t*>(idx);
   const auto* vp = static_cast<const uint8_t*>(valid);
+  const auto* bp = static_cast<const uint32_t*>(keep_bits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return static_cast<int>(launch_wgmma<64>(q, k, v, ip, vp, o, lse, dout,
-                                             dq, dk, dv, scratch, BH, T, S,
-                                             keep, causal, scale, s));
-  if (D == 128)
-    return static_cast<int>(launch_wgmma<128>(q, k, v, ip, vp, o, lse, dout,
-                                              dq, dk, dv, scratch, BH, T, S,
-                                              keep, causal, scale, s));
+#define SUFA_BWD_WGMMA(DD, EE)                                               \
+  if (D == DD && (bp != nullptr) == EE)                                      \
+    return static_cast<int>(launch_wgmma<DD, EE>(q, k, v, ip, vp, o, lse,    \
+                                                 dout, dq, dk, dv, scratch,  \
+                                                 bp, BH, T, S, keep, causal, \
+                                                 scale, s));
+  SUFA_BWD_WGMMA(64, false)
+  SUFA_BWD_WGMMA(128, false)
+  SUFA_BWD_WGMMA(64, true)
+  SUFA_BWD_WGMMA(128, true)
+#undef SUFA_BWD_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,7 +17,8 @@ backwards of K4 and K3 (``kernels.flash.flash_bwd``,
 ``kernels.sufa.sufa_bwd``; training) count as ``flash_bwd`` and
 ``sufa_bwd``, and ``<kernel>/noncausal`` counts theirs without the mask;
 K3's backward has K3's two forms, counted as ``sufa_bwd/wgmma`` and
-``sufa_bwd/mma_sync``.
+``sufa_bwd/mma_sync``, and ``sufa_bwd/elementwise`` counts its launches
+with the element mask (the forward's keep bits) on top of their form.
 K1 and K2 have no backward: the decode is not trained and STAR's tile
 selection carries no gradient.
 """
@@ -35,6 +36,7 @@ FORM_LAUNCHES: dict[str, int] = {"dlzs_block/wgmma": 0,
                                  "sufa_bwd/noncausal": 0,
                                  "sufa_bwd/wgmma": 0,
                                  "sufa_bwd/mma_sync": 0,
+                                 "sufa_bwd/elementwise": 0,
                                  "paged_decode/fp": 0,
                                  "paged_decode/int8": 0,
                                  "paged_decode_stats/fp": 0,

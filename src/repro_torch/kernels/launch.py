@@ -64,9 +64,10 @@ def check_tile(kernel: str, name: str, size: int) -> None:
 
 
 def tile_form(block_q: int, block_kv: int) -> str:
-    """K2's and K3's form for a tiling, by shape alone: ``wgmma`` (TMA and
-    warpgroup products) for 128 x 128 tiles, ``mma_sync`` for the rest.
-    Both of K3's forms carry its element-level sphere mask."""
+    """K2's, K3's and K3's backward's form for a tiling, by shape alone:
+    ``wgmma`` (TMA and warpgroup products) for 128 x 128 tiles,
+    ``mma_sync`` for the rest. Both forms of K3 and of its backward carry
+    the element-level sphere mask."""
     if block_q == block_kv == WGMMA_TILE:
         return "wgmma"
     return "mma_sync"

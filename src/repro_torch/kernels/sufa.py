@@ -43,12 +43,18 @@ Like the forward, the backward has two forms, picked by
 ``launch.tile_form``: at the 128 x 128 tiles training runs, two
 warp-specialised ``wgmma`` + TMA passes (dQ by q-tile over its slots,
 summing D = rowsum(dO∘O) on the way; then dK and dV by key tile over the
-q-tiles that chose it, in persistent blocks); ``mma_sync`` at tiles of 64
-and the mixed ones (``FORM_LAUNCHES["sufa_bwd/<form>"]``). No sum crosses
-a block, so two calls give the same bits.
-The card's backward takes tiles of 64 or 128 without the element mask;
-``_Sufa`` raises ``NotImplementedError`` on a CUDA tensor for the rest
-(ROADMAP §1, item 7's remainder) and never runs the plain backward there.
+q-tiles that chose it, in persistent blocks); ``mma_sync`` at every
+other tiling (``FORM_LAUNCHES["sufa_bwd/<form>"]``). No sum crosses a
+block, so two calls give the same bits. The card's backward takes every
+case the forward takes: tiles of any multiple of 16 up to 128, mixed
+pairs included, and the element mask. With the element mask the forward
+also writes its keep bits (which key of each selected tile survives for
+each query row; ``pack_keep_bits``'s layout, ``return_keep`` asks for
+them) and ``_Sufa`` hands them to the backward
+(``FORM_LAUNCHES["sufa_bwd/elementwise"]``), so the gradient is that of
+exactly the softmax the forward computed: a recompute of the DLZS
+estimates in another product shape could move a key at the sphere's
+edge. ``sufa_bwd`` never runs the plain backward on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -135,35 +141,83 @@ def sphere_mask(q, kg, mask, *, scale: float, radius: float
     return mask & (est >= top - radius)
 
 
+def pack_keep_bits(mask: torch.Tensor) -> torch.Tensor:
+    """A keep mask [..., Bc] bool as the kernels' keep bits [...,
+    ceil(Bc / 32)] int32: bit c % 32 of word c // 32 is key c (the words'
+    bits as two's complement). For the gathered mask [BH, n_qt, keep, Bq,
+    Bc] that is the layout K3's forward writes and its backward reads."""
+    bc = mask.shape[-1]
+    words = -(-bc // 32)
+    m = torch.nn.functional.pad(mask.to(torch.int64), (0, 32 * words - bc))
+    m = m.reshape(*mask.shape[:-1], words, 32)
+    w = (m << torch.arange(32, device=mask.device)).sum(dim=-1)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def unpack_keep_bits(bits: torch.Tensor, bc: int) -> torch.Tensor:
+    """``pack_keep_bits``'s inverse: [..., W] int32 -> [..., bc] bool."""
+    w = bits.to(torch.int64) & 0xFFFFFFFF
+    m = (w[..., None] >> torch.arange(32, device=bits.device)) & 1
+    return m.reshape(*bits.shape[:-1], -1)[..., :bc].bool()
+
+
+def _selected_mask(q, kg, mask, *, block_kv: int, elementwise: bool,
+                   radius: float, scale: float, keep_bits) -> torch.Tensor:
+    """The keys the forward sees, [BH, n_qt, keep, Bq, Bc]: the gathered
+    validity x causal ``mask``, with ``elementwise`` cut by the sphere, or
+    by given ``keep_bits`` (the kernel's own) in its place."""
+    if keep_bits is not None:
+        if not elementwise:
+            raise ValueError("sufa: keep bits are the element mask's; pass "
+                             "them with elementwise=True")
+        return mask & unpack_keep_bits(keep_bits, block_kv)
+    if elementwise:
+        return sphere_mask(q, kg, mask, scale=scale, radius=radius)
+    return mask
+
+
 def sufa_reference(q, k, v, idx, valid, *, block_q: int, block_kv: int,
                    causal: bool, scale: float, strict: bool,
                    elementwise: bool = False, radius: float = 5.0,
-                   return_lse: bool = False):
+                   return_lse: bool = False, keep_bits=None,
+                   return_keep: bool = False):
     """The plain version: gather the selected tiles and their mask (with
-    ``elementwise``, the sphere's too), then the exact masked softmax
-    (``ref.sufa_ref``) for ``strict``, else the frozen-max recurrence;
-    with ``return_lse`` also the fp32 row log-sum-exp [BH, T]."""
+    ``elementwise``, the sphere's too, or the given ``keep_bits``), then
+    the exact masked softmax (``ref.sufa_ref``) for ``strict``, else the
+    frozen-max recurrence; with ``return_lse`` also the fp32 row
+    log-sum-exp [BH, T], with ``return_keep`` (``elementwise`` only) also
+    the mask's keep bits (``pack_keep_bits``), in that order."""
+    if return_keep and not elementwise:
+        raise ValueError("sufa: return_keep needs elementwise=True")
     kg, vg, mask = gather_selected(k, v, idx, valid, t=q.shape[1],
                                    block_q=block_q, block_kv=block_kv,
                                    causal=causal)
-    if elementwise:
-        mask = sphere_mask(q, kg, mask, scale=scale, radius=radius)
+    mask = _selected_mask(q, kg, mask, block_kv=block_kv,
+                          elementwise=elementwise, radius=radius,
+                          scale=scale, keep_bits=keep_bits)
     if strict:
-        return ref.sufa_ref(q, kg, vg, mask, scale=scale,
-                            return_lse=return_lse)
-    return _descend_reference(q, kg, vg, mask, scale=scale,
-                              return_lse=return_lse)
+        out = ref.sufa_ref(q, kg, vg, mask, scale=scale,
+                           return_lse=return_lse)
+    else:
+        out = _descend_reference(q, kg, vg, mask, scale=scale,
+                                 return_lse=return_lse)
+    if not return_keep:
+        return out
+    out = out if isinstance(out, tuple) else (out,)
+    return (*out, pack_keep_bits(mask))
 
 
 def sufa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  idx: torch.Tensor, valid: torch.Tensor, o: torch.Tensor,
                  lse: torch.Tensor, do: torch.Tensor, *, block_q: int,
                  block_kv: int, causal: bool, scale: Optional[float] = None,
-                 elementwise: bool = False, radius: float = 5.0) -> tuple:
+                 elementwise: bool = False, radius: float = 5.0,
+                 keep_bits: Optional[torch.Tensor] = None) -> tuple:
     """The gradient of K3's function in fp32: the masked softmax over
     exactly the keys its forward saw (the selected tiles' validity, the
     in-tile causal mask at offset S − T and, with ``elementwise``, the
-    element sphere), by K4's backward steps over the gathered tiles:
+    element sphere, recomputed or given as the forward's ``keep_bits``),
+    by K4's backward steps over the gathered tiles:
     P = exp(scale·q·kᵀ − lse) (0 where masked, and on a row with lse =
     +inf), D = rowsum(dO∘O), dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P∘(dP − D),
     dQ = scale·dS·K, dK = scale·dSᵀ·Q. Each tile's dK and dV are added
@@ -177,8 +231,9 @@ def sufa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale or (1.0 / math.sqrt(d))
     kg, vg, mask = gather_selected(k, v, idx, valid, t=t, block_q=block_q,
                                    block_kv=block_kv, causal=causal)
-    if elementwise:
-        mask = sphere_mask(q, kg, mask, scale=scale, radius=radius)
+    mask = _selected_mask(q, kg, mask, block_kv=block_kv,
+                          elementwise=elementwise, radius=radius,
+                          scale=scale, keep_bits=keep_bits)
     qt = q.reshape(bh, n_qt, block_q, d).float()
     dot = do.reshape(bh, n_qt, block_q, d).float()
     kf, vf = kg.float(), vg.float()
@@ -228,17 +283,27 @@ def _check(name: str, q, k, v, idx, valid, block_q: int, block_kv: int
                         f"on {q.device}")
 
 
+def keep_shape(bh: int, t: int, keep: int, block_q: int,
+               block_kv: int) -> tuple:
+    """The keep bits' shape: [BH, T / Bq, keep, Bq, ceil(Bc / 32)]."""
+    return (bh, t // block_q, keep, block_q, -(-block_kv // 32))
+
+
 def _forward(q, k, v, idx, valid, *, block_q: int, block_kv: int,
              causal: bool, scale: float, strict: bool, elementwise: bool,
-             radius: float, with_lse: bool):
-    """One forward call: o, or (o, lse [BH, T] fp32) ``with_lse``."""
+             radius: float, with_lse: bool, with_keep: bool = False):
+    """One forward call: o, or (o, lse [BH, T] fp32) ``with_lse``, with
+    the keep bits last ``with_keep`` (``elementwise`` only)."""
     if q.device.type == "cpu":
         return sufa_reference(q, k, v, idx, valid, block_q=block_q,
                               block_kv=block_kv, causal=causal, scale=scale,
                               strict=strict, elementwise=elementwise,
-                              radius=radius, return_lse=with_lse)
+                              radius=radius, return_lse=with_lse,
+                              return_keep=with_keep)
     name = "sufa"
     launch.require_cuda(name, q.device)
+    if with_keep and not elementwise:
+        raise ValueError("sufa: return_keep needs elementwise=True")
     launch.check_operands(name, q=q, k=k, v=v)
     _check(name, q, k, v, idx, valid, block_q, block_kv)
     bh, t, d = q.shape
@@ -248,40 +313,31 @@ def _forward(q, k, v, idx, valid, *, block_q: int, block_kv: int,
     out = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    bits = torch.empty(keep_shape(bh, t, keep, block_q, block_kv),
+                       dtype=torch.int32, device=q.device) \
+        if with_keep else None
     form = launch.tile_form(block_q, block_kv)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
             valid.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr())
+            None if lse is None else lse.data_ptr(),
+            None if bits is None else bits.data_ptr())
     if form == "wgmma":
         fn = launch.bind(name, "sufa_wgmma_bf16",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                          + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         args = (*ptrs, bh, t, s, keep, d, int(causal), int(strict),
                 int(elementwise), float(scale), float(radius))
     else:
         fn = launch.bind(name, "sufa_mma_bf16",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                          + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         args = (*ptrs, bh, t, s, keep, block_q, block_kv, d, int(causal),
                 int(strict), int(elementwise), float(scale), float(radius))
     launch.launch(name, fn, q.device, *args, form=form, causal=causal)
     if elementwise:
         kernels.FORM_LAUNCHES[f"{name}/elementwise"] += 1
-    return (out, lse) if with_lse else out
-
-
-BWD_TILES = (64, 128)     # tiles the card's backward takes
-
-
-def _require_card_backward(block_q: int, block_kv: int,
-                           elementwise: bool) -> None:
-    """Raise where the card's backward does not cover the case: tiles
-    other than ``BWD_TILES``, or the element mask."""
-    if elementwise or block_q not in BWD_TILES or block_kv not in BWD_TILES:
-        raise NotImplementedError(
-            f"sufa_bwd: the card's backward takes tiles of {BWD_TILES} "
-            f"without the element mask; got {block_q} x {block_kv}, "
-            f"elementwise={elementwise} (ROADMAP §1, item 7's remainder)")
+    extras = tuple(x for x in (lse, bits) if x is not None)
+    return (out, *extras) if extras else out
 
 
 def sufa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -289,23 +345,26 @@ def sufa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              lse: torch.Tensor, do: torch.Tensor, *, block_q: int = 128,
              block_kv: int = 128, causal: bool = True,
              scale: Optional[float] = None, elementwise: bool = False,
-             radius: float = 5.0) -> tuple:
+             radius: float = 5.0,
+             keep_bits: Optional[torch.Tensor] = None) -> tuple:
     """K3's gradient: (dq, dk, dv) of ``sufa_attention(q, k, v, idx,
     valid)`` for the output gradient ``do`` [BH, T, d], given the
     forward's output ``o`` and fp32 ``lse`` [BH, T]; the same for both
-    ``strict`` modes. CPU tensors take ``sufa_bwd_ref``; on a GPU the
-    kernel runs (bf16 operands, contiguous; tiles of 64 or 128, no element
-    mask) in the form its tiles pick (``launch.tile_form``) or this
-    raises."""
+    ``strict`` modes. With ``elementwise`` the forward's ``keep_bits``
+    (``sufa_attention(..., return_keep=True)``) decide which keys it saw;
+    CPU tensors may leave them out (the plain gradient then recomputes
+    the sphere). CPU tensors take ``sufa_bwd_ref``; on a GPU the kernel
+    runs (bf16 operands, contiguous; the tiles K3's forward takes) in the
+    form its tiles pick (``launch.tile_form``) or this raises."""
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
     if q.device.type == "cpu":
         return sufa_bwd_ref(q, k, v, idx, valid, o, lse, do,
                             block_q=block_q, block_kv=block_kv,
                             causal=causal, scale=scale,
-                            elementwise=elementwise, radius=radius)
+                            elementwise=elementwise, radius=radius,
+                            keep_bits=keep_bits)
     name = "sufa_bwd"
     launch.require_cuda(name, q.device)
-    _require_card_backward(block_q, block_kv, elementwise)
     launch.check_operands(name, q=q, k=k, v=v, o=o, do=do)
     _check(name, q, k, v, idx, valid, block_q, block_kv)
     bh, t, d = q.shape
@@ -317,6 +376,21 @@ def sufa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"fp32 contiguous [BH,T] on {q.device}; got o "
                          f"{tuple(o.shape)}, do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} {lse.dtype}")
+    keep = idx.shape[2]
+    if elementwise != (keep_bits is not None):
+        raise ValueError(f"{name}: the element mask takes the forward's "
+                         f"keep bits (sufa_attention(..., return_keep="
+                         f"True)), and only it: elementwise={elementwise}, "
+                         f"keep_bits given: {keep_bits is not None}")
+    if keep_bits is not None and (
+            keep_bits.shape != keep_shape(bh, t, keep, block_q, block_kv)
+            or keep_bits.dtype != torch.int32
+            or not keep_bits.is_contiguous()
+            or keep_bits.device != q.device):
+        raise ValueError(f"{name}: keep_bits must be int32 contiguous "
+                         f"{keep_shape(bh, t, keep, block_q, block_kv)} on "
+                         f"{q.device}; got {tuple(keep_bits.shape)} "
+                         f"{keep_bits.dtype}")
     idx, valid = idx.contiguous(), valid.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # D and lse in base 2 per row, then the wgmma form's work counter
@@ -324,44 +398,45 @@ def sufa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device)
     ptrs = [x.data_ptr() for x in (q, k, v, idx, valid, o, lse, do, dq, dk,
                                    dv, scratch)]
-    keep = idx.shape[2]
+    ptrs.append(None if keep_bits is None else keep_bits.data_ptr())
     form = launch.tile_form(block_q, block_kv)
     if form == "wgmma":
         fn = launch.bind(name, "sufa_bwd_wgmma_bf16",
-                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                          + [ctypes.c_float, ctypes.c_void_p])
         args = (bh, t, s, keep, d, int(causal), float(scale))
     else:
         fn = launch.bind(name, "sufa_bwd_bf16",
-                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
                          + [ctypes.c_float, ctypes.c_void_p])
         args = (bh, t, s, keep, block_q, block_kv, d, int(causal),
                 float(scale))
     launch.launch(name, fn, q.device, *ptrs, *args, form=form,
                   causal=causal)
+    if elementwise:
+        kernels.FORM_LAUNCHES[f"{name}/elementwise"] += 1
     return dq, dk, dv
 
 
 class _Sufa(torch.autograd.Function):
     """K3 with its gradient: the forward saves q, k, v, o, the row
-    log-sum-exp and the selection; the backward is ``sufa_bwd``."""
+    log-sum-exp, the selection and, with the element mask, its keep
+    bits; the backward is ``sufa_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, idx, valid, kw: dict):
-        if q.device.type != "cpu":
-            _require_card_backward(kw["block_q"], kw["block_kv"],
-                                   kw["elementwise"])
-        o, lse = _forward(q, k, v, idx, valid, with_lse=True, **kw)
-        ctx.save_for_backward(q, k, v, idx, valid, o, lse)
+        got = _forward(q, k, v, idx, valid, with_lse=True,
+                       with_keep=kw["elementwise"], **kw)
+        ctx.save_for_backward(q, k, v, idx, valid, *got)
         # both modes compute one function: the backward takes no `strict`
         ctx.kw = {name: x for name, x in kw.items() if name != "strict"}
-        return o
+        return got[0]
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, idx, valid, o, lse = ctx.saved_tensors
+        q, k, v, idx, valid, o, lse, *bits = ctx.saved_tensors
         dq, dk, dv = sufa_bwd(q, k, v, idx, valid, o, lse, do.contiguous(),
-                              **ctx.kw)
+                              keep_bits=bits[0] if bits else None, **ctx.kw)
         return dq, dk, dv, None, None, None
 
 
@@ -370,14 +445,17 @@ def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    block_q: int = 128, block_kv: int = 128,
                    causal: bool = True, scale: Optional[float] = None,
                    strict: bool = False, elementwise: bool = False,
-                   radius: float = 5.0, return_lse: bool = False):
+                   radius: float = 5.0, return_lse: bool = False,
+                   return_keep: bool = False):
     """q [BH, T, d], k/v [BH, S, d] (the queries are the last T of the S
     positions); idx [BH, T/block_q, keep] key-tile ids in visiting order
     (descending predicted max), valid [BH, T/block_q, keep] bool
     -> [BH, T, d] in q's dtype; with ``return_lse`` also the fp32 row
-    log-sum-exp [BH, T] (natural base, +inf on a row that sees no key;
-    not differentiable). ``elementwise`` applies the element-level sphere
-    of ``radius`` inside the selected tiles. Differentiable in q, k and v
+    log-sum-exp [BH, T] (natural base, +inf on a row that sees no key),
+    with ``return_keep`` also the element mask's keep bits
+    (``keep_shape``, ``pack_keep_bits``'s layout), in that order; neither
+    is differentiable. ``elementwise`` applies the element-level sphere of
+    ``radius`` inside the selected tiles. Differentiable in q, k and v
     (``_Sufa``) where grad mode is on and one of them requires grad."""
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
     kw = dict(block_q=block_q, block_kv=block_kv, causal=causal,
@@ -385,11 +463,12 @@ def sufa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               radius=radius)
     needs_grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
-    if return_lse:
+    if return_lse or return_keep:
         if needs_grad:
-            raise ValueError("sufa_attention: return_lse is not "
-                             "differentiable")
-        return _forward(q, k, v, idx, valid, with_lse=True, **kw)
+            raise ValueError("sufa_attention: return_lse and return_keep "
+                             "are not differentiable")
+        return _forward(q, k, v, idx, valid, with_lse=return_lse,
+                        with_keep=return_keep, **kw)
     if needs_grad:
         return _Sufa.apply(q, k, v, idx, valid, kw)
     return _forward(q, k, v, idx, valid, with_lse=False, **kw)

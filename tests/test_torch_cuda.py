@@ -1023,12 +1023,13 @@ def test_kernels_without_backward_refuse_grad(cuda_device):
 
 # -- K3's backward (STAR in training) ----------------------------------------
 
-def _star_selection(q, k, block, keep):
-    """The glue's selection for q, k (K2's maxima, SADS at radius 5)."""
+def _star_selection(q, k, block, keep, block_kv=None):
+    """The glue's selection for q, k (K2's maxima, SADS at radius 5); key
+    tiles of ``block_kv`` where given, else square."""
     from repro_torch.kernels import dlzs as kdlzs
     from repro_torch.kernels import ops
     raw = kdlzs.dlzs_block_scores(q, k, causal=True, scale=1.0,
-                                  block_q=block, block_kv=block)
+                                  block_q=block, block_kv=block_kv or block)
     return ops.select_tiles(raw, keep, scale=q.shape[-1] ** -0.5,
                             radius=5.0, dtype=q.dtype)
 
@@ -1191,24 +1192,172 @@ def test_sufa_bwd_kernel_matches_plain(cuda_device, monkeypatch, d, bh, t,
         assert err <= 2 * float((p.float() - w).abs().max()) + 1e-5
 
 
+def _mask_counts(idx, mask, *, t, s, block_q, block_kv):
+    """The gathered mask [BH, n_qt, keep, Bq, Bc] (validity, causal and,
+    with the element mask, the forward's keep bits) as counts [BH, T, S]:
+    how many valid slots name each key of each row, as the forward's
+    softmax counts them."""
+    bh, n_qt, keep = idx.shape
+    dense = torch.zeros((bh, n_qt, s // block_kv, block_q, block_kv),
+                        device=idx.device)
+    heads = torch.arange(bh, device=idx.device)[:, None]
+    qts = torch.arange(n_qt, device=idx.device)[None, :]
+    for j in range(keep):
+        dense[heads, qts, idx[..., j]] += mask[:, :, j].float()
+    return dense.permute(0, 1, 3, 2, 4).reshape(bh, t, s)
+
+
+def _case_shape(block_q, block_kv):
+    """T (4 or more q-tiles, about 256 rows) and S (a key tile more than T
+    needs) for a tiling."""
+    t = block_q * max(4, 256 // block_q)
+    return t, block_kv * (-(-t // block_kv) + 1)
+
+
+# every tiling K3's forward takes, by its kind: the small and mixed
+# mma.sync tiles, the odd multiples of 16, and the wgmma form's 128 x 128
+EVERY_TILING = [(16, 16), (32, 32), (48, 48), (16, 64), (64, 16), (112, 80),
+                (96, 32), (64, 64), (128, 128)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["elementwise", "tile16", "tile96"])
-def test_sufa_backward_refuses_uncovered_cases(cuda_device, case):
-    """Where the card's backward does not reach (the element mask, tiles
-    other than 64 and 128) the differentiable K3 raises before it
-    launches, and never runs the plain backward on the card."""
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("elementwise", [False, True])
+@pytest.mark.parametrize("block_q,block_kv", EVERY_TILING)
+def test_sufa_bwd_kernel_every_forward_case(cuda_device, monkeypatch,
+                                            block_q, block_kv, elementwise,
+                                            causal, d):
+    """K3's backward wherever K3's forward runs: every kind of tiling
+    (``EVERY_TILING``), d 64 and 128, causal and not, with and without the
+    element mask (radius 2, so it drops keys; the backward takes the
+    forward's keep bits), by ``test_sufa_bwd_kernel_matches_plain``'s
+    rule: dQ, dK and dV each no further from the fp32 plain gradient than
+    twice the bf16 plain gradient under the same mask is (plus 1e-5). An
+    invalid slot, a key tile of head 0 that no q-tile chose (dK = dV = 0
+    exactly) and a q-tile of head 1 with no valid slot (dQ = 0 exactly);
+    one counted launch in the form the tiles pick (and as
+    ``sufa_bwd/elementwise`` with the mask); two calls bit-equal."""
     from repro_torch.kernels import sufa as ksufa
-    block = {"elementwise": 128, "tile16": 16, "tile96": 96}[case]
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    q, k, v = (_bf16((2, 384, 64), gen, cuda_device).requires_grad_()
-               for _ in range(3))
-    idx, valid = _selection(2, 384, 384, 1, block, block, gen, cuda_device)
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    t, s = _case_shape(block_q, block_kv)
+    bh = 2
+    gen = torch.Generator(device="cpu").manual_seed(
+        d + 7 * block_q + 11 * block_kv + 2 * causal + elementwise)
+    q = _bf16((bh, t, d), gen, cuda_device)
+    k = _bf16((bh, s, d), gen, cuda_device)
+    v, do = _bf16((bh, s, d), gen, cuda_device), _bf16((bh, t, d), gen,
+                                                       cuda_device)
+    n_kt = s // block_kv
+    keep = max(2, -(-n_kt // 5))
+    if causal:
+        idx, valid = _star_selection(q, k, block_q, keep, block_kv=block_kv)
+    else:
+        idx, valid = _selection(bh, t, s, keep, block_q, block_kv, gen,
+                                cuda_device)
+    unchosen = int(idx[0, -1, 0])
+    valid[0] &= idx[0] != unchosen
+    valid[:, 0, -1] = False
+    valid[1, -1] = False
+    scale = d ** -0.5
+    kw = dict(block_q=block_q, block_kv=block_kv, causal=causal,
+              scale=scale)
+    if elementwise:
+        kw.update(elementwise=True, radius=2.0)
+    o, lse, *bits = ksufa.sufa_attention(q, k, v, idx, valid, strict=True,
+                                         return_lse=True,
+                                         return_keep=elementwise, **kw)
+    keep_bits = bits[0] if bits else None
+    if elementwise:   # the mask without the forward's bits: no launch
+        with pytest.raises(ValueError, match="keep bits"):
+            ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do, **kw)
     kernels.reset_launches()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ksufa.sufa_attention(q, k, v, idx, valid, block_q=block,
-                             block_kv=block,
-                             elementwise=case == "elementwise")
-    assert kernels.LAUNCHES["sufa"] == kernels.LAUNCHES["sufa_bwd"] == 0
+    got = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do,
+                         keep_bits=keep_bits, **kw)
+    torch.cuda.synchronize()
+    form = "wgmma" if block_q == block_kv == 128 else "mma_sync"
+    assert kernels.LAUNCHES["sufa_bwd"] == 1
+    assert kernels.FORM_LAUNCHES[f"sufa_bwd/{form}"] == 1
+    assert kernels.FORM_LAUNCHES["sufa_bwd/elementwise"] == int(elementwise)
+    again = ksufa.sufa_bwd(q, k, v, idx, valid, o, lse, do,
+                           keep_bits=keep_bits, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(got, again))
+    sl = slice(unchosen * block_kv, (unchosen + 1) * block_kv)
+    assert float(got[1][0, sl].abs().max()) == 0.0
+    assert float(got[2][0, sl].abs().max()) == 0.0
+    assert float(got[0][1, t - block_q:].abs().max()) == 0.0
+    f32 = [x.float() for x in (q, k, v)]
+    o32, lse32 = ksufa.sufa_reference(*f32, idx, valid, strict=True,
+                                      return_lse=True, keep_bits=keep_bits,
+                                      **kw)
+    want = ksufa.sufa_bwd_ref(*f32, idx, valid, o32, lse32, do.float(),
+                              keep_bits=keep_bits, **kw)
+    _, _, mask = ksufa.gather_selected(k, v, idx, valid, t=t,
+                                       block_q=block_q, block_kv=block_kv,
+                                       causal=causal)
+    if elementwise:
+        mask = mask & ksufa.unpack_keep_bits(keep_bits, block_kv)
+        assert int(mask.sum()) < int(ksufa.gather_selected(
+            k, v, idx, valid, t=t, block_q=block_q, block_kv=block_kv,
+            causal=causal)[2].sum())
+    counts = _mask_counts(idx, mask, t=t, s=s, block_q=block_q,
+                          block_kv=block_kv)
+    lowp = cs.grads_of(functools.partial(
+        _plain_counted_lowp, counts=counts, scale=scale), q, k, v, do)
+    for g, w, p in zip(got, want, lowp):
+        err = float((g.float() - w).abs().max())
+        assert err <= 2 * float((p.float() - w).abs().max()) + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block_q,block_kv,causal", [
+    (128, 128, True), (128, 128, False), (16, 16, True), (48, 48, False),
+    (16, 64, True), (64, 16, True), (112, 80, True)])
+def test_sufa_keep_bits_leave_o_unchanged(cuda_device, monkeypatch, strict,
+                                          d, block_q, block_kv, causal):
+    """K3's forward with the element mask writes its keep bits when asked
+    and nothing else changes: O (and lse) the same bits with and without
+    them, the bits the same in both modes, zero on invalid slots, inside
+    the validity x causal mask, and equal to ``sphere_mask``'s on the same
+    inputs (its estimates an fp32-summed bf16 product) except at pairs
+    within one bf16 step of their row's edge."""
+    from repro_torch.kernels import sufa as ksufa
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    t, s = _case_shape(block_q, block_kv)
+    gen = torch.Generator(device="cpu").manual_seed(d + block_q + block_kv)
+    q = _bf16((3, t, d), gen, cuda_device)
+    k, v = (_bf16((3, s, d), gen, cuda_device) for _ in range(2))
+    idx, valid = _selection(3, t, s, 3, block_q, block_kv, gen, cuda_device)
+    kw = dict(block_q=block_q, block_kv=block_kv, causal=causal,
+              strict=strict, elementwise=True, radius=2.0)
+    o = ksufa.sufa_attention(q, k, v, idx, valid, **kw)
+    o_lse, lse = ksufa.sufa_attention(q, k, v, idx, valid, return_lse=True,
+                                      **kw)
+    o_keep, bits = ksufa.sufa_attention(q, k, v, idx, valid,
+                                        return_keep=True, **kw)
+    o_both, lse_both, bits_both = ksufa.sufa_attention(
+        q, k, v, idx, valid, return_lse=True, return_keep=True, **kw)
+    other = ksufa.sufa_attention(q, k, v, idx, valid, return_keep=True,
+                                 **dict(kw, strict=not strict))[1]
+    torch.cuda.synchronize()
+    for x in (o_lse, o_keep, o_both):
+        assert torch.equal(x.view(torch.int16), o.view(torch.int16))
+    assert torch.equal(lse, lse_both)
+    assert torch.equal(bits, bits_both) and torch.equal(bits, other)
+    assert bits.shape == ksufa.keep_shape(3, t, 3, block_q, block_kv)
+    assert not bits[~valid].any()
+    rec = cs.keep_bits_vs_sphere(q, k, idx, valid, bits, block_q=block_q,
+                                 block_kv=block_kv, causal=causal,
+                                 scale=d ** -0.5, radius=2.0)
+    assert rec["outside_visible"] == 0
+    assert rec["kept_pairs"] < rec["visible_pairs"]
+    assert rec["max_gap_steps"] <= 1.0, rec
 
 
 @pytest.mark.cuda

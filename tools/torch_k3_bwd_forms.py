@@ -56,10 +56,10 @@ def entries(q, k, v, idx, valid, o, lse, do, *, causal: bool):
     keep = idx.shape[2]
     scale = d ** -0.5
     mma = lib.sufa_bwd_bf16
-    mma.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 \
+    mma.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_void_p]
     wg = lib.sufa_bwd_wgmma_bf16
-    wg.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
+    wg.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 \
         + [ctypes.c_float, ctypes.c_void_p]
     mma.restype = wg.restype = ctypes.c_int
     fns = {}
@@ -70,7 +70,7 @@ def entries(q, k, v, idx, valid, o, lse, do, *, causal: bool):
         scratch = torch.empty(2 * bh * t + 4, dtype=torch.float32,
                               device=q.device)
         ptrs = [x.data_ptr() for x in (q, k, v, idx, valid, o, lse, do,
-                                       *grads, scratch)]
+                                       *grads, scratch)] + [None]
 
         def run(fn=fn, ptrs=ptrs, tail=tail, grads=grads):
             err = fn(*ptrs, *tail, scale,
@@ -127,8 +127,8 @@ def main() -> int:
             fns["wgmma"], flush, parts=smoke.SUFA_BWD_KERNELS)
         row["mma_sync_split"] = smoke.flash_bwd_split(
             fns["mma_sync"], flush, parts=MMA_KERNELS)
-        dense = smoke.selection_mask(idx, valid, t=t, s=t, block=BLOCK,
-                                     causal=causal)
+        dense = smoke.selection_mask(idx, valid, t=t, s=t, block_q=BLOCK,
+                                     block_kv=BLOCK, causal=causal)
         leaves = [x.detach()[None].requires_grad_() for x in (q, k, v)]
         with torch.enable_grad():
             sdpa_out = smoke.SDPA(*leaves, attn_mask=dense[None],

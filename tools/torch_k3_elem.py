@@ -47,14 +47,15 @@ def forms(q, k, v, idx, valid, out, *, strict: bool, radius: float):
     inputs, with and without the element mask."""
     lib = build.load("sufa")
     keep = idx.shape[2]
+    # no lse and no keep bits: the served forward's arguments
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(),
-            valid.data_ptr(), out.data_ptr())
+            valid.data_ptr(), out.data_ptr(), None, None)
     scale = D ** -0.5
     mma = lib.sufa_mma_bf16
-    mma.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+    mma.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     wg = lib.sufa_wgmma_bf16
-    wg.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+    wg.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     mma.restype = wg.restype = ctypes.c_int
 
