@@ -319,6 +319,30 @@ Phases, each printing its numbers on a line of its own:
    calls (the probes) x 2; the ring demo (8 shards of 128 x 64, fp32):
    max |err| <= 1e-4 against dense attention, 0 link conflicts, no
    kernel.
+23. training beyond OLMo-1B, each config with its own optimizer,
+   ``train_accum`` and ``remat``: first K4 and its backward at the new
+   training shapes by 20a's rule (OLMoE's BH 128 and Grok-1's BH 48,
+   T 2048, d 128; Grok-1's timed); then (a) OLMoE-1B-7B at full width and
+   depth (AdamW, bf16 moments, the blocked large-leaf update), (b)
+   Grok-1 at published width, 1 of 64 layers (Adafactor, 8 microbatches,
+   GQA 48 over 8 heads), (c) Jamba-1.5-Large's layer 0 (Mamba + dense FFN,
+   the pattern cut with it; Adafactor, 8 microbatches; no kernel) and (d)
+   xLSTM-125M at full width and depth at 256 tokens a row (no kernel),
+   each trained 12 steps of 8 rows through ``make_train_step``: the loss
+   falls by more than 0.1, every loss and grad norm finite, MoE aux above
+   0, K4 = steps x attention layers x microbatches x 2 and its backward x
+   1, K1-K3 never; step ms, tokens/s, MFU, the training state's
+   reckoning, peak memory and a profiled step's split (the optimizer's
+   range around ``adamw_update`` or ``adafactor_update``); then each
+   config's one-step gradients by 20d's rule (OLMoE at 2 layers, Grok-1
+   at its 1, its bf16 gradients parked on the host; the plain runs
+   route as the kernel run routed, gate call by gate call), Jamba's and
+   xLSTM's loss and grad norm reported against the fp32 plain step; (e)
+   OLMo-1B cut to 2 layers: one step's gradients under ``remat`` none and
+   dots bit-equal to full's (K4 once a layer under none, twice under the
+   others). 20c's child also resumes Jamba's layer 0 with its Adafactor
+   state (8 x 2048 tokens) bit-equal to an uninterrupted run. Each cut
+   is on its line's ``reduced`` with its reason.
 Phase 4 also counts K4: oracle forwards x attention layers launches (an
 encoder-decoder forward's: its encoder, self- and cross-attention
 layers).
@@ -381,7 +405,7 @@ from repro_torch.tree import sorted_items, tree_leaves, tree_map  # noqa
 from repro_torch.data import PrefetchLoader, SyntheticLM  # noqa: E402
 from repro_torch.launch import roofline, shapes  # noqa: E402
 from repro_torch.launch import steps as launch_steps  # noqa: E402
-from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim import adafactor, adamw  # noqa: E402
 from repro_torch.runtime import TrainLoopCfg, train_loop  # noqa: E402
 
 SEED = 0
@@ -470,6 +494,11 @@ TRAIN_LR = 6e-4
 TRAIN_WARMUP = 5
 RESTART_LAYERS = 2
 RESTART_BATCH = 4
+XLSTM_TRAIN_SEQ = 256       # phase 23d's cut (family_cases)
+# the most copies of the training state a restart check holds on disk at
+# once: the uninterrupted run's saves at steps 5 and 10, then the resumed
+# run's at 5 and 10 and its final save's copy of 10 while it is written
+RESTART_STATE_COPIES = 5
 # K4's backward's kernels (csrc/flash_bwd.cu), by name prefix
 BWD_KERNELS = ("bwd_prep", "bwd_kv")
 # phase 21: STAR in training; the kernels of K3's backward's wgmma form
@@ -2481,6 +2510,14 @@ def require_k4(summary: dict, tag: str) -> None:
                          f"{summary['expected_k4_launches']}")
 
 
+def free_card_bytes(device) -> int:
+    """Bytes the card can still allocate: its free memory and what the
+    caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
+
+
 def free_cache(device) -> None:
     """Collect unreachable objects (an engine and its backend refer to
     each other, so a dropped engine and the params it holds wait for the
@@ -3577,8 +3614,8 @@ def gradient_rule(tag: str, got: dict, want: dict, lowp: dict,
     out = dict(case)
     for name in got:
         w = want[name].float()
-        err = float((got[name].float() - w).abs().max())
-        ref = float((lowp[name].float() - w).abs().max())
+        err = float((got[name].to(w.device).float() - w).abs().max())
+        ref = float((lowp[name].to(w.device).float() - w).abs().max())
         out[f"max_abs_err_{name}"] = err
         out[f"bf16_plain_err_{name}"] = ref
         if not err <= 2 * ref + 1e-5:
@@ -3734,19 +3771,21 @@ def train_run(cfg, params, opt_state, *, steps: int, seq: int, batch: int,
               fail_at: int | None = None, lr: float = TRAIN_LR) -> dict:
     """``train_loop`` over ``launch.steps.make_train_step`` on
     ``SyntheticLM`` batches (``data.PrefetchLoader`` on ``dev``): every
-    step's loss, grad norm and host seconds (each step ends in a sync),
+    step's loss, grad norm, MoE aux loss and host seconds (each step ends
+    in a sync),
     the final save's seconds and the final params and optimizer state.
     With ``ckpt_dir`` None the same steps run from the same loader
     without ``train_loop``: no checkpoint, no final save."""
     step = launch_steps.make_train_step(cfg, lr=lr, warmup=TRAIN_WARMUP,
                                         total_steps=steps)
-    rec = {"loss": [], "grad_norm": [], "step_s": []}
+    rec = {"loss": [], "grad_norm": [], "aux": [], "step_s": []}
 
     def step_fn(p, o, b):
         t0 = time.perf_counter()
         p, o, m = step(p, o, b)
         rec["loss"].append(float(m["loss"]))
         rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["aux"].append(float(m["aux"]))
         sync(dev)
         rec["step_s"].append(time.perf_counter() - t0)
         rec["end"] = time.perf_counter()
@@ -3777,30 +3816,39 @@ def star_trained(cfg) -> bool:
     return cfg.star_train and cfg.star is not None
 
 
+OPTIMIZER_RANGES = {(adamw, "adamw_update"): "optimizer",
+                    (adafactor, "adafactor_update"): "optimizer"}
+
+
 def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
     """One more training step under ``torch.profiler``: its device time
     split into K4's forward and backward (with ``star_train``: K2, K3's
     forward, K3's backward and the selection glue, a profiler range
     around ``ops.select_tiles``), the GEMMs, the optimizer update (a
-    profiler range around ``adamw_update``) and the rest (norms,
-    activations, softmax-CE, casts, the embedding), and the device's busy
-    share of the step's wall time."""
-    if not on_card:
-        return {}
+    profiler range around ``adamw_update`` or ``adafactor_update``,
+    ``OPTIMIZER_RANGES``) and the rest (norms, activations, softmax-CE,
+    casts, the embedding), and the device's busy share of the step's wall
+    time. ``ranges_seen``: each range's count of host spans (off the card
+    the only numbers, with the wall time; on it the profiler also records
+    a device-side span of each)."""
     from torch.profiler import ProfilerActivity, profile
     step = launch_steps.make_train_step(cfg, lr=TRAIN_LR,
                                         warmup=TRAIN_WARMUP,
                                         total_steps=TRAIN_STEPS)
-    ranges = {(adamw, "adamw_update"): "optimizer"}
+    ranges = dict(OPTIMIZER_RANGES)
     if star_trained(cfg):
         ranges[ops, "select_tiles"] = "selection"
-    with profiling.ranged(ranges), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    with profiling.ranged(ranges), profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step(params, opt_state, batch)
-        torch.cuda.synchronize()
+        sync(batch["tokens"].device)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     names = set(ranges.values())
+    seen = profiling.host_counts(prof, names)
+    if not on_card:
+        return {"wall_ms": wall_ms, "ranges_seen": seen}
     device_ms, busy_ms, top = profiling.device_kernels(prof, names)
 
     def by_name(*keys):
@@ -3823,11 +3871,36 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": busy_ms / wall_ms, **parts,
             **{k[:-3] + "_share": v / device_ms for k, v in parts.items()},
-            "top_kernels": top[:12]}
+            "ranges_seen": seen, "top_kernels": top[:12]}
+
+
+def training_launches(cfg, steps: int) -> dict:
+    """The kernel launches of ``steps`` training steps of ``cfg`` on the
+    card: one backward per attention layer and microbatch
+    (``train_accum`` a step), the forward twice under remat (the forward
+    and its recompute) and once under ``remat="none"``; K4 and its
+    backward, or with ``star_train`` K2, K3 and K3's backward in the form
+    the tiles pick (and as ``elementwise`` under the element mask); every
+    other kernel never."""
+    per = steps * attn_layers(cfg) * cfg.train_accum
+    fwd = 1 if cfg.remat == "none" else 2
+    want = {name: 0 for name in kernels.LAUNCHES}
+    if star_trained(cfg):
+        want.update(dlzs_block=per * fwd, sufa=per * fwd, sufa_bwd=per)
+        form = launch.tile_form(cfg.star.block_q, cfg.star.block_kv)
+        elem = cfg.star.elementwise
+        want.update({f"sufa_bwd/{f}": per * (f == form)
+                     for f in ("wgmma", "mma_sync")})
+        want.update({"sufa/elementwise": per * fwd * elem,
+                     "sufa_bwd/elementwise": per * elem})
+    else:
+        want.update(flash=per * fwd, flash_bwd=per)
+    return want
 
 
 def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
-                   batch=TRAIN_BATCH, lr=TRAIN_LR, save: bool = True) -> dict:
+                   batch=TRAIN_BATCH, lr=TRAIN_LR, save: bool = True,
+                   tag: str = "training", reduced=None) -> dict:
     """Phase 20b: ``cfg`` trained from ``lm.init`` (seed 0) with the
     reference's optimizer (``make_optimizer``: AdamW, bf16 moments) and
     ``remat="full"``, ``steps`` steps of ``batch`` x ``seq`` tokens
@@ -3843,20 +3916,28 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
     (phase 21b) K2 and K3 twice and K3's backward once instead, K1 and K4
     never, each launch of K3 and its backward in the form the config's
     tiles pick, and counted as ``elementwise`` where the config has the
-    element mask (phase 21e)."""
+    element mask (phase 21e). Phase 23 runs it with each config's own
+    optimizer, ``train_accum`` and ``remat`` (``tag`` names its lines,
+    ``reduced`` its cuts): every count is per microbatch (times
+    ``train_accum``), K4 once per layer under ``remat="none"`` (no
+    recompute), and a config with MoE layers must report an aux loss
+    above 0 and finite at every step."""
     on_card = torch.device(dev).type == "cuda"
     params, info = init_params(cfg, gen, dev)
     _, opt_init, _ = launch_steps.make_optimizer(cfg, lr)
     opt_state = opt_init(params)
+    info["state_gb"] = state_gb(params, opt_state, cfg)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "star_train": star_trained(cfg),
            "star": dataclasses.asdict(cfg.star) if star_trained(cfg)
            else None,
            "seq": seq, "batch": batch, "steps": steps, "lr": lr,
-           "warmup": TRAIN_WARMUP, "remat": cfg.remat, **info,
+           "warmup": TRAIN_WARMUP, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "train_accum": cfg.train_accum,
+           "reduced": reduced, **info,
            "free_disk_gb_before": free_disk_gb(BUILD_DIR)}
-    emit("training_setup", **out)
+    emit(f"{tag}_setup", **out)
     ckpt_dir = pathlib.Path(tempfile.mkdtemp(prefix="train_ckpt_",
                                              dir=BUILD_DIR)) if save else None
     try:
@@ -3878,24 +3959,13 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
     finally:
         if save:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
-    layers = attn_layers(cfg)
-    want = {name: 0 for name in kernels.LAUNCHES}
-    if on_card and star_trained(cfg):
-        want.update(dlzs_block=steps * layers * 2, sufa=steps * layers * 2,
-                    sufa_bwd=steps * layers)
-        form = launch.tile_form(cfg.star.block_q, cfg.star.block_kv)
-        elem = cfg.star.elementwise
-        want.update({f"sufa_bwd/{f}": steps * layers * (f == form)
-                     for f in ("wgmma", "mma_sync")})
-        want.update({"sufa/elementwise": steps * layers * 2 * elem,
-                     "sufa_bwd/elementwise": steps * layers * elem})
-    elif on_card:
-        want.update(flash=steps * layers * 2, flash_bwd=steps * layers)
+    want = training_launches(cfg, steps) if on_card \
+        else {name: 0 for name in kernels.LAUNCHES}
     tokens = seq * batch
     train_shape = shapes.ShapeCfg("train", seq, batch, "train")
     step_s = float(np.median(run["step_s"][1:] or run["step_s"]))
     out.update(loss=run["loss"], grad_norm=run["grad_norm"],
-               step_ms=[1e3 * x for x in run["step_s"]],
+               aux=run["aux"], step_ms=[1e3 * x for x in run["step_s"]],
                step_ms_median=1e3 * step_s, tokens_per_step=tokens,
                tokens_per_s=tokens / step_s,
                mfu=roofline.model_flops(cfg, train_shape) / step_s
@@ -3912,34 +3982,51 @@ def check_training(cfg, dev, gen, *, steps=TRAIN_STEPS, seq=TRAIN_SEQ,
                                if on_card else None),
                save_s=run["save_s"], launches=got,
                expected_launches=want)
-    emit("training", **out)
+    emit(tag, **out)
     bad = [x for x in run["loss"] + run["grad_norm"] if not math.isfinite(x)]
     if bad:
-        raise SystemExit(f"training: non-finite loss or grad norm {bad}")
+        raise SystemExit(f"{tag}: non-finite loss or grad norm {bad}")
+    if moe_layers(cfg) and not all(0 < x < math.inf for x in run["aux"]):
+        raise SystemExit(f"{tag}: MoE aux loss not above 0 and finite: "
+                         f"{run['aux']}")
     if not run["loss"][-1] < run["loss"][0] - 0.1:
-        raise SystemExit(f"training: the loss did not fall by 0.1: "
+        raise SystemExit(f"{tag}: the loss did not fall by 0.1: "
                          f"{run['loss']}")
     if {k: got[k] for k in want} != want:
-        raise SystemExit(f"training: launches {got}; expected {want}")
+        raise SystemExit(f"{tag}: launches {got}; expected {want}")
     del run, params, opt_state
     free_cache(dev)
     return out
 
 
+def cut_layers(cfg, layers: int):
+    """``cfg`` cut to its first ``layers`` layers in the published order;
+    a hybrid's pattern is sliced with them (``n_layers`` alone trips
+    ``ModelCfg.n_repeat``'s assert)."""
+    pattern = cfg.pattern[:layers] if layers < len(cfg.pattern) \
+        else cfg.pattern
+    return dataclasses.replace(cfg, n_layers=layers, pattern=pattern)
+
+
 def restart_child(workdir: str, dev="cuda", cfg=None, seq: int = TRAIN_SEQ,
-                  batch: int = RESTART_BATCH) -> dict:
+                  batch: int = RESTART_BATCH,
+                  layers: int = RESTART_LAYERS) -> dict:
     """Phase 20c, in a process of its own (``CUBLAS_WORKSPACE_CONFIG`` set
     before cuBLAS starts, deterministic algorithms on, so an op without a
     deterministic form raises): OLMo-1B at full width cut to
     RESTART_LAYERS layers, 10 steps uninterrupted (a checkpoint every 5),
     then the same run failed at step 7 and resumed from a fresh init. The
     final params and optimizer state must be the same bits. Phase 21c
-    passes OLMo-1B with ``star_train`` as ``cfg``."""
+    passes OLMo-1B with ``star_train`` as ``cfg``; phase 23c Jamba's
+    layer 0 (Adafactor state, ``train_accum`` 8). Free disk under the
+    run's directory is read first and must hold ``RESTART_STATE_COPIES``
+    copies of the state's bytes."""
     torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev)
-    cfg = dataclasses.replace(cfg or olmo_1b.config(),
-                              n_layers=RESTART_LAYERS)
+    cfg = cfg or olmo_1b.config()
+    published = cfg.n_layers
+    cfg = cut_layers(cfg, layers)
     gen = torch.Generator(device=dev)
     root = pathlib.Path(workdir)
 
@@ -3949,7 +4036,15 @@ def restart_child(workdir: str, dev="cuda", cfg=None, seq: int = TRAIN_SEQ,
         return params, opt_init(params)
     kw = dict(steps=10, seq=seq, batch=batch, dev=dev, ckpt_every=5)
     t0 = time.perf_counter()
-    whole = train_run(cfg, *fresh(), ckpt_dir=root / "a", **kw)
+    first = fresh()
+    disk = {"free_disk_gb_before": free_disk_gb(root.parent),
+            "disk_needed_gb": RESTART_STATE_COPIES * sum(
+                t.numel() * t.element_size()
+                for _, t in sorted_items(dict(zip("po", first)))) / 1e9}
+    if disk["free_disk_gb_before"] < disk["disk_needed_gb"]:
+        raise SystemExit(f"restart ({cfg.name}): {disk} under build/")
+    whole = train_run(cfg, *first, ckpt_dir=root / "a", **kw)
+    del first
     try:
         train_run(cfg, *fresh(), ckpt_dir=root / "b", fail_at=7, **kw)
         raise SystemExit("restart: the injected failure did not fire")
@@ -3962,12 +4057,14 @@ def restart_child(workdir: str, dev="cuda", cfg=None, seq: int = TRAIN_SEQ,
         sorted_items({"params": resumed["params"], "opt": resumed["opt"]}))]
     differ = [_key_path(p) for p, a, b in pairs
               if a.shape != b.shape or not torch.equal(_bits(a), _bits(b))]
-    return {"reduced": {"n_layers": f"{RESTART_LAYERS} of 16"},
-            "star_train": star_trained(cfg),
+    return {"arch": cfg.name,
+            "reduced": {"n_layers": f"{layers} of {published}"},
+            "star_train": star_trained(cfg), "optimizer": cfg.optimizer,
+            "train_accum": cfg.train_accum,
             "seq": seq, "batch": batch, "steps": 10,
             "fail_at": 7, "resumed_from": 5, "leaves": len(pairs),
             "leaves_differ": differ, "bit_equal": not differ,
-            "loss_uninterrupted": whole["loss"],
+            **disk, "loss_uninterrupted": whole["loss"],
             "loss_resumed": resumed["loss"],
             "seconds": time.perf_counter() - t0}
 
@@ -3981,18 +4078,29 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dim() else t
 
 
+RESTART_TAGS = ("training_restart", "star_training_restart",
+                "family_training_restart")
+
+
 def restart_children(workdir: str) -> list:
-    """Phases 20c and 21c in one deterministic process (one start-up):
-    ``restart_child`` for OLMo-1B, then with ``star_train``."""
+    """Phases 20c, 21c and 23c's restart in one deterministic process (one
+    start-up): ``restart_child`` for OLMo-1B, then with ``star_train``,
+    then for Jamba-1.5-Large's layer 0 with its Adafactor state and
+    ``train_accum`` 8 (its batch 8 rows of 2048 tokens, one a
+    microbatch)."""
+    root = pathlib.Path(workdir)
     cfg = olmo_1b.config()
-    return [restart_child(str(pathlib.Path(workdir) / name), cfg=c)
+    return [restart_child(str(root / name), cfg=c)
             for name, c in (("dense", cfg), ("star", dataclasses.replace(
-                cfg, star_train=True)))]
+                cfg, star_train=True)))] + [
+        restart_child(str(root / "jamba"), cfg=jamba_1_5_large_398b.config(),
+                      layers=1, batch=TRAIN_BATCH)]
 
 
 def check_restart(dev) -> tuple:
-    """Phases 20c and 21c: ``restart_children`` in a child process; its
-    result line is the last of its output. Returns (dense, star)."""
+    """Phases 20c, 21c and 23c's restart: ``restart_children`` in a child
+    process; its result line is the last of its output. Returns (dense,
+    star, jamba)."""
     workdir = tempfile.mkdtemp(prefix="restart_", dir=BUILD_DIR)
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     try:
@@ -4005,7 +4113,7 @@ def check_restart(dev) -> tuple:
         raise SystemExit(f"restart child failed ({proc.returncode}):\n"
                          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
     runs = json.loads(proc.stdout.strip().splitlines()[-1])
-    for tag, out in zip(("training_restart", "star_training_restart"), runs):
+    for tag, out in zip(RESTART_TAGS, runs):
         emit(tag, **out)
         if not out["bit_equal"]:
             raise SystemExit(f"{tag}: resumed run differs from the "
@@ -4031,8 +4139,25 @@ def plain_sufa_train(q, k, v, idx, valid, *, scale, keeps=None, **kw):
                                 keep_bits=bits, **kw)
 
 
+@contextlib.contextmanager
+def recorded_gates(store: list):
+    """Within the block, every call of ``moe._gate`` appends its choices
+    (eidx as [rows, k]) to ``store``, in call order."""
+    real = moe._gate
+
+    def gate(x, wg, cfg):
+        top_p, eidx, aux = real(x, wg, cfg)
+        store.append(eidx.reshape(-1, eidx.shape[-1]))
+        return top_p, eidx, aux
+    moe._gate = gate
+    try:
+        yield
+    finally:
+        moe._gate = real
+
+
 def model_grads(params, cfg, batch, plain: bool, tiles=None,
-                keeps=None) -> tuple:
+                keeps=None, routes=None) -> tuple:
     """(loss, metrics, grads) of one ``lm.loss_fn`` step, with the kernels
     and their backwards, or ``plain`` with the plain versions in their
     place (``plain_flash_train``, K2's ``dlzs_block_ref``,
@@ -4041,7 +4166,12 @@ def model_grads(params, cfg, batch, plain: bool, tiles=None,
     plain run takes them from it in call order, so both compute attention
     over the tiles the kernels' selection kept; ``keeps`` (a list; the
     element mask) does the same with K3's keep bits, so both compute it
-    over the keys the kernel kept."""
+    over the keys the kernel kept. ``routes`` (a list; MoE) does the same
+    with the gate's choices, gate call by gate call (under remat the
+    recompute's calls follow the forward's, layers in reverse order): a
+    plain run routes every row as the kernel run did (``forced_routing``,
+    the gate's own probabilities of those experts), so a near-tie that two
+    roundings rank apart cannot make the two runs different functions."""
     names = ("flash", "dlzs_block_scores", "select_tiles", "sufa_attention")
     real = {name: getattr(ops, name) for name in names}
     real_forward = ksufa._forward
@@ -4067,13 +4197,28 @@ def model_grads(params, cfg, batch, plain: bool, tiles=None,
                     keeps.append(got[-1])
                 return got
             ksufa._forward = record_keep
+    gates = []
+    if routes is None:
+        routing = contextlib.nullcontext()
+    elif plain:
+        routing = forced_routing(torch.stack(routes, dim=1), len(routes),
+                                 None, [])
+    else:
+        routing = recorded_gates(routes)
     try:
-        (loss, metrics), grads = launch_steps.value_and_grad(params, cfg,
-                                                             batch)
+        with routing, (recorded_gates(gates) if plain and routes is not None
+                       else contextlib.nullcontext()):
+            (loss, metrics), grads = launch_steps.value_and_grad(
+                params, cfg, batch)
     finally:
         for name, fn in real.items():
             setattr(ops, name, fn)
         ksufa._forward = real_forward
+    if plain and routes is not None and not (
+            len(gates) == len(routes)
+            and all(torch.equal(a, b) for a, b in zip(gates, routes))):
+        raise SystemExit("training step: the plain run did not route as the "
+                         "kernel run did")
     for left in (replay, replay_keeps):
         if plain and left is not None and next(left, None) is not None:
             raise SystemExit("training step: the plain run made fewer STAR "
@@ -4082,7 +4227,7 @@ def model_grads(params, cfg, batch, plain: bool, tiles=None,
 
 
 def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
-                     batch=2, tag=None) -> dict:
+                     batch=2, tag=None, gate: bool = True) -> dict:
     """Phase 20d: one training step's loss and gradients at ``layers``
     layers, ``batch`` x ``seq`` tokens, with K4 and its backward, held
     against the same step on the plain path in fp32 (``flash_ref`` under
@@ -4094,35 +4239,55 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
     selection rounds its estimates apart and may keep other tiles, a
     different function), with the element mask also K3's keep bits
     (phase 21e; phase 21f at tiles of 16), and the recompute's selection
-    under remat must be the forward's. ``launches``: the kernel run's, its
-    one step's. ``tag`` names the phase's line."""
+    under remat must be the forward's. With MoE layers (phase 23) the
+    plain runs route as the kernel run routed (``model_grads(routes=)``).
+    A hybrid's pattern is cut with its layers (``cut_layers``). With
+    ``gate`` False (phase 23's families that launch no kernel, where the
+    kernel run is the bf16 plain run) the loss and grad norm are reported
+    against the fp32 plain step and nothing is held. On the card the bf16
+    gradients wait on the host while the fp32 step runs where the fp32
+    parameters and gradients (8 bytes a parameter) and a second bf16
+    gradient tree do not fit in the memory free beside the first
+    (Grok-1's layer; ``offload`` on the line). ``launches``: the kernel
+    run's, its one step's. ``tag`` names the phase's line."""
     star = star_trained(cfg)
     tiles = [] if star else None
     keeps = [] if star and cfg.star.elementwise else None
     tag = tag or ("star_training_step" if star else "training_step")
     reduced = {"n_layers": f"{layers} of {cfg.n_layers}"}
-    cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = cut_layers(cfg, layers)
+    routes = [] if moe_layers(cfg) else None
     params, _ = init_params(cfg, gen, dev)
     data = SyntheticLM(vocab=cfg.vocab, seq=seq, global_batch=batch).batch(0)
     bt = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    p32 = tree_map(lambda t: t.float(), params)
+    replay = dict(tiles=tiles, keeps=keeps, routes=routes)
     kernels.reset_launches()
-    loss, _, g = model_grads(params, cfg, bt, plain=False, tiles=tiles,
-                             keeps=keeps)
+    loss, metrics, g = model_grads(params, cfg, bt, plain=False, **replay)
     launches = launched()
-    loss32, _, g32 = model_grads(p32, cfg32, bt, plain=True, tiles=tiles,
-                                 keeps=keeps)
-    loss_lp, _, g_lp = model_grads(params, cfg, bt, plain=True, tiles=tiles,
-                                   keeps=keeps)
-    gn, gn32 = float(adamw.global_norm(g)), float(adamw.global_norm(g32))
-    out = {"reduced": reduced, "seq": seq, "batch": batch,
+    gn = float(adamw.global_norm(g))
+    offload = torch.device(dev).type == "cuda" and 10 * sum(
+        t.numel() for t in tree_leaves(params)) > free_card_bytes(dev)
+    park = (lambda t: t.cpu()) if offload else (lambda t: t)
+    g = tree_map(park, g)
+    if gate:
+        loss_lp, _, g_lp = model_grads(params, cfg, bt, plain=True, **replay)
+        g_lp = tree_map(park, g_lp)
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    loss32, _, g32 = model_grads(p32, cfg32, bt, plain=True, **replay)
+    del p32
+    gn32 = float(adamw.global_norm(g32))
+    out = {"arch": cfg.name, "reduced": reduced, "seq": seq,
+           "batch": batch, "optimizer": cfg.optimizer,
            "star": dataclasses.asdict(cfg.star) if star else None,
-           "launches": launches,
-           "loss": float(loss),
+           "launches": launches, "held": gate,
+           "loss": float(loss), "aux": float(metrics["aux"]),
            "loss_fp32_plain": float(loss32),
-           "loss_bf16_plain": float(loss_lp), "grad_norm": gn,
-           "grad_norm_fp32_plain": gn32}
+           "loss_bf16_plain": float(loss_lp) if gate else None,
+           "grad_norm": gn, "grad_norm_fp32_plain": gn32,
+           "gate_calls": len(routes) if routes is not None else None,
+           "offload": offload}
     out["loss_rel_err"] = abs(out["loss"] - out["loss_fp32_plain"]) / abs(
         out["loss_fp32_plain"])
     out["grad_norm_rel_err"] = abs(gn - gn32) / gn32
@@ -4149,6 +4314,11 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
             emit(tag, ok=False, **out)
             raise SystemExit(f"{tag}: the recompute kept other tiles than "
                              f"the forward")
+    if not gate:
+        emit(tag, **out)
+        del g, g32
+        free_cache(dev)
+        return out
     names = [_key_path(p) for p, _ in sorted_items(g)]
     leaves = gradient_rule(
         tag,
@@ -4162,7 +4332,7 @@ def check_model_step(cfg, dev, gen, *, layers=RESTART_LAYERS, seq=TRAIN_SEQ,
     if out["loss_rel_err"] > 2e-2 or out["grad_norm_rel_err"] > 2e-2:
         raise SystemExit(f"training step: loss or grad norm off the fp32 "
                          f"plain step by more than 2e-2: {out}")
-    del params, p32, g, g32, g_lp
+    del g, g32, g_lp
     free_cache(dev)
     return out
 
@@ -4733,6 +4903,202 @@ def check_examples(dev, train_steps: int = EXAMPLE_TRAIN_STEPS) -> dict:
     return out
 
 
+# -- phase 23: training beyond OLMo-1B ---------------------------------------
+
+FAMILY_STEPS = 12           # steps of each phase-23 training run
+FAMILY_STEP_BATCH = 2       # rows of each phase-23 one-step gradient check
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyCase:
+    """One phase-23 training run: the published config, the layers
+    trained (its first, in the published order), the batch, the sequence,
+    the base learning rate and ``reduced``, every cut with its reason.
+    Widths are never cut."""
+    cfg: object
+    layers: int
+    batch: int
+    seq: int
+    lr: float
+    reduced: dict
+
+
+XLSTM_CUT = (
+    f"{XLSTM_TRAIN_SEQ} of {TRAIN_SEQ}, to keep phase 23 within its 240 s: "
+    "on an H100 a step takes 33 s at 2048 tokens and 5-5.5 s at 512 (the "
+    "sLSTM time loop's eager ops, three passes a step under remat); the "
+    "case's 12 steps, profiled step and one-step check take about 68 s at "
+    "256 and about twice that at 512, beside about 155 s for phase 23's "
+    "other cases and Jamba's restart")
+
+
+def family_cases() -> dict:
+    """Phase 23's training runs by arch. The learning rates come from short
+    runs on the H100 (``tools/torch_family_probe.py``): at 6e-4 OLMoE's
+    loss stays flat for 12 steps and xLSTM's falls by less than 0.1; at
+    2e-3 Grok-1's and Jamba's diverge. xLSTM's sequence is cut to keep its
+    run (the sLSTM loop, and the profiler's record of every op in it)
+    within phase 23's time (``XLSTM_CUT``)."""
+    grok = grok_1_314b.config()
+    jamba = jamba_1_5_large_398b.config()
+    xl = xlstm_125m.config()
+    return {
+        "olmoe_1b_7b": FamilyCase(olmoe_1b_7b.config(), 16, TRAIN_BATCH,
+                                  TRAIN_SEQ, 2e-3, {}),
+        "grok_1_314b": FamilyCase(grok, 1, TRAIN_BATCH, TRAIN_SEQ,
+                                  TRAIN_LR, {
+            "n_layers": f"1 of {grok.n_layers}: 2 layers are 11.45 B "
+                        "parameters, 68.7 GB of bf16 params, grads and "
+                        "accumulation buffer before activations"}),
+        "jamba_1_5_large_398b": FamilyCase(jamba, 1, TRAIN_BATCH, TRAIN_SEQ,
+                                           TRAIN_LR, {
+            "n_layers": f"1 of {jamba.n_layers}, pattern[:1] (Mamba + "
+                        "dense FFN): layers 0-1 (the second Mamba + MoE) "
+                        "are 12.15 B parameters, 72.9 GB of state"}),
+        "xlstm_125m": FamilyCase(xl, xl.n_layers, TRAIN_BATCH,
+                                 XLSTM_TRAIN_SEQ, 3e-3, {"seq": XLSTM_CUT}),
+    }
+
+
+def check_family_k4(dev, shapes_: dict, timed: bool) -> dict:
+    """Phase 23's K4 shapes held by phase 20a's rule before phase 23
+    relies on them: ``shapes_`` name -> (BH, T), causal, d 128 (OLMoE's
+    16 heads x batch; Grok-1's 48 query heads x its microbatch of 1, K/V
+    expanded from 8 heads): K4's forward against its plain version, and
+    its backward (``check_flash_bwd``), the backward timed where ``timed``
+    and phase 20a has not timed the shape (OLMo-1B's BH 128, T 2048)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev) \
+        if timed else None
+    out = {}
+    for i, (name, (bh, t)) in enumerate(shapes_.items()):
+        timed_in_20a = (bh, t) == (TRAIN_BATCH * 16, TRAIN_SEQ)
+        out[name] = {
+            "forward": check_flash(dev, flush, bh=bh, t=t, causal=True,
+                                   seed=2301 + 2 * i, timed=False),
+            "backward": check_flash_bwd(dev, flush, bh=bh, t=t, causal=True,
+                                        seed=2302 + 2 * i,
+                                        timed=timed and not timed_in_20a)}
+    del flush
+    free_cache(dev)
+    return out
+
+
+def state_gb(params, opt_state, cfg) -> dict:
+    """The training state's reckoning in GB: bf16 params, a step's
+    gradients (the same bytes), the optimizer's state and, with
+    ``train_accum`` > 1, the accumulation buffer (``cfg.accum_dtype``)."""
+    nb = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
+                          for _, t in sorted_items(tree)) / 1e9
+    out = {"params": nb(params), "grads": nb(params),
+           "optimizer": nb(opt_state)}
+    if cfg.train_accum > 1:
+        out["accum_buffer"] = sum(
+            t.numel() for t in tree_leaves(params)) * torch.tensor(
+            [], dtype=cfg.accum_dtype).element_size() / 1e9
+    out["total"] = sum(out.values())
+    return out
+
+
+def check_remat_policies(dev, gen, *, cfg=None, layers=RESTART_LAYERS,
+                         seq=TRAIN_SEQ, batch=FAMILY_STEP_BATCH) -> dict:
+    """Phase 23e: OLMo-1B at published width cut to ``layers`` layers, one
+    step's loss and gradients (``launch.steps.value_and_grad``) under
+    ``remat`` none and dots, each the same bits as under full
+    (``tests/test_torch_train_smoke.py::test_remat_policies_give_equal_grads``
+    on the CPU). K4 launches once per layer under none (no recompute),
+    twice under full and dots (the selective policy saves only
+    unbatched matmuls); its backward once per layer. ``cfg``: OLMo-1B
+    unless given."""
+    on_card = torch.device(dev).type == "cuda"
+    cfg = cfg or olmo_1b.config()
+    published = cfg.n_layers
+    cfg = cut_layers(cfg, layers)
+    params, _ = init_params(cfg, gen, dev)
+    data = SyntheticLM(vocab=cfg.vocab, seq=seq, global_batch=batch).batch(0)
+    bt = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    runs, out = {}, {"arch": cfg.name, "seq": seq, "batch": batch,
+                     "reduced": {"n_layers": f"{layers} of {published}"}}
+    for remat in ("full", "none", "dots"):
+        kernels.reset_launches()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        (loss, _), g = launch_steps.value_and_grad(
+            params, dataclasses.replace(cfg, remat=remat), bt)
+        sync(dev)
+        got = launched()
+        want = {k: v * on_card for k, v in training_launches(
+            dataclasses.replace(cfg, remat=remat), 1).items()}
+        runs[remat] = (loss, g)
+        out[remat] = {"loss": float(loss), "seconds": time.perf_counter() - t0,
+                      "peak_memory_gb": (torch.cuda.max_memory_allocated(dev)
+                                         / 1e9 if on_card else None),
+                      "launches": {k: got[k] for k in want},
+                      "expected_launches": want}
+        if remat != "full":
+            loss0, g0 = runs["full"]
+            out[remat]["loss_bit_equal"] = torch.equal(loss, loss0)
+            out[remat]["leaves_differ"] = [
+                _key_path(p) for (p, a), (_, b) in zip(sorted_items(g),
+                                                       sorted_items(g0))
+                if not torch.equal(_bits(a), _bits(b))]
+            out[remat]["leaves"] = len(tree_leaves(g))
+    emit("remat_policies", **out)
+    for remat in ("none", "dots"):
+        case = out[remat]
+        if not case["loss_bit_equal"] or case["leaves_differ"]:
+            raise SystemExit(f"remat {remat}: loss or gradients differ from "
+                             f"remat full's at {case['leaves_differ']}")
+    for remat in runs:
+        if out[remat]["launches"] != out[remat]["expected_launches"]:
+            raise SystemExit(f"remat {remat}: launches {out[remat]}")
+    del runs, params
+    free_cache(dev)
+    return out
+
+
+def check_family_training(dev, gen, *, cases=None, steps=FAMILY_STEPS,
+                          step_seq=TRAIN_SEQ, remat_cfg=None) -> dict:
+    """Phase 23 (see the module docstring): K4 at the new training shapes
+    (``check_family_k4``, timed where phase 20a has not timed the shape),
+    then each of ``cases`` (``family_cases()``: OLMoE-1B-7B, Grok-1's
+    layer, Jamba's layer 0, xLSTM-125M) trained ``steps`` steps by
+    ``check_training`` with its config's optimizer, ``train_accum`` and
+    ``remat``, and its one-step gradients by phase 20d's rule
+    (``check_model_step``: an MoE model at 2 layers or fewer, Grok-1's
+    with the bf16 gradients parked on the host, routed as the kernel run
+    routed; a model that launches no kernel, Jamba's layer 0 and xLSTM,
+    only reported, at ``step_seq`` tokens or fewer); then 23e, the remat
+    policies (``check_remat_policies`` on ``remat_cfg``, OLMo-1B unless
+    given). Jamba's restart runs in phase 20c's child
+    (``restart_children``)."""
+    on_card = torch.device(dev).type == "cuda"
+    cases = cases or family_cases()
+    k4_shapes = {}
+    for name, case in cases.items():
+        if attn_layers(cut_layers(case.cfg, case.layers)):
+            k4_shapes[name] = (case.batch // case.cfg.train_accum
+                               * case.cfg.n_heads, case.seq)
+    out = {"k4": check_family_k4(dev, k4_shapes, timed=on_card)}
+    for name, case in cases.items():
+        t0 = time.perf_counter()
+        cut = cut_layers(case.cfg, case.layers)
+        train = check_training(cut, dev, gen, steps=steps, seq=case.seq,
+                               batch=case.batch, lr=case.lr, save=False,
+                               tag="family_training", reduced=case.reduced)
+        step = check_model_step(
+            case.cfg, dev, gen, layers=min(case.layers, 2)
+            if moe_layers(cut) else case.layers,
+            seq=min(case.seq, step_seq), batch=FAMILY_STEP_BATCH,
+            tag="family_training_step", gate=bool(attn_layers(cut)))
+        out[name] = {"train": train, "step": step,
+                     "seconds": time.perf_counter() - t0}
+        emit("family_case", arch=name, seconds=out[name]["seconds"])
+    out["remat"] = check_remat_policies(dev, gen, cfg=remat_cfg,
+                                        seq=step_seq)
+    return out
+
+
 def demangle(mangled: str) -> str:
     """``name<args>`` of a kernel template instantiation whose arguments
     are ints and bools (``...19paged_scores_kernelILi64ELi1ELb1EEEv...`` ->
@@ -4769,7 +5135,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--restart-child"]:  # phases 20c and 21c
+    if sys.argv[1:2] == ["--restart-child"]:  # phases 20c, 21c, 23c
         print(json.dumps(restart_children(sys.argv[2])), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5007,7 +5373,7 @@ def main() -> int:
     bwd = check_flash_bwd_shapes(dev,
                                  ptxas_report(built["flash_bwd"]["log"]))
     train = check_training(olmo_1b.config(), dev, gen)
-    restart, star_restart = check_restart(dev)
+    restart, star_restart, family_restart = check_restart(dev)
     check_model_step(olmo_1b.config(), dev, gen)
 
     # 21. STAR in training: K3's lse and backward against their plain
@@ -5035,6 +5401,12 @@ def main() -> int:
 
     # 22. the example twins on the card, their launches counted
     ex = check_examples(dev)
+
+    # 23. training beyond OLMo-1B: K4 at the new training shapes, then
+    # OLMoE-1B-7B, Grok-1's layer, Jamba's layer 0 and xLSTM-125M trained
+    # with their own optimizers and accumulation, their one-step
+    # gradients, and the remat policies; Jamba's restart ran in 20c's child
+    fam = check_family_training(dev, gen)
 
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
@@ -5073,6 +5445,11 @@ def main() -> int:
     def example(name, kernel):
         """Phase 22's launches of ``kernel`` in one example twin."""
         return ex[name]["launches"].get(kernel, 0)
+
+    def family(kernel):
+        """Phase 23's launches of ``kernel`` in each training run."""
+        return {name: fam[name]["train"]["launches"][kernel]
+                for name in family_cases()}
 
     def timed(case):
         return {key: case[key] for key in (
@@ -5157,6 +5534,10 @@ def main() -> int:
              forward_train=dict(timed(bwd["forward_train"]),
                                 launches_per_step=train["launches"][
                                     "flash"] // train["steps"]),
+             launches_family_training=family("flash"),
+             max_abs_err_family_training={
+                 name: case["forward"]["max_abs_err"]
+                 for name, case in fam["k4"].items()},
              **bh64("flash")),
         # K1 at ChatGLM3-6B's group (R = 16): phase 10a's served path;
         # its int8 form timed beside it (no served path reads the tier
@@ -5284,7 +5665,25 @@ def main() -> int:
              causal_d64=dict(timed(bwd["causal_d64"]),
                              tflop_s_10d=bwd["causal_d64"]["tflop_s_10d"]),
              launches_train_example=example("train_star_lm", "flash_bwd"),
-             restart_bit_equal=restart["bit_equal"]),
+             restart_bit_equal=restart["bit_equal"],
+             launches_family_training=family("flash_bwd"),
+             family_training={
+                 name: {"BH": case["backward"]["BH"],
+                        "max_abs_err_by_grad": {
+                            n: case["backward"][f"max_abs_err_{n}"]
+                            for n in ("dq", "dk", "dv")},
+                        "bf16_plain_err_by_grad": {
+                            n: case["backward"][f"bf16_plain_err_{n}"]
+                            for n in ("dq", "dk", "dv")},
+                        **{key: case["backward"].get(key) for key in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "tflop_s_10d")}}
+                 for name, case in fam["k4"].items()},
+             launches_remat_policies={
+                 remat: {k: fam["remat"][remat]["launches"][k]
+                         for k in ("flash", "flash_bwd")}
+                 for remat in ("full", "none", "dots")},
+             adafactor_restart_bit_equal=family_restart["bit_equal"]),
         # phase 21: K3's backward (STAR in training has no TPU kernel: the
         # reference differentiates core.sufa.sufa_gathered through XLA;
         # this is the gradient of K3's function) at OLMo-1B's training

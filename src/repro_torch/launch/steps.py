@@ -93,7 +93,9 @@ def make_train_step(cfg: ModelCfg, opt_cfg=None, *, lr: float | None = None,
                     a.add_(b.to(cfg.accum_dtype))
                 loss = loss + l
                 ms.append(m)
-            grads = tree_map(lambda a: a / accum, grads)
+                del g       # one microbatch's gradients live at a time
+            for _, a in tree_items(grads):
+                a.div_(accum)
             loss = loss / accum
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}

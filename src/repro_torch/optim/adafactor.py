@@ -7,6 +7,13 @@ reference's, in fp32, written back in place. Where the reference updates
 a large layer-stacked factored leaf one layer at a time (more than 2^24
 elements, three or more dims), its update-RMS clipping is taken per
 layer; the port takes the same slices, so the two compute one function.
+Where a slice (or a leaf of one slice, which the reference updates whole)
+is itself above 2^24 elements and holds several [a, b] blocks (Grok-1's
+[16, 6144, 16384] experts of a layer), the port updates it in two passes
+over the blocks, first the update's sum of squares, then the update, so
+that one block's fp32 temporaries are live at a time instead of the
+slice's (about 32 GB there). The function is the slice's; its sum of
+squares is summed in another order.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ class AdafactorConfig:
     clip_threshold: float = 1.0   # update RMS clipping
     weight_decay: float = 0.0
     min_dim_factored: int = 128   # don't factor tiny trailing dims
+
+
+SLICE_ELEMENTS = 1 << 24     # the reference's threshold for sliced leaves
 
 
 def _factored(p, cfg: AdafactorConfig) -> bool:
@@ -50,26 +60,60 @@ def adafactor_init(params, cfg: AdafactorConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _update(slot: dict, p, g, beta2, lr, cfg: AdafactorConfig) -> None:
-    """One leaf (or one layer of it), in place."""
-    g32 = g.float()
+def _vhat(slot: dict, g32, beta2, cfg: AdafactorConfig):
+    """The second-moment estimate of ``g32`` after this step, its state
+    written into ``slot``."""
     sq = g32.square() + cfg.eps
     if "r" in slot:
         r = beta2 * slot["r"] + (1 - beta2) * sq.mean(dim=-1)
         c = beta2 * slot["c"] + (1 - beta2) * sq.mean(dim=-2)
-        # vhat ≈ r cᵀ / mean(r)
-        denom = torch.clamp(r.mean(dim=-1, keepdim=True), min=cfg.eps)
-        vhat = (r / denom)[..., None] * c[..., None, :]
         slot["r"].copy_(r)
         slot["c"].copy_(c)
-    else:
-        vhat = beta2 * slot["v"] + (1 - beta2) * sq
-        slot["v"].copy_(vhat)
-    u = g32 * torch.rsqrt(vhat + cfg.eps)
-    rms = torch.sqrt(u.square().mean() + 1e-30)     # update RMS clipping
-    u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
+        return _factored_vhat(r, c, cfg)
+    vhat = beta2 * slot["v"] + (1 - beta2) * sq
+    slot["v"].copy_(vhat)
+    return vhat
+
+
+def _factored_vhat(r, c, cfg: AdafactorConfig):
+    # vhat ≈ r cᵀ / mean(r)
+    denom = torch.clamp(r.mean(dim=-1, keepdim=True), min=cfg.eps)
+    return (r / denom)[..., None] * c[..., None, :]
+
+
+def _apply(p, u, lr, cfg: AdafactorConfig) -> None:
     p32 = p.float()
     p.copy_(p32 - lr * (u + cfg.weight_decay * p32))
+
+
+def _update(slot: dict, p, g, beta2, lr, cfg: AdafactorConfig) -> None:
+    """One leaf (or one layer of it), in place."""
+    g32 = g.float()
+    u = g32 * torch.rsqrt(_vhat(slot, g32, beta2, cfg) + cfg.eps)
+    rms = torch.sqrt(u.square().mean() + 1e-30)     # update RMS clipping
+    _apply(p, u / torch.clamp(rms / cfg.clip_threshold, min=1.0), lr, cfg)
+
+
+def _update_blocks(slot: dict, p, g, beta2, lr, cfg: AdafactorConfig
+                   ) -> None:
+    """``_update`` of a factored leaf [..., a, b] in two passes over its
+    [a, b] blocks (the factors are per block): each block's factors, and
+    the update's sum of squares; then each block's update, recomputed
+    from the new factors, under the whole leaf's RMS clipping."""
+    a, b = p.shape[-2:]
+    ps, gs = p.view(-1, a, b), g.reshape(-1, a, b)
+    rs, cs = slot["r"].view(-1, a), slot["c"].view(-1, b)
+    total = torch.zeros((), dtype=torch.float32, device=p.device)
+    for i in range(ps.shape[0]):
+        g32 = gs[i].float()
+        vhat = _vhat({"r": rs[i], "c": cs[i]}, g32, beta2, cfg)
+        total = total + (g32 * torch.rsqrt(vhat + cfg.eps)).square().sum()
+    rms = torch.sqrt(total / p.numel() + 1e-30)
+    clip = torch.clamp(rms / cfg.clip_threshold, min=1.0)
+    for i in range(ps.shape[0]):
+        g32 = gs[i].float()
+        u = g32 * torch.rsqrt(_factored_vhat(rs[i], cs[i], cfg) + cfg.eps)
+        _apply(ps[i], u / clip, lr, cfg)
 
 
 def adafactor_update(params, grads, state, cfg: AdafactorConfig,
@@ -87,13 +131,16 @@ def adafactor_update(params, grads, state, cfg: AdafactorConfig,
     with torch.no_grad():
         for path, p in sorted_items(params):
             slot, g = slots[path], g_items[path]
-            if p.numel() > (1 << 24) and p.dim() >= 3 and p.shape[0] > 1 \
-                    and "r" in slot:
-                for i in range(p.shape[0]):     # the reference's slices
-                    _update({"r": slot["r"][i], "c": slot["c"][i]}, p[i],
-                            g[i], beta2, lr, cfg)
-            else:
+            if not (p.numel() > SLICE_ELEMENTS and p.dim() >= 3
+                    and "r" in slot):
                 _update(slot, p, g, beta2, lr, cfg)
+                continue
+            for i in range(p.shape[0]):         # the reference's slices
+                blocked = p[i].numel() > SLICE_ELEMENTS \
+                    and p.shape[1:-2].numel() > 1
+                (_update_blocks if blocked else _update)(
+                    {"r": slot["r"][i], "c": slot["c"][i]}, p[i], g[i],
+                    beta2, lr, cfg)
     state["step"] = step
     return params, state, gn
 

@@ -35,12 +35,38 @@ def ranged(targets: dict):
             setattr(mod, attr, fn)
 
 
+def _events(prof) -> list:
+    """(device type, start, end, name) of every event of a finished
+    profile (us from the trace's start), read once from its Kineto results
+    and kept on ``prof``. ``prof.events()`` would first build torch's tree
+    of every host op, which takes minutes for a step of hundreds of
+    thousands of ops (an eager time loop's); this read is a pass over
+    them."""
+    if not hasattr(prof, "_raw_events"):
+        res = prof.profiler.kineto_results
+        t0 = res.trace_start_ns()
+        prof._raw_events = [(e.device_type(), (e.start_ns() - t0) / 1e3,
+                             (e.end_ns() - t0) / 1e3, e.name())
+                            for e in res.events()]
+    return prof._raw_events
+
+
 def device_events(prof) -> list:
     """(start, end, name) of every event on the device timeline (us): the
     kernels, and the spans the profiler records there for each range."""
     from torch.autograd import DeviceType
-    return [(e.time_range.start, e.time_range.end, e.name)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(a, b, name) for kind, a, b, name in _events(prof)
+            if kind == DeviceType.CUDA]
+
+
+def host_counts(prof, names) -> dict:
+    """How many host-side spans of each of ``names`` the profile holds."""
+    from torch.autograd import DeviceType
+    out = dict.fromkeys(sorted(names), 0)
+    for kind, _, _, name in _events(prof):
+        if kind == DeviceType.CPU and name in out:
+            out[name] += 1
+    return out
 
 
 def device_kernels(prof, ranges) -> tuple[float, float, list]:

@@ -13,6 +13,7 @@ rounding noise flips their signs.
 """
 
 import dataclasses
+import functools
 import json
 
 import jax
@@ -473,3 +474,79 @@ def test_chip_smoke_training_phases_rehearse_on_cpu(monkeypatch, tmp_path):
     assert set(step["leaves"]) == {
         "/".join(p) for p, _ in sorted_items(cs.lm.init(
             cfg, torch.Generator().manual_seed(0), "cpu"))}
+
+
+def test_chip_smoke_family_training_phases_rehearse_on_cpu(monkeypatch,
+                                                           tmp_path):
+    """Phase 23 on the CPU at smoke size: K4's new shapes by 20a's rule
+    (the plain forms), then OLMoE (AdamW), Grok-1 and Jamba's layer 0
+    (Adafactor, ``train_accum`` 8, Jamba's pattern cut with its layer) and
+    xLSTM trained by ``check_training``: the loss falls, MoE aux > 0,
+    every kernel count 0 off the card, the optimizer's profiler range
+    seen once in the profiled step whichever optimizer runs; their
+    one-step gradients (the MoE ones routed as the kernel run routed, at
+    2 layers or fewer); the remat policies bit-equal; the launch formula
+    with accumulation and without remat; and 23c's restart with Adafactor
+    state bit-equal."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    import chip_smoke as cs
+    from repro_torch.configs import get_smoke_config as tsmoke
+    monkeypatch.setattr(cs, "BUILD_DIR", tmp_path)
+    ada = dict(optimizer="adafactor", train_accum=8)
+    jamba = dataclasses.replace(tsmoke("jamba_1_5_large_398b"), **ada)
+    case = functools.partial(cs.FamilyCase, seq=32, lr=1e-2)
+    cases = {
+        "olmoe_1b_7b": case(tsmoke("olmoe_1b_7b"), 2, 4, reduced={}),
+        "grok_1_314b": case(dataclasses.replace(tsmoke("grok_1_314b"), **ada),
+                            1, 8, reduced={"n_layers": "1 of 2"}),
+        "jamba_1_5_large_398b": case(jamba, 1, 8,
+                                     reduced={"n_layers": "1 of 8"}),
+        "xlstm_125m": case(tsmoke("xlstm_125m"), 2, 4, reduced={})}
+    gen = torch.Generator().manual_seed(0)
+    out = cs.check_family_training("cpu", gen, cases=cases, steps=25,
+                                   step_seq=32, remat_cfg=tsmoke("olmo_1b"))
+    assert set(out["k4"]) == {"olmoe_1b_7b", "grok_1_314b"}
+    assert out["k4"]["grok_1_314b"]["backward"]["BH"] == 4   # 1 row x 4
+    for name, c in cases.items():
+        cfg, layers = c.cfg, c.layers
+        train = out[name]["train"]
+        assert train["loss"][-1] < train["loss"][0] - 0.1, name
+        assert train["layers"] == layers and train["reduced"] == c.reduced
+        assert train["optimizer"] == cfg.optimizer
+        assert set(train["launches"].values()) == {0}
+        assert train["profiled_step"]["ranges_seen"] == {"optimizer": 1}
+        moe = cs.moe_layers(cs.cut_layers(cfg, layers))
+        assert all(a > 0 for a in train["aux"]) == bool(moe), name
+        assert ("accum_buffer" in train["state_gb"]) == (
+            cfg.train_accum > 1)
+        step = out[name]["step"]
+        assert step["held"] == bool(cs.attn_layers(cs.cut_layers(cfg,
+                                                                 layers)))
+        assert step["loss_rel_err"] < 2e-2
+        assert (step["gate_calls"] or 0) == 2 * moe   # forward, recompute
+        assert step["offload"] is False     # the host holds no card memory
+    assert out["jamba_1_5_large_398b"]["step"]["reduced"] == {
+        "n_layers": "1 of 8"}
+    for remat in ("none", "dots"):
+        assert out["remat"][remat]["loss_bit_equal"]
+        assert out["remat"][remat]["leaves_differ"] == []
+    grok = cs.cut_layers(cs.grok_1_314b.config(), 1)
+    want = cs.training_launches(grok, 10)
+    assert want["flash"] == 10 * 8 * 2 and want["flash_bwd"] == 10 * 8
+    assert cs.training_launches(dataclasses.replace(grok, remat="none"),
+                                1)["flash"] == 8
+    try:
+        restart = cs.restart_child(str(tmp_path / "r"), "cpu", jamba,
+                                   seq=32, batch=8, layers=1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert restart["bit_equal"] and restart["leaves"] > 0
+    assert restart["optimizer"] == "adafactor"
+    assert restart["loss_resumed"] == restart["loss_uninterrupted"][5:]
+    state = cs.init_params(cs.cut_layers(jamba, 1), gen, "cpu")[0]
+    opt = cs.launch_steps.make_optimizer(jamba, 1e-3)[1](state)
+    assert restart["disk_needed_gb"] == cs.RESTART_STATE_COPIES * sum(
+        t.numel() * t.element_size()
+        for _, t in sorted_items({"p": state, "o": opt})) / 1e9

@@ -11,7 +11,11 @@ warmup 5, a schedule of 20 steps). Then the 20th batch's gradient is
 taken four ways on the same params (``chip_smoke.model_grads``): the
 kernels; the plain versions in bf16 on the kernel run's tiles; the plain
 versions in fp32 (fp32 copies of the params) on the same tiles; and
-dense attention through K4 (``star=None``). One JSON line per path: its
+dense attention through K4 (``star=None``); and the plain versions on
+the kernel run's tiles with layers 0 and 1 computed in fp32 and the rest
+in bf16 (``fp32_first_layers``: their weights cast to fp32, the residual
+stream fp32 from the embedding through layer 1's output, cast to bf16
+there). One JSON line per path: its
 loss, its global grad norm, each leaf's norm, the residual stream's
 gradient norm at each layer's input and at the final norm's input, the
 embedding's gradient summed in fp32 from the same rows, and the final
@@ -21,6 +25,7 @@ spread and mean; the same rows in every path).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -37,6 +42,42 @@ from repro_torch.models import lm  # noqa: E402
 
 STEPS = 19
 TOP_ROWS = 4
+FP32_LAYERS = 2
+
+
+@contextlib.contextmanager
+def fp32_first_layers(n: int):
+    """Within the block, the training stack computes its layers below
+    ``n`` in fp32 (``lm._block_apply`` on fp32 casts of the layer's
+    weights and input; the casts are differentiable, so each weight's
+    gradient is rounded to bf16 once, at its leaf) and hands layer
+    ``n - 1``'s output on in the model's dtype. A layer is known by its
+    weights: ``lm._unbind_layers``' per-layer views, recorded as made."""
+    real_block, real_unbind = lm._block_apply, lm._unbind_layers
+    layer_of = {}
+
+    def unbind(tree, count):
+        out = real_unbind(tree, count)
+        for i, sub in enumerate(out):
+            for leaf in (cs.tree_leaves(sub) if isinstance(sub, dict)
+                         else [sub]):
+                layer_of[id(leaf)] = i
+        return out
+
+    def block(params, cfg, blk, x, positions, **kw):
+        i = layer_of[id(cs.tree_leaves(params)[0])]
+        if i >= n:
+            return real_block(params, cfg, blk, x, positions, **kw)
+        y, cache, aux = real_block(
+            cs.tree_map(lambda t: t.float(), params),
+            dataclasses.replace(cfg, dtype=torch.float32), blk, x.float(),
+            positions, **kw)
+        return (y.to(cfg.dtype) if i == n - 1 else y), cache, aux
+    lm._block_apply, lm._unbind_layers = block, unbind
+    try:
+        yield
+    finally:
+        lm._block_apply, lm._unbind_layers = real_block, real_unbind
 
 
 def traced_grads(params, cfg, batch, **kw) -> tuple:
@@ -124,13 +165,16 @@ def main() -> int:
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     p32 = cs.tree_map(lambda t: t.float(), params)
     rows = None
-    for name, p, c, kw in (
-            ("kernels", params, cfg, {"plain": False, "tiles": tiles}),
-            ("plain_bf16", params, cfg, {"plain": True, "tiles": tiles}),
-            ("plain_fp32", p32, cfg32, {"plain": True, "tiles": tiles}),
-            ("dense_k4", params, dataclasses.replace(cfg, star=None),
-             {"plain": False})):
-        loss, g, rec = traced_grads(p, c, bt, **kw)
+    for name, p, c, first32, kw in (
+            ("kernels", params, cfg, 0, {"plain": False, "tiles": tiles}),
+            ("plain_bf16", params, cfg, 0, {"plain": True, "tiles": tiles}),
+            ("plain_fp32", p32, cfg32, 0, {"plain": True, "tiles": tiles}),
+            ("dense_k4", params, dataclasses.replace(cfg, star=None), 0,
+             {"plain": False}),
+            ("plain_bf16_layers01_fp32", params, cfg, FP32_LAYERS,
+             {"plain": True, "tiles": tiles})):
+        with fp32_first_layers(first32):
+            loss, g, rec = traced_grads(p, c, bt, **kw)
         line, rows = summary(name, loss, g, rec, bt["tokens"], rows)
         print(json.dumps(line), flush=True)
         del g, rec
