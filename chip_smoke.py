@@ -343,6 +343,21 @@ Phases, each printing its numbers on a line of its own:
    others). 20c's child also resumes Jamba's layer 0 with its Adafactor
    state (8 x 2048 tokens) bit-equal to an uninterrupted run. Each cut
    is on its line's ``reduced`` with its reason.
+24. Nemotron-4-340B (head_dim 192, 96 heads over 8 KV heads: GQA group
+   12): (a) every kernel of its path at its shapes against its plain
+   version, two calls bit-equal, timed beside its bound, its plain
+   version and one PyTorch call: K1 at (192, 12) in its four lanes (fp
+   and int8, normalised and the (m, l, o) form over 4 shards) at B 1, G
+   8, W covering the 2064-token sequence; K2, K3 (strict and fast, with
+   and without the element mask) and K4 at BH 96, T = S = 2048, d 192,
+   the mma.sync forms also at tiles of 16 and 64 and K4 also at the
+   ragged T = S = 2064; (b) its published widths (d_model 18432, d_ff
+   73728, vocab 256000) with its depth cut to 4 of 96 layers, one
+   2048-token prompt served whole through the paged engine with STAR
+   on: K1 = ticks x 4 (R = 12), K2 = K3 = prefill calls x 4, the first
+   token against a cache-free STAR forward; (c) the same request with
+   ``star=None``, every token held by phase 4's rule against a K4
+   forward; the card's peak memory.
 Phase 4 also counts K4: oracle forwards x attention layers launches (an
 encoder-decoder forward's: its encoder, self- and cross-attention
 layers).
@@ -380,8 +395,9 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import (chatglm3_6b, grok_1_314b,  # noqa: E402
                                  internvl2_26b, jamba_1_5_large_398b,
-                                 olmo_1b, olmoe_1b_7b, seamless_m4t_large_v2,
-                                 star_paper, starcoder2_15b, xlstm_125m)
+                                 nemotron_4_340b, olmo_1b, olmoe_1b_7b,
+                                 seamless_m4t_large_v2, star_paper,
+                                 starcoder2_15b, xlstm_125m)
 from repro_torch.core import sads  # noqa: E402
 core_star = importlib.import_module("repro_torch.core.star_attention")
 from repro_torch.kernels import build, launch, ops  # noqa: E402
@@ -1541,14 +1557,18 @@ def check_flash(dev, flush, *, bh, t, causal, seed, timed, d=128,
                 s=None) -> dict:
     """K4 over T queries and S keys (S = T unless given: a decoder's
     cross-attention has T != S, unmasked, and S need not be a whole
-    tile)."""
+    tile); two calls bit-equal."""
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
     s = s or t
     if s != t:
         _, k, v = prefill_inputs(bh, s, d, seed + 1, dev)
     kernel = lambda: kflash.flash_attention(q, k, v, causal=causal)  # noqa
     plain = lambda: kref.flash_ref(q, k, v, causal=causal)  # noqa: E731
-    out = held("prefill_kernel", kernel(), plain(), PREFILL_TOL["flash"],
+    got = kernel()
+    if not torch.equal(got, kernel()):
+        raise SystemExit(f"flash T={t} S={s} d={d}: two calls on the same "
+                         f"inputs gave different bits")
+    out = held("prefill_kernel", got, plain(), PREFILL_TOL["flash"],
                kernel="flash", BH=bh, T=t, S=s, d=d, causal=causal)
     if timed:
         add_times(out, kernel, plain,
@@ -2529,15 +2549,21 @@ def free_cache(device) -> None:
 
 def check_cut_config(name: str, cfg, dev, gen, *, layers=CUT_LAYERS,
                      prompt_len=CUT_PROMPT, max_tokens=GLM_MAX_TOKENS,
-                     elementwise_too: bool = False) -> dict:
+                     elementwise_too: bool = False,
+                     exact_too: bool = False) -> dict:
     """Phase 12: a config at its published widths with its depth cut to
     CUT_LAYERS, one CUT_PROMPT-token prompt served whole through the paged
     engine with STAR on: K1 and K2/K3 launch counts, the first token
     against a cache-free STAR forward. With ``elementwise_too`` the same
-    again under ``STARConfig(elementwise=True)`` (K3's element mask)."""
+    again under ``STARConfig(elementwise=True)`` (K3's element mask); with
+    ``exact_too`` (phase 24) the same request with ``star=None``, every
+    token held by phase 4's rule against a K4 forward. The peak of the
+    card's memory over the phase is in ``info``."""
     published = cfg.n_layers
     cfg = dataclasses.replace(cfg, n_layers=layers)
+    reset_peak_memory(dev)
     params, info = init_params(cfg, gen, dev)
+    info["peak_gb_after_init"] = peak_memory_gb(dev)
     prompts = make_prompts(cfg, (prompt_len,), SEED + 6)
     out = {}
     variants = [("star", cfg)]
@@ -2559,9 +2585,35 @@ def check_cut_config(name: str, cfg, dev, gen, *, layers=CUT_LAYERS,
         require_launches(summary, f"{name} {key}")
         require_prefill_launches(summary, f"{name} {key}")
         out[key] = summary
+    if exact_too:
+        warm_prefill(params, dataclasses.replace(cfg, star=None), prompt_len)
+        run, exact, _ = serve_exact(cfg, params, prompts, max_tokens, dev,
+                                    gen, record=False)
+        require_launches(exact, f"{name} star=None")
+        require_prefill_launches(exact, f"{name} star=None")
+        exact.update(check_exact(params, cfg, prompts, run["done"]))
+        emit("cut_config", config=name, attention="dense", layers=layers,
+             reduced=f"n_layers {layers} of {published}",
+             group=cfg.n_heads // cfg.n_kv, **info, **exact)
+        require_k4(exact, f"{name} exactness")
+        out["exact"] = exact
+    out["info"] = dict(info, peak_gb=peak_memory_gb(dev))
     del params
     free_cache(dev)
     return out
+
+
+def reset_peak_memory(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def peak_memory_gb(device):
+    """The card's peak allocation since the last reset, in GB; None off
+    the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e9
 
 
 # -- phase 13: the spatial (sequence-sharded) engine --------------------------
@@ -5099,6 +5151,102 @@ def check_family_training(dev, gen, *, cases=None, steps=FAMILY_STEPS,
     return out
 
 
+# -- phase 24: Nemotron-4-340B, head_dim 192 -----------------------------------
+
+NEMOTRON_LAYERS = 4         # of 96: 23.25 B parameters, 46.5 GB in bf16
+NEMOTRON_PROMPT = 2048
+NEMOTRON_MAX_TOKENS = 16
+
+
+def check_head_dim_192_kernels(dev, *, bh: int = 96, t: int = NEMOTRON_PROMPT,
+                               probe_t: int = 1024,
+                               kv: int = NEMOTRON_PROMPT + NEMOTRON_MAX_TOKENS,
+                               seed: int = 240) -> dict:
+    """Phase 24a: every kernel of Nemotron-4-340B's path at its shapes,
+    against its plain version on the card with two calls bit-equal, and
+    timed there beside its bound, its plain version's time and one PyTorch
+    call's: K1 at (192, 12) in its four lanes (fp and int8, normalised and
+    the (m, l, o) form over 4 shards) at B 1, G 8, W covering a ``kv``-row
+    sequence; K2, K3 (strict and fast; the element mask in both forms)
+    and K4 at BH ``bh`` (96 heads, K/V expanded from 8), T = S = ``t``,
+    d 192; the mma.sync forms also at the pool probe's tiles of 16 and at
+    tiles of 64 (T ``probe_t``), K4 also at the ragged T = S = ``kv`` of
+    the exactness oracle's forward."""
+    on_card = torch.device(dev).type == "cuda"
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev) \
+        if on_card else None
+    d = 192
+    w = -(-kv // 16) + 1
+    out = {"k1": {form: check(dev, f"nemotron_decode_{form}", b=1, g=8,
+                              r=12, d=d, page=16, w=w, p=w + 128,
+                              kv_len=(kv,), seed=seed, timed=on_card)
+                  for form, check in (("fp", check_paged_kernel),
+                                      ("int8", check_paged_int8))}}
+    sw = -(-w // SPATIAL_SHARDS)
+    out["k1_stats"] = {lane: check_paged_stats(
+        dev, f"spatial_nemotron_{lane}", SPATIAL_SHARDS, b=1, g=8, r=12,
+        d=d, page=16, w=sw, p=sw + 8, kv_len=(kv,), seed=seed + 1,
+        timed=on_card, quant=lane == "int8") for lane in ("fp", "int8")}
+    out["dlzs_block"] = check_dlzs(dev, flush, bh=bh, t=t, block=128,
+                                   causal=True, seed=seed + 2,
+                                   timed=on_card, d=d)
+    check_dlzs(dev, flush, bh=bh, t=16, block=16, causal=True,
+               seed=seed + 3, timed=False, d=d)
+    check_dlzs(dev, flush, bh=bh, t=probe_t, block=64, causal=True,
+               seed=seed + 4, timed=False, d=d)
+    for strict in (True, False):
+        name = "sufa" if strict else "sufa_fast"
+        out[name] = check_sufa(dev, flush, bh=bh, t=t, block=128,
+                               strict=strict, seed=seed + 5, timed=on_card,
+                               d=d)
+        out[f"{name}_elementwise"] = check_sufa(
+            dev, flush, bh=bh, t=t, block=128, strict=strict, seed=seed + 6,
+            timed=on_card, d=d, elementwise=True)
+        check_sufa(dev, flush, bh=bh, t=16, block=16, strict=strict,
+                   seed=seed + 7, timed=False, d=d)
+        out[f"{name}_mma_sync"] = check_sufa(
+            dev, flush, bh=bh, t=probe_t, block=64, strict=strict,
+            seed=seed + 8, timed=on_card and strict, d=d)
+        out[f"{name}_elementwise_mma_sync"] = check_sufa(
+            dev, flush, bh=bh, t=probe_t, block=64, strict=strict,
+            seed=seed + 9, timed=False, d=d, elementwise=True)
+    out["flash"] = check_flash(dev, flush, bh=bh, t=t, causal=True,
+                               seed=seed + 10, timed=on_card, d=d)
+    out["flash_ragged"] = check_flash(dev, flush, bh=bh, t=kv, causal=True,
+                                      seed=seed + 11, timed=False, d=d)
+    del flush
+    free_cache(dev)
+    return out
+
+
+def check_nemotron(cfg, dev, gen, *, layers=NEMOTRON_LAYERS,
+                   prompt_len=NEMOTRON_PROMPT,
+                   max_tokens=NEMOTRON_MAX_TOKENS, kernels_kw=None) -> dict:
+    """Phase 24: Nemotron-4-340B (head_dim 192, 96 heads over 8 KV heads,
+    squared ReLU, layernorm) at its published widths. (a) its kernels at
+    its shapes (``check_head_dim_192_kernels``); (b) ``layers`` of its 96
+    layers served through ``LLM.from_config(backend="paged")``, one
+    ``prompt_len``-token prompt prefilled whole with STAR on: K1 = ticks x
+    layers, K2 = K3 = prefill calls x layers, the first token against a
+    cache-free STAR forward; (c) the same with ``star=None``: every token
+    held by phase 4's rule against a K4 forward (``check_cut_config``).
+    The card's peak memory is reported."""
+    t0 = time.perf_counter()
+    out = {"kernels": check_head_dim_192_kernels(dev, **(kernels_kw or {}))}
+    out["kernels_s"] = time.perf_counter() - t0
+    out["served"] = check_cut_config("nemotron_4_340b", cfg, dev, gen,
+                                     layers=layers, prompt_len=prompt_len,
+                                     max_tokens=max_tokens, exact_too=True)
+    out["seconds"] = time.perf_counter() - t0
+    emit("nemotron", layers=layers, reduced=f"n_layers {layers} of "
+         f"{cfg.n_layers}", head_dim=cfg.dh, group=cfg.n_heads // cfg.n_kv,
+         params=out["served"]["info"]["params"],
+         peak_gb=out["served"]["info"]["peak_gb"],
+         peak_gb_after_init=out["served"]["info"]["peak_gb_after_init"],
+         kernels_s=out["kernels_s"], seconds=out["seconds"])
+    return out
+
+
 def demangle(mangled: str) -> str:
     """``name<args>`` of a kernel template instantiation whose arguments
     are ints and bools (``...19paged_scores_kernelILi64ELi1ELb1EEEv...`` ->
@@ -5407,6 +5555,12 @@ def main() -> int:
     # with their own optimizers and accumulation, their one-step
     # gradients, and the remat policies; Jamba's restart ran in 20c's child
     fam = check_family_training(dev, gen)
+
+    # 24. Nemotron-4-340B at its published width, 4 of 96 layers: every
+    # kernel at head_dim 192 (K1 at R = 12), served with STAR and with
+    # star=None through the paged engine
+    nem = check_nemotron(nemotron_4_340b.config(), dev, gen)
+    k24, nem24 = nem["kernels"], nem["served"]
 
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
@@ -5748,6 +5902,38 @@ def main() -> int:
              max_abs_err_by_tiling={
                  key[4:]: val["max_abs_err"] for key, val in sbwd.items()
                  if key.startswith("mma_")}),
+        # phase 24: Nemotron-4-340B at head_dim 192 (K1 at R = 12), its
+        # 4-layer cut served with STAR (K1, K2, K3) and star=None (K4)
+        line("paged_decode/d192", "paged_decode.cu",
+             "src/repro/kernels/paged.py:67", nem24["star"]["k1_launches"],
+             k24["k1"]["fp"], launches_from="phase 24b, Nemotron-4-340B "
+                                            "served with STAR",
+             launches_star_none=nem24["exact"]["k1_launches"],
+             n_split=k24["k1"]["fp"]["n_split"],
+             **int8_keys(k24["k1"]["int8"]),
+             stats_form={lane: {key: k24["k1_stats"][lane][key] for key in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+                 for lane in ("fp", "int8")}),
+        line("dlzs_block/d192", "dlzs_block.cu",
+             "src/repro/kernels/dlzs.py:65",
+             nem24["star"]["dlzs_block_launches"], k24["dlzs_block"],
+             launches_from="phase 24b, Nemotron-4-340B's whole prompt",
+             launches_by_form={f: nem24["star"]["form_launches"][
+                 f"dlzs_block/{f}"] for f in ("wgmma", "mma_sync")}),
+        line("sufa/d192", "sufa.cu", "src/repro/kernels/sufa.py:72",
+             nem24["star"]["sufa_launches"], k24["sufa"],
+             launches_from="phase 24b, Nemotron-4-340B's whole prompt",
+             launches_by_form={f: nem24["star"]["form_launches"][
+                 f"sufa/{f}"] for f in ("wgmma", "mma_sync")},
+             fast_path=timed(k24["sufa_fast"]),
+             elementwise=timed(k24["sufa_elementwise"]),
+             elementwise_fast_path=timed(k24["sufa_fast_elementwise"]),
+             mma_sync_tiles64=timed(k24["sufa_mma_sync"])),
+        line("flash/d192", "flash.cu", "src/repro/kernels/flash.py:67",
+             nem24["exact"]["flash_launches"], k24["flash"],
+             launches_from="phase 24c, Nemotron-4-340B star=None prefills",
+             launches_oracle=nem24["exact"]["k4_launches"],
+             max_abs_err_ragged=k24["flash_ragged"]["max_abs_err"]),
     ]}), flush=True)
     print_device_line()
     return 0

@@ -2,7 +2,9 @@
 vocab=256000, squared-ReLU MLP.  [arXiv:2402.16819; unverified] — the
 port's twin of ``repro.configs.nemotron_4_340b`` (same shapes, torch
 dtype; the reference's training fields are not ported). Its head_dim of
-192 has no K1 instantiation, so it serves at smoke size, on the CPU."""
+192 and GQA group of 12 are built into every forward kernel (K1 at
+(192, 12), K2, K3, K4), so it serves on the card; the backwards take
+head_dim 64 and 128 only, so it does not train there."""
 
 from repro_torch.core.star_attention import STARConfig
 from repro_torch.models.lm import BlockCfg, ModelCfg

@@ -34,8 +34,8 @@
 //     causal positions only on a tile that crosses the warpgroup's
 //     diagonal, then over the thread's registers, a warp shuffle, and the
 //     8 consumer warps in shared memory, read at the next tile's barrier.
-//     Two blocks fit an SM (97 KB of shared memory at D = 128), so one
-//     block's epilogue overlaps the other's products. Causal q-tiles
+//     Two blocks fit an SM (97 KB of shared memory at D = 128; one at
+//     D = 192), so one block's epilogue overlaps the other's products. Causal q-tiles
 //     launch heaviest first.
 //   * Other tiles (any multiple of 16 up to 128; the pool probe's 16):
 //     mma.sync, one block per (bh, q-tile) of block_q / 16 warps, each
@@ -43,7 +43,12 @@
 //     tile at a time is copied to shared memory with the mantissa masked
 //     on the copy; each warp reduces its 16 x block_kv scores through
 //     shuffles and the warps meet in shared memory.
-// D is 64 or 128. The kernels allocate nothing and launch on the caller's
+// D is 64, 128 or 192 (Nemotron-4-340B's head). At D = 192 a tile is
+// three 64-column boxes: the wgmma form's k16 steps walk them as they walk
+// two at D = 128 (its Q tile and 2-stage K ring take 145 KB, so one block
+// fits an SM), and the mma.sync form's staged tile (128 rows of D + 8
+// bf16, 51 KB) lives in dynamic shared memory, above the 48 KB a static
+// array may take. The kernels allocate nothing and launch on the caller's
 // stream; the C entry points return cudaGetLastError() (the wgmma form
 // encodes its tensor maps with libcuda's cuTensorMapEncodeTiled: -lcuda).
 
@@ -239,6 +244,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, void* out, int BH,
 
 constexpr int kMaxTile = 128;
 
+// the staged tile: up to kMaxTile rows of D + 8 bf16 (dynamic shared
+// memory: 51 KB at D = 192)
+template <int D>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return kMaxTile * (D + 8) * 2;
+}
+
 template <int D>
 __global__ void __launch_bounds__(256)
 dlzs_mma_kernel(const uint16_t* __restrict__ q,   // [BH, T, D]
@@ -247,7 +259,8 @@ dlzs_mma_kernel(const uint16_t* __restrict__ q,   // [BH, T, D]
                 int T, int S, int block_q, int block_kv, int q_offset,
                 int causal, float scale) {
   constexpr int LD = D + 8;
-  __shared__ __align__(16) uint16_t tile[kMaxTile * LD];
+  extern __shared__ __align__(16) uint16_t mma_smem[];
+  uint16_t* const tile = mma_smem;
   __shared__ float warp_max[kMaxTile / 16];
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -304,6 +317,27 @@ dlzs_mma_kernel(const uint16_t* __restrict__ q,   // [BH, T, D]
   }
 }
 
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, void* out, int BH,
+                       int T, int S, int block_q, int block_kv, int causal,
+                       float scale, cudaStream_t stream) {
+  static bool configured = false;  // the >48 KB opt-in, once per instance
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dlzs_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mma_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid(T / block_q, BH);
+  const dim3 block(block_q / 16 * 32);
+  dlzs_mma_kernel<D><<<grid, block, mma_smem_bytes<D>(), stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<float*>(out), T, S, block_q, block_kv, S - T, causal,
+      scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dlzs_wgmma_bf16(const void* q, const void* k, void* out,
@@ -318,6 +352,9 @@ extern "C" int dlzs_wgmma_bf16(const void* q, const void* k, void* out,
   if (D == 128)
     return static_cast<int>(
         launch_wgmma<128>(q, k, out, BH, T, S, causal, scale, st));
+  if (D == 192)
+    return static_cast<int>(
+        launch_wgmma<192>(q, k, out, BH, T, S, causal, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -328,20 +365,14 @@ extern "C" int dlzs_mma_bf16(const void* q, const void* k, void* out, int BH,
       block_kv <= 0 || block_kv > kMaxTile || block_kv % 16 ||
       T % block_q || S % block_kv)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(T / block_q, BH);
-  const dim3 block(block_q / 16 * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint16_t* qp = static_cast<const uint16_t*>(q);
-  const uint16_t* kp = static_cast<const uint16_t*>(k);
-  float* op = static_cast<float*>(out);
-  if (D == 64)
-    dlzs_mma_kernel<64><<<grid, block, 0, s>>>(qp, kp, op, T, S, block_q,
-                                               block_kv, S - T, causal, scale);
-  else if (D == 128)
-    dlzs_mma_kernel<128><<<grid, block, 0, s>>>(qp, kp, op, T, S, block_q,
-                                                block_kv, S - T, causal,
-                                                scale);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+#define DLZS_MMA(DD)                                                     \
+  if (D == DD)                                                          \
+    return static_cast<int>(launch_mma<DD>(q, k, out, BH, T, S, block_q, \
+                                           block_kv, causal, scale, s));
+  DLZS_MMA(64)
+  DLZS_MMA(128)
+  DLZS_MMA(192)
+#undef DLZS_MMA
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,9 +22,10 @@
 //     64 rows each and one producer warp (288 threads, so the consumers
 //     may use up to 224 registers without setmaxnreg).
 //   * The producer's lane 0 loads the Q tile once and then K and V tiles
-//     of 128 keys into a 2-stage ring in dynamic shared memory (160 KB at
-//     D = 128) with TMA, handing each tile over on full mbarriers (K and V
-//     apart, so Q . K^T starts before V lands) and reusing a stage once
+//     of 128 keys (64 at D = 192) into a 2-stage ring in dynamic shared
+//     memory (160 KB at D = 128, 145 KB at D = 192) with TMA, handing
+//     each tile over on full mbarriers (K and V apart, so Q . K^T starts
+//     before V lands) and reusing a stage once
 //     all 256 consumer threads arrived on its empty mbarrier. Tiles of
 //     128 keys (not 64) halve the hand-offs and the per-tile softmax
 //     overhead; 64 + 64 + 32 registers of S, O and P still fit.
@@ -57,6 +58,17 @@
 // box size between the two 64-wide halves of d, SBO = 1024 bytes between
 // 8-key groups).
 //
+// D = 192 (Nemotron-4-340B's head): a 128-row tile is three boxes, 48 KB,
+// so the Q tile and a 2-stage ring of 128-key K and V tiles would need
+// 241 KB, above the 227 KB a block may have. At D = 192 the K/V stages
+// hold 64 keys (kv_rows<192>() = 64; 145 KB in all, FA-3 also narrows its
+// key tile at this head dim): S = Q . K^T runs as m64n64 products, and
+// O += P . V as m64n192 ones (96 fp32 accumulators a thread beside S's 32
+// and P's 16 registers). The softmax is exact under any key tiling, so
+// only the order of the fp32 sums changes. The P . V product is picked by
+// hopper.cuh's rs_step<D>, which does not compile for a D it has no
+// product for.
+//
 // Later work: ping-pong the two consumer warpgroups and overlap the
 // softmax with the next Q . K^T (FA-3); split-S for short T, where BH x
 // ceil(T / 128) blocks leave SMs idle.
@@ -71,20 +83,32 @@ namespace {
 using namespace star;
 
 constexpr int kBQ = 128;         // query rows per block
-constexpr int kBC = 128;         // keys per K/V tile
 constexpr int kStages = 2;       // K/V ring depth
 constexpr int kConsumers = 2;    // warpgroups of 64 query rows
 constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
-constexpr int kBoxBytes = 128 * 128;  // one 128-row x 64-col bf16 box
 
+// keys per K/V tile: 128, or 64 at D = 192, where 128-key stages do not
+// fit the 227 KB of shared memory a block may have
 template <int D>
-__host__ __device__ constexpr int tile_bytes() {
-  return (D / 64) * kBoxBytes;
+__host__ __device__ constexpr int kv_rows() {
+  static_assert(D == 64 || D == 128 || D == 192, "flash: head dim not built");
+  return D > 128 ? 64 : 128;
 }
 
 template <int D>
 __host__ __device__ constexpr int smem_bytes() {  // Q, K/V ring, alignment
-  return tile_bytes<D>() * (1 + 2 * kStages) + 1024;
+  return tile_bytes<D>(kBQ) + 2 * kStages * tile_bytes<D>(kv_rows<D>()) +
+         1024;
+}
+
+// S (+)= Q . K^T for one k16 step over a tile of N keys (128 or 64)
+template <int N>
+__device__ __forceinline__ void ss_step(float (&d)[N / 2], uint64_t da,
+                                        uint64_t db, int accumulate) {
+  if constexpr (N == 128)
+    wgmma_ss_m64n128(d, da, db, accumulate);
+  else
+    wgmma_ss_m64n64_t<0, 0>(d, da, db, accumulate);
 }
 
 template <int D>
@@ -95,7 +119,11 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
              uint16_t* __restrict__ out,                 // [BH, T, D]
              float* __restrict__ lse,                    // [BH, T] or null
              int T, int S, int q_offset, int causal, float scale_log2) {
-  constexpr int kTile = tile_bytes<D>();
+  constexpr int kBC = kv_rows<D>();          // keys per K/V tile
+  constexpr int kQTile = tile_bytes<D>(kBQ);
+  constexpr int kTile = tile_bytes<D>(kBC);  // one K or V tile
+  constexpr int kQBox = box_bytes(kBQ);      // 64 columns of the Q tile
+  constexpr int kBox = box_bytes(kBC);       // 64 columns of a K/V tile
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t k_full[kStages];
@@ -105,7 +133,7 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
   // swizzled boxes need 1024-byte aligned shared addresses
   uint8_t* const sq =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* const skv = sq + kTile;  // stage s: K at skv + 2s·kTile, V after
+  uint8_t* const skv = sq + kQTile;  // stage s: K at skv + 2s·kTile, V after
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
@@ -129,20 +157,19 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
 
   if (warp == kConsumers * 4) {  // the producer warp: lane 0 loads by TMA
     if ((threadIdx.x & 31) == 0) {
-      mbar_expect_tx(&q_full, kTile);
+      mbar_expect_tx(&q_full, kQTile);
       for (int c = 0; c < D / 64; ++c)
-        tma_load_3d(sq + c * kBoxBytes, &qmap, &q_full, c * 64, q0, bh);
+        tma_load_3d(sq + c * kQBox, &qmap, &q_full, c * 64, q0, bh);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&kv_empty[s], (j / kStages - 1) & 1);
         uint8_t* ks = skv + 2 * s * kTile;
         mbar_expect_tx(&k_full[s], kTile);
         for (int c = 0; c < D / 64; ++c)
-          tma_load_3d(ks + c * kBoxBytes, &kmap, &k_full[s], c * 64, j * kBC,
-                      bh);
+          tma_load_3d(ks + c * kBox, &kmap, &k_full[s], c * 64, j * kBC, bh);
         mbar_expect_tx(&v_full[s], kTile);
         for (int c = 0; c < D / 64; ++c)
-          tma_load_3d(ks + kTile + c * kBoxBytes, &vmap, &v_full[s], c * 64,
+          tma_load_3d(ks + kTile + c * kBox, &vmap, &v_full[s], c * 64,
                       j * kBC, bh);
       }
     }
@@ -176,9 +203,11 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
-      wgmma_ss_m64n128(sc, sw128_desc(sq_wg + off, 16, 1024),
-                       sw128_desc(ks + off, 16, 1024), kk > 0);
+      const int in_box = (kk & 3) * 32;
+      ss_step<kBC>(sc,
+                   sw128_desc(sq_wg + (kk >> 2) * kQBox + in_box, 16, 1024),
+                   sw128_desc(ks + (kk >> 2) * kBox + in_box, 16, 1024),
+                   kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -237,13 +266,8 @@ flash_kernel(const __grid_constant__ CUtensorMap qmap,   // [BH, T, D]
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBC / 16; ++kk) {
-      const uint64_t db = sw128_desc(vs + kk * 2048, kBoxBytes, 1024);
-      if constexpr (D == 128)
-        wgmma_rs_m64n128(o, pa[kk], db);
-      else
-        wgmma_rs_m64n64(o, pa[kk], db);
-    }
+    for (int kk = 0; kk < kBC / 16; ++kk)
+      rs_step<D>(o, pa[kk], sw128_desc(vs + kk * 2048, kBox, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -287,8 +311,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   CUtensorMap qmap, kmap, vmap;
   if (!encode_rows_map(&qmap, q, BH, T, D, kBQ) ||
-      !encode_rows_map(&kmap, k, BH, S, D, kBC) ||
-      !encode_rows_map(&vmap, v, BH, S, D, kBC))
+      !encode_rows_map(&kmap, k, BH, S, D, kv_rows<D>()) ||
+      !encode_rows_map(&vmap, v, BH, S, D, kv_rows<D>()))
     return cudaErrorInvalidValue;
   const dim3 grid(BH, (T + kBQ - 1) / kBQ);
   flash_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
@@ -315,6 +339,10 @@ extern "C" int flash_bf16(const void* q, const void* k, const void* v,
   if (D == 128)
     return static_cast<int>(
         launch<128>(q, k, v, out, static_cast<float*>(lse), BH, T, S,
+                    q_offset, causal, scale, s));
+  if (D == 192)
+    return static_cast<int>(
+        launch<192>(q, k, v, out, static_cast<float*>(lse), BH, T, S,
                     q_offset, causal, scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

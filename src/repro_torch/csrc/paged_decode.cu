@@ -93,7 +93,9 @@
 //     owners merge their (m, l) at the end, so a stage needs one barrier.
 //     In P·V each thread adds its pair of output columns over a subset of
 //     the stage's rows for all R heads, so every K/V row loaded serves the
-//     whole GQA group.
+//     whole GQA group. At D = 192 (Nemotron-4-340B's head, R = 12) a row
+//     has 96 pairs: 96 threads add every row of the stage and the other
+//     32 only copy rows in.
 //
 //   * The unnormalised (m, l, o) form (template flag ST; its own entry
 //     point, paged_decode_stats), for the spatial engine's cross-shard
@@ -578,9 +580,12 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
                 Int8Tier tier) {
   constexpr int NS = stages<D>();
   constexpr int EP = D / 2;              // bf16 pairs per row
-  constexpr int NH = kThreads / EP;      // row subsets
+  // row subsets: the threads past NH·EP (32 of 128 at D = 192, whose 96
+  // pairs do not divide the block) add no products, only copy and merge
+  constexpr int NH = kThreads / EP;
   constexpr int RT = kRows / NH;         // rows per thread and stage
-  static_assert(kThreads % EP == 0 && NH * R * D * 4 <= NS * kRows * D * 2,
+  static_assert(NH >= 1 && kRows % NH == 0 &&
+                    NH * R * D * 4 <= NS * kRows * D * 2,
                 "tile shape");
   __shared__ __align__(16) __nv_bfloat16 sv[NS][kRows * D];
   __shared__ SlotTable<Q ? kMaxRows : 1> s_slots;
@@ -680,10 +685,12 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   for (int r = 0; r < R; ++r) o[r][0] = o[r][1] = 0.f;
   const int pair = threadIdx.x % EP;
   const int sub = threadIdx.x / EP;
+  const bool adds = sub < NH;  // this thread owns a pair of a row subset
   for (int st = 0; st < n_st; ++st) {
     cp_async_wait<NS - 2>();
     __syncthreads();
     fetch(st + NS - 1);
+    if (!adds) continue;
     const __nv_bfloat16* tile = sv[st % NS];
     // o += p · v of one row; qs >= 0: the row holds codes at that scale
     auto add_row = [&](int row, float qs) {
@@ -730,10 +737,12 @@ paged_pv_kernel(const __nv_bfloat16* __restrict__ v,   // [P, page, G, D]
   cp_async_wait<0>();
   __syncthreads();
   float* red = reinterpret_cast<float*>(&sv[0][0]);
+  if (adds) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    red[(sub * R + r) * D + 2 * pair] = o[r][0];
-    red[(sub * R + r) * D + 2 * pair + 1] = o[r][1];
+    for (int r = 0; r < R; ++r) {
+      red[(sub * R + r) * D + 2 * pair] = o[r][0];
+      red[(sub * R + r) * D + 2 * pair + 1] = o[r][1];
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
@@ -854,8 +863,9 @@ Int8Tier tier_of(const void* codes, const void* scale, const void* qmask,
 }  // namespace
 
 // (D, R) pairs with R*D <= 1024 (Grok-1's group of 6 among them), and the
-// GQA groups of ChatGLM3-6B (128, 16) and StarCoder2-15B (128, 12), whose
-// P·V reduction still fits the ring (pass 2's static_assert); the Python
+// GQA groups of ChatGLM3-6B (128, 16), StarCoder2-15B (128, 12) and
+// Nemotron-4-340B (192, 12), whose P·V reduction still fits the ring
+// (pass 2's static_assert); the Python
 // wrapper checks the pair, the shapes and the strides before calling, and
 // allocates ws: B·G·R·(n_split·(D + 2) + W·page) floats.
 #define PAGED_CASES(Q, ST)                                                    \
@@ -865,6 +875,7 @@ Int8Tier tier_of(const void* codes, const void* scale, const void* qmask,
   PAGED_CASE(128, 4, Q, ST) PAGED_CASE(128, 6, Q, ST)                         \
   PAGED_CASE(128, 8, Q, ST) PAGED_CASE(128, 12, Q, ST)                        \
   PAGED_CASE(128, 16, Q, ST)                                                  \
+  PAGED_CASE(192, 12, Q, ST)                                                  \
   PAGED_CASE(256, 1, Q, ST) PAGED_CASE(256, 2, Q, ST)                         \
   PAGED_CASE(256, 4, Q, ST)
 #define PAGED_CASE(DD, RR, Q, ST)                                             \

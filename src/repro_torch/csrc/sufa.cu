@@ -89,7 +89,29 @@
 // spread over the quad); the quad ORs its shares into each row's four
 // words, one word per lane. In the mma.sync form each thread gathers its
 // bits the same way from its score fragments.
-// D is 64 or 128. The kernels allocate nothing and launch on the caller's
+// D is 64, 128 or 192 (Nemotron-4-340B's head). At D = 192 a 128-row tile
+// is three 64-column boxes (48 KB), and the wgmma form's Q tile with a
+// 2-stage ring of 128-key K and V tiles would take 241 KB (337 KB with the
+// pow2 ring), above the 227 KB a block may have. There each selected
+// 128-key tile streams as two 64-key parts (parts<192>() = 2), each part a
+// ring stage of its own (145 KB in all, 193 KB with ELEM's pow2 ring): the
+// two parts' m64n64 products fill S's m64n128 accumulator in its own
+// layout (hopper.cuh's part32), so the softmax, the frozen max of the fast
+// path, the element mask and the keep bits still see the whole tile, at
+// the selection's 128-key granularity; O += P . V runs as m64n192 steps,
+// four over each part. The ring then holds one tile: the next tile's parts
+// load as this tile's P . V frees them. Both parts of a tile share the
+// pow2 ring's two stages, so ELEM's copies into it first meet the other
+// warpgroup, which may still be reading the last tile's estimates. The
+// consumers' O (96 fp32 registers at m64n192) beside S (64) passed the
+// 168 registers a thread may have and spilled 284-752 bytes, so at D = 192
+// the block has a producer warpgroup (384 threads) that gives registers
+// back (setmaxnreg: 24 for it, 240 for each consumer thread), as K4's
+// backward does. The mma.sync form's staged tile (128 rows of D + 8 bf16,
+// 51 KB at D = 192)
+// is in dynamic shared memory. The P . V product is picked by hopper.cuh's
+// rs_step<D>, which does not compile for a D it has no product for.
+// The kernels allocate nothing and launch on the caller's
 // stream; the C entry points return cudaGetLastError() (the wgmma form
 // encodes its tensor maps with libcuda's cuTensorMapEncodeTiled: -lcuda).
 
@@ -105,23 +127,39 @@ using namespace star;
 // -- the wgmma form: 128 x 128 tiles ------------------------------------------
 
 constexpr int kBQ = 128;         // query rows per block
-constexpr int kBC = 128;         // keys per K/V tile
-constexpr int kStages = 2;       // K/V ring depth
+constexpr int kBC = 128;         // keys per selected K/V tile
+constexpr int kStages = 2;       // K/V ring depth, in parts of a tile
 constexpr int kConsumers = 2;    // warpgroups of 64 query rows
 constexpr int kConsumerThreads = kConsumers * 128;
-constexpr int kThreads = kConsumerThreads + 32;  // + one producer warp
-constexpr int kBoxBytes = 128 * 128;  // one 128-row x 64-col bf16 box
 constexpr int kPow2Barrier = 1;  // named barrier of the consumer threads
+constexpr int kProducerRegs = 24;   // D = 192: the producer warpgroup's
+constexpr int kConsumerRegs = 240;  // and each consumer thread's registers
+
+// the parts a selected 128-key tile streams in: the whole tile, or two
+// 64-key halves at D = 192, where whole-tile stages do not fit
+template <int D>
+__host__ __device__ constexpr int parts() {
+  static_assert(D == 64 || D == 128 || D == 192, "sufa: head dim not built");
+  return D > 128 ? 2 : 1;
+}
 
 template <int D>
-__host__ __device__ constexpr int tile_bytes() {
-  return (D / 64) * kBoxBytes;
+__host__ __device__ constexpr int part_rows() {  // keys of one part
+  return kBC / parts<D>();
+}
+
+// the block: the consumer warpgroups and one producer warp, or at D = 192
+// a producer warpgroup, whose registers setmaxnreg hands to the consumers
+template <int D>
+__host__ __device__ constexpr int threads() {
+  return kConsumerThreads + (D > 128 ? 128 : 32);
 }
 
 // Q, the K/V ring, with ELEM the pow2(K) ring, and alignment
 template <int D, bool ELEM>
 __host__ __device__ constexpr int smem_bytes() {
-  return tile_bytes<D>() * (1 + (ELEM ? 3 : 2) * kStages) + 1024;
+  return tile_bytes<D>(kBQ) +
+         (ELEM ? 3 : 2) * kStages * tile_bytes<D>(part_rows<D>()) + 1024;
 }
 
 // Tile j of a q-tile's list, or -1 where it is invalid or out of range.
@@ -171,40 +209,64 @@ __device__ __forceinline__ void store_keep_words(uint32_t* dst,
   }
 }
 
-// ELEM: copy a landed K stage into its pow2(K) stage (sign and exponent
-// bits of every bf16; byte offsets, and so the swizzle, unchanged), fence
-// the writes against wgmma's async-proxy reads, and meet the other
-// consumer threads, whose copies E reads too.
+// ELEM: copy the landed K parts of a tile into their pow2(K) stages (sign
+// and exponent bits of every bf16; byte offsets, and so the swizzle,
+// unchanged), fence the writes against wgmma's async-proxy reads, and
+// meet the other consumer threads, whose copies E reads too. With two
+// parts a tile fills both pow2 stages, so the threads first meet once more:
+// the other warpgroup may still be reading the last tile's from them.
 template <int D>
-__device__ __forceinline__ void stage_pow2(const uint8_t* ks, uint8_t* ps) {
-  const uint4* src = reinterpret_cast<const uint4*>(ks);
-  uint4* dst = reinterpret_cast<uint4*>(ps);
+__device__ __forceinline__ void stage_pow2(
+    const uint8_t* const (&ks)[parts<D>()],
+    uint8_t* const (&ps)[parts<D>()]) {
+  constexpr int kChunks = tile_bytes<D>(part_rows<D>()) / 16;
+  static_assert(kChunks % kConsumerThreads == 0, "pow2 copy shape");
+  if constexpr (parts<D>() > 1)
+    named_barrier_sync(kPow2Barrier, kConsumerThreads);
 #pragma unroll
-  for (int i = 0; i < tile_bytes<D>() / 16 / kConsumerThreads; ++i) {
-    const int c = threadIdx.x + i * kConsumerThreads;
-    uint4 x = src[c];
-    x.x &= 0xFF80FF80u;
-    x.y &= 0xFF80FF80u;
-    x.z &= 0xFF80FF80u;
-    x.w &= 0xFF80FF80u;
-    dst[c] = x;
+  for (int p = 0; p < parts<D>(); ++p) {
+    const uint4* src = reinterpret_cast<const uint4*>(ks[p]);
+    uint4* dst = reinterpret_cast<uint4*>(ps[p]);
+#pragma unroll
+    for (int i = 0; i < kChunks / kConsumerThreads; ++i) {
+      const int c = threadIdx.x + i * kConsumerThreads;
+      uint4 x = src[c];
+      x.x &= 0xFF80FF80u;
+      x.y &= 0xFF80FF80u;
+      x.z &= 0xFF80FF80u;
+      x.w &= 0xFF80FF80u;
+      dst[c] = x;
+    }
   }
   fence_proxy_async();
   named_barrier_sync(kPow2Barrier, kConsumerThreads);
 }
 
-// acc = (the warpgroup's 64 rows of the Q tile) . (a K-major 128-key
-// tile)^T over D in k16 steps; step kk sits in box kk / 4.
-template <int D>
+// acc = (the warpgroup's 64 rows of the Q tile) . (a 128-key tile)^T over
+// D in k16 steps, the tile in K-major parts kp of part_rows<D>() keys
+// each; step kk sits in box kk / 4 of the Q tile and of each part. With
+// two parts each one's m64n64 product fills its half of acc (part32).
+template <int D, typename Ptr>
 __device__ __forceinline__ void qk_wgmma(float (&acc)[kBC / 2],
                                          const uint8_t* sq_wg,
-                                         const uint8_t* ks) {
+                                         const Ptr (&kp)[parts<D>()]) {
+  constexpr int kQBox = box_bytes(kBQ);
+  constexpr int kBox = box_bytes(part_rows<D>());
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
-    wgmma_ss_m64n128(acc, sw128_desc(sq_wg + off, 16, 1024),
-                     sw128_desc(ks + off, 16, 1024), kk > 0);
+  for (int p = 0; p < parts<D>(); ++p) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int in_box = (kk & 3) * 32;
+      const uint64_t da =
+          sw128_desc(sq_wg + (kk >> 2) * kQBox + in_box, 16, 1024);
+      const uint64_t db =
+          sw128_desc(kp[p] + (kk >> 2) * kBox + in_box, 16, 1024);
+      if constexpr (parts<D>() == 1)
+        wgmma_ss_m64n128(acc, da, db, kk > 0);
+      else
+        wgmma_ss_m64n64_t<0, 0>(part32(acc, p), da, db, kk > 0);
+    }
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -212,7 +274,7 @@ __device__ __forceinline__ void qk_wgmma(float (&acc)[kBC / 2],
 }
 
 template <int D, bool STRICT, bool ELEM>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(threads<D>(), 1)
 sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
                   const __grid_constant__ CUtensorMap kmap,  // [BH, S, D]
                   const __grid_constant__ CUtensorMap vmap,  // [BH, S, D]
@@ -223,7 +285,12 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
                   uint32_t* __restrict__ keep_out,    // ELEM: keep bits or null
                   int S, int keep, int q_offset, int causal,
                   float scale_log2, float scale, float radius) {
-  constexpr int kTile = tile_bytes<D>();
+  constexpr int kParts = parts<D>();
+  constexpr int kRows = part_rows<D>();      // keys of one part
+  constexpr int kQTile = tile_bytes<D>(kBQ);
+  constexpr int kPart = tile_bytes<D>(kRows);  // one K or V part
+  constexpr int kQBox = box_bytes(kBQ);      // 64 columns of the Q tile
+  constexpr int kBox = box_bytes(kRows);     // 64 columns of a part
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t k_full[kStages];
@@ -233,8 +300,8 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
   // swizzled boxes need 1024-byte aligned shared addresses
   uint8_t* const sq =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* const skv = sq + kTile;  // stage s: K at skv + 2s·kTile, V after
-  uint8_t* const sp2 = skv + 2 * kStages * kTile;  // ELEM: pow2(K) stage s
+  uint8_t* const skv = sq + kQTile;  // stage s: K at skv + 2s·kPart, V after
+  uint8_t* const sp2 = skv + 2 * kStages * kPart;  // ELEM: pow2(K) stage s
 
   const int bh = blockIdx.x;
   const int n_qt = gridDim.y;
@@ -257,32 +324,35 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
   }
   __syncthreads();
 
-  if (warp == kConsumers * 4) {  // the producer warp: lane 0 loads by TMA
-    if ((threadIdx.x & 31) == 0) {
-      mbar_expect_tx(&q_full, kTile);
+  if (warp >= kConsumers * 4) {  // the producer: lane 0 loads by TMA
+    if constexpr (D > 128) setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_expect_tx(&q_full, kQTile);
       for (int c = 0; c < D / 64; ++c)
-        tma_load_3d(sq + c * kBoxBytes, &qmap, &q_full, c * 64, q0, bh);
-      int n = 0;  // tiles loaded so far, over both sweeps
-      // ELEM's first sweep loads K tiles only (v_full's phases count the
-      // second sweep's tiles alone)
+        tma_load_3d(sq + c * kQBox, &qmap, &q_full, c * 64, q0, bh);
+      int n = 0;  // parts loaded so far, over both sweeps
+      // ELEM's first sweep loads K parts only (v_full's phases count the
+      // second sweep's parts alone)
       for (int sweep = ELEM ? 0 : 1; sweep < 2; ++sweep) {
         for (int j = 0; j < keep; ++j) {
           const int kt = selected(ids, ok, j, n_kt);
           if (kt < 0) continue;
-          const int s = n % kStages;
-          if (n >= kStages) mbar_wait(&kv_empty[s], (n / kStages - 1) & 1);
-          uint8_t* ks = skv + 2 * s * kTile;
-          mbar_expect_tx(&k_full[s], kTile);
-          for (int c = 0; c < D / 64; ++c)
-            tma_load_3d(ks + c * kBoxBytes, &kmap, &k_full[s], c * 64,
-                        kt * kBC, bh);
-          if (sweep == 1) {
-            mbar_expect_tx(&v_full[s], kTile);
+          for (int p = 0; p < kParts; ++p, ++n) {
+            const int s = n % kStages;
+            if (n >= kStages) mbar_wait(&kv_empty[s], (n / kStages - 1) & 1);
+            uint8_t* ks = skv + 2 * s * kPart;
+            const int row0 = kt * kBC + p * kRows;
+            mbar_expect_tx(&k_full[s], kPart);
             for (int c = 0; c < D / 64; ++c)
-              tma_load_3d(ks + kTile + c * kBoxBytes, &vmap, &v_full[s],
-                          c * 64, kt * kBC, bh);
+              tma_load_3d(ks + c * kBox, &kmap, &k_full[s], c * 64, row0,
+                          bh);
+            if (sweep == 1) {
+              mbar_expect_tx(&v_full[s], kPart);
+              for (int c = 0; c < D / 64; ++c)
+                tma_load_3d(ks + kPart + c * kBox, &vmap, &v_full[s],
+                            c * 64, row0, bh);
+            }
           }
-          ++n;
         }
       }
     }
@@ -290,6 +360,9 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
   }
 
   // a consumer warpgroup: 64 query rows; this thread's rows are row, row + 8
+  // (at D = 192 O's 96 accumulators beside S's 64 pass the 168 registers a
+  // thread of a 384-thread block has: the consumers take 240)
+  if constexpr (D > 128) setmaxnreg_inc<kConsumerRegs>();
   const int wg = warp >> 2;
   const int lane = threadIdx.x & 31;
   const int t2 = (lane & 3) * 2;
@@ -304,7 +377,7 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
   float l[2] = {0.f, 0.f};
   mbar_wait(&q_full, 0);
 
-  int n = 0;  // tiles consumed so far: the ring position
+  int n = 0;  // parts consumed so far: the ring position
   // ELEM: each row's sphere edge, bf16(max of its visible estimates -
   // radius), from a first sweep over the valid tiles
   float edge[2] = {kNegInf, kNegInf};
@@ -313,13 +386,22 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
     for (int j = 0; j < keep; ++j) {
       const int kt = selected(ids, ok, j, n_kt);
       if (kt < 0) continue;
-      const int s = n % kStages;
-      mbar_wait(&k_full[s], (n / kStages) & 1);
-      ++n;
-      stage_pow2<D>(skv + 2 * s * kTile, sp2 + s * kTile);
-      mbar_arrive(&kv_empty[s]);  // the K stage is copied: reload it
+      int st[kParts];
+      const uint8_t* kp[kParts];
+      uint8_t* pp[kParts];
+#pragma unroll
+      for (int p = 0; p < kParts; ++p, ++n) {
+        st[p] = n % kStages;
+        mbar_wait(&k_full[st[p]], (n / kStages) & 1);
+        kp[p] = skv + 2 * st[p] * kPart;
+        pp[p] = sp2 + st[p] * kPart;
+      }
+      stage_pow2<D>(kp, pp);
+#pragma unroll
+      for (int p = 0; p < kParts; ++p)
+        mbar_arrive(&kv_empty[st[p]]);  // the K part is copied: reload it
       float e[kBC / 2];
-      qk_wgmma<D>(e, sq_wg, sp2 + s * kTile);
+      qk_wgmma<D>(e, sq_wg, pp);
       const int kv0 = kt * kBC;
       const bool diag = causal && kv0 + kBC - 1 > q_offset + wg_row0;
 #pragma unroll
@@ -336,7 +418,7 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
       edge[h] = round_bf16(quad_max(top[h]) - radius);
   }
 
-  const int n1 = n;  // the first sweep's tiles
+  const int n1 = n;  // the first sweep's parts
   // ELEM with keep_out: slot j's words of this thread's rows
   uint32_t* const keep_row =
       ELEM && keep_out != nullptr
@@ -351,27 +433,38 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
       }
       continue;
     }
-    const int s = n % kStages;
-    const uint32_t parity = (n / kStages) & 1;
-    // v_full[s] completes once per second-sweep tile of stage s
-    const uint32_t v_parity = ((n - n1) / kStages) & 1;
-    ++n;
-    const uint8_t* ks = skv + 2 * s * kTile;
-    const uint8_t* vs = ks + kTile;
+    // the tile's parts: ring stage, K and V in it, and the phases of their
+    // full barriers (v_full[s] completes once per second-sweep part of s)
+    int st[kParts];
+    uint32_t parity[kParts], v_parity[kParts];
+    const uint8_t* kp[kParts];
+    const uint8_t* vp[kParts];
+#pragma unroll
+    for (int p = 0; p < kParts; ++p, ++n) {
+      st[p] = n % kStages;
+      parity[p] = (n / kStages) & 1;
+      v_parity[p] = ((n - n1) / kStages) & 1;
+      kp[p] = skv + 2 * st[p] * kPart;
+      vp[p] = kp[p] + kPart;
+    }
     const int kv0 = kt * kBC;
     // warpgroup-uniform: does this tile cross the diagonal of its rows?
     const bool diag = causal && kv0 + kBC - 1 > q_offset + wg_row0;
 
     float sc[kBC / 2];
-    mbar_wait(&k_full[s], parity);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) mbar_wait(&k_full[st[p]], parity[p]);
     if constexpr (ELEM) {
       // the keys that survive the causal and the element mask, bit i for
       // sc[i]: the estimates are done before S's accumulators go live
       uint32_t keep_bits[2] = {0u, 0u};
       {
-        stage_pow2<D>(ks, sp2 + s * kTile);
+        uint8_t* pp[kParts];
+#pragma unroll
+        for (int p = 0; p < kParts; ++p) pp[p] = sp2 + st[p] * kPart;
+        stage_pow2<D>(kp, pp);
         float e[kBC / 2];
-        qk_wgmma<D>(e, sq_wg, sp2 + s * kTile);
+        qk_wgmma<D>(e, sq_wg, pp);
 #pragma unroll
         for (int i = 0; i < kBC / 2; ++i) {
           const int col = kv0 + (i >> 2) * 8 + t2 + (i & 1);
@@ -391,14 +484,14 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
                                         << (((i >> 2) & 3) * 8 + t2 + (i & 1));
         store_keep_words<4>(keep_row + j * kBQ * 4, word, lane);
       }
-      qk_wgmma<D>(sc, sq_wg, ks);
+      qk_wgmma<D>(sc, sq_wg, kp);
 #pragma unroll
       for (int i = 0; i < kBC / 2; ++i)
         sc[i] = (keep_bits[i >> 5] >> (i & 31)) & 1u ? sc[i] * scale_log2
                                                       : kNegInf;
     } else {
       // S = Q . K^T
-      qk_wgmma<D>(sc, sq_wg, ks);
+      qk_wgmma<D>(sc, sq_wg, kp);
 #pragma unroll
       for (int i = 0; i < kBC / 2; ++i) sc[i] *= scale_log2;
       if (diag) {
@@ -457,23 +550,24 @@ sufa_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,  // [BH, T, D]
         pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
     }
 
-    // O += P . V; V's k16 step kk starts 16 rows (2048 bytes) in
-    mbar_wait(&v_full[s], v_parity);
+    // O += P . V; k16 step kk is keys 16kk..: in part kk / kSteps, whose
+    // V starts that step 16 rows (2048 bytes) per step in
+    constexpr int kSteps = kRows / 16;
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) mbar_wait(&v_full[st[p]], v_parity[p]);
     fence_regs(o);
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBC / 16; ++kk) {
-      const uint64_t db = sw128_desc(vs + kk * 2048, kBoxBytes, 1024);
-      if constexpr (D == 128)
-        wgmma_rs_m64n128(o, pa[kk], db);
-      else
-        wgmma_rs_m64n64(o, pa[kk], db);
-    }
+    for (int kk = 0; kk < kBC / 16; ++kk)
+      rs_step<D>(o, pa[kk],
+                 sw128_desc(vp[kk / kSteps] + (kk % kSteps) * 2048, kBox,
+                            1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
-    mbar_arrive(&kv_empty[s]);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p) mbar_arrive(&kv_empty[st[p]]);
   }
 
   const float s0 = quad_sum(l[0]);
@@ -510,12 +604,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   }
   CUtensorMap qmap, kmap, vmap;
   if (!encode_rows_map(&qmap, q, BH, T, D, kBQ) ||
-      !encode_rows_map(&kmap, k, BH, S, D, kBC) ||
-      !encode_rows_map(&vmap, v, BH, S, D, kBC))
+      !encode_rows_map(&kmap, k, BH, S, D, part_rows<D>()) ||
+      !encode_rows_map(&vmap, v, BH, S, D, part_rows<D>()))
     return cudaErrorInvalidValue;
   const dim3 grid(BH, T / kBQ);
   sufa_wgmma_kernel<D, STRICT, ELEM>
-      <<<grid, kThreads, smem_bytes<D, ELEM>(), stream>>>(
+      <<<grid, threads<D>(), smem_bytes<D, ELEM>(), stream>>>(
           qmap, kmap, vmap, idx, valid, static_cast<uint16_t*>(out), lse,
           keep_out, S, keep, S - T, causal, scale * 1.4426950408889634f,
           scale, radius);
@@ -525,6 +619,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 // -- the mma.sync form: any tile that is a multiple of 16 up to 128 -----------
 
 constexpr int kMaxTile = 128;
+
+// the staged tile: up to kMaxTile rows of D + 8 bf16 (dynamic shared
+// memory: 51 KB at D = 192)
+template <int D>
+__host__ __device__ constexpr int mma_smem_bytes() {
+  return kMaxTile * (D + 8) * 2;
+}
 
 template <int D, int BC, bool STRICT, bool ELEM>
 __global__ void __launch_bounds__(256)
@@ -541,7 +642,8 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
   constexpr int LD = D + 8;
   constexpr int NT = BC / 8;  // 8-key score tiles
   constexpr int W = (BC + 31) / 32;  // keep words per row
-  __shared__ __align__(16) uint16_t tile[kMaxTile * LD];
+  extern __shared__ __align__(16) uint16_t mma_smem[];
+  uint16_t* const tile = mma_smem;
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
   const int n_qt = gridDim.x;
@@ -730,6 +832,23 @@ sufa_mma_kernel(const uint16_t* __restrict__ q,      // [BH, T, D]
   }
 }
 
+// One instance of the mma.sync form, after its >48 KB opt-in (once).
+template <int D, int BC, bool STRICT, bool ELEM, typename... Args>
+cudaError_t launch_mma_form(dim3 grid, dim3 block, cudaStream_t stream,
+                            Args... args) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sufa_mma_kernel<D, BC, STRICT, ELEM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, mma_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  sufa_mma_kernel<D, BC, STRICT, ELEM>
+      <<<grid, block, mma_smem_bytes<D>(), stream>>>(args...);
+  return cudaGetLastError();
+}
+
 template <int D, int BC>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const int64_t* idx, const uint8_t* valid, void* out,
@@ -745,15 +864,15 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   uint16_t* op = static_cast<uint16_t*>(out);
 #define SUFA_MMA(SS, EE)                                                     \
   if (strict == SS && elementwise == EE)                                    \
-    sufa_mma_kernel<D, BC, SS, EE><<<grid, block, 0, stream>>>(              \
-        qp, kp, vp, idx, valid, op, lse, keep_out, S, keep, block_q, causal, \
-        scale, radius);
+    return launch_mma_form<D, BC, SS, EE>(                                  \
+        grid, block, stream, qp, kp, vp, idx, valid, op, lse, keep_out, S,  \
+        keep, block_q, causal, scale, radius);
   SUFA_MMA(true, false)
   SUFA_MMA(false, false)
   SUFA_MMA(true, true)
   SUFA_MMA(false, true)
 #undef SUFA_MMA
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 bool bad_shape(int BH, int T, int S, int keep, int block_q, int block_kv) {
@@ -791,10 +910,14 @@ extern "C" int sufa_wgmma_bf16(const void* q, const void* k, const void* v,
   SUFA_WGMMA(64, false, false)
   SUFA_WGMMA(128, true, false)
   SUFA_WGMMA(128, false, false)
+  SUFA_WGMMA(192, true, false)
+  SUFA_WGMMA(192, false, false)
   SUFA_WGMMA(64, true, true)
   SUFA_WGMMA(64, false, true)
   SUFA_WGMMA(128, true, true)
   SUFA_WGMMA(128, false, true)
+  SUFA_WGMMA(192, true, true)
+  SUFA_WGMMA(192, false, true)
 #undef SUFA_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -827,5 +950,6 @@ extern "C" int sufa_mma_bf16(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SUFA_TILES(64)
   SUFA_TILES(128)
+  SUFA_TILES(192)
   return static_cast<int>(cudaErrorInvalidValue);
 }

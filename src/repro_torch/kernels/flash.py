@@ -36,14 +36,14 @@ from repro_torch.kernels import launch
 from repro_torch.kernels.ref import flash_bwd_ref, flash_ref  # plain forms
 
 
-def _check(name: str, q, k, v) -> None:
+def _check(name: str, q, k, v, backward: bool = False) -> None:
     bh, t, d = q.shape
     s = k.shape[1]
     if k.dim() != 3 or k.shape != v.shape or k.shape[0] != bh \
             or k.shape[2] != d or t < 1 or s < 1:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} must be [BH,T,d] and [BH,S,d]")
-    launch.check_head_dim(name, d)
+    launch.check_head_dim(name, d, backward)
 
 
 def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
@@ -83,7 +83,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "flash_bwd"
     launch.require_cuda(name, q.device)
     launch.check_operands(name, q=q, k=k, v=v, o=o, do=do)
-    _check(name, q, k, v)
+    _check(name, q, k, v, backward=True)
     bh, t, d = q.shape
     s = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, t) \

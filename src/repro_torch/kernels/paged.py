@@ -34,11 +34,11 @@ import torch
 from repro_torch.kernels import launch
 
 # (head_dim, group size R) pairs the library instantiates; (128, 6),
-# (128, 12) and (128, 16) are Grok-1's, StarCoder2-15B's and ChatGLM3-6B's
-# GQA groups
+# (128, 12), (128, 16) and (192, 12) are Grok-1's, StarCoder2-15B's,
+# ChatGLM3-6B's and Nemotron-4-340B's GQA groups
 SUPPORTED = {(64, 1), (64, 2), (64, 4), (64, 8), (64, 16),
              (128, 1), (128, 2), (128, 4), (128, 6), (128, 8), (128, 12),
-             (128, 16), (256, 1), (256, 2), (256, 4)}
+             (128, 16), (192, 12), (256, 1), (256, 2), (256, 4)}
 
 SMS = 132                # streaming multiprocessors of an H100 SXM
 BLOCKS_PER_SM = 4        # blocks per SM the split plan aims for

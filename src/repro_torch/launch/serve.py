@@ -41,8 +41,9 @@ weights from seed 0, e.g. on one H100:
 
 An arch whose weights cannot fit one card keeps its widths and takes a
 depth cut under ``--full`` (``FULL_DEPTH_CUT``: Grok-1 serves 2 of its 64
-layers; Jamba-1.5-Large the first 5 of its 72, layers 0-4 of the
-published order: every kind of block and FFN).
+layers; Nemotron-4-340B 4 of its 96, 23.25 B parameters; Jamba-1.5-Large
+the first 5 of its 72, layers 0-4 of the published order: every kind of
+block and FFN).
 
 The recurrent families (Jamba's Mamba blocks, xLSTM) serve only through
 ``--engine dense``, as in the reference: the paged and spatial engines
@@ -75,7 +76,8 @@ SLA_CYCLE = ("interactive", "standard", "batch")
 # card): Grok-1's 64 layers are 314 B parameters, 2 of them 11.5 B;
 # Jamba-1.5-Large's first 5 layers (4 Mamba, 1 attention; 2 MoE FFNs) are
 # 24 B of its 398 B
-FULL_DEPTH_CUT = {"grok_1_314b": 2, "jamba_1_5_large_398b": 5}
+FULL_DEPTH_CUT = {"grok_1_314b": 2, "nemotron_4_340b": 4,
+                  "jamba_1_5_large_398b": 5}
 
 
 def model_config(arch: str, full: bool):

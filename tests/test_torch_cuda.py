@@ -29,7 +29,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,r", [(64, 2), (128, 1), (128, 4), (256, 2)])
+@pytest.mark.parametrize("d,r", [(64, 2), (128, 1), (128, 4), (256, 2),
+                                 (192, 12)])
 def test_paged_decode_kernel_matches_plain(cuda_device, d, r):
     """K1 against its plain version, bf16 at 2e-2, with a padded slot, a
     kv_len that is not a page multiple, a sequence with no valid row, and
@@ -141,7 +142,9 @@ def _k1_tier(k, v, phys, mode, seed):
     (3, 4, 4, 128, 16, [256, 201, 37], 16),           # GQA, padded slots
     (3, 4, 4, 64, 16, [256, 0, 93], 16),              # d 64, kv_len 0
     (2, 8, 2, 64, 9, [140, 17], 16),
-    (2, 16, 1, 128, 8, [1000, 700], 128)])            # phase 9's tier read
+    (2, 16, 1, 128, 8, [1000, 700], 128),             # phase 9's tier read
+    (1, 8, 12, 192, 130, [2064], 16),                 # Nemotron-4-340B's
+    (3, 8, 12, 192, 16, [256, 0, 37], 16)])
 def test_paged_decode_int8_lane_matches_plain(cuda_device, mode, b, g, r, d,
                                               w, kv_len, page):
     """K1's int8 form against its plain version (``_gather_hot(quant=)``),
@@ -195,7 +198,8 @@ def _own_pages(phys, n_pages):
     (1, 4, 12, 128, 130, [2064], 16),                 # StarCoder2-15B's
     (1, 8, 6, 128, 130, [2064], 16),                  # Grok-1's
     (2, 4, 8, 64, 16, [256, 100], 16),
-    (2, 2, 4, 256, 16, [256, 100], 16)])
+    (2, 2, 4, 256, 16, [256, 100], 16),
+    (1, 8, 12, 192, 130, [2064], 16)])                # Nemotron-4-340B's
 def test_paged_decode_int8_lane_is_fp_over_dequantized(cuda_device, b, g, r,
                                                        d, w, kv_len, page):
     """K1's int8 lane equals, bit for bit, its fp form run over slabs whose
@@ -439,7 +443,7 @@ def _bf16(shape, gen, device, scale=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("t,s,block,causal", [
     (256, 256, 128, True), (256, 256, 128, False), (256, 256, 16, True),
     (128, 384, 64, True), (96, 96, 32, True)])
@@ -467,7 +471,7 @@ def test_dlzs_block_kernel_matches_plain(cuda_device, d, t, s, block,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("t,s,causal", [
     (128, 128, True), (1024, 1024, True), (2048, 2048, True),
     (1024, 1024, False), (256, 640, True), (128, 384, False)])
@@ -541,7 +545,7 @@ def test_sufa_kernel_matches_plain(cuda_device, strict, d, block, keep):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("strict", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("block,t,s,keep,causal", [
     (128, 2048, 2048, 4, True), (128, 512, 1024, 3, True),
     (128, 384, 384, 1, True), (128, 256, 768, 2, False),
@@ -564,7 +568,9 @@ def test_sufa_kernel_forms(cuda_device, strict, d, block, t, s, keep,
 @pytest.mark.parametrize("d,block,t,s,keep,causal,bh", [
     (128, 128, 1024, 1024, 3, True, 2), (64, 128, 1024, 1024, 3, True, 2),
     (128, 128, 4096, 4096, 7, True, 32), (64, 16, 64, 96, 3, True, 2),
-    (128, 64, 128, 256, 4, False, 2), (128, 48, 96, 192, 2, True, 2)])
+    (128, 64, 128, 256, 4, False, 2), (128, 48, 96, 192, 2, True, 2),
+    (192, 128, 1024, 1024, 3, True, 2), (192, 128, 256, 512, 2, False, 2),
+    (192, 64, 128, 256, 4, False, 2), (192, 16, 64, 96, 3, True, 2)])
 def test_sufa_kernel_elementwise(cuda_device, strict, d, block, t, s, keep,
                                  causal, bh):
     """K3's element-level sphere mask (the wgmma form at 128 tiles, d 64
@@ -620,7 +626,7 @@ def test_sufa_kernel_all_invalid_rows_are_zero(cuda_device, block):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("t,s,causal", [
     (256, 256, True), (256, 256, False), (991, 991, True), (200, 200, False),
     (100, 300, True), (300, 100, True), (2048, 2048, True),
@@ -957,7 +963,7 @@ def test_flash_bwd_kernel_matches_plain(cuda_device, d, bh, t, s, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,s,causal,d", [
     (2048, 2048, True, 128), (991, 991, True, 64), (256, 2048, False, 64),
-    (300, 100, True, 128)])
+    (300, 100, True, 128), (2048, 2048, True, 192), (300, 100, True, 192)])
 def test_flash_lse_output(cuda_device, t, s, causal, d):
     """K4's optional lse: the plain log-sum-exp at 1e-4 (+inf on the rows
     of T > S that see no key), and the same O bits with it as without."""
@@ -1039,7 +1045,8 @@ def _star_selection(q, k, block, keep, block_kv=None):
 @pytest.mark.parametrize("d,block,t,s,causal", [
     (128, 128, 2048, 2048, True), (64, 128, 1024, 1024, False),
     (128, 128, 256, 2048, True), (128, 64, 512, 512, True),
-    (64, 16, 256, 256, True), (128, 48, 192, 384, False)])
+    (64, 16, 256, 256, True), (128, 48, 192, 384, False),
+    (192, 128, 2048, 2048, True), (192, 64, 512, 512, True)])
 def test_sufa_lse_output(cuda_device, strict, d, block, t, s, causal):
     """K3's optional lse in both forms and modes: the plain log-sum-exp at
     1e-4 (+inf on a q-tile with no valid slot), and the same O bits with
@@ -1314,7 +1321,7 @@ def test_sufa_bwd_kernel_every_forward_case(cuda_device, monkeypatch,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("strict", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("block_q,block_kv,causal", [
     (128, 128, True), (128, 128, False), (16, 16, True), (48, 48, False),
     (16, 64, True), (64, 16, True), (112, 80, True)])
@@ -1396,3 +1403,65 @@ def test_star_training_step_launches_k3_backward(cuda_device):
         np.testing.assert_allclose(
             g.float().cpu().numpy(), w.numpy(), rtol=2e-2,
             atol=2e-2 * max(1.0, float(w.abs().max())))
+
+
+# -- head dim 192 (Nemotron-4-340B: 96 heads over 8 KV heads, R = 12) --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("n_sh,b,kv_len,empty", [
+    (2, 1, [2064], None), (4, 2, [300, 5], 3)])
+def test_paged_decode_stats_head_dim_192(cuda_device, quant, n_sh, b,
+                                         kv_len, empty):
+    """K1's (m, l, o) form at (192, 12), fp and int8 lanes, against its
+    plain version: m, l and o/l at 2e-2, two calls bit-equal, a shard
+    with no row neutral, counted under its own name."""
+    args = _k1_sharded_inputs(n_sh, b, 8, 12, 192, kv_len, seed=n_sh + b,
+                              device=cuda_device, empty_shard=empty)
+    tier = _k1_sharded_tier(args[1], args[3], seed=b) if quant else None
+    kernels.reset_launches()
+    got = kpaged.paged_decode_stats_attention(*args, scale=192 ** -0.5,
+                                              quant=tier)
+    again = kpaged.paged_decode_stats_attention(*args, scale=192 ** -0.5,
+                                                quant=tier)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode_stats"] == 2
+    assert kernels.FORM_LAUNCHES["paged_decode_stats/int8" if quant
+                                 else "paged_decode_stats/fp"] == 2
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    (m, l, o), (wm, wl, wo) = got, kpaged.paged_decode_stats_reference(
+        *args, scale=192 ** -0.5, quant=tier)
+    live = wl > 0
+    assert torch.equal(live, l > 0)
+    for a, b_ in ((m, wm), (l, wl)):
+        np.testing.assert_allclose(a[live].cpu().numpy(),
+                                   b_[live].cpu().numpy(), **BF16_TOL)
+    on = (o / torch.clamp(l, min=1e-30)[..., None])[live]
+    won = (wo / torch.clamp(wl, min=1e-30)[..., None])[live]
+    np.testing.assert_allclose(on.cpu().numpy(), won.cpu().numpy(),
+                               **BF16_TOL)
+    assert bool((m[~live] == -1e30).all()) and bool((o[~live] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash", "sufa"])
+def test_backward_refuses_head_dim_192(cuda_device, kernel):
+    """At d 192 K4's and K3's forwards run under autograd, and their
+    backwards refuse, naming the head dim: no backward kernel is built
+    for it, and the plain gradient never runs on the card."""
+    from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import sufa as ksufa
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    q, k, v = (_bf16((2, 256, 192), gen, cuda_device).requires_grad_()
+               for _ in range(3))
+    kernels.reset_launches()
+    if kernel == "flash":
+        out = kflash.flash_attention(q, k, v, causal=True)
+    else:
+        idx, valid = _selection(2, 256, 256, 2, 128, 128, gen, cuda_device)
+        out = ksufa.sufa_attention(q, k, v, idx, valid)
+    assert kernels.LAUNCHES[kernel] == 1
+    with pytest.raises(ValueError, match="head_dim 192 has no backward"):
+        out.float().sum().backward()
+    assert kernels.LAUNCHES[f"{kernel}_bwd"] == 0

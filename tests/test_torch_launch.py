@@ -82,6 +82,17 @@ def test_launcher_cuts_depth(capsys):
         == get_smoke_config("grok_1_314b")
 
 
+def test_full_config_cuts_nemotron_depth():
+    """Under ``--full`` Nemotron-4-340B keeps its published widths (head_dim
+    192, 96 heads over 8) and serves 4 of its 96 layers, as
+    ``chip_smoke.py`` phase 24 does: 96 would not fit one card."""
+    cut = serve.model_config("nemotron_4_340b", full=True)
+    published = get_config("nemotron_4_340b")
+    assert serve.FULL_DEPTH_CUT["nemotron_4_340b"] == 4
+    assert cut == dataclasses.replace(published, n_layers=4)
+    assert (cut.dh, cut.n_heads // cut.n_kv) == (192, 12)
+
+
 @pytest.mark.parametrize("arch", ["jamba_1_5_large_398b", "xlstm_125m"])
 def test_launcher_serves_recurrent_families(capsys, arch):
     """``--engine dense`` serves Jamba (Mamba, attention, MoE) and xLSTM

@@ -746,6 +746,52 @@ def test_chip_smoke_family_phases_rehearse_on_cpu(monkeypatch):
     assert k1["violations"] == 0
 
 
+def test_chip_smoke_nemotron_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 24 on the CPU at smoke size: the kernel checks at head_dim
+    192 (K1 at (192, 12) in its four lanes, K2, K3 and K4 in both forms;
+    plain against plain here), then Nemotron's smoke config at head_dim
+    192 and group 12 (24 heads over 2 KV heads) served with STAR (the
+    first token equals a STAR forward's) and with ``star=None`` (every
+    token the dense argmax or a bf16 tie). The launch checks, which the
+    CPU cannot meet, are recorded instead of run; their expectations are
+    held."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    held = []
+    for name in ("require_launches", "require_prefill_launches",
+                 "require_k4"):
+        monkeypatch.setattr(cs, name, lambda summary, tag, name=name:
+                            held.append((name, tag, summary)))
+    cfg = dataclasses.replace(tsmoke("nemotron_4_340b"), n_heads=24, n_kv=2,
+                              head_dim=192)
+    gen = torch.Generator().manual_seed(0)
+    out = cs.check_nemotron(cfg, "cpu", gen, layers=2, prompt_len=64,
+                            max_tokens=3, kernels_kw=dict(
+                                bh=2, t=128, probe_t=64, kv=67))
+    k = out["kernels"]
+    assert k["k1"]["fp"]["shape"] == [1, 8, 12, 192]
+    assert k["k1"]["int8"]["bit_equal_fp_over_dequantized"]
+    assert {lane: k["k1_stats"][lane]["shards"] for lane in ("fp", "int8")} \
+        == {"fp": cs.SPATIAL_SHARDS, "int8": cs.SPATIAL_SHARDS}
+    assert (k["dlzs_block"]["d"], k["dlzs_block"]["form"]) == (192, "wgmma")
+    assert k["sufa_fast_elementwise"]["elementwise"]
+    assert k["sufa_mma_sync"]["form"] == "mma_sync"
+    assert k["flash_ragged"]["T"] == 67
+    star, exact = out["served"]["star"], out["served"]["exact"]
+    assert star["first_tokens_checked"] == 1
+    assert star["exact"] + star["bf16_ties"] == 1
+    assert star["expected_launches"] == star["decode_ticks"] * 2 > 0
+    assert star["expected_prefill_launches"] == star["prefill_calls"] * 2
+    assert exact["tokens_checked"] == 3
+    assert exact["exact"] + exact["bf16_ties"] == 3
+    assert exact["expected_prefill_launches"] == 0
+    assert exact["expected_flash_launches"] == exact["prefill_calls"] * 2
+    assert exact["expected_k4_launches"] == exact["forwards"] * 2
+    assert out["served"]["info"]["peak_gb"] is None     # off the card
+    assert {name for name, _, _ in held} == {
+        "require_launches", "require_prefill_launches", "require_k4"}
+
+
 @pytest.mark.parametrize("gaps,served,held", [
     ((1, 3), None, "tie"),       # 1 step below K4's top: a tie
     ((2, 1), None, "tie"),       # 2 below K4's, 1 below the plain top
