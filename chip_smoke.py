@@ -358,6 +358,25 @@ Phases, each printing its numbers on a line of its own:
    token against a cache-free STAR forward; (c) the same request with
    ``star=None``, every token held by phase 4's rule against a K4
    forward; the card's peak memory.
+25. Nemotron-4-340B trained at head_dim 192: (a) K4's and K3's
+   backwards at its training shape (BH 96, T = S = 2048, d 192, causal)
+   against their plain versions by 20a's and 21a's rules, two calls
+   bit-equal: K4's timed beside SDPA's backward; K3's on the glue's
+   selection at Nemotron's top_k_ratio 0.2, its wgmma form with and
+   without the element mask (timed beside SDPA's backward under the
+   selection's mask), the edges and a key tile every q-tile chose, its
+   mma.sync form at tiles of 64 (timed) and 16; (b) one layer at its
+   published width (``lm._block_apply`` on a [2, 2048, 18432] input and
+   a seeded upstream gradient), dense and with ``star_train``, every
+   parameter's and the input's gradient by 20d's rule against the fp32
+   plain layer; (c) its published widths cut to 1 of 96 layers (12.89 B
+   parameters with the untied embedding and head), 12 steps of 8 x 2048
+   tokens with its own Adafactor and ``train_accum`` 8, dense and then
+   with ``star_train``: the loss falls by more than 0.1, every loss and
+   grad norm finite, K4 = steps x 8 x 2 and its backward steps x 8 (K2 =
+   K3 = steps x 8 x 2 and K3's backward steps x 8 in its wgmma form with
+   ``star_train``); step ms, tokens/s, MFU, the state's reckoning (one
+   gradient tree: ``launch.steps.accumulate_grad``) and peak memory.
 Phase 4 also counts K4: oracle forwards x attention layers launches (an
 encoder-decoder forward's: its encoder, self- and cross-attention
 layers).
@@ -515,11 +534,22 @@ XLSTM_TRAIN_SEQ = 256       # phase 23d's cut (family_cases)
 # once: the uninterrupted run's saves at steps 5 and 10, then the resumed
 # run's at 5 and 10 and its final save's copy of 10 while it is written
 RESTART_STATE_COPIES = 5
-# K4's backward's kernels (csrc/flash_bwd.cu), by name prefix
+# A profiled split window: the host sleep before and after its calls, and
+# the most sessions it takes. On an H100 the trace of a session late in this
+# script can lack its first launches, or all of them, most often in the
+# first session after other work; another session on the same calls mostly
+# holds them all (PERF.md §7).
+PROFILE_MARGIN_S = 0.5
+SPLIT_SESSIONS = 4
+# K4's backward's kernels (csrc/flash_bwd.cu), by name prefix; at head_dim
+# 192 its key-tile pass is a kernel of its own
 BWD_KERNELS = ("bwd_prep", "bwd_kv")
+BWD_KERNELS_D192 = ("bwd_prep", "bwd_kv192")
 # phase 21: STAR in training; the kernels of K3's backward's wgmma form
-# (csrc/sufa_bwd.cu, 128 x 128 tiles) in launch order, by name prefix
+# (csrc/sufa_bwd.cu, 128 x 128 tiles) in launch order, by name prefix; at
+# head_dim 192 its dK/dV pass is a kernel of its own
 SUFA_BWD_KERNELS = ("sufa_grad_q_wgmma", "sufa_grad_kv_wgmma")
+SUFA_BWD_KERNELS_D192 = ("sufa_grad_q_wgmma", "sufa_grad_kv_wgmma192")
 # and of its mma_sync form (other tilings), in launch order
 SUFA_BWD_MMA_KERNELS = ("sufa_grad_prep", "sufa_grad_kv", "sufa_grad_q")
 STARTED = time.perf_counter()
@@ -3689,7 +3719,8 @@ def check_flash_bwd(dev, flush, *, bh, t, causal, seed, timed, d=128,
     on fp32 copies of the inputs, the fp32 forward's O and lse). Timed:
     the kernel, its plain version on the same bf16 inputs, its bound (10·d
     flops per visible pair, or its bytes) and SDPA's backward alone
-    (``torch.autograd.grad`` on a retained graph)."""
+    (``torch.autograd.grad`` on a retained graph), and each of its
+    kernels' device time (``flash_bwd_split``)."""
     s = s or t
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
     if s != t:
@@ -3743,7 +3774,9 @@ def check_flash_bwd(dev, flush, *, bh, t, causal, seed, timed, d=128,
         add_times(out, kernel, plain, library, flush,
                   bytes_=nbytes(q, k, v, o, do, q, k, v) + nbytes(lse),
                   flops=10 * d * pairs)
-        out.update(flash_bwd_split(kernel, flush))
+        out.update(flash_bwd_split(
+            kernel, flush, parts=BWD_KERNELS_D192 if d == 192
+            else BWD_KERNELS))
         # achieved rate by the 10·d flops per visible pair the gradient
         # needs (and the kernel executes: no product is computed twice)
         out["tflop_s_10d"] = 10 * d * pairs / out["ms"] / 1e9
@@ -3758,23 +3791,35 @@ def flash_bwd_split(fn, flush, iters: int = 10,
     K3's ``wgmma`` form with ``parts=SUFA_BWD_KERNELS``: the dQ pass
     that also sums D, then dK/dV), from
     ``torch.profiler`` over ``iters`` calls of ``fn``, each after an L2
-    flush (averaged over the launches the trace holds); their sum beside
-    them."""
+    flush, ``PROFILE_MARGIN_S`` from either end of the window; the session
+    is run again, up to ``SPLIT_SESSIONS`` in all, until its trace holds
+    every launch (the one holding the most is read: averaged over the
+    launches it holds); their sum beside them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    _, _, top = profiling.device_kernels(prof, set())
-    out = {}
-    for part in parts:
-        mine = [k for k in top if f"{part}_kernel" in k["name"]]
-        out[f"{part}_launches_traced"] = sum(k["calls"] for k in mine)
-        out[f"{part}_ms"] = sum(k["device_ms"] for k in mine) / max(
+    best = None
+    for session in range(1, SPLIT_SESSIONS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
+        _, _, top = profiling.device_kernels(prof, set())
+        mine = {part: [k for k in top if f"{part}_kernel" in k["name"]]
+                for part in parts}
+        traced = sum(k["calls"] for ks in mine.values() for k in ks)
+        if best is None or traced > best[0]:
+            best = (traced, mine)
+        if traced == iters * len(parts):
+            break
+    out = {"split_sessions": session}
+    for part, ks in best[1].items():
+        out[f"{part}_launches_traced"] = sum(k["calls"] for k in ks)
+        out[f"{part}_ms"] = sum(k["device_ms"] for k in ks) / max(
             1, out[f"{part}_launches_traced"])
     out["split_sum_ms"] = sum(out[f"{part}_ms"] for part in parts)
     return out
@@ -4209,8 +4254,11 @@ def recorded_gates(store: list):
 
 
 def model_grads(params, cfg, batch, plain: bool, tiles=None,
-                keeps=None, routes=None) -> tuple:
-    """(loss, metrics, grads) of one ``lm.loss_fn`` step, with the kernels
+                keeps=None, routes=None,
+                grad_fn=launch_steps.value_and_grad) -> tuple:
+    """(loss, metrics, grads) of one ``lm.loss_fn`` step (or of
+    ``grad_fn(params, cfg, batch)``, ``layer_value_and_grad`` for phase
+    25b's layer), with the kernels
     and their backwards, or ``plain`` with the plain versions in their
     place (``plain_flash_train``, K2's ``dlzs_block_ref``,
     ``plain_sufa_train``). With ``tiles`` (a list; STAR in training) a
@@ -4260,8 +4308,7 @@ def model_grads(params, cfg, batch, plain: bool, tiles=None,
     try:
         with routing, (recorded_gates(gates) if plain and routes is not None
                        else contextlib.nullcontext()):
-            (loss, metrics), grads = launch_steps.value_and_grad(
-                params, cfg, batch)
+            (loss, metrics), grads = grad_fn(params, cfg, batch)
     finally:
         for name, fn in real.items():
             setattr(ops, name, fn)
@@ -4468,9 +4515,10 @@ def lse_held(tag: str, got, want, **case) -> dict:
 
 def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
                    edges=False, all_choosers=False, block=128,
-                   block_kv=None, elementwise=False) -> dict:
+                   block_kv=None, elementwise=False, star=None) -> dict:
     """Phase 21a: K3's lse and backward on the glue's selection (K2, then
-    ``ops.select_tiles`` keeping as many tiles as olmo_1b's STAR config)
+    ``ops.select_tiles`` keeping as many tiles as olmo_1b's STAR config,
+    or ``star``'s where given: phase 25a's Nemotron-4-340B)
     at tiles ``block`` x ``block_kv`` (square unless given).
     K3's forward, strict and fast, must give the same O bits with and
     without lse (and, with ``elementwise``, its keep bits), and its lse
@@ -4497,7 +4545,7 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
     version, its bound (10·d flops per visible selected pair, or its
     bytes; the keep bits' bytes counted; the plain version over 5 calls in
     the ``mma_sync`` form) and SDPA's backward under the dense mask
-    (``autograd.grad`` on a retained graph), with the split of the form's
+    (``autograd.grad`` on a retained graph), and the split of the form's
     kernels (each traced at least once)."""
     block_q, block_kv = block, block_kv or block
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
@@ -4506,7 +4554,7 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
     gen = torch.Generator(device="cpu").manual_seed(seed + 2)
     do = torch.randn((bh, t, d), generator=gen).to(dev, torch.bfloat16)
     scale = d ** -0.5
-    star = olmo_1b.config().star
+    star = star or olmo_1b.config().star
     keep = dataclasses.replace(star, block_q=block_q,
                                block_kv=block_kv).keep_blocks(s)
     raw = kdlzs.dlzs_block_scores(q, k, causal=causal, scale=1.0,
@@ -4660,11 +4708,12 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
                                 *extra),
                   flops=10 * d * pairs,
                   plain_iters=50 if form == "wgmma" else 5)
-        parts = SUFA_BWD_KERNELS if form == "wgmma" else SUFA_BWD_MMA_KERNELS
+        parts = SUFA_BWD_MMA_KERNELS if form == "mma_sync" else (
+            SUFA_BWD_KERNELS_D192 if d == 192 else SUFA_BWD_KERNELS)
         out.update(flash_bwd_split(kernel, flush, parts=parts))
         if not all(out[f"{part}_launches_traced"] for part in parts):
-            raise SystemExit(f"sufa_bwd {case}: the trace holds no launch "
-                             f"of one of {parts}: {out}")
+            raise SystemExit(f"sufa_bwd {case}: the trace holds no "
+                             f"launch of one of {parts}: {out}")
         out["selected_pairs"] = pairs
         out["dense_causal_pairs"] = bh * visible_pairs(t, s, causal)
         out["tflop_s_10d"] = 10 * d * pairs / out["ms"] / 1e9
@@ -5038,7 +5087,10 @@ def check_family_k4(dev, shapes_: dict, timed: bool) -> dict:
 def state_gb(params, opt_state, cfg) -> dict:
     """The training state's reckoning in GB: bf16 params, a step's
     gradients (the same bytes), the optimizer's state and, with
-    ``train_accum`` > 1, the accumulation buffer (``cfg.accum_dtype``)."""
+    ``train_accum`` > 1, the accumulation buffer (``cfg.accum_dtype``).
+    Where that buffer is in the parameters' dtype the step keeps one
+    gradient tree (``launch.steps.accumulate_grad``): the gradients are
+    then its largest leaf's, the one that may live beside the sum."""
     nb = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
                           for _, t in sorted_items(tree)) / 1e9
     out = {"params": nb(params), "grads": nb(params),
@@ -5047,7 +5099,11 @@ def state_gb(params, opt_state, cfg) -> dict:
         out["accum_buffer"] = sum(
             t.numel() for t in tree_leaves(params)) * torch.tensor(
             [], dtype=cfg.accum_dtype).element_size() / 1e9
-    out["total"] = sum(out.values())
+        if cfg.accum_dtype == cfg.dtype:
+            out["grads"] = max(t.numel() * t.element_size()
+                               for t in tree_leaves(params)) / 1e9
+            out["grads_form"] = "one leaf beside the sum"
+    out["total"] = sum(v for v in out.values() if isinstance(v, float))
     return out
 
 
@@ -5244,6 +5300,180 @@ def check_nemotron(cfg, dev, gen, *, layers=NEMOTRON_LAYERS,
          peak_gb=out["served"]["info"]["peak_gb"],
          peak_gb_after_init=out["served"]["info"]["peak_gb_after_init"],
          kernels_s=out["kernels_s"], seconds=out["seconds"])
+    return out
+
+
+# -- phase 25: Nemotron-4-340B trained, head_dim 192 --------------------------
+
+NEMOTRON_TRAIN_LAYERS = 1   # of 96: 12.89 B parameters with embedding and head
+# from runs on the H100 (tools/torch_nemotron_train.py LR): at 6e-4 (phase
+# 23's Adafactor rate) one update at 1.2e-4 lowers the loss by 0.8 and the
+# run diverges from the update at 3.6e-4 (12.87 -> 33.2 by step 7)
+NEMOTRON_TRAIN_LR = 1e-4
+NEMOTRON_STEP_BATCH = 2     # rows of phase 25b's layer gradient
+NEMOTRON_TRAIN_CUT = (
+    "1 of 96: the layer is 3.45 B parameters beside 9.44 B of untied "
+    "embedding and head, 12.89 B in all: 25.8 GB of bf16 params and 25.8 "
+    "GB of bf16 accumulation buffer, and the head's gradient summed over "
+    "the CE chunks (two 9.4 GB trees at once) on top; 2 layers are 16.34 B "
+    "parameters, 65.4 GB of params and buffer before that 18.9 GB, past "
+    "the card's 80 GB")
+
+
+def check_head_dim_192_backwards(dev, *, bh: int = 96,
+                                 t: int = TRAIN_SEQ, seed: int = 250
+                                 ) -> dict:
+    """Phase 25a: K4's and K3's backwards at Nemotron-4-340B's training
+    shape (one 2048-token row a microbatch x 96 heads, K/V expanded from
+    8; T = S = ``t``, d 192, causal) against their plain versions by 20a's
+    and 21a's rules (``check_flash_bwd``, ``check_sufa_bwd`` on the glue's
+    selection at Nemotron's ``top_k_ratio``), two calls bit-equal: K4's
+    timed beside SDPA's backward; K3's ``wgmma`` form (tiles 128) with and
+    without the element mask, timed; its edges (invalid slots, an unchosen
+    key tile, an empty q-tile) and a key tile every q-tile of a head
+    chose; its ``mma_sync`` form at tiles of 64 (timed) and of 16 with
+    the edges; each timed backward's kernels' device times from a profiler
+    trace (``flash_bwd_split``)."""
+    on_card = torch.device(dev).type == "cuda"
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev) \
+        if on_card else None
+    star = nemotron_4_340b.config().star
+    d = 192
+    out = {"flash_bwd": check_flash_bwd(dev, flush, bh=bh, t=t, causal=True,
+                                        seed=seed, timed=on_card, d=d)}
+    k3 = functools.partial(check_sufa_bwd, dev, flush, bh=bh, t=t, s=t, d=d,
+                           causal=True, star=star)
+    out["sufa_bwd"] = k3(seed=seed + 1, timed=on_card)
+    out["sufa_bwd_elementwise"] = k3(seed=seed + 2, timed=on_card,
+                                     elementwise=True)
+    out["sufa_bwd_edges"] = k3(seed=seed + 3, timed=False, edges=True)
+    out["sufa_bwd_all_choosers"] = k3(seed=seed + 4, timed=False,
+                                      all_choosers=True)
+    out["sufa_bwd_tiles64"] = k3(seed=seed + 5, timed=on_card, block=64)
+    out["sufa_bwd_tiles16"] = k3(seed=seed + 6, timed=False, block=16,
+                                 edges=True)
+    del flush
+    free_cache(dev)
+    return out
+
+
+def layer_value_and_grad(params, cfg, batch) -> tuple:
+    """((loss, metrics), grads) of one decoder layer (``lm._block_apply``
+    of ``cfg``'s first block in train mode) on ``batch["x"]`` [B, S, d]:
+    the loss is sum(y · ``batch["dy"]``) in fp32, so the gradients are the
+    layer's VJP of the upstream gradient dy; grads = {"layer": the
+    parameters', "x": the input's}."""
+    work = tree_map(lambda p: p.detach().requires_grad_(), params)
+    x = batch["x"].detach().requires_grad_()
+    leaves = tree_leaves(work)
+    positions = torch.arange(x.shape[1], device=x.device)
+    with torch.enable_grad():
+        y, _, _ = lm._block_apply(work, cfg, cfg.pattern[0], x, positions,
+                                  mode="train")
+        loss = (y.float() * batch["dy"].float()).sum()
+        *grads, dx = torch.autograd.grad(loss, leaves + [x])
+    it = iter(grads)
+    aux = torch.zeros((), device=x.device)
+    return (loss.detach(), {"aux": aux}), {
+        "layer": tree_map(lambda _: next(it), params), "x": dx}
+
+
+def check_layer_grads(cfg, dev, gen, *, seq: int = TRAIN_SEQ,
+                      batch: int = NEMOTRON_STEP_BATCH,
+                      tag: str = "nemotron_layer_grads") -> dict:
+    """Phase 25b: one of ``cfg``'s layers at its published width, its
+    gradient by 20d's rule: ``layer_value_and_grad`` on a seeded [batch,
+    seq, d_model] input and upstream gradient, with the kernels (K4 and
+    its backward, or with ``star_train`` K2, K3 and K3's backward), then
+    on the plain path in bf16 and in fp32 (``model_grads(plain=True)``,
+    the STAR runs on the kernel run's tile ids); every parameter's and the
+    input's gradient no further from the fp32 one than twice the bf16
+    plain one is (plus 1e-5). A layer and not the model: the model's fp32
+    plain step would not fit on the card."""
+    star = star_trained(cfg)
+    tiles = [] if star else None
+    gen.manual_seed(SEED)
+    blocks = lm._blocks_init(gen, cfg, cfg.pattern[:1], 1, dev)
+    layer = lm._unbind_layers(blocks["b0"], 1)[0]
+    bt = {"x": seeded_normal((batch, seq, cfg.d_model), SEED + 1, dev,
+                             cfg.dtype),
+          "dy": seeded_normal((batch, seq, cfg.d_model), SEED + 2, dev,
+                              cfg.dtype)}
+    run = functools.partial(model_grads, grad_fn=layer_value_and_grad,
+                            tiles=tiles)
+    kernels.reset_launches()
+    _, _, g = run(layer, cfg, bt, plain=False)
+    launches = launched()
+    _, _, g_lp = run(layer, cfg, bt, plain=True)
+    p32 = tree_map(lambda t: t.float(), layer)
+    del blocks, layer
+    _, _, g32 = run(p32, dataclasses.replace(cfg, dtype=torch.float32),
+                    {k: v.float() for k, v in bt.items()}, plain=True)
+    del p32
+    names = [_key_path(p) for p, _ in sorted_items(g)]
+    case = {"arch": cfg.name, "d_model": cfg.d_model, "head_dim": cfg.dh,
+            "star_train": star, "seq": seq, "batch": batch,
+            "layer_params": sum(t.numel() for t in tree_leaves(g["layer"])),
+            "launches": launches,
+            "star_calls": len(tiles) if star else None}
+    leaves = gradient_rule(
+        tag, dict(zip(names, (x for _, x in sorted_items(g)))),
+        dict(zip(names, (x for _, x in sorted_items(g32)))),
+        dict(zip(names, (x for _, x in sorted_items(g_lp)))), **case)
+    case["leaves"] = {n: [leaves[f"max_abs_err_{n}"],
+                          leaves[f"bf16_plain_err_{n}"]] for n in names}
+    case["leaves_format"] = "[kernel path max error, bf16 plain path's]"
+    case.update(max_abs_err=leaves["max_abs_err"],
+                tolerance=leaves["tolerance"])
+    emit(tag, **case)
+    want = ({"dlzs_block": 1, "sufa": 1, "sufa_bwd": 1} if star
+            else {"flash": 1, "flash_bwd": 1})
+    if torch.device(dev).type != "cuda":   # the plain versions ran
+        want = {k: 0 for k in launches}
+    if {k: launches[k] for k in want} != want:
+        raise SystemExit(f"{tag}: launches {launches}; expected {want}")
+    del g, g_lp, g32
+    free_cache(dev)
+    return case
+
+
+def check_nemotron_training(cfg, dev, gen, *, layers=NEMOTRON_TRAIN_LAYERS,
+                            steps=FAMILY_STEPS, seq=TRAIN_SEQ,
+                            batch=TRAIN_BATCH, lr=NEMOTRON_TRAIN_LR,
+                            kernels_kw=None) -> dict:
+    """Phase 25: Nemotron-4-340B trained at head_dim 192. (a) K4's and
+    K3's backwards at its training shape
+    (``check_head_dim_192_backwards``); (b) one layer's gradient at its
+    published width, dense and with ``star_train``
+    (``check_layer_grads``); (c) its published widths cut to ``layers``
+    of 96 layers (``NEMOTRON_TRAIN_CUT``), trained ``steps`` steps of
+    ``batch`` x ``seq`` tokens with its own Adafactor and ``train_accum``
+    8 (``check_training``: the loss falls by > 0.1, every loss and grad
+    norm finite, K4 = steps x 8 x 2 and its backward steps x 8), then the
+    same with ``star_train`` (K2 = K3 = steps x 8 x 2, K3's backward in
+    its ``wgmma`` form steps x 8, K4 0)."""
+    t0 = time.perf_counter()
+    out = {"kernels": check_head_dim_192_backwards(dev,
+                                                   **(kernels_kw or {}))}
+    star_cfg = dataclasses.replace(cfg, star_train=True)
+    out["layer"] = {name: check_layer_grads(c, dev, gen, seq=seq)
+                    for name, c in (("dense", cfg), ("star", star_cfg))}
+    reduced = {"n_layers": NEMOTRON_TRAIN_CUT} if layers == 1 else {
+        "n_layers": f"{layers} of {cfg.n_layers}"}
+    for name, c in (("dense", cfg), ("star", star_cfg)):
+        out[name] = check_training(cut_layers(c, layers), dev, gen,
+                                   steps=steps, seq=seq, batch=batch, lr=lr,
+                                   save=False, tag="nemotron_training",
+                                   reduced=reduced)
+    out["seconds"] = time.perf_counter() - t0
+    emit("nemotron_trained", layers=layers, head_dim=cfg.dh,
+         optimizer=cfg.optimizer, train_accum=cfg.train_accum,
+         reduced=reduced, seconds=out["seconds"],
+         peak_memory_gb={n: out[n]["peak_memory_gb"]
+                         for n in ("dense", "star")},
+         state_gb=out["dense"]["state_gb"],
+         step_ms_median={n: out[n]["step_ms_median"]
+                         for n in ("dense", "star")})
     return out
 
 
@@ -5561,6 +5791,13 @@ def main() -> int:
     # star=None through the paged engine
     nem = check_nemotron(nemotron_4_340b.config(), dev, gen)
     k24, nem24 = nem["kernels"], nem["served"]
+
+    # 25. Nemotron-4-340B trained at head_dim 192: K4's and K3's backwards
+    # at its training shape, one layer's gradient at its published width,
+    # and 1 of its 96 layers trained with its Adafactor and train_accum 8,
+    # dense and with star_train
+    nt = check_nemotron_training(nemotron_4_340b.config(), dev, gen)
+    k25 = nt["kernels"]
 
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
@@ -5933,7 +6170,45 @@ def main() -> int:
              nem24["exact"]["flash_launches"], k24["flash"],
              launches_from="phase 24c, Nemotron-4-340B star=None prefills",
              launches_oracle=nem24["exact"]["k4_launches"],
-             max_abs_err_ragged=k24["flash_ragged"]["max_abs_err"]),
+             max_abs_err_ragged=k24["flash_ragged"]["max_abs_err"],
+             launches_training=nt["dense"]["launches"]["flash"]),
+        # phase 25: the backwards at head_dim 192 (64-key tiles, the
+        # warpgroups split by product), Nemotron-4-340B trained
+        line("flash_bwd/d192", "flash_bwd.cu",
+             "src/repro/kernels/flash.py:67", nt["dense"]["launches"][
+                 "flash_bwd"], k25["flash_bwd"],
+             launches_from="phase 25c, Nemotron-4-340B trained (1 of 96 "
+                           "layers, Adafactor, train_accum 8)",
+             max_abs_err_by_grad={n: k25["flash_bwd"][f"max_abs_err_{n}"]
+                                  for n in ("dq", "dk", "dv")},
+             bf16_plain_err_by_grad={
+                 n: k25["flash_bwd"][f"bf16_plain_err_{n}"]
+                 for n in ("dq", "dk", "dv")},
+             split_ms={part: k25["flash_bwd"][f"{part}_ms"]
+                       for part in BWD_KERNELS_D192},
+             tflop_s_10d=k25["flash_bwd"]["tflop_s_10d"],
+             layer_grads_max_abs_err=nt["layer"]["dense"]["max_abs_err"]),
+        line("sufa_bwd/d192", "sufa_bwd.cu",
+             "none: the reference differentiates sufa_gathered through XLA "
+             "(src/repro/core/sufa.py:107)",
+             nt["star"]["launches"]["sufa_bwd"], k25["sufa_bwd"],
+             launches_from="phase 25c, Nemotron-4-340B trained with "
+                           "star_train (1 of 96 layers)",
+             form=k25["sufa_bwd"]["form"],
+             launches_by_form={f: nt["star"]["launches"][f"sufa_bwd/{f}"]
+                               for f in ("wgmma", "mma_sync")},
+             max_abs_err_by_grad={n: k25["sufa_bwd"][f"max_abs_err_{n}"]
+                                  for n in ("dq", "dk", "dv")},
+             split_ms={part: k25["sufa_bwd"][f"{part}_ms"]
+                       for part in SUFA_BWD_KERNELS_D192},
+             tflop_s_10d=k25["sufa_bwd"]["tflop_s_10d"],
+             elementwise=timed(k25["sufa_bwd_elementwise"]),
+             mma_sync_tiles64=timed(k25["sufa_bwd_tiles64"]),
+             max_abs_err_edges=k25["sufa_bwd_edges"]["max_abs_err"],
+             max_abs_err_all_choosers=k25["sufa_bwd_all_choosers"][
+                 "max_abs_err"],
+             max_abs_err_tiles16=k25["sufa_bwd_tiles16"]["max_abs_err"],
+             layer_grads_max_abs_err=nt["layer"]["star"]["max_abs_err"]),
     ]}), flush=True)
     print_device_line()
     return 0

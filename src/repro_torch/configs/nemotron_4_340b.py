@@ -1,10 +1,11 @@
 """Nemotron-4-340B [dense] — 96L d_model=18432 96H (GQA kv=8) d_ff=73728
 vocab=256000, squared-ReLU MLP.  [arXiv:2402.16819; unverified] — the
-port's twin of ``repro.configs.nemotron_4_340b`` (same shapes, torch
-dtype; the reference's training fields are not ported). Its head_dim of
-192 and GQA group of 12 are built into every forward kernel (K1 at
-(192, 12), K2, K3, K4), so it serves on the card; the backwards take
-head_dim 64 and 128 only, so it does not train there."""
+port's twin of ``repro.configs.nemotron_4_340b`` (same shapes and
+training fields, torch dtype). Its head_dim of 192 and GQA group of 12
+are built into every forward kernel (K1 at (192, 12), K2, K3, K4) and
+into K4's and K3's backwards, so it serves and trains on the card:
+``chip_smoke.py`` trains its published widths cut to 1 of 96 layers with
+this Adafactor and ``train_accum``."""
 
 from repro_torch.core.star_attention import STARConfig
 from repro_torch.models.lm import BlockCfg, ModelCfg

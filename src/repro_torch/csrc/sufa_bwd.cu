@@ -19,7 +19,8 @@
 // [BH, T] (natural base, +inf on a row that sees no key), it writes dQ,
 // dK, dV in bf16 with fp32 sums. Tiles Bq = block_q and Bc = block_kv are
 // any multiples of 16 up to 128 (T, S their multiples), mixed pairs
-// included, as K3's forward takes them; D 64 and 128. With the element-level
+// included, as K3's forward takes them; D 64, 128 and 192 (Nemotron-4-
+// 340B's head). With the element-level
 // sphere mask (STARConfig(elementwise=True)) the backward takes the keep
 // bits the forward wrote (sufa.cu's keep_out: [BH, n_qt, keep, Bq,
 // ceil(Bc / 32)] words) and lets them decide every key in place of the
@@ -133,6 +134,19 @@
 // Then the selection's skew: a few tiles chosen by every q-tile, most by
 // none, which the persistent (b) and its order absorb.
 //
+// D = 192. (b)'s plan does not fit: a warpgroup's dK and dV of 64 keys
+// over 192 columns (96 + 96 fp32 registers a thread) beside S^T and dP^T
+// (32 + 32) pass setmaxnreg's 240. So (b) takes 64-key parts of the tiles
+// (two items a tile, in turn) and its warpgroups split the work by product
+// over the part's keys (sufa_grad_kv_wgmma192_kernel): warpgroup 0 S^T,
+// P^T (to shared memory in fp32) and dV, warpgroup 1 dP^T, dS^T and dK,
+// two K/V buffers of 48 KB, a 2-stage ring, P^T's 16 KB (210 KB). (c) runs
+// each selected tile as two 64-key stages (m64n64 S and dP, dQ by RS
+// m64n192; 2 stages, 193 KB), as K3's forward streams a 128-key tile at D
+// = 192. The mma.sync form takes 16-row dK/dV steps at D = 192 (its dK and
+// dV are 192 registers a thread). Every sum stays inside one block, so
+// two calls give the same bits here too.
+//
 // Later work: ping-pong scheduling of the consumer warpgroups, a (b) that
 // splits the sink's long walk, and an mma.sync form whose small tiles share
 // a block (at tiles of 16 a block is one warp).
@@ -160,7 +174,7 @@ __host__ __device__ constexpr int chunk_of(int tile) {
 
 template <int D>
 __host__ __device__ constexpr int bq_kv() {  // most query rows per dK/dV step
-  return D == 128 ? 32 : 64;
+  return D == 192 ? 16 : D == 128 ? 32 : 64;
 }
 
 template <int D>
@@ -596,12 +610,14 @@ cudaError_t launch_passes(const MmaArgs& a, cudaStream_t stream) {
   const int chunk = chunk_of(a.block_q);
   const int step = chunk < bq_kv<D>() ? chunk : bq_kv<D>();
   cudaError_t err = cudaSuccess;
-  if (step == 16)
+  if (step == 16) {
     err = launch_kv<D, 16, ELEM>(a, stream);
-  else if (step == 32)
-    err = launch_kv<D, 32, ELEM>(a, stream);
-  else if constexpr (bq_kv<D>() == 64)
-    err = launch_kv<D, 64, ELEM>(a, stream);
+  } else if constexpr (bq_kv<D>() >= 32) {  // no wider step is built at 192
+    if (step == 32)
+      err = launch_kv<D, 32, ELEM>(a, stream);
+    else if constexpr (bq_kv<D>() == 64)
+      err = launch_kv<D, 64, ELEM>(a, stream);
+  }
   if (err != cudaSuccess) return err;
   switch (chunk_of(a.block_kv)) {
     case 16: return launch_q<D, 16, ELEM>(a, stream);
@@ -650,30 +666,42 @@ constexpr int kWgThreads = (kConsumers + 1) * 128;  // + a producer warpgroup
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 
-// (b)'s ring of 64-row Q/dO steps and (c)'s ring of K/V tiles: as deep as
-// shared memory allows beside (b)'s two K/V buffers and (c)'s Q and dO
+// At D = 192 both passes stream K and V in 64-key parts (kv_rows<192>()):
+// (b) takes (bh, 64-key part) items, its two warpgroups split by product
+// (sufa_grad_kv_wgmma192_kernel), and (c) runs each selected tile as two
+// 64-key stages.
+template <int D>
+__host__ __device__ constexpr int kv_rows() {
+  return D == 192 ? 64 : kTile;
+}
+
+// (b)'s ring of 64-row Q/dO steps and (c)'s ring of K/V stages: as deep as
+// shared memory allows beside (b)'s two K/V buffers (and at D = 192 its
+// P^T) and (c)'s Q and dO
 template <int D>
 __host__ __device__ constexpr int kv_pass_stages() {
-  return D == 128 ? 3 : 8;
+  return D == 64 ? 8 : D == 128 ? 3 : 2;
 }
 
 template <int D>
 __host__ __device__ constexpr int q_pass_stages() {
-  return D == 128 ? 2 : 4;
+  return D == 64 ? 4 : 2;
 }
 
 template <int D>
 __host__ __device__ constexpr int smem_kv_wgmma_bytes() {
-  // two K, V buffers; per stage Q, dO and their lse2 / D slices; alignment
-  return 4 * tile_bytes<D>(kTile) +
+  // two K, V buffers; per stage Q, dO and their lse2 / D slices; at D =
+  // 192 the P^T exchange; alignment
+  return 4 * tile_bytes<D>(kv_rows<D>()) +
          kv_pass_stages<D>() * (2 * tile_bytes<D>(kStep) + 2 * kStep * 4) +
-         1024;
+         (D == 192 ? 64 * kStep * 4 : 0) + 1024;
 }
 
 template <int D>
 __host__ __device__ constexpr int smem_q_wgmma_bytes() {
   // Q, dO; per stage K, V; alignment
-  return (2 + 2 * q_pass_stages<D>()) * tile_bytes<D>(kTile) + 1024;
+  return 2 * tile_bytes<D>(kTile) +
+         2 * q_pass_stages<D>() * tile_bytes<D>(kv_rows<D>()) + 1024;
 }
 
 // (b) dK, dV of 128-key tiles, each over the 64-row steps of the q-tiles
@@ -975,6 +1003,309 @@ sufa_grad_kv_wgmma_kernel(
   }
 }
 
+// (b) at D = 192: dK, dV of 64-key parts of the 128-key tiles, each over
+// the 64-row steps of the q-tiles that chose its tile. The walk, the order
+// of items (key tile by key tile, each tile's two parts in turn) and the
+// ring are (b)'s above; a part's K and V load with its first step. dK and
+// dV of 64 keys over 192 columns (96 + 96 registers) beside S^T and dP^T
+// would pass setmaxnreg's 240, so the two consumer warpgroups split the
+// work by product over the same 64 keys: warpgroup 0 S^T = K . Q^T, P^T
+// (masked), P^T in fp32 to shared memory, dV += P^T . dO; warpgroup 1
+// dP^T = V . dO^T, dS^T = P^T * (dP^T - D) from the shared P^T, dK += dS^T
+// . Q (RS m64n192 both). Each warpgroup runs one wgmma sequence on
+// operands chosen by warpgroup, so no product sits in a divergent branch.
+template <bool ELEM>
+__global__ void __launch_bounds__(kWgThreads, 1)
+sufa_grad_kv_wgmma192_kernel(
+    const __grid_constant__ CUtensorMap qmap,   // [BH, T, D], boxes of 64
+    const __grid_constant__ CUtensorMap domap,  // [BH, T, D], boxes of 64
+    const __grid_constant__ CUtensorMap kmap,   // [BH, S, D], boxes of 64
+    const __grid_constant__ CUtensorMap vmap,   // [BH, S, D], boxes of 64
+    const int64_t* __restrict__ idx, const uint8_t* __restrict__ valid,
+    const float* __restrict__ lse2,  // [BH, T]
+    const float* __restrict__ dvec,  // [BH, T]
+    const uint32_t* __restrict__ keep_bits,  // ELEM: [BH, n_qt, keep, 128, 4]
+    int* __restrict__ next_item,     // the next item; (c) zeroed it
+    uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int BH, int T,
+    int S, int keep, int causal, float scale, float scale_log2) {
+  constexpr int D = 192;
+  constexpr int kB = kv_rows<D>();  // keys per item
+  constexpr int kStages = kv_pass_stages<D>();
+  constexpr int kKV = tile_bytes<D>(kB);
+  constexpr int kQ = tile_bytes<D>(kStep);
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full[2];
+  __shared__ __align__(8) uint64_t kv_empty[2];
+  __shared__ __align__(8) uint64_t q_full[kStages];
+  __shared__ __align__(8) uint64_t q_empty[kStages];
+  __shared__ __align__(8) uint64_t p_full;   // P^T published
+  __shared__ __align__(8) uint64_t p_empty;  // P^T read
+  __shared__ int step_q0[kStages];    // a stage's first row
+  __shared__ int step_item[kStages];  // its item; -1: the walk's end
+  __shared__ int step_sel[kStages];   // its slot, q-tile * keep + j
+
+  uint8_t* const skv =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // K/V buffer b: K at skv + 2b·kKV, V after
+  uint8_t* const sring = skv + 4 * kKV;  // stage s: Q at + 2s·kQ, dO after
+  float* const sstat = reinterpret_cast<float*>(sring + kStages * 2 * kQ);
+  // stage s: lse2 at sstat + 2s·kStep, D after
+  float4* const sp4 = reinterpret_cast<float4*>(sstat + kStages * 2 * kStep);
+
+  const int n_qt = T / kTile;
+  const int n_kt = S / kTile;
+  const int n_items = BH * n_kt * (kTile / kB);
+  const int q_offset = S - T;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kv_full[b], 1);
+      mbar_init(&kv_empty[b], kConsumers * 128);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], kConsumers * 128);
+    }
+    mbar_init(&p_full, 128);
+    mbar_init(&p_empty, 128);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers * 4) {  // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers * 4) {  // warp 8 walks, its lane 0 loads by TMA
+      const int lane = threadIdx.x & 31;
+      int n = 0;       // stages pushed
+      int loaded = 0;  // items whose K and V were loaded
+      for (;;) {
+        int w = 0;
+        if (lane == 0) w = atomicAdd(next_item, 1);
+        w = __shfl_sync(0xffffffffu, w, 0);
+        if (w >= n_items) break;
+        const int bh = w % BH;
+        const int kt = w / BH / (kTile / kB);
+        const int k0 = w / BH * kB;  // the part's first key
+        const int64_t* ids = idx + (int64_t)bh * n_qt * keep;
+        const uint8_t* oks = valid + (int64_t)bh * n_qt * keep;
+        const float* l2 = lse2 + (int64_t)bh * T;
+        const float* dd = dvec + (int64_t)bh * T;
+        // the q-tiles that chose the part's tile, ascending (q-tile, slot),
+        // 32 slots a ballot; a step whose rows see none of the part's keys
+        // is skipped. K and V load with the first step
+        bool first = true;
+        for (int base = 0; base < n_qt * keep; base += 32) {
+          const int e = base + lane;
+          uint32_t hits = __ballot_sync(
+              0xffffffffu,
+              e < n_qt * keep && selected(ids, oks, e, n_kt) == kt);
+          while (hits) {  // warp-uniform
+            const int sel = base + __ffs(hits) - 1;
+            const int qt = sel / keep;
+            hits &= hits - 1;
+            for (int q0 = qt * kTile; q0 < (qt + 1) * kTile; q0 += kStep) {
+              if (causal && q0 + kStep - 1 + q_offset < k0) continue;
+              if (lane == 0) {
+                if (first) {  // buffer loaded & 1, free once released
+                  const int b = loaded & 1;
+                  if (loaded >= 2)
+                    mbar_wait(&kv_empty[b], ((loaded >> 1) - 1) & 1);
+                  uint8_t* ks = skv + 2 * b * kKV;
+                  mbar_expect_tx(&kv_full[b], 2 * kKV);
+                  for (int c = 0; c < D / 64; ++c) {
+                    tma_load_3d(ks + c * box_bytes(kB), &kmap, &kv_full[b],
+                                c * 64, k0, bh);
+                    tma_load_3d(ks + kKV + c * box_bytes(kB), &vmap,
+                                &kv_full[b], c * 64, k0, bh);
+                  }
+                }
+                const int s = n % kStages;
+                if (n >= kStages)
+                  mbar_wait(&q_empty[s], (n / kStages - 1) & 1);
+                step_q0[s] = q0;  // published by the arrival below
+                step_item[s] = w;
+                step_sel[s] = sel;
+                uint8_t* qs = sring + 2 * s * kQ;
+                float* st = sstat + 2 * s * kStep;
+                mbar_expect_tx(&q_full[s], 2 * kQ + 2 * kStep * 4);
+                for (int c = 0; c < D / 64; ++c) {
+                  tma_load_3d(qs + c * box_bytes(kStep), &qmap, &q_full[s],
+                              c * 64, q0, bh);
+                  tma_load_3d(qs + kQ + c * box_bytes(kStep), &domap,
+                              &q_full[s], c * 64, q0, bh);
+                }
+                bulk_load(st, l2 + q0, kStep * 4, &q_full[s]);
+                bulk_load(st + kStep, dd + q0, kStep * 4, &q_full[s]);
+              }
+              loaded += first;
+              first = false;
+              ++n;
+            }
+          }
+        }
+        if (first) {  // no q-tile chose the tile, or no row sees the part
+          uint4* zk = reinterpret_cast<uint4*>(dk + ((int64_t)bh * S + k0) * D);
+          uint4* zv = reinterpret_cast<uint4*>(dv + ((int64_t)bh * S + k0) * D);
+          for (int i = lane; i < kB * D / 8; i += 32)
+            zk[i] = zv[i] = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      if (lane == 0) {  // the walk's end: one plain arrival
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(&q_empty[s], (n / kStages - 1) & 1);
+        step_item[s] = -1;
+        mbar_arrive(&q_full[s]);
+      }
+    }
+  } else {
+    // a consumer warpgroup over the item's 64 keys; this thread's keys
+    // are key, key + 8 of the part
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp >> 2;
+    const int lane = threadIdx.x & 31;
+    const int tid = threadIdx.x & 127;
+    const int g = lane >> 2;
+    const int t2 = (lane & 3) * 2;
+    const int krow = (warp & 3) * 16 + g;  // its row in the part
+    const int b_off = wg == 0 ? kQ : 0;    // the second product's B: dO, Q
+
+    float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    int cur = -1;  // the item in hand
+    int jc = -1;   // its place among the loaded items: buffer jc & 1
+    int k0 = 0;
+    for (int n = 0;; ++n) {
+      const int s = n % kStages;
+      mbar_wait(&q_full[s], (n / kStages) & 1);
+      const int q0 = step_q0[s];
+      const int w = step_item[s];
+      // a new item's first step, or the walk's end: the item in hand is
+      // done, so release its K and V buffer and store its dV or dK
+      if (w != cur || w < 0) {
+        if (cur >= 0) {
+          mbar_arrive(&kv_empty[jc & 1]);
+          const int bh = cur % BH;
+          uint16_t* out = (wg == 0 ? dv : dk) +
+                          ((int64_t)bh * S + k0 + krow) * D + t2;
+          const float f = wg == 0 ? 1.f : scale;
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c) {
+            *reinterpret_cast<uint32_t*>(out + 8 * c) =
+                pack_bf16(acc[4 * c] * f, acc[4 * c + 1] * f);
+            *reinterpret_cast<uint32_t*>(out + 8 * D + 8 * c) =
+                pack_bf16(acc[4 * c + 2] * f, acc[4 * c + 3] * f);
+          }
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        }
+        if (w < 0) break;
+        cur = w;
+        ++jc;
+        k0 = w / BH * kB;
+        mbar_wait(&kv_full[jc & 1], (jc >> 1) & 1);
+      }
+      const uint8_t* qs = sring + 2 * s * kQ;
+      const float* sl = sstat + 2 * s * kStep;
+      const float* sd = sl + kStep;
+      const uint8_t* ks = skv + 2 * (jc & 1) * kKV;
+      const uint64_t d_a = kdesc(ks + (wg == 0 ? 0 : kKV));  // K or V
+      const uint64_t d_b = kdesc(qs + kQ - b_off);
+
+      // S^T = K . Q^T (warpgroup 0) or dP^T = V . dO^T (warpgroup 1)
+      float x[kStep / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_m64n64_t<0, 0>(x, kmajor(d_a, box_bytes(kB), kk),
+                                kmajor(d_b, box_bytes(kStep), kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+
+      // element i of the accumulator is key k0 + krow (+8 if i & 2),
+      // query q0 + 8(i / 4) + t2 + (i & 1)
+      if (wg == 0) {
+        // ELEM: bit i set where score i survives the forward's masks (the
+        // part's keys sit kTile-key-tile rows k0 % 128 + krow, +8)
+        uint32_t keep_mask = 0u;
+        if constexpr (ELEM) {
+          const int kr = (k0 & (kTile - 1)) + krow;
+          const uint32_t* b =
+              keep_bits +
+              (((int64_t)(w % BH) * n_qt * keep + step_sel[s]) * kTile +
+               (q0 & (kTile - 1)) + t2) * 4 + (kr >> 5);
+#pragma unroll
+          for (int a = 0; a < 8; ++a)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const uint32_t word = b[(8 * a + c) * 4] >> (kr & 31);
+              keep_mask |= ((word & 1u) << (4 * a + c)) |
+                           (((word >> 8) & 1u) << (4 * a + 2 + c));
+            }
+        }
+        // P^T = 2^(scale_log2 * S^T - lse2[query]), masked
+        const int key = k0 + krow;
+        const bool edge = causal && k0 + kB - 1 > q0 + q_offset;
+#pragma unroll
+        for (int i = 0; i < kStep / 2; ++i) {
+          const int qc = (i >> 2) * 8 + t2 + (i & 1);
+          float p = fast_exp2(x[i] * scale_log2 - sl[qc]);
+          if constexpr (ELEM) {
+            if (!((keep_mask >> i) & 1u)) p = 0.f;
+          } else if (edge && key + ((i & 2) ? 8 : 0) > q0 + qc + q_offset) {
+            p = 0.f;
+          }
+          x[i] = p;
+        }
+        if (n >= 1) mbar_wait(&p_empty, (n - 1) & 1);
+#pragma unroll
+        for (int c = 0; c < kStep / 8; ++c)
+          sp4[c * 128 + tid] = make_float4(x[4 * c], x[4 * c + 1],
+                                           x[4 * c + 2], x[4 * c + 3]);
+        mbar_arrive(&p_full);
+      } else {
+        // dS^T = P^T * (dP^T - D[query]), P^T from warpgroup 0
+        mbar_wait(&p_full, n & 1);
+#pragma unroll
+        for (int c = 0; c < kStep / 8; ++c) {
+          const float4 p = sp4[c * 128 + tid];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * c + e;
+            x[i] = pv[e] * (x[i] - sd[(i >> 2) * 8 + t2 + (i & 1)]);
+          }
+        }
+        mbar_arrive(&p_empty);
+      }
+      // the second product's A: P^T or dS^T in bf16, as the accumulator
+      // stands
+      uint32_t ra[kStep / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          ra[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+
+      // dV += P^T . dO (warpgroup 0) or dK += dS^T . Q (warpgroup 1), B
+      // MN-major
+      const uint64_t d_bt = mndesc(qs + b_off, box_bytes(kStep));
+      fence_regs(acc);
+      fence_regs(ra);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk)
+        rs_step<D>(acc, ra[kk], mnmajor(d_bt, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&q_empty[s]);
+    }
+  }
+}
+
 // (c)'s tile in slot j of a q-tile's list: -1 where the slot is invalid or
 // out of range, or (causal) every key of the tile lies after the q-tile's
 // last row. The producer and the consumers skip the same slots.
@@ -985,17 +1316,28 @@ __device__ __forceinline__ int dq_tile(const int64_t* ids, const uint8_t* ok,
   return kt >= 0 && causal && kt * kTile > last_pos ? -1 : kt;
 }
 
+// S (or dP) = A . B^T over D for one KS-key stage, A and B K-major
+template <int KS>
+__device__ __forceinline__ void ss_kmajor(float (&d)[KS / 2], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  if constexpr (KS == 128)
+    wgmma_ss_m64n128(d, da, db, accumulate);
+  else
+    wgmma_ss_m64n64_t<0, 0>(d, da, db, accumulate);
+}
+
 // (c) dQ of one (bh, 128-row q-tile), over its valid slots in their order;
 // first D and lse2 of its rows, which the dK/dV pass (run after it) reads.
 // ELEM: the element mask, from the forward's keep bits (each thread's two
-// rows of the slot, four words each, in place of the causal test).
+// rows of the slot, four words each, in place of the causal test). Each
+// tile's keys arrive as 128 / KS stages (two 64-key parts at D = 192).
 template <int D, bool ELEM>
 __global__ void __launch_bounds__(kWgThreads, 1)
 sufa_grad_q_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,   // [BH, T, D], boxes of 128
     const __grid_constant__ CUtensorMap domap,  // [BH, T, D], boxes of 128
-    const __grid_constant__ CUtensorMap kmap,   // [BH, S, D], boxes of 128
-    const __grid_constant__ CUtensorMap vmap,   // [BH, S, D], boxes of 128
+    const __grid_constant__ CUtensorMap kmap,   // [BH, S, D], boxes of KS
+    const __grid_constant__ CUtensorMap vmap,   // [BH, S, D], boxes of KS
     const int64_t* __restrict__ idx, const uint8_t* __restrict__ valid,
     const uint16_t* __restrict__ o, const uint16_t* __restrict__ dout,
     const float* __restrict__ lse,  // [BH, T], natural base
@@ -1004,9 +1346,13 @@ sufa_grad_q_wgmma_kernel(
     int* __restrict__ next_item,  // the dK/dV pass's counter, to 0
     uint16_t* __restrict__ dq, int T, int S, int keep, int causal,
     float scale, float scale_log2) {
+  constexpr int KS = kv_rows<D>();    // keys per stage
+  constexpr int kParts = kTile / KS;  // stages per tile
   constexpr int kStages = q_pass_stages<D>();
   constexpr int kTileB = tile_bytes<D>(kTile);
+  constexpr int kStageB = tile_bytes<D>(KS);
   constexpr int kBox = box_bytes(kTile);
+  constexpr int kKBox = box_bytes(KS);
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t qd_full;
   __shared__ __align__(8) uint64_t kv_full[kStages];
@@ -1015,7 +1361,7 @@ sufa_grad_q_wgmma_kernel(
   uint8_t* const sq =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* const sdo = sq + kTileB;
-  uint8_t* const sring = sdo + kTileB;  // stage s: K at sring + 2s·kTileB
+  uint8_t* const sring = sdo + kTileB;  // stage s: K at sring + 2s·kStageB
 
   const int n_qt = gridDim.x;
   const int qt = causal ? n_qt - 1 - blockIdx.x : blockIdx.x;  // heaviest
@@ -1050,17 +1396,18 @@ sufa_grad_q_wgmma_kernel(
       for (int j = 0; j < keep; ++j) {
         const int kt = dq_tile(ids, ok, j, n_kt, last_pos, causal);
         if (kt < 0) continue;
-        const int s = n % kStages;
-        if (n >= kStages) mbar_wait(&kv_empty[s], (n / kStages - 1) & 1);
-        uint8_t* ks = sring + 2 * s * kTileB;
-        mbar_expect_tx(&kv_full[s], 2 * kTileB);
-        for (int c = 0; c < D / 64; ++c) {
-          tma_load_3d(ks + c * kBox, &kmap, &kv_full[s], c * 64, kt * kTile,
-                      bh);
-          tma_load_3d(ks + kTileB + c * kBox, &vmap, &kv_full[s], c * 64,
-                      kt * kTile, bh);
+        for (int h = 0; h < kParts; ++h, ++n) {
+          const int s = n % kStages;
+          if (n >= kStages) mbar_wait(&kv_empty[s], (n / kStages - 1) & 1);
+          uint8_t* ks = sring + 2 * s * kStageB;
+          mbar_expect_tx(&kv_full[s], 2 * kStageB);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_3d(ks + c * kKBox, &kmap, &kv_full[s], c * 64,
+                        kt * kTile + h * KS, bh);
+            tma_load_3d(ks + kStageB + c * kKBox, &vmap, &kv_full[s],
+                        c * 64, kt * kTile + h * KS, bh);
+          }
         }
-        ++n;
       }
     }
   } else {
@@ -1113,12 +1460,6 @@ sufa_grad_q_wgmma_kernel(
     for (int j = 0; j < keep; ++j) {
       const int kt = dq_tile(ids, ok, j, n_kt, last_pos, causal);
       if (kt < 0) continue;  // block-uniform
-      const int s = n % kStages;
-      mbar_wait(&kv_full[s], (n / kStages) & 1);
-      ++n;
-      const uint8_t* ks = sring + 2 * s * kTileB;
-      const uint8_t* vs = ks + kTileB;
-      const int kv0 = kt * kTile;
       // ELEM: slot j's keep words of rows row and row + 8
       uint4 kw[2];
       if constexpr (ELEM) {
@@ -1128,72 +1469,88 @@ sufa_grad_q_wgmma_kernel(
         kw[0] = *reinterpret_cast<const uint4*>(b);
         kw[1] = *reinterpret_cast<const uint4*>(b + 32);
       }
+      for (int part = 0; part < kParts; ++part, ++n) {
+        const int s = n % kStages;
+        mbar_wait(&kv_full[s], (n / kStages) & 1);
+        const uint8_t* ks = sring + 2 * s * kStageB;
+        const uint8_t* vs = ks + kStageB;
+        const int kv0 = kt * kTile + part * KS;
 
-      // S = Q . K^T and dP = dO . V^T over D, two wgmma groups
-      float sc[kTile / 2], dp[kTile / 2];
-      wgmma_fence();
+        // S = Q . K^T and dP = dO . V^T over D, two wgmma groups
+        float sc[KS / 2], dp[KS / 2];
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk >> 2) * kBox + (kk & 3) * 32;
-        wgmma_ss_m64n128(sc, sw128_desc(sq_wg + off, 16, 1024),
-                         sw128_desc(ks + off, 16, 1024), kk > 0);
-      }
-      wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk >> 2) * kBox + (kk & 3) * 32;
-        wgmma_ss_m64n128(dp, sw128_desc(sdo_wg + off, 16, 1024),
-                         sw128_desc(vs + off, 16, 1024), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(sc);
-
-      // P = 2^(scale_log2 * S - lse2[row]) while dP's product runs;
-      // element i is row row (+8 if i & 2), key kv0 + 8(i / 4) + t2 + (i & 1)
-      const bool diag = causal && kv0 + kTile - 1 > q_offset + wg_row0;
-#pragma unroll
-      for (int i = 0; i < kTile / 2; ++i) {
-        const int h = (i >> 1) & 1;
-        float p = fast_exp2(sc[i] * scale_log2 - l2[h]);
-        if constexpr (ELEM) {
-          // key 8 (i / 4) + t2 + (i & 1): word i / 16 of row half h
-          const uint32_t word = (i >> 4) == 0   ? kw[h].x
-                                : (i >> 4) == 1 ? kw[h].y
-                                : (i >> 4) == 2 ? kw[h].z
-                                                : kw[h].w;
-          if (!((word >> (((i >> 2) & 3) * 8 + t2 + (i & 1))) & 1u)) p = 0.f;
-        } else if (diag &&
-                   kv0 + (i >> 2) * 8 + t2 + (i & 1) > row + 8 * h + q_offset) {
-          p = 0.f;
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk & 3) * 32;
+          ss_kmajor<KS>(sc, sw128_desc(sq_wg + (kk >> 2) * kBox + off, 16,
+                                       1024),
+                        sw128_desc(ks + (kk >> 2) * kKBox + off, 16, 1024),
+                        kk > 0);
         }
-        sc[i] = p;
-      }
-      wgmma_wait<0>();
-      fence_regs(dp);
-      // dS = P * (dP - D[row]) in bf16, the register A operand of dS . K
-      uint32_t dsa[kTile / 16][4];
+        wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 8 * kk + 2 * r;
-          const float d = dd[(i >> 1) & 1];
-          dsa[kk][r] = pack_bf16(sc[i] * (dp[i] - d),
-                                 sc[i + 1] * (dp[i + 1] - d));
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk & 3) * 32;
+          ss_kmajor<KS>(dp, sw128_desc(sdo_wg + (kk >> 2) * kBox + off, 16,
+                                       1024),
+                        sw128_desc(vs + (kk >> 2) * kKBox + off, 16, 1024),
+                        kk > 0);
         }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
 
-      // dQ += dS . K, K MN-major: k16 step kk starts 16 keys (2048 bytes) in
-      fence_regs(acc);
-      fence_regs(dsa);
-      wgmma_fence();
+        // P = 2^(scale_log2 * S - lse2[row]) while dP's product runs;
+        // element i is row row (+8 if i & 2), key kv0 + 8(i / 4) + t2 +
+        // (i & 1)
+        const bool diag = causal && kv0 + KS - 1 > q_offset + wg_row0;
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk)
-        rs_step<D>(acc, dsa[kk], sw128_desc(ks + kk * 2048, kBox, 1024));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      mbar_arrive(&kv_empty[s]);
+        for (int i = 0; i < KS / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          float p = fast_exp2(sc[i] * scale_log2 - l2[h]);
+          if constexpr (ELEM) {
+            // key part·KS + 8 (i / 4) + t2 + (i & 1) of the tile: word
+            // part·KS / 32 + i / 16 of row half h
+            const int wi = part * (KS / 32) + (i >> 4);
+            const uint32_t word = wi == 0   ? kw[h].x
+                                  : wi == 1 ? kw[h].y
+                                  : wi == 2 ? kw[h].z
+                                            : kw[h].w;
+            if (!((word >> (((i >> 2) & 3) * 8 + t2 + (i & 1))) & 1u))
+              p = 0.f;
+          } else if (diag && kv0 + (i >> 2) * 8 + t2 + (i & 1) >
+                                 row + 8 * h + q_offset) {
+            p = 0.f;
+          }
+          sc[i] = p;
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS = P * (dP - D[row]) in bf16, the register A operand of dS . K
+        uint32_t dsa[KS / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < KS / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 8 * kk + 2 * r;
+            const float d = dd[(i >> 1) & 1];
+            dsa[kk][r] = pack_bf16(sc[i] * (dp[i] - d),
+                                   sc[i + 1] * (dp[i + 1] - d));
+          }
+
+        // dQ += dS . K, K MN-major: k16 step kk starts 16 keys (2048
+        // bytes) in, the 64-column boxes kKBox apart
+        fence_regs(acc);
+        fence_regs(dsa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS / 16; ++kk)
+          rs_step<D>(acc, dsa[kk], sw128_desc(ks + kk * 2048, kKBox, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive(&kv_empty[s]);
+      }
     }
 
     uint16_t* out = dq + rbase * D;
@@ -1215,11 +1572,18 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const uint32_t* keep_bits, int BH, int T, int S,
                          int keep, int causal, float scale,
                          cudaStream_t stream) {
+  constexpr bool kWide = D == 192;  // (b) is sufa_grad_kv_wgmma192_kernel
   static bool configured = false;  // the >48 KB opt-in, once per instance
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sufa_grad_kv_wgmma_kernel<D, ELEM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv_wgmma_bytes<D>());
+    cudaError_t err;
+    if constexpr (kWide)
+      err = cudaFuncSetAttribute(sufa_grad_kv_wgmma192_kernel<ELEM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_kv_wgmma_bytes<D>());
+    else
+      err = cudaFuncSetAttribute(sufa_grad_kv_wgmma_kernel<D, ELEM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_kv_wgmma_bytes<D>());
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(sufa_grad_q_wgmma_kernel<D, ELEM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1239,14 +1603,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   float* dvec = static_cast<float*>(scratch);
   float* lse2 = dvec + rows;
   int* next_item = reinterpret_cast<int*>(lse2 + rows);
-  const int n_items = BH * (S / kTile);
+  const int n_items = BH * (S / kv_rows<D>());
   CUtensorMap qstep, dostep, qtile, dotile, kmap, vmap;
   if (!encode_rows_map(&qstep, q, BH, T, D, kStep) ||
       !encode_rows_map(&dostep, dout, BH, T, D, kStep) ||
       !encode_rows_map(&qtile, q, BH, T, D, kTile) ||
       !encode_rows_map(&dotile, dout, BH, T, D, kTile) ||
-      !encode_rows_map(&kmap, k, BH, S, D, kTile) ||
-      !encode_rows_map(&vmap, v, BH, S, D, kTile))
+      !encode_rows_map(&kmap, k, BH, S, D, kv_rows<D>()) ||
+      !encode_rows_map(&vmap, v, BH, S, D, kv_rows<D>()))
     return cudaErrorInvalidValue;
   const float scale_log2 = scale * kLog2e;
 
@@ -1258,12 +1622,19 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       static_cast<uint16_t*>(dq), T, S, keep, causal, scale, scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sufa_grad_kv_wgmma_kernel<D, ELEM><<<n_items < sms ? n_items : sms,
-                                       kWgThreads, smem_kv_wgmma_bytes<D>(),
-                                       stream>>>(
-      qstep, dostep, kmap, vmap, idx, valid, lse2, dvec, keep_bits, next_item,
-      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), BH, T, S, keep,
-      causal, scale, scale_log2);
+  const int grid = n_items < sms ? n_items : sms;
+  if constexpr (kWide)
+    sufa_grad_kv_wgmma192_kernel<ELEM><<<grid, kWgThreads,
+                                         smem_kv_wgmma_bytes<D>(), stream>>>(
+        qstep, dostep, kmap, vmap, idx, valid, lse2, dvec, keep_bits,
+        next_item, static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv),
+        BH, T, S, keep, causal, scale, scale_log2);
+  else
+    sufa_grad_kv_wgmma_kernel<D, ELEM><<<grid, kWgThreads,
+                                         smem_kv_wgmma_bytes<D>(), stream>>>(
+        qstep, dostep, kmap, vmap, idx, valid, lse2, dvec, keep_bits,
+        next_item, static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv),
+        BH, T, S, keep, causal, scale, scale_log2);
   return cudaGetLastError();
 }
 
@@ -1299,6 +1670,11 @@ extern "C" int sufa_bwd_bf16(const void* q, const void* k, const void* v,
                                             dk, dv, scratch, bp, BH, T, S,
                                             keep, block_q, block_kv, causal,
                                             scale, s));
+  if (D == 192)
+    return static_cast<int>(launch_mma<192>(q, k, v, ip, vp, o, lse, dout, dq,
+                                            dk, dv, scratch, bp, BH, T, S,
+                                            keep, block_q, block_kv, causal,
+                                            scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1327,8 +1703,10 @@ extern "C" int sufa_bwd_wgmma_bf16(const void* q, const void* k,
                                                  scale, s));
   SUFA_BWD_WGMMA(64, false)
   SUFA_BWD_WGMMA(128, false)
+  SUFA_BWD_WGMMA(192, false)
   SUFA_BWD_WGMMA(64, true)
   SUFA_BWD_WGMMA(128, true)
+  SUFA_BWD_WGMMA(192, true)
 #undef SUFA_BWD_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }

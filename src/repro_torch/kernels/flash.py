@@ -16,9 +16,10 @@ whose forward keeps the row log-sum-exp and whose backward is
 ``flash_bwd``. The TPU kernel has no VJP (the reference trains through
 XLA's dense softmax); on the card the backward is a kernel too, two
 launches in one C call: a prep pass (D = rowsum(dO·O), lse in base 2) and
-one ``wgmma`` + TMA pass over 128-key tiles that computes dK, dV and each
-key tile's dQ partial, the partials summed into every query tile in a
-fixed order (descending key tile), so two calls give the same bits.
+one ``wgmma`` + TMA pass over 128-key tiles (64-key tiles at d 192, its
+warpgroups split by product) that computes dK, dV and each key tile's dQ
+partial, the partials summed into every query tile in a fixed order
+(descending key tile), so two calls give the same bits.
 ``kernels.LAUNCHES["flash"]`` and ``["flash_bwd"]`` count launches
 (one per call), ``kernels.FORM_LAUNCHES["flash/noncausal"]`` and
 ``["flash_bwd/noncausal"]`` those without the mask.
@@ -36,14 +37,14 @@ from repro_torch.kernels import launch
 from repro_torch.kernels.ref import flash_bwd_ref, flash_ref  # plain forms
 
 
-def _check(name: str, q, k, v, backward: bool = False) -> None:
+def _check(name: str, q, k, v) -> None:
     bh, t, d = q.shape
     s = k.shape[1]
     if k.dim() != 3 or k.shape != v.shape or k.shape[0] != bh \
             or k.shape[2] != d or t < 1 or s < 1:
         raise ValueError(f"{name}: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} must be [BH,T,d] and [BH,S,d]")
-    launch.check_head_dim(name, d, backward)
+    launch.check_head_dim(name, d)
 
 
 def _forward(q, k, v, causal: bool, scale: float, with_lse: bool):
@@ -83,7 +84,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "flash_bwd"
     launch.require_cuda(name, q.device)
     launch.check_operands(name, q=q, k=k, v=v, o=o, do=do)
-    _check(name, q, k, v, backward=True)
+    _check(name, q, k, v)
     bh, t, d = q.shape
     s = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, t) \

@@ -18,8 +18,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import build
 
-HEAD_DIMS = (64, 128, 192)   # head dims the forward tile kernels build
-BWD_HEAD_DIMS = (64, 128)    # head dims K4's and K3's backwards build
+HEAD_DIMS = (64, 128, 192)   # head dims the tile kernels and backwards build
 MAX_TILE = 128            # largest tile; tiles are multiples of 16
 WGMMA_TILE = 128          # K2's and K3's wgmma form takes these tiles only
 
@@ -52,15 +51,12 @@ def check_operands(kernel: str, **tensors: torch.Tensor) -> None:
                              f"16-byte aligned")
 
 
-def check_head_dim(kernel: str, d: int, backward: bool = False) -> None:
-    """A forward tile kernel takes ``HEAD_DIMS``, a backward
-    (``backward``) only ``BWD_HEAD_DIMS``: at head_dim 192
-    (Nemotron-4-340B) the card serves but does not train."""
-    dims = BWD_HEAD_DIMS if backward else HEAD_DIMS
-    if d not in dims:
-        what = "has no backward kernel" if backward else "not built"
-        raise ValueError(f"{kernel}: head_dim {d} {what}; supported "
-                         f"{dims}")
+def check_head_dim(kernel: str, d: int) -> None:
+    """A tile kernel, forward or backward, takes ``HEAD_DIMS``: at
+    head_dim 192 (Nemotron-4-340B) the card serves and trains."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: head_dim {d} not built; supported "
+                         f"{HEAD_DIMS}")
 
 
 def check_tile(kernel: str, name: str, size: int) -> None:

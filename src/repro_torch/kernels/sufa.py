@@ -257,13 +257,12 @@ def sufa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.reshape(bh, s, d).to(v.dtype))
 
 
-def _check(name: str, q, k, v, idx, valid, block_q: int, block_kv: int,
-           backward: bool = False) -> None:
-    """The CUDA kernels' operand checks (K3's forward and, with
-    ``backward``, its backward, which takes fewer head dims)."""
+def _check(name: str, q, k, v, idx, valid, block_q: int,
+           block_kv: int) -> None:
+    """The CUDA kernels' operand checks (K3's forward and its backward)."""
     bh, t, d = q.shape
     s = k.shape[1]
-    launch.check_head_dim(name, d, backward)
+    launch.check_head_dim(name, d)
     launch.check_tile(name, "block_q", block_q)
     launch.check_tile(name, "block_kv", block_kv)
     if k.dim() != 3 or v.shape != k.shape or k.shape[0] != bh \
@@ -367,7 +366,7 @@ def sufa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "sufa_bwd"
     launch.require_cuda(name, q.device)
     launch.check_operands(name, q=q, k=k, v=v, o=o, do=do)
-    _check(name, q, k, v, idx, valid, block_q, block_kv, backward=True)
+    _check(name, q, k, v, idx, valid, block_q, block_kv)
     bh, t, d = q.shape
     s = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, t) \

@@ -51,6 +51,32 @@ def value_and_grad(params, cfg: ModelCfg, batch):
     return (loss.detach(), metrics), tree_map(lambda _: next(it), params)
 
 
+def accumulate_grad(params, cfg: ModelCfg, batch, acc) -> tuple:
+    """(loss, metrics) of ``lm.loss_fn`` on ``batch``, its gradient added
+    into the tree ``acc`` leaf by leaf as the backward produces each leaf's
+    (``a.add_(g.to(a.dtype))``, the bits of adding a whole gradient tree)
+    and freed at once, so at most one leaf's gradient lives beside the sum
+    (a post-accumulate hook on each working leaf). A leaf the loss does
+    not reach leaves its sum as it was."""
+    work = tree_map(lambda p: p.detach().requires_grad_(), params)
+
+    def add(a):
+        def hook(w):
+            a.add_(w.grad.to(a.dtype))
+            w.grad = None
+        return hook
+    hooks = [w.register_post_accumulate_grad_hook(add(a))
+             for (_, w), (_, a) in zip(tree_items(work), tree_items(acc))]
+    try:
+        with torch.enable_grad():
+            loss, metrics = lm.loss_fn(work, cfg, batch)
+            loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
 def _microbatches(batch: dict, accum: int) -> list:
     """``accum`` microbatches of consecutive rows (the reference's
     reshape to [accum, B // accum, ...])."""
@@ -72,7 +98,11 @@ def make_train_step(cfg: ModelCfg, opt_cfg=None, *, lr: float | None = None,
     The parameters and the optimizer state are updated in place and
     returned. With ``cfg.train_accum > 1`` the batch is split into
     microbatches run one after another, their gradients summed in
-    ``cfg.accum_dtype`` and averaged, as the reference's scan does."""
+    ``cfg.accum_dtype`` and averaged, as the reference's scan does: each
+    leaf's gradient goes into the sum as the backward produces it
+    (``accumulate_grad``), so the sum is the only gradient tree (the bits
+    of adding whole trees: one add per leaf and microbatch, onto zeros
+    first)."""
     accum = cfg.train_accum
     _, _, opt_update = make_optimizer(cfg, lr)
 
@@ -80,20 +110,15 @@ def make_train_step(cfg: ModelCfg, opt_cfg=None, *, lr: float | None = None,
         if accum == 1:
             (loss, metrics), grads = value_and_grad(params, cfg, batch)
         else:
-            grads, loss, ms = None, None, []
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=cfg.accum_dtype, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["labels"].device)
+            ms = []
             for mb in _microbatches(batch, accum):
-                (l, m), g = value_and_grad(params, cfg, mb)
-                if grads is None:
-                    grads = tree_map(lambda p: torch.zeros(
-                        p.shape, dtype=cfg.accum_dtype, device=p.device),
-                        params)
-                    loss = torch.zeros((), dtype=torch.float32,
-                                       device=l.device)
-                for (_, a), (_, b) in zip(tree_items(grads), tree_items(g)):
-                    a.add_(b.to(cfg.accum_dtype))
+                l, m = accumulate_grad(params, cfg, mb, grads)
                 loss = loss + l
                 ms.append(m)
-                del g       # one microbatch's gradients live at a time
             for _, a in tree_items(grads):
                 a.div_(accum)
             loss = loss / accum

@@ -7,13 +7,18 @@ reference's, in fp32, written back in place. Where the reference updates
 a large layer-stacked factored leaf one layer at a time (more than 2^24
 elements, three or more dims), its update-RMS clipping is taken per
 layer; the port takes the same slices, so the two compute one function.
-Where a slice (or a leaf of one slice, which the reference updates whole)
-is itself above 2^24 elements and holds several [a, b] blocks (Grok-1's
-[16, 6144, 16384] experts of a layer), the port updates it in two passes
-over the blocks, first the update's sum of squares, then the update, so
-that one block's fp32 temporaries are live at a time instead of the
-slice's (about 32 GB there). The function is the slice's; its sum of
-squares is summed in another order.
+A factored slice (or a leaf the reference updates whole) above
+``ROW_BLOCK_ELEMENTS`` (2^29) is updated a block of rows of one [a, b]
+block at a time, in three passes: the factors (row means, column sums),
+then the update's sum of squares, then the update, so that one row
+block's fp32 temporaries (at most 2 GB each) are live at a time instead
+of the slice's: Grok-1's [16, 6144, 16384] experts of a layer (about 6.4
+GB each), Nemotron-4-340B's [256000, 18432] embedding (18.9 GB each).
+This form reads the gradient three times and takes about a third longer
+than the whole slice's on an H100, so a slice at or under the threshold
+(Jamba-1.5-Large's [65536, 8192] embedding) keeps the reference's form.
+Its column means and sum of squares are summed in another order than the
+reference's.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ class AdafactorConfig:
 
 
 SLICE_ELEMENTS = 1 << 24     # the reference's threshold for sliced leaves
+ROW_BLOCK_ELEMENTS = 1 << 29  # the most elements updated at once
 
 
 def _factored(p, cfg: AdafactorConfig) -> bool:
@@ -94,26 +100,38 @@ def _update(slot: dict, p, g, beta2, lr, cfg: AdafactorConfig) -> None:
     _apply(p, u / torch.clamp(rms / cfg.clip_threshold, min=1.0), lr, cfg)
 
 
-def _update_blocks(slot: dict, p, g, beta2, lr, cfg: AdafactorConfig
-                   ) -> None:
-    """``_update`` of a factored leaf [..., a, b] in two passes over its
-    [a, b] blocks (the factors are per block): each block's factors, and
-    the update's sum of squares; then each block's update, recomputed
-    from the new factors, under the whole leaf's RMS clipping."""
+def _update_blocked(slot: dict, p, g, beta2, lr, cfg: AdafactorConfig
+                    ) -> None:
+    """``_update`` of a factored leaf [..., a, b] (its factors per [a, b]
+    block) in blocks of at most ``ROW_BLOCK_ELEMENTS`` elements of one
+    block's rows: first each block's factors, from its row blocks' row
+    means and column sums; then the update's sum of squares; then each
+    row block's update, recomputed from the new factors, under the whole
+    leaf's RMS clipping."""
     a, b = p.shape[-2:]
     ps, gs = p.view(-1, a, b), g.reshape(-1, a, b)
     rs, cs = slot["r"].view(-1, a), slot["c"].view(-1, b)
+    step = max(1, ROW_BLOCK_ELEMENTS // b)
+    parts = [(n, slice(i, i + step)) for n in range(ps.shape[0])
+             for i in range(0, a, step)]
+    cols = torch.zeros(cs.shape, dtype=torch.float32, device=p.device)
+    for n, rows in parts:
+        sq = gs[n, rows].float().square() + cfg.eps
+        rs[n, rows].copy_(beta2 * rs[n, rows] + (1 - beta2) * sq.mean(dim=-1))
+        cols[n] += sq.sum(dim=0)
+    cs.copy_(beta2 * cs + (1 - beta2) * (cols / a))
+    denom = torch.clamp(rs.mean(dim=-1), min=cfg.eps)
+
+    def update(n, rows):
+        vhat = (rs[n, rows] / denom[n])[:, None] * cs[n][None, :]
+        return gs[n, rows].float() * torch.rsqrt(vhat + cfg.eps)
     total = torch.zeros((), dtype=torch.float32, device=p.device)
-    for i in range(ps.shape[0]):
-        g32 = gs[i].float()
-        vhat = _vhat({"r": rs[i], "c": cs[i]}, g32, beta2, cfg)
-        total = total + (g32 * torch.rsqrt(vhat + cfg.eps)).square().sum()
-    rms = torch.sqrt(total / p.numel() + 1e-30)
-    clip = torch.clamp(rms / cfg.clip_threshold, min=1.0)
-    for i in range(ps.shape[0]):
-        g32 = gs[i].float()
-        u = g32 * torch.rsqrt(_factored_vhat(rs[i], cs[i], cfg) + cfg.eps)
-        _apply(ps[i], u / clip, lr, cfg)
+    for n, rows in parts:
+        total = total + update(n, rows).square().sum()
+    clip = torch.clamp(torch.sqrt(total / p.numel() + 1e-30)
+                       / cfg.clip_threshold, min=1.0)
+    for n, rows in parts:
+        _apply(ps[n, rows], update(n, rows) / clip, lr, cfg)
 
 
 def adafactor_update(params, grads, state, cfg: AdafactorConfig,
@@ -131,16 +149,15 @@ def adafactor_update(params, grads, state, cfg: AdafactorConfig,
     with torch.no_grad():
         for path, p in sorted_items(params):
             slot, g = slots[path], g_items[path]
-            if not (p.numel() > SLICE_ELEMENTS and p.dim() >= 3
-                    and "r" in slot):
-                _update(slot, p, g, beta2, lr, cfg)
-                continue
-            for i in range(p.shape[0]):         # the reference's slices
-                blocked = p[i].numel() > SLICE_ELEMENTS \
-                    and p.shape[1:-2].numel() > 1
-                (_update_blocks if blocked else _update)(
-                    {"r": slot["r"][i], "c": slot["c"][i]}, p[i], g[i],
-                    beta2, lr, cfg)
+            factored = "r" in slot
+            pieces = [({"r": slot["r"][i], "c": slot["c"][i]}, p[i], g[i])
+                      for i in range(p.shape[0])] \
+                if factored and p.numel() > SLICE_ELEMENTS and p.dim() >= 3 \
+                else [(slot, p, g)]             # the reference's slices
+            for sl, pp, gg in pieces:
+                blocked = factored and pp.numel() > ROW_BLOCK_ELEMENTS
+                (_update_blocked if blocked else _update)(
+                    sl, pp, gg, beta2, lr, cfg)
     state["step"] = step
     return params, state, gn
 

@@ -908,12 +908,13 @@ def _lowp_grads(q, k, v, do, *, causal, scale):
     return torch.cat([torch.zeros_like(q[:, :cut]), dq], dim=1), dk, dv
 
 
-# the backward's tile edges: 64-row query tiles, 128-key tiles
+# the backward's tile edges: 64-row query tiles, 128-key tiles (64-key
+# tiles at d 192)
 _BWD_EDGES = (63, 64, 65, 127, 128, 129)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("bh,t,s,causal", [
     (4, 256, 256, True), (4, 1000, 1000, True), (4, 256, 2048, False),
     (4, 300, 100, False), (4, 100, 300, True), (4, 129, 129, True),
@@ -1098,7 +1099,7 @@ def _plain_counted_lowp(q, k, v, *, counts, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("bh,t,s,block,causal,edges,variant", [
     (4, 2048, 2048, 128, True, False, None),
     (4, 1024, 1024, 128, False, True, None),
@@ -1228,7 +1229,7 @@ EVERY_TILING = [(16, 16), (32, 32), (48, 48), (16, 64), (64, 16), (112, 80),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("elementwise", [False, True])
 @pytest.mark.parametrize("block_q,block_kv", EVERY_TILING)
@@ -1445,23 +1446,82 @@ def test_paged_decode_stats_head_dim_192(cuda_device, quant, n_sh, b,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flash", "sufa"])
-def test_backward_refuses_head_dim_192(cuda_device, kernel):
-    """At d 192 K4's and K3's forwards run under autograd, and their
-    backwards refuse, naming the head dim: no backward kernel is built
-    for it, and the plain gradient never runs on the card."""
+@pytest.mark.parametrize("kernel,block,elementwise", [
+    ("flash", None, False), ("sufa", 128, False), ("sufa", 128, True),
+    ("sufa", 64, False), ("sufa", 64, True), ("sufa", 16, False)])
+def test_backward_at_head_dim_192(cuda_device, monkeypatch, kernel, block,
+                                  elementwise):
+    """At d 192 K4's and K3's forwards run under autograd and their
+    backwards are kernels: ``.backward()`` through ``flash_attention`` and
+    ``sufa_attention`` (K3 in both forms, with and without the element
+    mask) launches the backward once, in the form its tiles pick, and
+    gives q, k and v gradients that meet the FlashAttention repository's
+    rule against the fp32 plain gradient (each within twice the bf16
+    plain gradient's error, plus 1e-5); a second backward gives the same
+    bits."""
     from repro_torch.kernels import flash as kflash
+    from repro_torch.kernels import ref
     from repro_torch.kernels import sufa as ksufa
-    gen = torch.Generator(device="cpu").manual_seed(5)
-    q, k, v = (_bf16((2, 256, 192), gen, cuda_device).requires_grad_()
-               for _ in range(3))
-    kernels.reset_launches()
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke as cs
+    d, bh, t = 192, 2, 256
+    gen = torch.Generator(device="cpu").manual_seed(5 + (block or 0)
+                                                    + elementwise)
+    q, k, v, do = (_bf16((bh, t, d), gen, cuda_device) for _ in range(4))
+    scale = d ** -0.5
     if kernel == "flash":
-        out = kflash.flash_attention(q, k, v, causal=True)
+        kw = dict(causal=True, scale=scale)
+
+        def forward(q_, k_, v_):
+            return kflash.flash_attention(q_, k_, v_, **kw)
+        f32 = [x.float() for x in (q, k, v)]
+        o32, lse32 = ref.flash_ref(*f32, return_lse=True, **kw)
+        want = ref.flash_bwd_ref(*f32, o32, lse32, do.float(), **kw)
+        lowp = _lowp_grads(q, k, v, do, causal=True, scale=scale)
+        form = None
     else:
-        idx, valid = _selection(2, 256, 256, 2, 128, 128, gen, cuda_device)
-        out = ksufa.sufa_attention(q, k, v, idx, valid)
-    assert kernels.LAUNCHES[kernel] == 1
-    with pytest.raises(ValueError, match="head_dim 192 has no backward"):
-        out.float().sum().backward()
-    assert kernels.LAUNCHES[f"{kernel}_bwd"] == 0
+        idx, valid = _star_selection(q, k, block, 2)
+        kw = dict(block_q=block, block_kv=block, causal=True, scale=scale)
+        if elementwise:
+            kw.update(elementwise=True, radius=2.0)
+
+        def forward(q_, k_, v_):
+            return ksufa.sufa_attention(q_, k_, v_, idx, valid, **kw)
+        _, _, *bits = ksufa.sufa_attention(q, k, v, idx, valid,
+                                           return_lse=True,
+                                           return_keep=elementwise, **kw)
+        keep_bits = bits[0] if bits else None
+        f32 = [x.float() for x in (q, k, v)]
+        o32, lse32 = ksufa.sufa_reference(*f32, idx, valid, strict=True,
+                                          return_lse=True,
+                                          keep_bits=keep_bits, **kw)
+        want = ksufa.sufa_bwd_ref(*f32, idx, valid, o32, lse32, do.float(),
+                                  keep_bits=keep_bits, **kw)
+        _, _, mask = ksufa.gather_selected(k, v, idx, valid, t=t,
+                                           block_q=block, block_kv=block,
+                                           causal=True)
+        if elementwise:
+            mask = mask & ksufa.unpack_keep_bits(keep_bits, block)
+        counts = _mask_counts(idx, mask, t=t, s=t, block_q=block,
+                              block_kv=block)
+        lowp = cs.grads_of(functools.partial(
+            _plain_counted_lowp, counts=counts, scale=scale), q, k, v, do)
+        form = "wgmma" if block == 128 else "mma_sync"
+    grads = []
+    kernels.reset_launches()
+    for _ in range(2):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        forward(*leaves).backward(do)
+        grads.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    name = f"{kernel}_bwd"
+    assert kernels.LAUNCHES[kernel] == 2 and kernels.LAUNCHES[name] == 2
+    if form is not None:
+        assert kernels.FORM_LAUNCHES[f"{name}/{form}"] == 2
+        assert kernels.FORM_LAUNCHES[f"{name}/elementwise"] == \
+            2 * elementwise
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(*grads))
+    for g, w, p in zip(grads[0], want, lowp):
+        err = float((g.float() - w).abs().max())
+        assert err <= 2 * float((p.float() - w).abs().max()) + 1e-5

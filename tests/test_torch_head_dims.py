@@ -112,13 +112,17 @@ def test_every_attention_config_has_its_kernels(arch):
 
 
 def test_head_dim_sets():
-    """Nemotron's head is built into the forwards; the backwards take
-    fewer head dims and say which they lack."""
+    """Nemotron's head is built into the forwards and the backwards: K4's
+    and K3's backwards take every head dim their forwards take, and every
+    tile kernel refuses one that is not built, naming it."""
     assert (D, R) in kpaged.SUPPORTED and D in launch.HEAD_DIMS
-    assert D not in launch.BWD_HEAD_DIMS
-    launch.check_head_dim("flash", D)
-    with pytest.raises(ValueError, match="head_dim 192 has no backward"):
-        launch.check_head_dim("flash_bwd", D, backward=True)
+    assert not hasattr(launch, "BWD_HEAD_DIMS")
+    for d in launch.HEAD_DIMS:
+        for kernel in ("flash", "flash_bwd", "sufa", "sufa_bwd"):
+            launch.check_head_dim(kernel, d)
+    for kernel in ("flash_bwd", "sufa_bwd"):
+        with pytest.raises(ValueError, match="head_dim 96 not built"):
+            launch.check_head_dim(kernel, 96)
 
 
 # -- K1 --------------------------------------------------------------------------

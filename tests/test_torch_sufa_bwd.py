@@ -339,14 +339,17 @@ def test_sufa_bwd_split_names_are_kernels_of_the_source(monkeypatch):
     reads from a profiler trace) is ``<name>_kernel``, a ``__global__``
     of ``csrc/sufa_bwd.cu``, and no other kernel's name holds it: a
     renamed kernel would leave the split reading 0 launches. The
-    ``mma_sync`` form's kernels are there too."""
+    ``mma_sync`` form's kernels are there too, and the head_dim-192
+    split's (``SUFA_BWD_KERNELS_D192``, phase 25a)."""
     monkeypatch.syspath_prepend(str(ROOT))
     import chip_smoke as cs
     kernels_, _, _ = _sources()
     assert {"sufa_grad_prep_kernel", "sufa_grad_kv_kernel",
             "sufa_grad_q_kernel", "sufa_grad_kv_wgmma_kernel",
-            "sufa_grad_q_wgmma_kernel"} <= kernels_
-    for part in cs.SUFA_BWD_KERNELS + cs.SUFA_BWD_MMA_KERNELS:
+            "sufa_grad_q_wgmma_kernel",
+            "sufa_grad_kv_wgmma192_kernel"} <= kernels_
+    for part in cs.SUFA_BWD_KERNELS + cs.SUFA_BWD_MMA_KERNELS \
+            + cs.SUFA_BWD_KERNELS_D192:
         assert [k for k in kernels_ if f"{part}_kernel" in k] \
             == [f"{part}_kernel"]
 

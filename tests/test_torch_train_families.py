@@ -162,23 +162,27 @@ def test_adafactor_blocked_slices_match_reference(monkeypatch, shape):
     """A factored leaf whose slices each hold several [a, b] blocks, with
     the port's threshold lowered: one slice (the reference updates the
     leaf whole) and two slices (a leaf above the reference's 2^24, which
-    it updates a slice at a time). The port updates each slice in two
-    passes over its blocks (the update's sum of squares, then the
-    update); three steps agree with the reference at the optimizer test's
-    2e-5 (the sum of squares is summed in another order: not bits)."""
+    it updates a slice at a time). With the row block lowered to one
+    [a, b] block, the port updates each slice in three passes over its
+    blocks (the factors, the update's sum of squares, then the update);
+    three steps agree with the reference at the optimizer test's 2e-5
+    (the column means and the sum of squares are summed in another order:
+    not bits)."""
     rng = np.random.default_rng(2)
     p = {"w": rng.standard_normal(shape).astype(np.float32)}
     scale = np.array([1.0, 40.0, 0.1])[:shape[1]][None, :, None, None]
     gs = [{"w": (rng.standard_normal(shape) * scale).astype(np.float32)}
           for _ in range(3)]
     monkeypatch.setattr(adafactor, "SLICE_ELEMENTS", 1000)
+    monkeypatch.setattr(adafactor, "ROW_BLOCK_ELEMENTS",
+                        int(np.prod(shape[-2:])))
     calls = []
-    real = adafactor._update_blocks
+    real = adafactor._update_blocked
 
     def update_blocks(*args):
         calls.append(args[1].shape)
         return real(*args)
-    monkeypatch.setattr(adafactor, "_update_blocks", update_blocks)
+    monkeypatch.setattr(adafactor, "_update_blocked", update_blocks)
     jcfg = jadafactor.AdafactorConfig(lr=1e-2, weight_decay=0.01)
     tcfg = adafactor.AdafactorConfig(lr=1e-2, weight_decay=0.01)
     jp = tree_map(jnp.asarray, p)
