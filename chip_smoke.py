@@ -186,8 +186,9 @@ Phases, each printing its numbers on a line of its own:
    4096-token prefill (STAR, and ``star=None``) split by block
    (``torch.profiler``): the Mamba blocks and their SSD chunk scan, the
    MoE and its expert FFN, attention and its kernels, the rest.
-17. xLSTM-125M at full width and depth (12 layers of alternating mLSTM and
-   sLSTM blocks, no attention, no FFN) through the dense slot engine,
+17. xLSTM-125M at full width, its depth cut to 6 of its 12 layers of
+   alternating mLSTM and sLSTM blocks (no attention, no FFN;
+   ``XLSTM_SERVE_CUT``), through the dense slot engine,
    prompts of 1024 and 2048 tokens, 16 tokens each, in bf16 and in fp32:
    no kernel of the port launches (K1-K4 all 0); the fp32 run's every
    token held by phase 4's rule against the port's cache-free fp32
@@ -377,6 +378,32 @@ Phases, each printing its numbers on a line of its own:
    K3 = steps x 8 x 2 and K3's backward steps x 8 in its wgmma form with
    ``star_train``); step ms, tokens/s, MFU, the state's reckoning (one
    gradient tree: ``launch.steps.accumulate_grad``) and peak memory.
+26. the serving smoke's twins (``tools/torch_smoke_serve.py``,
+   ``tools/torch_smoke_spatial_prog.py``), run after phase 9 on phase 3's
+   weights (OLMo-1B at full width; ``star=None`` where the twins take it),
+   each sub-phase's kernel launches counted from 0 against its decode
+   steps, audit probes and ``lm.prefill`` calls (K1 once per layer of each
+   paged step and probe, its (m, l, o) form of each spatial step, K4 of
+   each dense prefill; ``serving_launches``): (a) ``basic``, paged and
+   dense through ``LLM`` with the reference's assertions; (b) the 2-shard
+   spatial scenarios: parity with the paged engine, each run's every
+   token held by phase 4's rule (the two decode forms round apart in
+   bf16), one decode compilation; the overflow prompt refused by one pool
+   and served by two shards; cold pages shed with no preemption; ``LLM``
+   at 0.95 of the direct engine's tokens/s or better within 3 attempts;
+   (c) three Perfetto traces (dense, paged, spatial) that load back, tick
+   spans in order with every other span inside a tick, the spatial one
+   shard-tagged, their phase tables; (d) ``LLM.debug_bundle`` after a
+   pressured run with the DLZS audit and ``DisaggRouter.debug_bundle``:
+   every artifact present, every JSON file loading with no tensor
+   ``repr`` in it, an audit report, a hop landed and none in flight; (e)
+   phase 5's bounded sparse decode four times more, without, with (and
+   an audit probe every 4 ticks), with and without telemetry: phase 5's
+   tokens each time, each layer's attention-mass recall finite and in
+   [0, 1], tokens/s with and without telemetry beside phase 5's. Phase 2
+   holds K1, its (m, l, o) form over 2 shards and K4 at every shape
+   these runs reach (``SERVE_TWIN_K1``, ``SERVE_TWIN_K1_STATS``,
+   ``SERVE_TWIN_K4``) before them.
 Phase 4 also counts K4: oracle forwards x attention layers launches (an
 encoder-decoder forward's: its encoder, self- and cross-attention
 layers).
@@ -493,6 +520,14 @@ JAMBA_MAX_TOKENS = 16
 # phase 17: xLSTM-125M at full width and depth
 XLSTM_PROMPTS = (1024, 2048)
 XLSTM_MAX_TOKENS = 16
+# phase 17 serves 6 of xLSTM-125M's 12 layers (3 mLSTM, 3 sLSTM blocks):
+# with phase 26 the whole script ran 1111 s on an H100 against its 1200 s
+# limit, and phase 17, host-bound in its sLSTM time loop, took 66 s of it
+XLSTM_SERVE_LAYERS = 6
+XLSTM_SERVE_CUT = (
+    f"{XLSTM_SERVE_LAYERS} of 12, for chip_smoke.py's 1200 s: the full "
+    "depth's 66 s of host-bound sLSTM loop halves; the alternating "
+    "mLSTM/sLSTM pattern and every width stay")
 # phase 18: InternVL2-26B at full width and depth; its published context
 # is 8192; then one prefill over INTERNVL_EMBEDS patch embeddings and
 # INTERNVL_DECODE_STEPS decode steps
@@ -1398,10 +1433,11 @@ def check_exact(params, cfg, prompts, done, routes=None, extra=None,
 
 
 def main_path_llm(cfg, params, *, n_pages, hot_pages, past_pages,
-                  device, generator, hot_width=None) -> LLM:
+                  device, generator, hot_width=None, telemetry=None,
+                  audit_cfg=None) -> LLM:
     return LLM.from_config(
         cfg, backend="paged", params=params, device=device,
-        generator=generator,
+        generator=generator, telemetry=telemetry, audit_cfg=audit_cfg,
         engine_cfg=PagedEngineCfg(max_batch=4, page_size=16,
                                   n_pages=n_pages, hot_pages=hot_pages,
                                   batch_past_pages=past_pages, eos_id=-1),
@@ -3360,9 +3396,10 @@ def check_rounding_spread(params, cfg, params32, cfg32, prompts, done) -> dict:
 
 
 def check_xlstm(cfg, dev, gen, *, lengths=XLSTM_PROMPTS,
-                max_tokens=XLSTM_MAX_TOKENS) -> dict:
-    """Phase 17: xLSTM-125M at full width and depth through the dense slot
-    engine, no kernel of the port launching. In bf16, the config's dtype:
+                max_tokens=XLSTM_MAX_TOKENS, layers=None) -> dict:
+    """Phase 17: xLSTM-125M at full width through the dense slot engine, its
+    depth cut to ``layers`` where given (``XLSTM_SERVE_CUT``), no kernel of
+    the port launching. In bf16, the config's dtype:
     the served numbers, the sLSTM loop's share of a prefill and each
     token against the fp32 forward within the bf16 forward's own spread
     (``check_rounding_spread``). With random weights this model amplifies
@@ -3373,9 +3410,13 @@ def check_xlstm(cfg, dev, gen, *, lengths=XLSTM_PROMPTS,
     in fp32 against the fp32 forward (the plain cache-free form: chunked
     mLSTM, sLSTM loop, no kernel)."""
     on_card = torch.device(dev).type == "cuda"
+    reduced = None
+    if layers is not None:
+        reduced = {"n_layers": XLSTM_SERVE_CUT}
+        cfg = cut_layers(cfg, layers)
     params, info = init_params(cfg, gen, dev)
     emit("xlstm_init", dtype=str(cfg.dtype), layers=cfg.n_layers,
-         blocks=[b.kind for b in cfg.pattern], **info)
+         blocks=[b.kind for b in cfg.pattern], reduced=reduced, **info)
     prompts = make_prompts(cfg, lengths, SEED + 17)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = tree_map(lambda t: t.float(), params)
@@ -3395,11 +3436,11 @@ def check_xlstm(cfg, dev, gen, *, lengths=XLSTM_PROMPTS,
         else:
             run.update(check_exact(p, c, prompts, done))
             require_k4(run, "xLSTM-125M exactness")
-        emit("xlstm_served", dtype=key, **run)
+        emit("xlstm_served", dtype=key, reduced=reduced, **run)
         out[key] = run
     timing = timed_slstm_prefill(params, cfg, max(lengths), on_card)
     split = profiled_prefill(params, cfg, min(lengths), on_card)
-    emit("xlstm_prefill", **timing, profiled=split)
+    emit("xlstm_prefill", reduced=reduced, **timing, profiled=split)
     del params, params32
     free_cache(dev)
     return {"served": out, "prefill": timing, "split": split}
@@ -4237,6 +4278,24 @@ def plain_sufa_train(q, k, v, idx, valid, *, scale, keeps=None, **kw):
 
 
 @contextlib.contextmanager
+def plain_attention(keeps=None):
+    """Within the block, K4, K2 and K3 run as their plain versions under
+    autograd (``plain_flash_train``, ``dlzs_block_ref``,
+    ``plain_sufa_train`` with ``keeps``): the plain path of 20d, 21d and
+    ``tools/torch_nemotron_train.py --compare``."""
+    names = ("flash", "dlzs_block_scores", "sufa_attention")
+    real = {name: getattr(ops, name) for name in names}
+    ops.flash = plain_flash_train
+    ops.dlzs_block_scores = kref.dlzs_block_ref
+    ops.sufa_attention = functools.partial(plain_sufa_train, keeps=keeps)
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+
+@contextlib.contextmanager
 def recorded_gates(store: list):
     """Within the block, every call of ``moe._gate`` appends its choices
     (eidx as [rows, k]) to ``store``, in call order."""
@@ -4278,10 +4337,6 @@ def model_grads(params, cfg, batch, plain: bool, tiles=None,
     replay = iter(tiles or ())
     replay_keeps = None if keeps is None else iter(keeps)
     if plain:
-        ops.flash = plain_flash_train
-        ops.dlzs_block_scores = kref.dlzs_block_ref
-        ops.sufa_attention = functools.partial(plain_sufa_train,
-                                               keeps=replay_keeps)
         if tiles is not None:
             ops.select_tiles = lambda raw, keep, **kw: next(replay)
     else:
@@ -4307,7 +4362,9 @@ def model_grads(params, cfg, batch, plain: bool, tiles=None,
         routing = recorded_gates(routes)
     try:
         with routing, (recorded_gates(gates) if plain and routes is not None
-                       else contextlib.nullcontext()):
+                       else contextlib.nullcontext()), \
+                (plain_attention(replay_keeps) if plain
+                 else contextlib.nullcontext()):
             (loss, metrics), grads = grad_fn(params, cfg, batch)
     finally:
         for name, fn in real.items():
@@ -4844,9 +4901,9 @@ QUICKSTART_TOL = 1e-4        # the card's numbers against its CPU run
 RING_TOL = 1e-4              # DRAttention against dense attention, fp32
 
 
-def load_example(name: str):
-    """``examples/torch_<name>.py`` of this checkout, as a module."""
-    path = ROOT / "examples" / f"torch_{name}.py"
+def load_example(name: str, folder: str = "examples"):
+    """``<folder>/torch_<name>.py`` of this checkout, as a module."""
+    path = ROOT / folder / f"torch_{name}.py"
     spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -4856,12 +4913,15 @@ def load_example(name: str):
 @contextlib.contextmanager
 def counted_calls(owner, name: str, tally: dict):
     """Count the calls of ``owner.name`` (a class's method or a module's
-    function) into ``tally[name]`` while the block runs."""
+    function) that return into ``tally[name]`` while the block runs: a
+    decode step that raises ``NeedPages`` under pool pressure does so
+    before it launches anything."""
     real = getattr(owner, name)
 
     def counted(*args, **kw):
+        out = real(*args, **kw)
         tally[name] += 1
-        return real(*args, **kw)
+        return out
     setattr(owner, name, counted)
     try:
         yield
@@ -5477,6 +5537,305 @@ def check_nemotron_training(cfg, dev, gen, *, layers=NEMOTRON_TRAIN_LAYERS,
     return out
 
 
+# -- phase 26: the serving smoke's twins --------------------------------------
+
+# The kernel shapes the twins reach at OLMo-1B's width (G 16, R 1, d 128,
+# pages of 16), recorded by wrapping the kernels' wrappers while phase 26
+# runs on the CPU (tests/test_torch_smoke_serve.py holds the list): the
+# normalised K1's (B, W), its (m, l, o) form's (B, W a shard) over 2
+# shards, and K4's T at BH 16 (the dense backend's prompts, the pool
+# probes' 16 tokens and the 26b rule's forwards). Phase 2 holds each
+# before phase 26 launches it.
+SERVE_TWIN_K1 = ((2, 3), (2, 4), (4, 2), (4, 4), (4, 8), (4, 64))
+SERVE_TWIN_K1_STATS = ((2, 2), (2, 4), (2, 12), (4, 8))
+SERVE_TWIN_K4 = (6, 9, 12, 16, 18, 21, 35, 38)
+TWIN_AUDIT_EVERY = 4        # the reference bundle's AuditCfg(every_ticks=4)
+TWIN_TAGS = ("basic", "spatial", "trace", "bundle", "bundle_disagg",
+             "sparse")
+
+
+def check_serve_twin_kernels(dev) -> dict:
+    """Phase 2's part for phase 26: K1 (normalised) at each of
+    ``SERVE_TWIN_K1``'s (B, W), its (m, l, o) form over 2 shards at each
+    of ``SERVE_TWIN_K1_STATS``'s and K4 causal at BH 16 at each of
+    ``SERVE_TWIN_K4``'s T, OLMo-1B's heads (G 16, R 1, d 128, pages of
+    16), each against its plain version, two calls bit-equal, untimed;
+    the rows run up to each table's capacity."""
+    out = {"k1": [], "k1_stats": [], "k4": []}
+    for i, (b, w) in enumerate(SERVE_TWIN_K1):
+        kv = tuple(max(1, w * 16 - 7 * j) for j in range(b))
+        out["k1"].append(check_paged_kernel(
+            dev, f"serve_twin_b{b}_w{w}", b=b, g=16, r=1, d=128, page=16,
+            w=w, p=max(64, 2 * w + 1), kv_len=kv, seed=260 + i,
+            timed=False)["max_abs_err"])
+    for i, (b, w) in enumerate(SERVE_TWIN_K1_STATS):
+        kv = tuple(max(1, 2 * w * 16 - 9 * j) for j in range(b))
+        out["k1_stats"].append(check_paged_stats(
+            dev, f"serve_twin_stats_b{b}_w{w}", 2, b=b, g=16, r=1, d=128,
+            page=16, w=w, p=max(32, w + 1), kv_len=kv, seed=270 + i,
+            timed=False)["max_abs_err"])
+    for i, t in enumerate(SERVE_TWIN_K4):
+        out["k4"].append(check_flash(dev, None, bh=16, t=t, causal=True,
+                                     seed=280 + i, timed=False)[
+                                         "max_abs_err"])
+    emit("serve_twin_kernels", k1_shapes=SERVE_TWIN_K1,
+         k1_stats_shapes=SERVE_TWIN_K1_STATS, k4_t=SERVE_TWIN_K4,
+         **{f"max_abs_err_{k}": max(v) for k, v in out.items()})
+    return out
+
+
+@contextlib.contextmanager
+def counted_serving(calls: dict):
+    """Within the block, count into ``calls`` what launches the serving
+    kernels: the paged and the spatial backends' decode steps (class-level,
+    every instance), the audit probes that ran (a probe that declines at a
+    page boundary launches nothing) and the ``lm.prefill`` calls. The
+    launch counts start at 0."""
+    for key in ("paged", "spatial", "audit", "prefill"):
+        calls[key] = 0
+    real_audit = PagedBackend.audit_decode
+
+    def audit(self, *args, **kw):
+        report = real_audit(self, *args, **kw)
+        calls["audit"] += report is not None
+        return report
+    tally = {"decode_step": 0, "prefill": 0}
+    kernels.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for name, backend in (("paged", PagedBackend),
+                              ("spatial", SpatialBackend)):
+            counts = {"decode_step": 0}
+            stack.enter_context(counted_calls(backend, "decode_step",
+                                              counts))
+            stack.callback(lambda n=name, c=counts: calls.__setitem__(
+                n, c["decode_step"]))
+        stack.enter_context(counted_calls(lm, "prefill", tally))
+        stack.callback(lambda: calls.__setitem__("prefill",
+                                                 tally["prefill"]))
+        PagedBackend.audit_decode = audit
+        stack.callback(setattr, PagedBackend, "audit_decode", real_audit)
+        yield calls
+
+
+def serving_launches(calls: dict, cfg, on_card: bool) -> dict:
+    """The launches ``calls`` give on the card: K1 (fp lane) once per layer
+    of every paged decode step and audit probe, its (m, l, o) form once per
+    layer of every spatial step, and per ``lm.prefill`` call K4 (dense)
+    or K2 and K3 (STAR) once per layer; nothing else, and nothing off the
+    card."""
+    want = {key: 0 for key in launched()}
+    if not on_card:
+        return want
+    layers = cfg.n_layers
+    k1 = (calls["paged"] + calls["audit"]) * layers
+    want.update({"paged_decode": k1, "paged_decode/fp": k1,
+                 "paged_decode_stats": calls["spatial"] * layers,
+                 "paged_decode_stats/fp": calls["spatial"] * layers})
+    if cfg.star is None:
+        want["flash"] = calls["prefill"] * layers
+    else:
+        want["dlzs_block"] = want["sufa"] = calls["prefill"] * layers
+        got = launched()
+        for kernel in ("dlzs_block", "sufa"):
+            for form in ("wgmma", "mma_sync"):   # the tiles pick the form
+                want[f"{kernel}/{form}"] = got[f"{kernel}/{form}"]
+    return want
+
+
+def require_serving_launches(calls: dict, cfg, on_card: bool,
+                             tag: str) -> dict:
+    got, want = launched(), serving_launches(calls, cfg, on_card)
+    if got != want:
+        raise SystemExit(f"{tag}: launches {got} over {calls}; expected "
+                         f"{want}")
+    return {k: v for k, v in got.items() if v}
+
+
+def spans_outside_ticks(events: list[dict]) -> int:
+    """The complete spans that no ``tick`` span of the trace contains (a
+    tick's phases and dispatches must nest inside it on the host clock,
+    whatever the device is still running; 1 ns of slack for the
+    exporter's rounding)."""
+    ticks = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e["name"] == "tick"]
+    return sum(1 for e in events if e.get("ph") == "X"
+               and e["name"] != "tick"
+               and not any(t0 - 1e-3 <= e["ts"]
+                           and e["ts"] + e["dur"] <= t1 + 1e-3
+                           for t0, t1 in ticks))
+
+
+def twin_pair_rule(params, cfg) -> callable:
+    """26b's hold of the spatial parity's two runs: every token of each by
+    phase 4's rule against K4's forward (``check_exact``); the tokens
+    where the runs part are counted."""
+    def hold(res: dict) -> dict:
+        out = {name: check_exact(params, cfg, res["prompts"], res[name])
+               for name in ("paged", "spatial")}
+        out["tokens_differing"] = res["tokens_differing"]
+        return out
+    return hold
+
+
+def check_serve_twins(params, cfg, dev, gen, *, sparse_run: dict,
+                      sparse_prompts, workdir=BUILD_DIR,
+                      n_pages: int = 256) -> dict:
+    """Phase 26: ``tools/torch_smoke_serve.py`` and
+    ``tools/torch_smoke_spatial_prog.py`` through their functions on
+    ``dev`` with ``params`` (OLMo-1B, ``cfg`` with STAR; the twins take it
+    with ``star=None``), each sub-phase's launches counted from 0 and held
+    (``serving_launches``): (a) ``basic``; (b) the spatial scenarios, the
+    parity runs held by phase 4's rule (``twin_pair_rule``), the front
+    door at 0.95 of the direct engine; (c) ``trace_smoke``'s three traces
+    under ``workdir``; (d) both debug bundles; (e) phase 5's bounded
+    sparse decode (``sparse_run`` on ``sparse_prompts``, with STAR) again
+    with telemetry and the audit every ``TWIN_AUDIT_EVERY`` ticks: the
+    same tokens, each audit's per-layer recall finite and in [0, 1]."""
+    t_phase = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    serve_twin = load_example("smoke_serve", "tools")
+    prog = serve_twin.spatial_prog
+    dense_cfg = dataclasses.replace(cfg, star=None)   # the twins' model
+    out = {}
+
+    def counted(tag, fn):
+        calls = {}
+        t0 = time.perf_counter()
+        with counted_serving(calls):
+            res = fn()
+        sync(dev)
+        res["seconds"] = time.perf_counter() - t0
+        res["calls"] = dict(calls)
+        res["launches"] = require_serving_launches(
+            calls, dense_cfg, on_card, f"phase 26 {tag}")
+        if not res.get("ok", True):
+            raise SystemExit(f"phase 26 {tag}: {res}")
+        return res
+
+    basic = counted("basic", lambda: serve_twin.basic(dense_cfg, params,
+                                                      dev))
+    out["basic"] = basic
+    emit("serve_twin_basic", **{k: basic[k] for k in (
+        "decode_compiles", "shared_hits", "peak_pages", "requests",
+        "n_tokens", "tok_s", "seconds", "calls", "launches")},
+        dense_tokens=len(basic["dense_tokens"]))
+
+    held = []
+    sp = counted("spatial", lambda: serve_twin.spatial(
+        dense_cfg, params, dev, hold=lambda res: held.append(res)
+        or "held after the launch count"))
+    rule = twin_pair_rule(params, dense_cfg)(held[0])
+    fd = sp["front_door"]
+    out["spatial"] = sp
+    emit("serve_twin_spatial", parity_equal=sp["parity"]["equal"],
+         tokens_differing=rule["tokens_differing"],
+         **{f"{name}_{key}": rule[name][key] for name in ("paged", "spatial")
+            for key in ("tokens_checked", "exact", "bf16_ties", "inexact")},
+         decode_compiles=sp["parity"]["decode_compiles"],
+         long_prompt=prog.LONG_PROMPT, refused=sp["capacity"]["refused"],
+         sheds=sp["shed"]["sheds"], preemptions=sp["shed"]["preemptions"],
+         direct_tok_s=fd["direct_tok_s"], llm_tok_s=fd["llm_tok_s"],
+         front_door_ratio=fd["ratio"], front_door_attempts=fd["attempts"],
+         front_door_runs=fd["runs"], seconds=sp["seconds"],
+         calls=sp["calls"], launches=sp["launches"])
+
+    workdir = pathlib.Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        tr = counted("trace", lambda: serve_twin.trace_smoke(
+            dense_cfg, params, dev, pathlib.Path(tmp) / "traces"))
+        out["trace"] = tr
+        for backend in ("dense", "paged", "spatial"):
+            tr[backend]["outside_ticks"] = spans_outside_ticks(
+                tobs.load_trace(tr[backend]["path"]))
+            if tr[backend]["outside_ticks"]:
+                raise SystemExit(f"phase 26 trace {backend}: "
+                                 f"{tr[backend]['outside_ticks']} spans "
+                                 f"outside every tick")
+        emit("serve_twin_trace", seconds=tr["seconds"], calls=tr["calls"],
+             launches=tr["launches"], **{
+                 backend: {key: tr[backend][key] for key in (
+                     "events", "spans", "outside_ticks")}
+                 | {key: tr[backend]["phases"][key] for key in (
+                     "ticks", "wall_ms", "totals_ms", "per_tick_ms",
+                     "compile_ms")}
+                 for backend in ("dense", "paged", "spatial")})
+        for tag, fn in (("bundle", serve_twin.bundle_smoke),
+                        ("bundle_disagg", serve_twin.bundle_disagg_smoke)):
+            res = counted(tag, lambda fn=fn, tag=tag: fn(
+                dense_cfg, params, dev, pathlib.Path(tmp) / tag))
+            audit = res["loaded"].get("audit.json", {})
+            line = {"artifacts": res["artifacts"],
+                    "audit_reports": len(audit.get("reports", ())),
+                    "audit_runs": audit.get("runs"),
+                    "seconds": res["seconds"], "calls": res["calls"],
+                    "launches": res["launches"]}
+            if tag == "bundle":
+                if not line["audit_reports"]:
+                    raise SystemExit(f"phase 26 bundle: audit.json holds no "
+                                     f"report: {audit}")
+                line["recall_min"] = min(r["recall_min"]
+                                         for r in audit["reports"])
+            else:
+                line["transfer"] = {k: res["transfer"][k] for k in (
+                    "n_transfers", "in_flight")}
+            out[tag] = res
+            emit(f"serve_twin_{tag}", **line)
+
+    # 26e: phase 5's engine and requests four times, without telemetry,
+    # with it (and the audit), with, without: each run must serve phase
+    # 5's tokens; the warm pairs give telemetry's cost on one host
+    calls = {}
+    runs = []
+    with counted_serving(calls):
+        for telemetry in (False, True, True, False):
+            tel = tobs.Telemetry({"backend": "paged"}) if telemetry \
+                else None
+            llm = main_path_llm(
+                cfg, params, n_pages=n_pages, hot_pages=64, past_pages=64,
+                device=dev, generator=gen, hot_width=8, telemetry=tel,
+                audit_cfg=tobs.AuditCfg(every_ticks=TWIN_AUDIT_EVERY)
+                if telemetry else None)
+            run = serve(llm, sparse_prompts, len(sparse_run["done"][0]),
+                        reset=False)
+            if run["done"] != sparse_run["done"]:
+                raise SystemExit(f"phase 26e: the served tokens "
+                                 f"{run['done']} (telemetry {telemetry}) "
+                                 f"against phase 5's {sparse_run['done']}")
+            auditor = llm.engine.auditor if telemetry else None
+            runs.append((telemetry, run, auditor,
+                         len(tel.tracer.events) if telemetry else 0))
+            del llm
+    launches = require_serving_launches(calls, cfg, on_card,
+                                        "phase 26 sparse")
+    auditor = runs[1][2]
+    recall = [r["recall_per_layer"] for r in auditor.reports]
+    if not recall or not all(len(r) == cfg.n_layers and all(
+            math.isfinite(x) and 0.0 <= x <= 1.0 for x in r)
+            for r in recall):
+        raise SystemExit(f"phase 26e: audit recall {recall}")
+    tok_s = {key: [run["tok_s"] for tel_on, run, _, _ in runs
+                   if tel_on == (key == "telemetry")]
+             for key in ("telemetry", "plain")}
+    out["sparse"] = {"tok_s": tok_s, "tok_s_phase5": sparse_run["tok_s"],
+                     "audit_runs": auditor.runs, "recall_per_layer": recall,
+                     "calls": calls, "launches": launches}
+    emit("serve_twin_sparse_telemetry", tokens_equal_phase5=True,
+         runs="without, with, with, without telemetry",
+         tok_s_with=tok_s["telemetry"], tok_s_without=tok_s["plain"],
+         telemetry_cost=1 - sum(tok_s["telemetry"]) / sum(tok_s["plain"]),
+         tok_s_phase5=sparse_run["tok_s"], decode_ticks=runs[1][1]["ticks"],
+         audit_runs=auditor.runs, audit_skipped=auditor.skipped,
+         recall_mean_per_layer=[float(np.mean(col)) for col in zip(*recall)],
+         recall_min=min(min(r) for r in recall), trace_events=runs[1][3],
+         calls=calls, launches=launches)
+    del runs
+    free_cache(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("serve_twins", ok=True, seconds=out["seconds"])
+    return out
+
+
 def demangle(mangled: str) -> str:
     """``name<args>`` of a kernel template instantiation whose arguments
     are ints and bools (``...19paged_scores_kernelILi64ELi1ELb1EEEv...`` ->
@@ -5619,6 +5978,8 @@ def main() -> int:
             dev, "spatial_longctx_example", 4, b=4, g=4, r=1, d=64,
             page=16, w=10, p=12, kv_len=(515, 40, 33, 25), seed=12,
             timed=False)}
+    # phase 26's shapes: the serving smoke's twins at OLMo-1B's width
+    twin_kernels = check_serve_twin_kernels(dev)
 
     # 3. the main path: full-width OLMo-1B on the paged engine
     cfg = olmo_1b.config()
@@ -5663,8 +6024,8 @@ def main() -> int:
     sparse_llm = main_path_llm(cfg, params, n_pages=256, hot_pages=64,
                                past_pages=64, device=dev, generator=gen,
                                hot_width=8)
-    sp_run = serve(sparse_llm, make_prompts(cfg, (512, 640, 768), SEED + 2),
-                   16)
+    sparse_prompts = make_prompts(cfg, (512, 640, 768), SEED + 2)
+    sp_run = serve(sparse_llm, sparse_prompts, 16)
     sparse = served_summary(sp_run, cfg.n_layers)
     emit("sparse_decode", hot_width=sparse_llm.stats()["hot_width"],
          **sparse)
@@ -5704,6 +6065,13 @@ def main() -> int:
     pair = disagg["pair"]
     require_disagg_launches(pair, "disaggregated serving")
     require_disagg_launches(disagg["tier_read"], "int8 tier read")
+
+    # 26. the serving smoke's twins (tools/torch_smoke_serve.py,
+    # tools/torch_smoke_spatial_prog.py) on phase 3's weights: every
+    # backend, telemetry, traces, the debug bundles, and phase 5's sparse
+    # decode again with telemetry and the DLZS audit
+    twins = check_serve_twins(params, cfg, dev, gen, sparse_run=sp_run,
+                              sparse_prompts=sparse_prompts)
     del params
     free_cache(dev)
 
@@ -5733,8 +6101,8 @@ def main() -> int:
     # MoE and one attention layer (K2/K3/K4 at BH 64) on the dense engine
     jamba = check_jamba(jamba_1_5_large_398b.config(), dev, gen)
 
-    # 17. xLSTM-125M at full width and depth: no kernel of the port
-    check_xlstm(xlstm_125m.config(), dev, gen)
+    # 17. xLSTM-125M at full width, 6 of 12 layers: no kernel of the port
+    check_xlstm(xlstm_125m.config(), dev, gen, layers=XLSTM_SERVE_LAYERS)
 
     # 18. InternVL2-26B at full width and depth through the paged engine
     # (K1 at R = 6, K2/K3/K4 at BH 48), and its patch-embeddings input
@@ -5859,7 +6227,10 @@ def main() -> int:
              launches_serve_star_example=example("serve_star",
                                                  "paged_decode"),
              max_abs_err_serve_star_example=k1_examples["serve_star"][
-                 "max_abs_err"]),
+                 "max_abs_err"],
+             launches_serve_twins={tag: twins[tag]["launches"].get(
+                 "paged_decode", 0) for tag in TWIN_TAGS},
+             max_abs_err_serve_twins=max(twin_kernels["k1"])),
         # the int8 form: the reference serves this read path through its
         # XLA gather (src/repro/kvcache/paged_attention.py:68); it runs on
         # the decode ticks that read the tier, those of the tier-read run
@@ -5888,6 +6259,8 @@ def main() -> int:
              launches_jamba=jamba["star"]["dlzs_block_launches"],
              launches_serve_star_example=example("serve_star",
                                                  "dlzs_block"),
+             launches_serve_twin_sparse=twins["sparse"]["launches"].get(
+                 "dlzs_block", 0),
              **bh64("dlzs_block")),
         line("sufa", "sufa.cu", "src/repro/kernels/sufa.py:72",
              whole["sufa_launches"], tiles["sufa"],
@@ -5908,6 +6281,8 @@ def main() -> int:
                  "fast": sbwd["train"]["fast"]["lse_max_abs_err"],
                  "tolerance": 1e-4},
              launches_serve_star_example=example("serve_star", "sufa"),
+             launches_serve_twin_sparse=twins["sparse"]["launches"].get(
+                 "sufa", 0),
              forward_train=dict(timed(sbwd["forward_train"]),
                                 keep=sbwd["forward_train"]["keep"],
                                 launches_per_step=star_train["launches"][
@@ -5922,6 +6297,9 @@ def main() -> int:
              launches_train_example=example("train_star_lm", "flash"),
              launches_spatial_longctx_example=example("spatial_longctx",
                                                       "flash"),
+             launches_serve_twins={tag: twins[tag]["launches"].get(
+                 "flash", 0) for tag in TWIN_TAGS},
+             max_abs_err_serve_twins=max(twin_kernels["k4"]),
              forward_train=dict(timed(bwd["forward_train"]),
                                 launches_per_step=train["launches"][
                                     "flash"] // train["steps"]),
@@ -5983,6 +6361,9 @@ def main() -> int:
                  "spatial_longctx", "paged_decode_stats"),
              max_abs_err_spatial_longctx_example=k1_examples[
                  "spatial_longctx"]["max_abs_err"],
+             launches_serve_twins={tag: twins[tag]["launches"].get(
+                 "paged_decode_stats", 0) for tag in TWIN_TAGS},
+             max_abs_err_serve_twins=max(twin_kernels["k1_stats"]),
              library=k1_stats["fp"]["library"],
              max_abs_err_m=k1_stats["fp"]["max_abs_err_m"],
              max_abs_err_l=k1_stats["fp"]["max_abs_err_l"],

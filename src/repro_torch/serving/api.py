@@ -31,6 +31,25 @@ from repro_torch.serving.engine import Request
 BACKENDS = ("dense", "paged", "spatial")
 
 
+def json_default(o):
+    """``json.dump``'s fallback for the debug bundle's files: dataclasses
+    as dicts, numpy and torch values as numbers (a tensor on any device
+    as its values: its ``repr`` would carry no numbers a reader can load),
+    sets sorted, anything else as its ``repr``."""
+    import dataclasses
+
+    import torch
+    if dataclasses.is_dataclass(o) and not isinstance(o, type):
+        return dataclasses.asdict(o)
+    if isinstance(o, (np.integer, np.floating, np.ndarray)):
+        return o.tolist()
+    if isinstance(o, torch.Tensor):
+        return o.detach().cpu().tolist()
+    if isinstance(o, (set, frozenset)):
+        return sorted(o)
+    return repr(o)
+
+
 class RequestRecord(obs.RequestTimeline):
     """One request's lifecycle record: the ``obs.RequestTimeline`` the
     engine stamps, plus the request itself. ``LLM.records`` maps rid to
@@ -346,29 +365,15 @@ class LLM:
         engine/scheduler config (config.json). Returns the directory.
         Works with telemetry disabled too — the bundle just carries
         empty rings and registries."""
-        import dataclasses
         import json
         import os
 
         out = out_dir or "debug_bundle"
         os.makedirs(out, exist_ok=True)
 
-        def default(o):
-            if dataclasses.is_dataclass(o) and not isinstance(o, type):
-                return dataclasses.asdict(o)
-            if isinstance(o, np.integer):
-                return int(o)
-            if isinstance(o, np.floating):
-                return float(o)
-            if isinstance(o, np.ndarray):
-                return o.tolist()
-            if isinstance(o, (set, frozenset)):
-                return sorted(o)
-            return repr(o)
-
         def dump(name, obj):
             with open(os.path.join(out, name), "w") as f:
-                json.dump(obj, f, indent=2, default=default)
+                json.dump(obj, f, indent=2, default=json_default)
                 f.write("\n")
 
         eng = self.engine

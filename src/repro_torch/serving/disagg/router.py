@@ -45,7 +45,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.serving.api import LLM
+from repro_torch.serving.api import LLM, json_default
 from repro_torch.serving.disagg.transfer import KVTransfer
 from repro_torch.serving.engine import Request
 from repro_torch.serving.swap_policy import RetryGovernor
@@ -224,9 +224,9 @@ class DisaggRouter(LLM):
             with open(os.path.join(out, "accounting_prefill.json"),
                       "w") as f:
                 json.dump(self.prefill.accounting_snapshot(), f,
-                          indent=2, default=repr)
+                          indent=2, default=json_default)
                 f.write("\n")
         with open(os.path.join(out, "transfer.json"), "w") as f:
-            json.dump(self.transfer.stats(), f, indent=2, default=repr)
+            json.dump(self.transfer.stats(), f, indent=2, default=json_default)
             f.write("\n")
         return out

@@ -429,6 +429,57 @@ def test_paged_decode_stats_matches_plain(cuda_device, quant, n_sh, b, g, r,
                                    **BF16_TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,w,kv_len", [
+    (2, 3, [48, 21]), (2, 4, [64, 33]),           # basic, the spatial parity
+    (4, 2, [32, 17, 5, 1]), (4, 4, [64, 49, 40, 16]),   # the bundles
+    (4, 8, [128, 100, 64, 3]),                    # 26e's hot width
+    (4, 64, [1024, 800, 665, 290])])              # the audit's resident set
+def test_paged_decode_serve_twin_shapes(cuda_device, b, w, kv_len):
+    """K1 at the serving smoke twins' decode shapes (chip_smoke.py's
+    ``SERVE_TWIN_K1``, OLMo-1B's 16 heads of 128) against its plain
+    version at the bf16 bound, two calls bit-equal, one launch each."""
+    args = _k1_inputs(b, 16, 1, 128, w, kv_len, seed=b * w,
+                      device=cuda_device)
+    kernels.reset_launches()
+    got = kpaged.paged_decode_attention(*args, scale=128 ** -0.5)
+    again = kpaged.paged_decode_attention(*args, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode"] == 2 and torch.equal(got, again)
+    want = kpaged.paged_decode_reference(*args, scale=128 ** -0.5)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kv_len", [
+    (2, [64, 40]), (2, [128, 97]), (2, [384, 150]),   # W 2, 4, 12 a shard
+    (4, [256, 200, 130, 17])])                        # W 8, the front door
+def test_paged_decode_stats_serve_twin_shapes(cuda_device, b, kv_len):
+    """K1's (m, l, o) form over 2 shards at the twins' spatial decode
+    shapes (``SERVE_TWIN_K1_STATS``) against its plain version: m, l and
+    o/l at the bf16 bound, two calls bit-equal, counted as its own form."""
+    args = _k1_sharded_inputs(2, b, 16, 1, 128, kv_len, seed=b + len(kv_len),
+                              device=cuda_device)
+    kernels.reset_launches()
+    got = kpaged.paged_decode_stats_attention(*args, scale=128 ** -0.5)
+    again = kpaged.paged_decode_stats_attention(*args, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["paged_decode_stats"] == 2
+    assert kernels.LAUNCHES["paged_decode"] == 0
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+    (m, l, o), (wm, wl, wo) = got, kpaged.paged_decode_stats_reference(
+        *args, scale=128 ** -0.5)
+    live = wl > 0
+    assert torch.equal(live, l > 0)
+    for a, want in ((m[live], wm[live]), (l[live], wl[live]),
+                    ((o / torch.clamp(l, min=1e-30)[..., None])[live],
+                     (wo / torch.clamp(wl, min=1e-30)[..., None])[live])):
+        np.testing.assert_allclose(a.cpu().numpy(), want.cpu().numpy(),
+                                   **BF16_TOL)
+
+
 # -- the prefill tile kernels: K2 (DLZS block maxima), K3 (SU-FA), K4 --------
 
 # K2's maxima are fp32 sums of exact bf16 x pow2 products: only the order

@@ -351,6 +351,7 @@ sys.path.insert(0, {tools!r})
 import torch_profile_prefill, torch_star_drift, torch_decode_forms
 import torch_k1_int8, torch_served_logits, torch_grad_norms
 import torch_k3_bwd_forms, torch_optim_memory, torch_family_probe
+import torch_smoke_serve, torch_smoke_spatial_prog
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
