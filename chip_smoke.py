@@ -254,7 +254,7 @@ Phases, each printing its numbers on a line of its own:
    ``mfu_all_params``, by all parameters, peak memory, the save's
    seconds and bytes, and one more step profiled;
    (c) in a child process with deterministic algorithms (``--restart-child
-   DIR``), 2 of its 16 layers: a run failed at step 7 and resumed from
+   DIR olmo``), 2 of its 16 layers: a run failed at step 7 and resumed from
    step 5 ends with the uninterrupted run's params and optimizer state,
    bit for bit; (d) one 2-layer step's loss and gradients against the
    same step on the plain path in fp32 (``flash_ref`` under autograd):
@@ -278,7 +278,8 @@ Phases, each printing its numbers on a line of its own:
    training shape on the glue's selection (keep 4 of 16) against its
    plain version, timed beside its bound and SDPA over the gathered
    rows; (b) OLMo-1B with ``star_train``
-   trained as in 20b: the loss falls by more than 0.1, K2 = K3 = steps x
+   trained as in 20b but 12 steps (``STAR_STEPS_CUT``) and without the
+   final save: the loss falls by more than 0.1, K2 = K3 = steps x
    32, K3's backward steps x 16 (all ``wgmma``), K1 and K4 never; step
    ms, tokens/s, MFU, peak memory and one profiled step's split (K2, K3,
    K3's backward, the selection glue, GEMMs, AdamW, the rest); (c) 20c's
@@ -327,9 +328,11 @@ Phases, each printing its numbers on a line of its own:
    depth (AdamW, bf16 moments, the blocked large-leaf update), (b)
    Grok-1 at published width, 1 of 64 layers (Adafactor, 8 microbatches,
    GQA 48 over 8 heads), (c) Jamba-1.5-Large's layer 0 (Mamba + dense FFN,
-   the pattern cut with it; Adafactor, 8 microbatches; no kernel) and (d)
-   xLSTM-125M at full width and depth at 256 tokens a row (no kernel),
-   each trained 12 steps of 8 rows through ``make_train_step``: the loss
+   the pattern cut with it; Adafactor, 8 microbatches; no kernel; layers
+   0-1 ran out of the card's memory, ``JAMBA_TRAIN_CUT``) and (d)
+   xLSTM-125M at full width, 4 of 12 layers, at 256 tokens a row (no
+   kernel; ``XLSTM_TRAIN_DEPTH_CUT``), each trained 12 steps of 8 rows
+   through ``make_train_step``: the loss
    falls by more than 0.1, every loss and grad norm finite, MoE aux above
    0, K4 = steps x attention layers x microbatches x 2 and its backward x
    1, K1-K3 never; step ms, tokens/s, MFU, the training state's
@@ -341,8 +344,10 @@ Phases, each printing its numbers on a line of its own:
    xLSTM's loss and grad norm reported against the fp32 plain step; (e)
    OLMo-1B cut to 2 layers: one step's gradients under ``remat`` none and
    dots bit-equal to full's (K4 once a layer under none, twice under the
-   others). 20c's child also resumes Jamba's layer 0 with its Adafactor
-   state (8 x 2048 tokens) bit-equal to an uninterrupted run. Each cut
+   others). A child like 20c's (``--restart-child DIR jamba``), run while
+   phase 1's kernels build (Jamba's layer 0 launches none), resumes
+   Jamba's layer 0 with its Adafactor state (8 x 2048 tokens) bit-equal
+   to an uninterrupted run. Each cut
    is on its line's ``reduced`` with its reason.
 24. Nemotron-4-340B (head_dim 192, 96 heads over 8 KV heads: GQA group
    12): (a) every kernel of its path at its shapes against its plain
@@ -371,10 +376,11 @@ Phases, each printing its numbers on a line of its own:
    a seeded upstream gradient), dense and with ``star_train``, every
    parameter's and the input's gradient by 20d's rule against the fp32
    plain layer; (c) its published widths cut to 1 of 96 layers (12.89 B
-   parameters with the untied embedding and head), 12 steps of 8 x 2048
-   tokens with its own Adafactor and ``train_accum`` 8, dense and then
-   with ``star_train``: the loss falls by more than 0.1, every loss and
-   grad norm finite, K4 = steps x 8 x 2 and its backward steps x 8 (K2 =
+   parameters with the untied embedding and head), 8 steps of 8 x 2048
+   tokens (``NEMOTRON_STEPS_CUT``) with its own Adafactor and
+   ``train_accum`` 8, dense and then with ``star_train``: the loss falls
+   by more than 0.1, every loss and grad norm finite, K4 = steps x 8 x 2
+   and its backward steps x 8 (K2 =
    K3 = steps x 8 x 2 and K3's backward steps x 8 in its wgmma form with
    ``star_train``); step ms, tokens/s, MFU, the state's reckoning (one
    gradient tree: ``launch.steps.accumulate_grad``) and peak memory.
@@ -404,6 +410,26 @@ Phases, each printing its numbers on a line of its own:
    holds K1, its (m, l, o) form over 2 shards and K4 at every shape
    these runs reach (``SERVE_TWIN_K1``, ``SERVE_TWIN_K1_STATS``,
    ``SERVE_TWIN_K4``) before them.
+27. the configs the reference trains that no earlier phase trained, at
+   their published widths, each with its own optimizer (AdamW, bf16
+   moments), ``train_accum`` (1) and ``remat`` (full): (a) K4's forward
+   and backward at BH 256 (8 rows x 32 heads: star_paper, and
+   ChatGLM3-6B after ``_repeat_kv``) and BH 384 (StarCoder2-15B, 8 x
+   48), K2, K3's forward and K3's backward (``wgmma``, the glue's
+   selection, keep 4 of 16) at BH 256, T = S = 2048, d 128, causal, by
+   20a's and 21a's rules, each timed beside its bound, its plain version
+   and SDPA; (b) one step's gradients of star_paper, ChatGLM3-6B (GQA
+   16, half-dim rotary, QKV bias) and StarCoder2-15B (LayerNorm with
+   bias, tanh-GELU) at 2 layers and 2 x 2048 tokens by 20d's rule, each
+   dense and with ``star_train`` (the plain runs on the kernel run's tile
+   ids); (c) star_paper with ``star_train`` (32 of 32 layers),
+   ChatGLM3-6B dense and with ``star_train`` (28 of 28) and
+   StarCoder2-15B dense at its first ``STARCODER2_TRAIN_LAYERS`` of 40
+   layers, each 12 steps of 8 x 2048 tokens: the loss falls by more than
+   0.1, every loss and grad norm finite, K4 = steps x layers x 2 and its
+   backward x 1, or K2 = K3 = steps x layers x 2 and K3's backward x 1 in
+   its ``wgmma`` form; step ms, tokens/s, MFU, the state's reckoning,
+   peak memory and a profiled step's split.
 Phase 4 also counts K4: oracle forwards x attention layers launches (an
 encoder-decoder forward's: its encoder, self- and cross-attention
 layers).
@@ -415,6 +441,7 @@ result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -560,6 +587,12 @@ PLAIN_Q_CHUNK = 1024        # the reference olmo_1b's dense-prefill q-chunk
 TRAIN_SEQ = 2048
 TRAIN_BATCH = 8
 TRAIN_STEPS = 20
+# phases 21b and 21e train OLMo-1B with star_train for fewer steps
+STAR_TRAIN_STEPS = 12
+STAR_STEPS_CUT = (
+    "12 of 20, for the script's clock beside phase 27: a step takes about "
+    "0.67 s on an H100, so the two runs take about 11 s less; in 20-step "
+    "runs there the loss fell 0.6 by step 5")
 TRAIN_LR = 6e-4
 TRAIN_WARMUP = 5
 RESTART_LAYERS = 2
@@ -1492,7 +1525,7 @@ def visible_pairs(t: int, s: int, causal: bool) -> int:
 
 
 def check_dlzs(dev, flush, *, bh, t, block, causal, seed, timed,
-               d=128) -> dict:
+               d=128, plain_iters: int = 50) -> dict:
     q, k, _ = prefill_inputs(bh, t, d, seed, dev)
     kw = dict(causal=causal, block_q=block, block_kv=block)
     kernel = lambda: kdlzs.dlzs_block_scores(q, k, **kw)  # noqa: E731
@@ -1508,7 +1541,8 @@ def check_dlzs(dev, flush, *, bh, t, block, causal, seed, timed,
         n_out = bh * (t // block) ** 2 * 4
         add_times(out, kernel, plain, None, flush,
                   bytes_=nbytes(q, k) + n_out,
-                  flops=2 * d * bh * visible_pairs(t, t, causal))
+                  flops=2 * d * bh * visible_pairs(t, t, causal),
+                  plain_iters=plain_iters)
     emit("prefill_kernel", ok=True, **out)
     return out
 
@@ -1532,7 +1566,8 @@ def selected_pairs(idx, valid, *, t: int, s: int, block: int = 128,
 
 
 def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
-               d=128, elementwise=False, causal=True) -> dict:
+               d=128, elementwise=False, causal=True,
+               plain_iters: int = 50) -> dict:
     """K3 on the tiles the glue selects for these inputs, keeping as many
     as olmo_1b's STAR config keeps (ChatGLM3-6B's and star_paper's are the
     same: top-k 0.2, tiles 128, radius 5), read in place from the tile
@@ -1614,13 +1649,14 @@ def check_sufa(dev, flush, *, bh, t, block, strict, seed, timed,
             else 4 * d * pairs
         add_times(out, kernel, plain,
                   lambda: SDPA(qs, ks, vs, attn_mask=ms, scale=scale), flush,
-                  bytes_=nbytes(q, q, idx, valid) + tile_bytes, flops=flops)
+                  bytes_=nbytes(q, q, idx, valid) + tile_bytes, flops=flops,
+                  plain_iters=plain_iters)
     emit("prefill_kernel", ok=True, **out)
     return out
 
 
 def check_flash(dev, flush, *, bh, t, causal, seed, timed, d=128,
-                s=None) -> dict:
+                s=None, plain_iters: int = 50) -> dict:
     """K4 over T queries and S keys (S = T unless given: a decoder's
     cross-attention has T != S, unmasked, and S need not be a whole
     tile); two calls bit-equal."""
@@ -1640,7 +1676,8 @@ def check_flash(dev, flush, *, bh, t, causal, seed, timed, d=128,
         add_times(out, kernel, plain,
                   lambda: SDPA(q[None], k[None], v[None], is_causal=causal),
                   flush, bytes_=nbytes(q, k, v, q),
-                  flops=4 * d * bh * visible_pairs(t, s, causal))
+                  flops=4 * d * bh * visible_pairs(t, s, causal),
+                  plain_iters=plain_iters)
     emit("prefill_kernel", ok=True, **out)
     return out
 
@@ -3752,7 +3789,7 @@ def gradient_rule(tag: str, got: dict, want: dict, lowp: dict,
 
 
 def check_flash_bwd(dev, flush, *, bh, t, causal, seed, timed, d=128,
-                    s=None) -> dict:
+                    s=None, plain_iters: int = 50) -> dict:
     """Phase 20a: K4's backward against its plain version. K4's forward
     with ``return_lse`` must give the O bits it gives without, and its lse
     the plain log-sum-exp at 1e-4; dQ, dK and dV must meet
@@ -3814,7 +3851,7 @@ def check_flash_bwd(dev, flush, *, bh, t, causal, seed, timed, d=128,
         pairs = bh * visible_pairs(t, s, causal)
         add_times(out, kernel, plain, library, flush,
                   bytes_=nbytes(q, k, v, o, do, q, k, v) + nbytes(lse),
-                  flops=10 * d * pairs)
+                  flops=10 * d * pairs, plain_iters=plain_iters)
         out.update(flash_bwd_split(
             kernel, flush, parts=BWD_KERNELS_D192 if d == 192
             else BWD_KERNELS))
@@ -3966,9 +4003,12 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
     profiler range around ``adamw_update`` or ``adafactor_update``,
     ``OPTIMIZER_RANGES``) and the rest (norms, activations, softmax-CE,
     casts, the embedding), and the device's busy share of the step's wall
-    time. ``ranges_seen``: each range's count of host spans (off the card
-    the only numbers, with the wall time; on it the profiler also records
-    a device-side span of each)."""
+    time; the port's kernels the trace holds (``kernels_traced``) beside
+    those the step launches (``kernels_expected``: a backward launch is
+    two kernels, three in K3's ``mma_sync`` form). ``ranges_seen``: each
+    range's count of host spans (off the card the only numbers, with the
+    wall time; on it the profiler also records a device-side span of
+    each)."""
     from torch.profiler import ProfilerActivity, profile
     step = launch_steps.make_train_step(cfg, lr=TRAIN_LR,
                                         warmup=TRAIN_WARMUP,
@@ -3989,9 +4029,28 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
         return {"wall_ms": wall_ms, "ranges_seen": seen}
     device_ms, busy_ms, top = profiling.device_kernels(prof, names)
 
-    def by_name(*keys):
-        return sum(k["device_ms"] for k in top
+    def by_name(*keys, key="device_ms"):
+        return sum(k[key] for k in top
                    if any(p in k["name"].lower() for p in keys))
+    # the port's kernels in the trace against one step's launches (each
+    # backward launch runs two kernels, three in K3's mma_sync form): a
+    # window that lost some reads short (PERF.md §7)
+    want = training_launches(cfg, 1)
+    if star_trained(cfg):
+        per_bwd = 3 if launch.tile_form(cfg.star.block_q,
+                                        cfg.star.block_kv) == "mma_sync" \
+            else 2
+        kernel_keys = {"dlzs_block": ("dlzs_wgmma_kernel",
+                                      "dlzs_mma_kernel"),
+                       "sufa": ("sufa_wgmma_kernel", "sufa_mma_kernel"),
+                       "sufa_bwd": ("sufa_grad_",)}
+        expected = {"dlzs_block": want["dlzs_block"], "sufa": want["sufa"],
+                    "sufa_bwd": want["sufa_bwd"] * per_bwd}
+    else:
+        kernel_keys = {"flash": ("flash_kernel",), "flash_bwd": BWD_KERNELS}
+        expected = {"flash": want["flash"],
+                    "flash_bwd": want["flash_bwd"] * len(BWD_KERNELS)}
+    traced = {k: by_name(*v, key="calls") for k, v in kernel_keys.items()}
     if star_trained(cfg):
         parts = {"k2_ms": by_name("dlzs_wgmma_kernel", "dlzs_mma_kernel"),
                  "k3_forward_ms": by_name("sufa_wgmma_kernel",
@@ -4007,7 +4066,9 @@ def profile_train_step(cfg, params, opt_state, batch, on_card: bool) -> dict:
                                                         names))
     parts["other_ms"] = device_ms - sum(parts.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "device_busy_share": busy_ms / wall_ms, **parts,
+            "device_busy_share": busy_ms / wall_ms,
+            "kernels_traced": traced, "kernels_expected": expected,
+            "window_holds_every_launch": traced == expected, **parts,
             **{k[:-3] + "_share": v / device_ms for k, v in parts.items()},
             "ranges_seen": seen, "top_kernels": top[:12]}
 
@@ -4216,47 +4277,73 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dim() else t
 
 
-RESTART_TAGS = ("training_restart", "star_training_restart",
-                "family_training_restart")
+RESTART_TAGS = {"olmo": ("training_restart", "star_training_restart"),
+                "jamba": ("family_training_restart",)}
 
 
-def restart_children(workdir: str) -> list:
-    """Phases 20c, 21c and 23c's restart in one deterministic process (one
-    start-up): ``restart_child`` for OLMo-1B, then with ``star_train``,
-    then for Jamba-1.5-Large's layer 0 with its Adafactor state and
-    ``train_accum`` 8 (its batch 8 rows of 2048 tokens, one a
-    microbatch)."""
+def restart_children(workdir: str, which: str = "olmo") -> list:
+    """One deterministic process's restart checks (one start-up):
+    ``which`` "olmo", phases 20c and 21c: ``restart_child`` for OLMo-1B,
+    then with ``star_train``; "jamba", phase 23c's: Jamba-1.5-Large's
+    layer 0 with its Adafactor state and ``train_accum`` 8 (its batch 8
+    rows of 2048 tokens, one a microbatch). Jamba's layer 0 launches no
+    kernel, so its child runs while the kernels build."""
     root = pathlib.Path(workdir)
+    if which == "jamba":
+        return [restart_child(str(root / "jamba"),
+                              cfg=jamba_1_5_large_398b.config(), layers=1,
+                              batch=TRAIN_BATCH)]
     cfg = olmo_1b.config()
     return [restart_child(str(root / name), cfg=c)
             for name, c in (("dense", cfg), ("star", dataclasses.replace(
-                cfg, star_train=True)))] + [
-        restart_child(str(root / "jamba"), cfg=jamba_1_5_large_398b.config(),
-                      layers=1, batch=TRAIN_BATCH)]
+                cfg, star_train=True)))]
 
 
-def check_restart(dev) -> tuple:
-    """Phases 20c, 21c and 23c's restart: ``restart_children`` in a child
-    process; its result line is the last of its output. Returns (dense,
-    star, jamba)."""
-    workdir = tempfile.mkdtemp(prefix="restart_", dir=BUILD_DIR)
+def start_restart(which: str) -> tuple:
+    """``chip_smoke.py --restart-child DIR which`` started in a child
+    process (``CUBLAS_WORKSPACE_CONFIG`` set before cuBLAS starts), its
+    output into files under DIR; returns (process, DIR). The process is
+    killed at exit if it still runs."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    workdir = pathlib.Path(tempfile.mkdtemp(prefix="restart_",
+                                            dir=BUILD_DIR))
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    with open(workdir / "out.txt", "w") as out, \
+            open(workdir / "err.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                 "--restart-child", str(workdir), which],
+                                env=env, stdout=out, stderr=err)
+    atexit.register(proc.kill)
+    return proc, workdir
+
+
+def finish_restart(proc, workdir, which: str) -> tuple:
+    """Wait for ``start_restart``'s child, emit each of its runs' lines
+    (``RESTART_TAGS[which]``) and fail where it failed or a resumed run
+    differs from the uninterrupted one; its directory is removed."""
     try:
-        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                               "--restart-child", workdir], env=env,
-                              capture_output=True, text=True, timeout=600)
+        proc.wait(timeout=600)
+        stdout = (workdir / "out.txt").read_text()
+        stderr = (workdir / "err.txt").read_text()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if proc.returncode != 0:
-        raise SystemExit(f"restart child failed ({proc.returncode}):\n"
-                         f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    runs = json.loads(proc.stdout.strip().splitlines()[-1])
-    for tag, out in zip(RESTART_TAGS, runs):
+        raise SystemExit(f"restart child ({which}) failed "
+                         f"({proc.returncode}):\n{stdout[-4000:]}\n"
+                         f"{stderr[-4000:]}")
+    runs = json.loads(stdout.strip().splitlines()[-1])
+    for tag, out in zip(RESTART_TAGS[which], runs):
         emit(tag, **out)
         if not out["bit_equal"]:
             raise SystemExit(f"{tag}: resumed run differs from the "
                              f"uninterrupted one at {out['leaves_differ']}")
     return tuple(runs)
+
+
+def check_restart(dev) -> tuple:
+    """Phases 20c and 21c's restart: ``restart_children`` for OLMo-1B in a
+    child process. Returns (dense, star)."""
+    return finish_restart(*start_restart("olmo"), "olmo")
 
 
 def plain_flash_train(q, k, v, *, causal, scale):
@@ -4572,7 +4659,8 @@ def lse_held(tag: str, got, want, **case) -> dict:
 
 def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
                    edges=False, all_choosers=False, block=128,
-                   block_kv=None, elementwise=False, star=None) -> dict:
+                   block_kv=None, elementwise=False, star=None,
+                   plain_iters=None) -> dict:
     """Phase 21a: K3's lse and backward on the glue's selection (K2, then
     ``ops.select_tiles`` keeping as many tiles as olmo_1b's STAR config,
     or ``star``'s where given: phase 25a's Nemotron-4-340B)
@@ -4601,9 +4689,10 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
     dense mask stays the yardstick's). Timed: the kernel, its plain
     version, its bound (10·d flops per visible selected pair, or its
     bytes; the keep bits' bytes counted; the plain version over 5 calls in
-    the ``mma_sync`` form) and SDPA's backward under the dense mask
-    (``autograd.grad`` on a retained graph), and the split of the form's
-    kernels (each traced at least once)."""
+    the ``mma_sync`` form, ``plain_iters`` where given) and SDPA's
+    backward under the dense mask (``autograd.grad`` on a retained
+    graph), and the split of the form's kernels (each traced at least
+    once)."""
     block_q, block_kv = block, block_kv or block
     q, k, v = prefill_inputs(bh, t, d, seed, dev)
     if s != t:
@@ -4763,8 +4852,8 @@ def check_sufa_bwd(dev, flush, *, bh, t, s, d, causal, seed, timed,
         add_times(out, kernel, plain, library, flush,
                   bytes_=nbytes(q, k, v, o, do, q, k, v, lse, idx, valid,
                                 *extra),
-                  flops=10 * d * pairs,
-                  plain_iters=50 if form == "wgmma" else 5)
+                  flops=10 * d * pairs, plain_iters=plain_iters or (
+                      50 if form == "wgmma" else 5))
         parts = SUFA_BWD_MMA_KERNELS if form == "mma_sync" else (
             SUFA_BWD_KERNELS_D192 if d == 192 else SUFA_BWD_KERNELS)
         out.update(flash_bwd_split(kernel, flush, parts=parts))
@@ -5091,15 +5180,34 @@ XLSTM_CUT = (
     "case's 12 steps, profiled step and one-step check take about 68 s at "
     "256 and about twice that at 512, beside about 155 s for phase 23's "
     "other cases and Jamba's restart")
+XLSTM_TRAIN_LAYERS = 4      # of 12: mLSTM, sLSTM, mLSTM, sLSTM
+XLSTM_TRAIN_DEPTH_CUT = (
+    "4 of 12 (the pattern's mLSTM, sLSTM pair twice), for the script's "
+    "clock beside phase 27: on an H100 a step at 256 tokens a row takes "
+    "3.78 s at 12 layers, 1.98 at 6 and 1.44 at 4 (the sLSTM loop's eager "
+    "ops), so the case takes about 45 s less; in 12 steps at lr 3e-3 the "
+    "loss falls 1.71 at 4 layers, 1.13 at 6 and 0.36 at 12")
+
+
+# layers 0-1 measured on the H100 since the one gradient tree
+# (tools/torch_family_probe.py jamba_1_5_large_398b@2 6e-4 12)
+JAMBA_TRAIN_CUT = (
+    "1 of 72, pattern[:1] (Mamba + dense FFN): layers 0-1 (the second "
+    "Mamba + MoE) are 12.15 B parameters; with Adafactor x 8 and one "
+    "gradient tree their first step's backward ran out of the card's "
+    "memory: 66.0 GiB allocated and 73.4 GiB in use when the MoE "
+    "experts' 6.0 GiB gradient leaf was asked for, a peak of at least "
+    "77.3 GB")
 
 
 def family_cases() -> dict:
     """Phase 23's training runs by arch. The learning rates come from short
     runs on the H100 (``tools/torch_family_probe.py``): at 6e-4 OLMoE's
     loss stays flat for 12 steps and xLSTM's falls by less than 0.1; at
-    2e-3 Grok-1's and Jamba's diverge. xLSTM's sequence is cut to keep its
-    run (the sLSTM loop, and the profiler's record of every op in it)
-    within phase 23's time (``XLSTM_CUT``)."""
+    2e-3 Grok-1's and Jamba's diverge. xLSTM's sequence and depth are cut
+    to keep its run (the sLSTM loop, and the profiler's record of every op
+    in it) within the script's time (``XLSTM_CUT``,
+    ``XLSTM_TRAIN_DEPTH_CUT``)."""
     grok = grok_1_314b.config()
     jamba = jamba_1_5_large_398b.config()
     xl = xlstm_125m.config()
@@ -5113,11 +5221,10 @@ def family_cases() -> dict:
                         "accumulation buffer before activations"}),
         "jamba_1_5_large_398b": FamilyCase(jamba, 1, TRAIN_BATCH, TRAIN_SEQ,
                                            TRAIN_LR, {
-            "n_layers": f"1 of {jamba.n_layers}, pattern[:1] (Mamba + "
-                        "dense FFN): layers 0-1 (the second Mamba + MoE) "
-                        "are 12.15 B parameters, 72.9 GB of state"}),
-        "xlstm_125m": FamilyCase(xl, xl.n_layers, TRAIN_BATCH,
-                                 XLSTM_TRAIN_SEQ, 3e-3, {"seq": XLSTM_CUT}),
+            "n_layers": JAMBA_TRAIN_CUT}),
+        "xlstm_125m": FamilyCase(xl, XLSTM_TRAIN_LAYERS, TRAIN_BATCH,
+                                 XLSTM_TRAIN_SEQ, 3e-3, {
+            "seq": XLSTM_CUT, "n_layers": XLSTM_TRAIN_DEPTH_CUT}),
     }
 
 
@@ -5238,8 +5345,8 @@ def check_family_training(dev, gen, *, cases=None, steps=FAMILY_STEPS,
     routed; a model that launches no kernel, Jamba's layer 0 and xLSTM,
     only reported, at ``step_seq`` tokens or fewer); then 23e, the remat
     policies (``check_remat_policies`` on ``remat_cfg``, OLMo-1B unless
-    given). Jamba's restart runs in phase 20c's child
-    (``restart_children``)."""
+    given). Jamba's restart runs in a child of its own during phase 1's
+    build (``restart_children(..., "jamba")``)."""
     on_card = torch.device(dev).type == "cuda"
     cases = cases or family_cases()
     k4_shapes = {}
@@ -5371,6 +5478,11 @@ NEMOTRON_TRAIN_LAYERS = 1   # of 96: 12.89 B parameters with embedding and head
 # run diverges from the update at 3.6e-4 (12.87 -> 33.2 by step 7)
 NEMOTRON_TRAIN_LR = 1e-4
 NEMOTRON_STEP_BATCH = 2     # rows of phase 25b's layer gradient
+NEMOTRON_TRAIN_STEPS = 8    # of phase 23's 12
+NEMOTRON_STEPS_CUT = (
+    "8 of 12, for the script's clock beside phase 27: a step takes about "
+    "3.13 s on an H100, so the two runs take about 25 s less; in 12-step "
+    "runs there the loss fell 1.4 by step 4 and 1.17 by step 7")
 NEMOTRON_TRAIN_CUT = (
     "1 of 96: the layer is 3.45 B parameters beside 9.44 B of untied "
     "embedding and head, 12.89 B in all: 25.8 GB of bf16 params and 25.8 "
@@ -5498,7 +5610,7 @@ def check_layer_grads(cfg, dev, gen, *, seq: int = TRAIN_SEQ,
 
 
 def check_nemotron_training(cfg, dev, gen, *, layers=NEMOTRON_TRAIN_LAYERS,
-                            steps=FAMILY_STEPS, seq=TRAIN_SEQ,
+                            steps=NEMOTRON_TRAIN_STEPS, seq=TRAIN_SEQ,
                             batch=TRAIN_BATCH, lr=NEMOTRON_TRAIN_LR,
                             kernels_kw=None) -> dict:
     """Phase 25: Nemotron-4-340B trained at head_dim 192. (a) K4's and
@@ -5506,8 +5618,9 @@ def check_nemotron_training(cfg, dev, gen, *, layers=NEMOTRON_TRAIN_LAYERS,
     (``check_head_dim_192_backwards``); (b) one layer's gradient at its
     published width, dense and with ``star_train``
     (``check_layer_grads``); (c) its published widths cut to ``layers``
-    of 96 layers (``NEMOTRON_TRAIN_CUT``), trained ``steps`` steps of
-    ``batch`` x ``seq`` tokens with its own Adafactor and ``train_accum``
+    of 96 layers (``NEMOTRON_TRAIN_CUT``), trained ``steps`` steps
+    (``NEMOTRON_STEPS_CUT``) of ``batch`` x ``seq`` tokens with its own
+    Adafactor and ``train_accum``
     8 (``check_training``: the loss falls by > 0.1, every loss and grad
     norm finite, K4 = steps x 8 x 2 and its backward steps x 8), then the
     same with ``star_train`` (K2 = K3 = steps x 8 x 2, K3's backward in
@@ -5520,6 +5633,8 @@ def check_nemotron_training(cfg, dev, gen, *, layers=NEMOTRON_TRAIN_LAYERS,
                     for name, c in (("dense", cfg), ("star", star_cfg))}
     reduced = {"n_layers": NEMOTRON_TRAIN_CUT} if layers == 1 else {
         "n_layers": f"{layers} of {cfg.n_layers}"}
+    if steps == NEMOTRON_TRAIN_STEPS:
+        reduced["steps"] = NEMOTRON_STEPS_CUT
     for name, c in (("dense", cfg), ("star", star_cfg)):
         out[name] = check_training(cut_layers(c, layers), dev, gen,
                                    steps=steps, seq=seq, batch=batch, lr=lr,
@@ -5836,6 +5951,152 @@ def check_serve_twins(params, cfg, dev, gen, *, sparse_run: dict,
     return out
 
 
+# -- phase 27: the configs the reference trains, never trained on the card ---
+
+# StarCoder2-15B's training cut: its first layers, as deep as the card holds
+# with AdamW's 8 bytes a parameter and the activations of 8 x 2048 tokens
+STARCODER2_TRAIN_LAYERS = 19
+STARCODER2_TRAIN_CUT = (
+    "19 of 40: a layer is 383.8 M parameters beside 0.60 B of untied "
+    "embedding and head; AdamW keeps bf16 params, one bf16 gradient tree "
+    "and bf16 moments, 8 bytes a parameter: 40 layers are 15.96 B, 128 GB "
+    "of state; 19 are 7.89 B, 63.1 GB. Measured on an H100 "
+    "(tools/torch_family_probe.py starcoder2_15b@L 6e-4 12): peak 68.82 GB "
+    "at 19 layers, 65.75 at 18, 59.61 at 16; at 20 the first step's "
+    "backward ran out of the card's memory")
+
+
+def untrained_step_cfgs() -> dict:
+    """Phase 27b's configs: star_paper, ChatGLM3-6B and StarCoder2-15B at
+    their published widths, each dense and with ``star_train``."""
+    out = {}
+    for cfg in (star_paper.config(), chatglm3_6b.config(),
+                starcoder2_15b.config()):
+        out[cfg.name] = cfg
+        out[f"{cfg.name}_star"] = dataclasses.replace(cfg, star_train=True)
+    return out
+
+
+def untrained_cases() -> dict:
+    """Phase 27c's training runs by name, each with its config's own
+    optimizer (AdamW), ``train_accum`` (1) and ``remat`` (full) at the
+    phase's base learning rate: star_paper at full depth with
+    ``star_train``, ChatGLM3-6B at full depth dense and with
+    ``star_train``, StarCoder2-15B dense cut to its first
+    ``STARCODER2_TRAIN_LAYERS`` layers (``STARCODER2_TRAIN_CUT``). Widths
+    are never cut."""
+    cfgs = untrained_step_cfgs()
+    full = functools.partial(FamilyCase, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                             lr=TRAIN_LR, reduced={})
+    sc2 = cfgs["starcoder2_15b"]
+    return {
+        **{name: full(cfgs[name], cfgs[name].n_layers) for name in (
+            "star_paper_star", "chatglm3_6b", "chatglm3_6b_star")},
+        "starcoder2_15b": dataclasses.replace(
+            full(sc2, STARCODER2_TRAIN_LAYERS),
+            reduced={"n_layers": STARCODER2_TRAIN_CUT}),
+    }
+
+
+def untrained_kernel_shapes(rows: int = TRAIN_BATCH) -> dict:
+    """Phase 27a's attention shapes by config, ``rows`` rows a microbatch
+    times the query heads (K/V expanded to them by ``_repeat_kv``):
+    star_paper's BH 256 (ChatGLM3-6B's too, its 2 KV heads expanded to
+    32), StarCoder2-15B's BH 384."""
+    return {name: rows * mod.config().n_heads
+            for name, mod in (("star_paper", star_paper),
+                              ("starcoder2_15b", starcoder2_15b))}
+
+
+# calls the plain versions are timed over in phase 27a: each takes 18-82
+# ms at BH 256-384 on an H100, 17 s of the script's clock at the usual 50
+UNTRAINED_PLAIN_ITERS = 10
+
+
+def check_untrained_kernels(dev, *, shapes_=None, t: int = TRAIN_SEQ,
+                            seed: int = 2700) -> dict:
+    """Phase 27a: the kernels at phase 27's training shapes, held before
+    anything relies on them (T = S = ``t``, d 128, causal, tiles 128):
+    K4's forward against its plain version and its backward by 20a's rule
+    (``check_flash_bwd``) at each BH of ``shapes_``
+    (``untrained_kernel_shapes()``); at star_paper's BH, K2 against its
+    plain version, K3's forward on the glue's selection (keep 4 of 16 at
+    2048) and K3's backward by 21a's rule in its ``wgmma`` form
+    (``check_sufa_bwd``, star_paper's STAR config). On the card each is
+    timed beside its bound, its plain version (over
+    ``UNTRAINED_PLAIN_ITERS`` calls) and SDPA."""
+    on_card = torch.device(dev).type == "cuda"
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev) \
+        if on_card else None
+    shapes_ = shapes_ or untrained_kernel_shapes()
+    kw = dict(t=t, causal=True, timed=on_card,
+              plain_iters=UNTRAINED_PLAIN_ITERS)
+    out = {}
+    for i, (name, bh) in enumerate(shapes_.items()):
+        out[name] = {
+            "forward": check_flash(dev, flush, bh=bh, seed=seed + 2 * i,
+                                   **kw),
+            "backward": check_flash_bwd(dev, flush, bh=bh,
+                                        seed=seed + 2 * i + 1, **kw)}
+    bh = shapes_["star_paper"]
+    star = star_paper.config().star
+    out["star"] = {
+        "dlzs_block": check_dlzs(dev, flush, bh=bh, block=star.block_q,
+                                 seed=seed + 10, **kw),
+        "sufa": check_sufa(dev, flush, bh=bh, block=star.block_q,
+                           strict=True, seed=seed + 11, **kw),
+        "sufa_bwd": check_sufa_bwd(dev, flush, bh=bh, s=t, d=128,
+                                   seed=seed + 12, star=star, **kw)}
+    del flush
+    free_cache(dev)
+    return out
+
+
+def check_untrained_training(dev, gen, *, cases=None, step_cfgs=None,
+                             steps=FAMILY_STEPS,
+                             step_layers: int = RESTART_LAYERS,
+                             step_seq: int = TRAIN_SEQ,
+                             kernels_kw=None) -> dict:
+    """Phase 27 (see the module docstring): (a) the kernels at its
+    training shapes (``check_untrained_kernels``); (b) one step's
+    gradients of each of ``step_cfgs`` (``untrained_step_cfgs()``) at
+    ``step_layers`` layers and ``FAMILY_STEP_BATCH`` x ``step_seq``
+    tokens by 20d's rule (``check_model_step``; with ``star_train`` the
+    plain runs on the kernel run's tile ids); (c) each of ``cases``
+    (``untrained_cases()``) trained ``steps`` steps by ``check_training``
+    with its config's own optimizer, ``train_accum`` and ``remat``."""
+    t0 = time.perf_counter()
+    out = {"kernels": check_untrained_kernels(dev, **(kernels_kw or {}))}
+    out["kernels_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["steps"] = {
+        name: check_model_step(cfg, dev, gen, layers=step_layers,
+                               seq=step_seq, batch=FAMILY_STEP_BATCH,
+                               tag="untrained_training_step")
+        for name, cfg in (step_cfgs or untrained_step_cfgs()).items()}
+    out["steps_s"] = time.perf_counter() - t1
+    runs = {}
+    for name, case in (cases or untrained_cases()).items():
+        t1 = time.perf_counter()
+        runs[name] = check_training(
+            cut_layers(case.cfg, case.layers), dev, gen, steps=steps,
+            seq=case.seq, batch=case.batch, lr=case.lr, save=False,
+            tag="untrained_training", reduced=case.reduced)
+        out[name] = {"train": runs[name],
+                     "seconds": time.perf_counter() - t1}
+        emit("untrained_case", case=name, seconds=out[name]["seconds"])
+    out["seconds"] = time.perf_counter() - t0
+    emit("untrained_trained", seconds=out["seconds"],
+         kernels_s=out["kernels_s"], steps_s=out["steps_s"],
+         **{key: {n: r[key] for n, r in runs.items()} for key in (
+             "layers", "reduced", "step_ms_median", "tokens_per_s", "mfu",
+             "mfu_all_params", "peak_memory_gb")},
+         state_gb={n: r["state_gb"]["total"] for n, r in runs.items()},
+         loss_drop={n: r["loss"][0] - r["loss"][-1]
+                    for n, r in runs.items()})
+    return out
+
+
 def demangle(mangled: str) -> str:
     """``name<args>`` of a kernel template instantiation whose arguments
     are ints and bools (``...19paged_scores_kernelILi64ELi1ELb1EEEv...`` ->
@@ -5873,7 +6134,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--restart-child"]:  # phases 20c, 21c, 23c
-        print(json.dumps(restart_children(sys.argv[2])), flush=True)
+        print(json.dumps(restart_children(*sys.argv[2:4])), flush=True)
         return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5883,13 +6144,19 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    # 23c's restart of Jamba's layer 0 launches no kernel: its child runs
+    # while the kernels build, and is waited for before phase 2
+    jamba_restart = start_restart("jamba")
 
     # 1. build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
     built = build.build()
-    emit("build", seconds=time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    emit("build", seconds=build_s,
          libs={k: {"cached": v["cached"], "seconds": v["seconds"]}
                for k, v in built.items()})
+    family_restart, = finish_restart(*jamba_restart, "jamba")
+    emit("restart_wait", seconds=time.perf_counter() - t0 - build_s)
     for name, info in built.items():
         for fn, line in ptxas_report(info["log"]):
             print(f"ptxas[{name}] {fn} {line}", flush=True)
@@ -6119,7 +6386,7 @@ def main() -> int:
     bwd = check_flash_bwd_shapes(dev,
                                  ptxas_report(built["flash_bwd"]["log"]))
     train = check_training(olmo_1b.config(), dev, gen)
-    restart, star_restart, family_restart = check_restart(dev)
+    restart, star_restart = check_restart(dev)
     check_model_step(olmo_1b.config(), dev, gen)
 
     # 21. STAR in training: K3's lse and backward against their plain
@@ -6130,14 +6397,18 @@ def main() -> int:
         dev, ptxas_report(built["sufa"]["log"])
         + ptxas_report(built["sufa_bwd"]["log"]))
     star_cfg = dataclasses.replace(olmo_1b.config(), star_train=True)
-    star_train = check_training(star_cfg, dev, gen, save=False)
+    star_train = check_training(star_cfg, dev, gen, save=False,
+                                steps=STAR_TRAIN_STEPS,
+                                reduced={"steps": STAR_STEPS_CUT})
     check_model_step(star_cfg, dev, gen)
 
     # 21e. OLMo-1B with star_train and the element mask (tiles 128,
     # radius 5), trained as 21b, and 21d's model step on the kernel run's
     # tiles and keep bits
     elem_cfg = elementwise_star(star_cfg)
-    elem_train = check_training(elem_cfg, dev, gen, save=False)
+    elem_train = check_training(elem_cfg, dev, gen, save=False,
+                                steps=STAR_TRAIN_STEPS,
+                                reduced={"steps": STAR_STEPS_CUT})
     check_model_step(elem_cfg, dev, gen, tag="star_training_step_elementwise")
 
     # 21f. OLMo-1B at its published width cut to 2 layers, STAR at tiles
@@ -6151,7 +6422,7 @@ def main() -> int:
     # 23. training beyond OLMo-1B: K4 at the new training shapes, then
     # OLMoE-1B-7B, Grok-1's layer, Jamba's layer 0 and xLSTM-125M trained
     # with their own optimizers and accumulation, their one-step
-    # gradients, and the remat policies; Jamba's restart ran in 20c's child
+    # gradients, and the remat policies; Jamba's restart ran during phase 1
     fam = check_family_training(dev, gen)
 
     # 24. Nemotron-4-340B at its published width, 4 of 96 layers: every
@@ -6166,6 +6437,14 @@ def main() -> int:
     # dense and with star_train
     nt = check_nemotron_training(nemotron_4_340b.config(), dev, gen)
     k25 = nt["kernels"]
+
+    # 27. the configs the reference trains that no earlier phase trained:
+    # the kernels at their training shapes (BH 256 and 384), one 2-layer
+    # step of each dense and with star_train, then star_paper with
+    # star_train and ChatGLM3-6B dense and with star_train at full width
+    # and depth, StarCoder2-15B at published width cut in depth
+    ut = check_untrained_training(dev, gen)
+    k27 = ut["kernels"]
 
     def line(name, source, replaces, launches, case, **extra):
         return {"name": name, "route": "cuda",
@@ -6214,6 +6493,19 @@ def main() -> int:
         return {key: case[key] for key in (
             "max_abs_err", "tolerance", "ms", "ms_repeat", "plain_ms",
             "bound_ms", "bound_by", "library_ms")}
+
+    def untrained(kernel, *names):
+        """Phase 27c's launches of ``kernel`` in each named run."""
+        return {name: ut[name]["train"]["launches"][kernel]
+                for name in names}
+
+    def by_grad(case):
+        return {"max_abs_err_by_grad": {n: case[f"max_abs_err_{n}"]
+                                        for n in ("dq", "dk", "dv")},
+                "bf16_plain_err_by_grad": {n: case[f"bf16_plain_err_{n}"]
+                                           for n in ("dq", "dk", "dv")}}
+    star_runs = ("star_paper_star", "chatglm3_6b_star")
+    sc2_layers = ut["starcoder2_15b"]["train"]["layers"]
 
     print(json.dumps({"kernels": [
         line("paged_decode", "paged_decode.cu",
@@ -6590,6 +6882,65 @@ def main() -> int:
                  "max_abs_err"],
              max_abs_err_tiles16=k25["sufa_bwd_tiles16"]["max_abs_err"],
              layer_grads_max_abs_err=nt["layer"]["star"]["max_abs_err"]),
+        # phase 27: the training shapes of star_paper and ChatGLM3-6B (8
+        # rows x 32 heads, ChatGLM3-6B's 2 KV heads expanded) and of
+        # StarCoder2-15B (8 x 48), T = S = 2048, d 128
+        line("flash/bh256", "flash.cu", "src/repro/kernels/flash.py:67",
+             ut["chatglm3_6b"]["train"]["launches"]["flash"],
+             k27["star_paper"]["forward"],
+             launches_from="phase 27c, ChatGLM3-6B trained (28 layers)"),
+        line("flash/bh384", "flash.cu", "src/repro/kernels/flash.py:67",
+             ut["starcoder2_15b"]["train"]["launches"]["flash"],
+             k27["starcoder2_15b"]["forward"],
+             launches_from=f"phase 27c, StarCoder2-15B trained ("
+                           f"{sc2_layers} of 40 layers)"),
+        line("flash_bwd/bh256", "flash_bwd.cu",
+             "src/repro/kernels/flash.py:67",
+             ut["chatglm3_6b"]["train"]["launches"]["flash_bwd"],
+             k27["star_paper"]["backward"],
+             launches_from="phase 27c, ChatGLM3-6B trained (28 layers)",
+             **by_grad(k27["star_paper"]["backward"]),
+             split_ms={part: k27["star_paper"]["backward"][f"{part}_ms"]
+                       for part in BWD_KERNELS},
+             tflop_s_10d=k27["star_paper"]["backward"]["tflop_s_10d"]),
+        line("flash_bwd/bh384", "flash_bwd.cu",
+             "src/repro/kernels/flash.py:67",
+             ut["starcoder2_15b"]["train"]["launches"]["flash_bwd"],
+             k27["starcoder2_15b"]["backward"],
+             launches_from=f"phase 27c, StarCoder2-15B trained ("
+                           f"{sc2_layers} of 40 layers)",
+             **by_grad(k27["starcoder2_15b"]["backward"]),
+             split_ms={part: k27["starcoder2_15b"]["backward"][f"{part}_ms"]
+                       for part in BWD_KERNELS},
+             tflop_s_10d=k27["starcoder2_15b"]["backward"]["tflop_s_10d"]),
+        line("dlzs_block/bh256", "dlzs_block.cu",
+             "src/repro/kernels/dlzs.py:65",
+             sum(untrained("dlzs_block", *star_runs).values()),
+             k27["star"]["dlzs_block"],
+             launches_from="phase 27c, star_paper (32 layers) and "
+                           "ChatGLM3-6B (28) trained with star_train",
+             launches_by_run=untrained("dlzs_block", *star_runs)),
+        line("sufa/bh256", "sufa.cu", "src/repro/kernels/sufa.py:72",
+             sum(untrained("sufa", *star_runs).values()),
+             k27["star"]["sufa"],
+             launches_from="phase 27c, star_paper (32 layers) and "
+                           "ChatGLM3-6B (28) trained with star_train",
+             launches_by_run=untrained("sufa", *star_runs)),
+        line("sufa_bwd/bh256", "sufa_bwd.cu",
+             "none: the reference differentiates sufa_gathered through XLA "
+             "(src/repro/core/sufa.py:107)",
+             sum(untrained("sufa_bwd", *star_runs).values()),
+             k27["star"]["sufa_bwd"],
+             launches_from="phase 27c, star_paper (32 layers) and "
+                           "ChatGLM3-6B (28) trained with star_train",
+             launches_by_run=untrained("sufa_bwd", *star_runs),
+             launches_wgmma=sum(untrained("sufa_bwd/wgmma",
+                                          *star_runs).values()),
+             form=k27["star"]["sufa_bwd"]["form"],
+             **by_grad(k27["star"]["sufa_bwd"]),
+             split_ms={part: k27["star"]["sufa_bwd"][f"{part}_ms"]
+                       for part in SUFA_BWD_KERNELS},
+             tflop_s_10d=k27["star"]["sufa_bwd"]["tflop_s_10d"]),
     ]}), flush=True)
     print_device_line()
     return 0

@@ -39,6 +39,8 @@ VARIANTS = {
     "olmo_1b_elementwise": ("olmo_1b", {"elementwise": True}, 64),
     "olmo_1b_fast_scan": ("olmo_1b", {"use_scan": True, "strict": False}, 64),
     "chatglm3_6b": ("chatglm3_6b", {}, 64),
+    "starcoder2_15b": ("starcoder2_15b", {}, 64),
+    "star_paper": ("star_paper", {}, 256),
     "olmo_1b_prefix_groups": ("olmo_1b", {"prefix_groups": 2,
                                           "chunk_tiles": 2}, 128),
 }

@@ -550,3 +550,106 @@ def test_chip_smoke_family_training_phases_rehearse_on_cpu(monkeypatch,
     assert restart["disk_needed_gb"] == cs.RESTART_STATE_COPIES * sum(
         t.numel() * t.element_size()
         for _, t in sorted_items({"p": state, "o": opt})) / 1e9
+
+
+def test_chip_smoke_untrained_training_phase_rehearses_on_cpu(monkeypatch,
+                                                              tmp_path):
+    """Phase 27 on the CPU at smoke size: 27a's kernel checks (K4 and its
+    backward at two BH, K2, K3 and K3's backward on the glue's selection
+    at star_paper's tiles of 128; the plain versions run), 27b's one-step
+    gradients of star_paper, ChatGLM3-6B and StarCoder2-15B (LayerNorm
+    with bias, tanh-GELU, GQA 2), dense and with ``star_train`` (the plain
+    runs on the kernel run's tile ids), and 27c's runs: the loss falls by
+    0.1, every kernel count 0 off the card. Then the full configs' cases:
+    their layers and cuts on ``reduced``, and the launch counts the card
+    must show (K2 = K3 = 768 and K3's backward 384 in its wgmma form for
+    star_paper; K4 = 672 and its backward 336 for ChatGLM3-6B dense;
+    K2 = K3 = 672 and 336 with ``star_train``), and Jamba's case of phase
+    23 still at layer 0, with why."""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    monkeypatch.syspath_prepend(str(root))
+    import chip_smoke as cs
+    from repro_torch.configs import get_smoke_config as tsmoke
+    monkeypatch.setattr(cs, "BUILD_DIR", tmp_path)
+    smoke = {name: dataclasses.replace(tsmoke(name), n_layers=2)
+             for name in ("star_paper", "chatglm3_6b", "starcoder2_15b")}
+    # star_paper's smoke config is the 100M example's (d 768, vocab
+    # 32000): narrowed to the others' size, its tiles to 32 so that a
+    # 128-token row has four to choose from
+    sp = smoke["star_paper"]
+    smoke["star_paper"] = dataclasses.replace(
+        sp, d_model=64, n_heads=4, n_kv=4, d_ff=128, vocab=512, q_chunk=64,
+        seq_loss_chunk=64, vocab_pad_to=64,
+        star=dataclasses.replace(sp.star, block_q=32, block_kv=32))
+    step_cfgs = {}
+    for name, cfg in smoke.items():
+        step_cfgs[name] = cfg
+        step_cfgs[f"{name}_star"] = dataclasses.replace(cfg, star_train=True)
+    case = functools.partial(cs.FamilyCase, batch=4, seq=64, lr=1e-2)
+    cases = {"star_paper_star": case(step_cfgs["star_paper_star"], 2,
+                                     reduced={}),
+             "chatglm3_6b": case(step_cfgs["chatglm3_6b"], 2, reduced={}),
+             "chatglm3_6b_star": case(step_cfgs["chatglm3_6b_star"], 2,
+                                      reduced={}),
+             "starcoder2_15b": case(step_cfgs["starcoder2_15b"], 1,
+                                    reduced={"n_layers": "1 of 2"})}
+    gen = torch.Generator().manual_seed(0)
+    out = cs.check_untrained_training(
+        "cpu", gen, cases=cases, step_cfgs=step_cfgs, steps=25,
+        step_seq=128, kernels_kw=dict(
+            shapes_={"star_paper": 2, "starcoder2_15b": 3}, t=1024))
+    k = out["kernels"]
+    assert k["starcoder2_15b"]["backward"]["BH"] == 3
+    assert k["star_paper"]["backward"]["two_calls_bit_equal"]
+    assert k["star"]["sufa_bwd"]["form"] == "wgmma"
+    assert k["star"]["sufa_bwd"]["keep"] == 2       # 0.2 of 8 tiles, up
+    assert set(out["steps"]) == set(step_cfgs)
+    for name, step in out["steps"].items():
+        assert step["held"] and step["loss_rel_err"] < 2e-2, name
+        assert not any(step["launches"].values())
+        assert step["reduced"] == {"n_layers": "2 of 2"}
+        assert (step["star"] is not None) == name.endswith("_star")
+        assert step.get("star_calls") == (4 if name.endswith("_star")
+                                          else None)   # 2 layers x remat
+    for name in ("starcoder2_15b", "starcoder2_15b_star"):
+        assert "blocks/b0/norm1/bias" in out["steps"][name]["leaves"]
+    for name in ("chatglm3_6b", "chatglm3_6b_star"):
+        assert "blocks/b0/core/bq" in out["steps"][name]["leaves"]
+    for name, c in cases.items():
+        train = out[name]["train"]
+        assert train["loss"][-1] < train["loss"][0] - 0.1, name
+        assert train["reduced"] == c.reduced and train["layers"] == c.layers
+        assert train["star_train"] == name.endswith("_star")
+        assert not any(train["launches"].values())
+    full = cs.untrained_cases()
+    assert {n: (c.layers, c.cfg.optimizer, c.cfg.train_accum, c.cfg.remat)
+            for n, c in full.items()} == {
+        "star_paper_star": (32, "adamw", 1, "full"),
+        "chatglm3_6b": (28, "adamw", 1, "full"),
+        "chatglm3_6b_star": (28, "adamw", 1, "full"),
+        "starcoder2_15b": (cs.STARCODER2_TRAIN_LAYERS, "adamw", 1, "full")}
+    assert full["starcoder2_15b"].reduced["n_layers"].startswith(
+        f"{cs.STARCODER2_TRAIN_LAYERS} of 40")
+    assert all(not c.reduced for n, c in full.items()
+               if n != "starcoder2_15b")
+    want = {n: cs.training_launches(cs.cut_layers(c.cfg, c.layers), 12)
+            for n, c in full.items()}
+    assert want["star_paper_star"]["dlzs_block"] == \
+        want["star_paper_star"]["sufa"] == 768
+    assert want["star_paper_star"]["sufa_bwd"] == \
+        want["star_paper_star"]["sufa_bwd/wgmma"] == 384
+    assert want["star_paper_star"]["flash"] == 0
+    assert want["chatglm3_6b"]["flash"] == 672
+    assert want["chatglm3_6b"]["flash_bwd"] == 336
+    assert want["chatglm3_6b_star"]["sufa"] == 672
+    assert want["chatglm3_6b_star"]["sufa_bwd/wgmma"] == 336
+    assert want["chatglm3_6b_star"]["flash"] == 0
+    assert want["starcoder2_15b"]["flash"] == \
+        12 * 2 * cs.STARCODER2_TRAIN_LAYERS
+    assert cs.untrained_kernel_shapes() == {"star_paper": 256,
+                                            "starcoder2_15b": 384}
+    # Jamba's layers 0-1 did not fit the card: phase 23c keeps layer 0,
+    # with the measured reason on its line
+    jamba = cs.family_cases()["jamba_1_5_large_398b"]
+    assert jamba.layers == 1 and "layers 0-1" in jamba.reduced["n_layers"]

@@ -45,7 +45,7 @@ jattention = importlib.import_module("repro.models.attention")
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 PARITY_ARCHS = ["olmo_1b", "chatglm3_6b", "olmoe_1b_7b",
-                "jamba_1_5_large_398b"]
+                "jamba_1_5_large_398b", "starcoder2_15b", "star_paper"]
 
 
 def _normal(rng, shape):

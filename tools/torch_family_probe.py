@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""How phase 23 of ``chip_smoke.py`` picks each family's learning rate and
-xLSTM's sequence: short training runs at the phase's cuts and batches,
-one JSON line per run (every step's loss, MoE aux, grad norm and host
-seconds, and the peak card memory). One GPU:
+"""How phases 23 and 27 of ``chip_smoke.py`` pick each config's learning
+rate, xLSTM's sequence and StarCoder2-15B's depth: short training runs at
+the phases' cuts and batches, one JSON line per run (every step's loss,
+MoE aux, grad norm and host seconds, and the peak card memory). One GPU:
 
-    python3 tools/torch_family_probe.py ARCH[:SEQ][,ARCH[:SEQ]...] LR[,LR...] STEPS
+    python3 tools/torch_family_probe.py ARCH[:SEQ][@LAYERS][,...] LRS STEPS
+
+LRS is one learning rate or several, comma-separated.
 
 ARCH is a key of ``chip_smoke.family_cases()`` (``olmoe_1b_7b``,
-``grok_1_314b``, ``jamba_1_5_large_398b``, ``xlstm_125m``), trained at the
-case's layers and batch, at SEQ tokens a row where given (else the
-case's), from ``lm.init`` with seed 0, through ``chip_smoke.train_run``
-(``SyntheticLM``, warmup 5, a cosine schedule over STEPS). For example
-``python3 tools/torch_family_probe.py xlstm_125m:2048 3e-3 2`` times two
-steps of xLSTM-125M at the published 2048 tokens.
+``grok_1_314b``, ``jamba_1_5_large_398b``, ``xlstm_125m``) or of
+``chip_smoke.untrained_cases()`` (``star_paper_star``, ``chatglm3_6b``,
+``chatglm3_6b_star``, ``starcoder2_15b``), trained at the case's batch,
+its layers (LAYERS where given) and SEQ tokens a row where given (else
+the case's), from ``lm.init`` with seed 0, through
+``chip_smoke.train_run`` (``SyntheticLM``, warmup 5, a cosine schedule
+over STEPS). For example ``python3 tools/torch_family_probe.py
+xlstm_125m:2048 3e-3 2`` times two steps of xLSTM-125M at the published
+2048 tokens, and ``starcoder2_15b@18 6e-4 3`` reads the peak memory of
+18 of StarCoder2-15B's layers.
 """
 
 from __future__ import annotations
@@ -37,12 +43,14 @@ def main(argv: list) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev)
-    cases = cs.family_cases()
+    cases = {**cs.family_cases(), **cs.untrained_cases()}
     card = torch.cuda.get_device_name(0)
     for arch in archs:
+        arch, _, layers = arch.partition("@")
         name, _, seq = arch.partition(":")
         case = cases[name]
-        cfg = cs.cut_layers(case.cfg, case.layers)
+        layers = int(layers or case.layers)
+        cfg = cs.cut_layers(case.cfg, layers)
         for lr in map(float, lrs):
             params, _ = cs.init_params(cfg, gen, dev)
             _, opt_init, _ = cs.launch_steps.make_optimizer(cfg, lr)
@@ -52,7 +60,7 @@ def main(argv: list) -> int:
                                seq=int(seq or case.seq), batch=case.batch,
                                ckpt_dir=None, dev=dev, lr=lr)
             print(json.dumps({
-                "card": card, "arch": name, "layers": case.layers,
+                "card": card, "arch": name, "layers": layers,
                 "batch": case.batch, "seq": int(seq or case.seq), "lr": lr,
                 "loss": run["loss"], "aux": run["aux"],
                 "grad_norm": run["grad_norm"], "step_s": run["step_s"],

@@ -19,9 +19,10 @@ the runs that chose it.
     python3 tools/torch_nemotron_train.py --compare LR [STEPS]
 
 trains (c)'s 1-of-96-layer cut at LR for STEPS steps (default the
-phase's 12), dense and then with ``star_train``, each twice from the same
-weights on the same batches: on the kernel path, and on the plain path
-with K4 and K3 (and K2) swapped for their plain versions under autograd
+phase's, ``chip_smoke.NEMOTRON_TRAIN_STEPS``), dense and then with
+``star_train``, each twice from the same weights on the same batches:
+on the kernel path, and on the plain path with K4 and K3 (and K2)
+swapped for their plain versions under autograd
 (``chip_smoke.plain_attention``, phase 20d's plain path). Each
 run prints its per-step losses and grad norms, its kernel launches (0 on
 the plain path) and whether it diverged (its last loss above its first);
@@ -120,7 +121,7 @@ def main(argv: list) -> int:
     dev = torch.device("cuda")
     if argv[:1] == ["--compare"]:
         compare(dev, float(argv[1]),
-                int(argv[2]) if len(argv) > 2 else cs.FAMILY_STEPS)
+                int(argv[2]) if len(argv) > 2 else cs.NEMOTRON_TRAIN_STEPS)
         return 0
     lr = float(argv[0]) if argv else cs.NEMOTRON_TRAIN_LR
     cs.check_nemotron_training(cs.nemotron_4_340b.config(), dev,
